@@ -1,0 +1,147 @@
+"""Batched TDT/RNNT greedy decode (port of parakeet_tpu/decode/transducer.py::_decode_loop).
+
+Semantics (tdt.cpp:66-105):
+  * SOS = blank (its embedding row is the start state)
+  * blank → restore the saved LSTM state, t += max(skip, 1)
+  * non-blank → emit and feed the token back; skip > 0 → t += skip;
+    skip == 0 → another symbol on the same frame, capped at max_symbols,
+    where the cap forces t += 1 (the reference's documented anti-livelock)
+  * timestamps: start = t, end = t + max(skip, 1) − 1, clamped to len − 1
+    when clamp_end; confidence = exp(label log-prob)
+  * RNNT ≡ TDT with durations (0,): blank advances by 1, non-blank stays.
+
+The whole batch steps in lockstep on the device, each item running its own
+state machine; an item whose t has reached its length takes exact no-op
+steps. Python drives the loop and asks the device whether any item is
+still active only every CHECK_EVERY steps, so the host waits on the
+device once per CHECK_EVERY steps instead of once per step.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from parakeet_tpu_torch.decode.timestamp import TimestampedToken
+from parakeet_tpu_torch.models.rnnt import (
+    joint_encoder_projection,
+    prediction_step,
+    prediction_zero_state,
+    rnnt_joint_precomputed,
+    tdt_joint_precomputed,
+)
+from parakeet_tpu_torch.params import Params
+
+# steps between host checks of "any item still active"; extra steps taken
+# after the last item finished are exact no-ops
+CHECK_EVERY = 8
+
+
+@dataclass
+class TransducerResult:
+    """Host-side decode output for one batch."""
+
+    tokens: list[list[int]]
+    timestamped: list[list[TimestampedToken]]
+    last_token: torch.Tensor  # (B,)
+    lstm_state: torch.Tensor  # (L, 2, B, H)
+    steps: int = 0  # loop steps run, the masked tail included
+
+
+def transducer_greedy_decode(
+    params: dict,
+    enc: torch.Tensor,  # (B, T, H)
+    *,
+    pred_hidden: int,
+    num_lstm_layers: int,
+    durations: tuple[int, ...] = (0, 1, 2, 3, 4),
+    blank_id: int = 1024,
+    max_symbols: int = 10,
+    is_tdt: bool = True,
+    joint_prefix: str = "tdt_joint_",
+    enc_lengths=None,
+    clamp_end: bool = True,
+) -> TransducerResult:
+    b, t_max, _ = enc.shape
+    dev = enc.device
+    root = Params(params)
+    pred_p = root.sub("prediction_")
+    joint_p = root.sub(joint_prefix)
+    if enc_lengths is None:
+        enc_len = torch.full((b,), t_max, dtype=torch.int64, device=dev)
+    else:
+        enc_len = torch.as_tensor(enc_lengths, device=dev).to(torch.int64)
+    max_out = max(8, t_max * max_symbols)
+    dur_arr = torch.as_tensor(durations, dtype=torch.int64, device=dev)
+    batch_ix = torch.arange(b, device=dev)
+
+    enc_pre = joint_encoder_projection(joint_p, enc)  # (B, T, joint_h)
+
+    t = torch.zeros(b, dtype=torch.int64, device=dev)
+    token = torch.full((b,), blank_id, dtype=torch.int64, device=dev)
+    lstm = prediction_zero_state(num_lstm_layers, b, pred_hidden, device=dev)
+    sym = torch.zeros_like(t)
+    n_out = torch.zeros_like(t)
+    # emission records token | start | end | f32 confidence bits, one
+    # (B, 4) row per step: one gather and one scatter commit all four
+    out_pack = torch.zeros((b, max_out, 4), dtype=torch.int32, device=dev)
+
+    steps = 0
+    while steps % CHECK_EVERY or bool((t < enc_len).any()):
+        active = t < enc_len
+        enc_pre_t = enc_pre[batch_ix, t.clamp(0, t_max - 1)]  # (B, joint_h)
+        pred, new_lstm = prediction_step(pred_p, token, lstm, num_lstm_layers)
+        if is_tdt:
+            label_lp, dur_lp = tdt_joint_precomputed(joint_p, enc_pre_t, pred)
+            skip = dur_arr[torch.argmax(dur_lp, dim=-1).clamp(0, len(durations) - 1)]
+        else:
+            label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred)
+            skip = torch.zeros_like(t)
+
+        tok_id = torch.argmax(label_lp, dim=-1)
+        raw_lp = label_lp[batch_ix, tok_id]
+
+        is_blank = tok_id == blank_id
+        emit = active & ~is_blank
+        zero_dur = emit & (skip == 0)
+        forced = zero_dur & (sym + 1 >= max_symbols)
+
+        new_t = torch.where(
+            is_blank,
+            t + skip.clamp(min=1),
+            torch.where(skip > 0, t + skip, torch.where(forced, t + 1, t)),
+        )
+        end_frame = t + skip.clamp(min=1) - 1
+        if clamp_end:
+            end_frame = torch.minimum(end_frame, enc_len - 1)
+
+        idx = n_out.clamp(0, max_out - 1)
+        conf_bits = torch.exp(raw_lp).to(torch.float32).view(torch.int32)
+        row = torch.stack([tok_id.to(torch.int32), t.to(torch.int32), end_frame.to(torch.int32), conf_bits], -1)
+        out_pack[batch_ix, idx] = torch.where(emit[:, None], row, out_pack[batch_ix, idx])
+
+        t = torch.where(active, new_t, t)
+        sym = torch.where(zero_dur & ~forced, sym + 1, torch.zeros_like(sym))
+        token = torch.where(emit, tok_id, token)
+        lstm = torch.where(emit[None, None, :, None], new_lstm, lstm)
+        n_out = n_out + emit.to(n_out.dtype)
+        steps += 1
+
+    n_host = n_out.cpu().tolist()
+    pack = out_pack.cpu()
+    conf = pack[..., 3].contiguous().view(torch.float32)
+    tokens: list[list[int]] = []
+    timestamped: list[list[TimestampedToken]] = []
+    for i in range(b):
+        n = n_host[i]
+        toks, starts, ends = pack[i, :n, :3].T.tolist()
+        tokens.append(toks)
+        timestamped.append([
+            TimestampedToken(tok, s, e, c)
+            for tok, s, e, c in zip(toks, starts, ends, conf[i, :n].tolist())
+        ])
+    return TransducerResult(tokens, timestamped, token, lstm, steps)
+
+
+__all__ = ["transducer_greedy_decode", "TransducerResult"]

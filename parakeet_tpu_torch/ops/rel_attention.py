@@ -1,0 +1,236 @@
+"""Fused relative-position attention block: the encoder's one kernel.
+
+Replaces the TPU kernel parakeet_tpu/ops/pallas_attention.py::
+fused_rel_attention_block (body _attn_block_kernel / _attention_core), which
+the reference's encoder runs for every conformer layer (models/encoder.py
+_block_attention_or_none). Per layer:
+
+    optional pre-LayerNorm (f32 statistics) → q/k/v projections + bias →
+    1/√hd folded into q and the u/v position biases → content (q+u)kᵀ plus
+    the relative-position term (q+v)·P[T−1−t+s] → key-length mask −1e9 →
+    f32 softmax, normalised after AV → out-projection + bias → optional
+    residual.
+
+`rel_attention_block` dispatches on the tensor's device: CUDA tensors run
+the hand-written kernel in csrc/rel_attention.cu (or raise), CPU tensors
+run `rel_attention_block_reference`, the plain torch version of the same
+function. The kernel's note on what bounds it on the card and how its
+design answers that is at the top of the .cu source. What it drops from the
+TPU kernel: T padded to 128 lanes, the SMEM length block, the blockN/hp/bdN
+MXU packings and the VMEM guards; it tiles keys flash-style instead, so any
+length runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_F32 = torch.float32
+_NEG_INF = -1e9
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+
+
+@functools.lru_cache(maxsize=64)
+def position_table_np(seq_len: int, d_model: int) -> np.ndarray:
+    """(2T−1, d) sinusoidal table; row r is relative position T−1−r
+    (f64 construction, f32 storage — encoder.cpp:9-30)."""
+    total = 2 * seq_len - 1
+    position = (seq_len - 1 - np.arange(total, dtype=np.float64))[:, None]
+    i = np.arange(0, d_model, 2, dtype=np.float64)
+    div_term = np.exp(i * (-math.log(10000.0) / d_model))[None, :]
+    pe = np.zeros((total, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)[:, : pe[:, 1::2].shape[1]]
+    return pe.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _position_table(seq_len: int, d_model: int, device: torch.device, dtype: torch.dtype):
+    return torch.from_numpy(position_table_np(seq_len, d_model)).to(device=device, dtype=dtype)
+
+
+def _check_score_storage(score_bf16: bool) -> None:
+    if score_bf16:
+        raise NotImplementedError(
+            "score_bf16: bf16 score storage is not implemented by any port path; "
+            "scores are always float32"
+        )
+
+
+def _key_lengths(lengths, b: int, t: int, device) -> torch.Tensor:
+    if lengths is None:
+        return torch.full((b,), t, dtype=torch.int32, device=device)
+    return torch.as_tensor(lengths, device=device).to(torch.int32).clamp(max=t)
+
+
+def rel_attention_block_reference(
+    x: torch.Tensor,  # (B, T, D): attention input, or the block input with norm_w
+    wq, bq, wk, bk, wv, bv,  # torch Linear layouts (D, D) / (D,)
+    bias_u, bias_v,  # (H, hd)
+    pos_w,  # (D, D) pos_proj weight, bias-free
+    wo, bo,
+    lengths=None,  # (B,) valid key counts
+    norm_w=None,
+    norm_b=None,
+    eps: float = 1e-5,
+    score_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain torch version of the kernel: same signature, same rounding
+    points (products accumulate in f32; q/k/v, P and the AV result round to
+    x.dtype). Pad query rows (t ≥ length) hold garbage, as in the kernel."""
+    _check_score_storage(score_bf16)
+    b, t, d = x.shape
+    heads, hd = bias_u.shape
+    scale = 1.0 / math.sqrt(hd)
+    dt = x.dtype
+
+    def f(a):
+        return a.to(_F32)
+
+    xin = x
+    if norm_w is not None:
+        xin = F.layer_norm(f(x), (d,), f(norm_w), f(norm_b), eps).to(dt)
+
+    def proj(w, bias):
+        return f(xin) @ f(w).T + f(bias)  # (B, T, D) f32
+
+    def split(y):
+        return f(y).view(b, t, heads, hd).transpose(1, 2)  # (B, H, T, hd)
+
+    q_s = (proj(wq, bq) * scale).to(dt)
+    k = proj(wk, bk).to(dt)
+    v = proj(wv, bv).to(dt)
+    qu = (f(q_s) + f((f(bias_u).reshape(d) * scale).to(dt))).to(dt)
+    qv = (f(q_s) + f((f(bias_v).reshape(d) * scale).to(dt))).to(dt)
+
+    pe = _position_table(t, d, x.device, dt)
+    pos = (f(pe) @ f(pos_w).T).to(dt)  # (2T−1, D)
+    content = split(qu) @ split(k).transpose(-1, -2)  # (B, H, T, T)
+    raw = split(qv) @ f(pos).view(2 * t - 1, heads, hd).permute(1, 2, 0)  # (B, H, T, 2T−1)
+    ar = torch.arange(t, device=x.device)
+    idx = (t - 1 - ar[:, None] + ar[None, :]).expand(b, heads, t, t)  # r = T−1−t+s
+    scores = content + raw.gather(-1, idx)
+
+    kv = _key_lengths(lengths, b, t, x.device)
+    key_pad = ar[None, :] >= kv[:, None]  # (B, T)
+    scores = scores.masked_fill(key_pad[:, None, None, :], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = (probs @ split(v)).transpose(1, 2).reshape(b, t, d).to(dt)
+    out = f(ctx) @ f(wo).T + f(bo)
+    if norm_w is not None:
+        out = f(x) + out
+    return out.to(dt)
+
+
+def _lib() -> ctypes.CDLL:
+    from parakeet_tpu_torch.ops._build import load
+
+    lib = load("rel_attention")
+    fn = lib.pk_rel_attention_block
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 4 + [p]
+        fn.restype = i
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _lib()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
+    b, t, d = x.shape
+    heads, hd = bias_u.shape
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"rel_attention_block kernel takes float32 or bfloat16, got {dt}")
+    if heads * hd != d or hd not in _HEAD_DIMS:
+        raise ValueError(f"rel_attention_block kernel: D={d}, H={heads} gives head dim {hd}; supported {_HEAD_DIMS}")
+    mats = dict(wq=wq, wk=wk, wv=wv, pos_w=pos_w, wo=wo)
+    vecs = dict(bq=bq, bk=bk, bv=bv, bo=bo, bias_u=bias_u, bias_v=bias_v)
+    for name, w in {**mats, **vecs}.items():
+        if w.device != x.device or w.dtype != dt:
+            raise ValueError(f"rel_attention_block: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+    for name, w in mats.items():
+        if tuple(w.shape) != (d, d):
+            raise ValueError(f"rel_attention_block: {name} has shape {tuple(w.shape)}, want {(d, d)}")
+    for name in ("bq", "bk", "bv", "bo"):
+        if vecs[name].numel() != d:
+            raise ValueError(f"rel_attention_block: {name} has {vecs[name].numel()} elements, want {d}")
+    mats = {k: w.contiguous() for k, w in mats.items()}
+    vecs = {k: w.contiguous() for k, w in vecs.items()}
+    x = x.contiguous()
+    if norm_w is not None:
+        norm_w = norm_w.to(device=x.device, dtype=_F32).contiguous()
+        norm_b = norm_b.to(device=x.device, dtype=_F32).contiguous()
+    kv = _key_lengths(lengths, b, t, x.device).contiguous()
+    pe = _position_table(t, d, x.device, dt)
+
+    out = torch.empty_like(x)
+    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
+    qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
+    pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
+    ctx = torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pk_rel_attention_block(
+            _DTYPE_CODE[dt], _ptr(x), _ptr(norm_w), _ptr(norm_b), float(eps),
+            _ptr(mats["wq"]), _ptr(vecs["bq"]), _ptr(mats["wk"]), _ptr(vecs["bk"]),
+            _ptr(mats["wv"]), _ptr(vecs["bv"]), _ptr(vecs["bias_u"]), _ptr(vecs["bias_v"]),
+            _ptr(pe), _ptr(mats["pos_w"]), _ptr(mats["wo"]), _ptr(vecs["bo"]), _ptr(kv),
+            _ptr(stats), _ptr(qu), _ptr(qv), _ptr(kh), _ptr(vh), _ptr(pos), _ptr(ctx), _ptr(out),
+            b, t, d, heads, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rel_attention_block kernel launch failed: CUDA error {rc}")
+    rel_attention_block.launches += 1
+    return out
+
+
+def rel_attention_block(
+    x: torch.Tensor,
+    wq, bq, wk, bk, wv, bv,
+    bias_u, bias_v,
+    pos_w,
+    wo, bo,
+    lengths=None,
+    norm_w=None,
+    norm_b=None,
+    eps: float = 1e-5,
+    score_bf16: bool = False,
+) -> torch.Tensor:
+    """out = attention(LN?(x)) (+ x when norm_w is given), (B, T, D).
+
+    On a CUDA tensor this launches the hand-written kernel or raises; on a
+    CPU tensor it runs `rel_attention_block_reference`. Each kernel launch
+    adds one to `rel_attention_block.launches`."""
+    _check_score_storage(score_bf16)
+    args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo)
+    if x.device.type == "cuda":
+        return _launch(*args, lengths, norm_w, norm_b, eps)
+    if x.device.type == "cpu":
+        return rel_attention_block_reference(*args, lengths, norm_w, norm_b, eps)
+    raise ValueError(f"rel_attention_block: no implementation for device {x.device}")
+
+
+rel_attention_block.launches = 0
+
+__all__ = [
+    "position_table_np",
+    "rel_attention_block",
+    "rel_attention_block_reference",
+    "build",
+]

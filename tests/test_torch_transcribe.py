@@ -1,0 +1,149 @@
+"""The port's Transcriber end to end against the JAX reference Transcriber
+(kernels on, the Pallas block kernel in interpret mode): same tiny model
+weights, same waveforms, identical TDT and CTC tokens and timestamps."""
+
+import numpy as np
+import pytest
+
+from parakeet_tpu import config as RC
+from parakeet_tpu import params as RP
+from parakeet_tpu.audio.io import write_wav
+from parakeet_tpu_torch import config as TC
+from parakeet_tpu_torch.transcribe import Decoder as TDecoder
+from parakeet_tpu_torch.transcribe import TranscribeOptions as TOptions
+from parakeet_tpu_torch.transcribe import Transcriber as TTranscriber
+
+PIECES = ["<unk>", "▁a", "b", "▁c", "d", ".", "▁e", "f"]  # + blank = vocab 9
+
+
+def _cfg(C):
+    return C.TDTCTCConfig(
+        encoder=C.EncoderConfig(mel_bins=80, subsampling_channels=8, hidden_size=32,
+                                num_layers=2, num_heads=4, ffn_intermediate=64),
+        prediction=C.PredictionConfig(vocab_size=9, pred_hidden=16, num_lstm_layers=1),
+        joint=C.JointConfig(encoder_hidden=32, pred_hidden=16, joint_hidden=16, vocab_size=9),
+        ctc_vocab_size=9,
+    )
+
+
+def _waves(rng):
+    """Gated chirps: frame-to-frame variation a random model can tell apart."""
+    out = []
+    for n in (16000, 11000, 23456):
+        t = np.arange(n) / 16000
+        f = rng.uniform(100, 3000) * (1 + 2 * t)
+        gate = (np.sin(2 * np.pi * rng.uniform(1, 4) * t) > 0).astype(np.float32)
+        out.append((0.3 * gate * np.sin(2 * np.pi * f * t) + 0.02 * rng.randn(n)).astype(np.float32))
+    return out
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    flat = {k: np.asarray(v) for k, v in RP.init_params(RP.tdt_ctc_spec(_cfg(RC)), seed=6).items()}
+    waves = _waves(np.random.RandomState(6))
+    vocab = tmp_path_factory.mktemp("vocab") / "vocab.txt"
+    vocab.write_text("\n".join(f"{p}\t0" for p in PIECES), encoding="utf-8")
+    return flat, waves, str(vocab)
+
+
+@pytest.fixture(scope="module")
+def reference_results(setup):
+    """The JAX Transcriber with kernels="block4hp" (what kernels=True picks
+    at d_model < 1024), its Pallas kernel in interpret mode."""
+    import parakeet_tpu.ops.pallas_attention as PA
+    from parakeet_tpu.models import encoder as RE
+    from parakeet_tpu.transcribe import Decoder, TranscribeOptions, Transcriber
+
+    flat, waves, vocab = setup
+    mp = pytest.MonkeyPatch()
+    orig = PA.fused_rel_attention_block
+    calls = []
+
+    def interp(*args, **kw):
+        calls.append(1)
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    mp.setattr(PA, "fused_rel_attention_block", interp)
+    try:
+        tr = Transcriber(None, vocab, _cfg(RC), params=flat, kernels="block4hp")
+        out = {
+            dec: tr.transcribe_batch(waves, TranscribeOptions(getattr(Decoder, dec), timestamps=True))
+            for dec in ("TDT", "CTC")
+        }
+    finally:
+        RE.set_fused_attention(False)
+        mp.undo()
+    assert calls, "the reference block kernel did not run"
+    return out
+
+
+def _spans(result):
+    return [(t.token_id, t.start_frame, t.end_frame) for t in result.timestamped_tokens]
+
+
+@pytest.mark.parametrize("decoder", ["TDT", "CTC"])
+def test_tokens_and_timestamps_identical_to_reference(setup, reference_results, decoder):
+    flat, waves, vocab = setup
+    tr = TTranscriber(None, vocab, _cfg(TC), params=flat, device="cpu")
+    got = tr.transcribe_batch(waves, TOptions(getattr(TDecoder, decoder), timestamps=True))
+    ref = reference_results[decoder]
+    assert len({t for r in ref for t in r.token_ids}) >= 2, "degenerate case: one token type"
+    for g, r in zip(got, ref):
+        assert g.token_ids == r.token_ids
+        assert _spans(g) == _spans(r)
+        np.testing.assert_allclose([t.confidence for t in g.timestamped_tokens],
+                                   [t.confidence for t in r.timestamped_tokens], rtol=1e-4)
+        assert g.text == r.text
+        assert [(w.word, w.start, w.end) for w in g.word_timestamps] == [
+            (w.word, w.start, w.end) for w in r.word_timestamps]
+
+
+def test_single_clip_wav_features_and_no_timestamps_agree(setup, reference_results, tmp_path):
+    flat, waves, vocab = setup
+    tr = TTranscriber(None, vocab, _cfg(TC), params=flat, device="cpu")
+    path = tmp_path / "clip.wav"
+    write_wav(path, waves[0])
+    from parakeet_tpu_torch.audio.io import read_audio
+
+    samples = read_audio(path).samples
+    by_path = tr.transcribe(path, TDecoder.CTC)
+    assert by_path.token_ids == tr.transcribe(samples, TDecoder.CTC).token_ids
+    plain = tr.transcribe_batch(waves, TOptions(TDecoder.TDT))
+    assert [r.token_ids for r in plain] == [r.token_ids for r in reference_results["TDT"]]
+    assert all(not r.timestamped_tokens for r in plain)
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio
+
+    feats = preprocess_audio(waves[1]).numpy()[0]
+    assert tr.transcribe_features(feats).token_ids == reference_results["TDT"][1].token_ids
+
+
+def test_prepare_decode_split_and_progress(setup):
+    flat, waves, vocab = setup
+    tr = TTranscriber(None, vocab, _cfg(TC), params=flat, device="cpu")
+    stages = []
+    opts = TOptions(TDecoder.CTC, on_progress=lambda s, d, n: stages.append((s, d, n)))
+    got = tr.decode_prepared(tr.prepare_batch(waves, opts))
+    assert [r.token_ids for r in got] == [r.token_ids for r in tr.transcribe_batch(waves, TOptions(TDecoder.CTC))]
+    assert stages == [("load", 1, 3), ("load", 2, 3), ("load", 3, 3), ("preprocess", 1, 1), ("decode", 1, 1)]
+    assert tr.transcribe_batch([]) == []
+
+
+@pytest.mark.parametrize("bad", ["beam_size", "lm", "boost_phrases", "mesh", "quantize", "long_clip"])
+def test_unsupported_options_raise(setup, bad):
+    flat, waves, vocab = setup
+    if bad in ("mesh", "quantize"):
+        with pytest.raises(NotImplementedError, match=bad):
+            TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", **{bad: "int8"})
+        return
+    tr = TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", long_threshold_s=1.0)
+    with pytest.raises(NotImplementedError):
+        if bad == "beam_size":
+            tr.transcribe(waves[1], beam_size=4)
+        elif bad == "lm":
+            tr.transcribe(waves[1], lm=object())
+        elif bad == "boost_phrases":
+            tr.transcribe(waves[1], boost_phrases=["a b"])
+        else:
+            tr.transcribe(waves[2])  # 1.47 s > long_threshold_s
