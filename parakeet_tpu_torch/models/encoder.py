@@ -143,6 +143,15 @@ def conformer_block(
     return layer_norm(p.sub("final_norm_"), x, eps)
 
 
+def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
+    """(B,) valid encoder-frame counts → (B, 1, T, T) bool attention mask,
+    True = masked: the dense form the reference's XLA attention takes. The
+    port's attention masks by key length instead, which gives the same
+    valid rows."""
+    valid = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
+    return ~(valid[:, None, :] & valid[:, :, None])[:, None, :, :]
+
+
 def encode_prologue(
     p: Params, cfg: EncoderConfig, features: torch.Tensor, lengths: torch.Tensor | None = None
 ):
@@ -187,6 +196,7 @@ __all__ = [
     "conv_module",
     "rel_position_attention",
     "conformer_block",
+    "length_mask",
     "encode_prologue",
     "fastconformer_encode",
 ]

@@ -125,7 +125,7 @@ def test_block_pieces_match_reference(model, stage):
         np.testing.assert_allclose(got[i, :n], ref[i, :n], rtol=1e-4, atol=1e-5)
 
 
-def test_encoded_lengths_and_position_table_match_reference():
+def test_lengths_masks_and_position_table_match_reference():
     lens = np.array([1, 7, 80, 1001, 6001])
     np.testing.assert_array_equal(TE.encoded_lengths(torch.from_numpy(lens)).numpy(),
                                   np.asarray(RE.encoded_lengths(jnp.asarray(lens))))
@@ -133,3 +133,6 @@ def test_encoded_lengths_and_position_table_match_reference():
     np.testing.assert_array_equal(TE.sinusoidal_position_embedding(13, 32).numpy(),
                                   np.asarray(RE.sinusoidal_position_embedding(13, 32)))
     assert TA.position_table_np(5, 8).shape == (9, 8)
+    enc_lens = np.array([5, 2, 0])
+    np.testing.assert_array_equal(TE.length_mask(torch.from_numpy(enc_lens), 5).numpy(),
+                                  np.asarray(RE.length_mask(jnp.asarray(enc_lens), 5)))
