@@ -5,17 +5,26 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the CUDA kernels from parakeet_tpu_torch/csrc
-  3. kernel   the rel-pos attention kernel against its plain torch version
-              at the 110m widths (D=512, H=8, B=8), T'=126 (10 s) and
-              T'=751 (60 s), mixed lengths, with and without the fused
-              LayerNorm + residual, in f32 and bf16; median CUDA-event
-              times of both
-  4. slice    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
-              seeded random weights, f32: 8 synthetic clips of 2-10 s
-              through transcribe_batch with TDT + timestamps and with CTC;
-              the kernel must run once per conformer block per encoder
-              call, and the tokens must equal a CPU Transcriber's
+  2. build    compile every CUDA library from parakeet_tpu_torch/csrc, all
+              at once, and print each build's seconds
+  3. kernels  each hand-written kernel against its plain torch version on
+              the same CUDA tensors at the 110m widths, in f32 and bf16:
+              K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
+              with and without the fused LayerNorm + residual), K6 FFN
+              (T'=126 and 751, with and without the final LayerNorm), K5
+              conv module (T'=126 and 751, mixed lengths and none), K8
+              subsampling front (mel (8, 1001, 80) and (8, 6001, 80),
+              C=256, ReLU, and SiLU once); median CUDA-event ms and device
+              ms (torch.profiler kernel time) of kernel and plain version
+  4. paths    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
+              seeded random weights, f32, 8 synthetic clips of 2-10 s
+              through transcribe_batch with TDT + timestamps and with CTC,
+              in two configurations: the default (attention kernel only)
+              and FusedLayers(ffn, conv, subsample). Launch counts per
+              encoder call must be exact, and the tokens must equal a CPU
+              Transcriber's with the same option; then a bf16 run of the
+              fused configuration, its token edit distance against f32
+              reported (not a gate)
 The last two lines of output are a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}.
 """
@@ -26,14 +35,16 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "parakeet_tpu_torch/csrc/rel_attention.cu"
-KERNEL_REPLACES = "parakeet_tpu/ops/pallas_attention.py:510"
+LIBRARIES = ("rel_attention", "feed_forward", "conv_module", "subsample")
 F32_RTOL, F32_ATOL = 1e-3, 1e-5  # the reference's block-kernel tolerance
 BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
 ENC_SCALE_FRAC = 1e-3  # f32 encoder, card vs CPU, 17 layers of reordered sums
+B, D, H, FFN = 8, 512, 8, 2048  # tdt-ctc-110m widths
+MEL, SUB_C = 80, 256
 
 
 def log(msg: str) -> None:
@@ -66,81 +77,246 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def attention_inputs(t: int, dtype, with_norm: bool, seed: int, b: int = 8, d: int = 512, h: int = 8):
-    import numpy as np
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call from torch.profiler: the summed durations of
+    the device events (kernels, copies, fills) over `calls` calls. Only
+    device events are summed: the profiler also books each kernel's time on
+    the host op that launched it. The larger of two profiles, since a
+    profile that drops events can only read low. 0.0 when it saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                       if evt.device_type == DeviceType.CUDA)
+        best = max(best, total_us / 1e3 / calls)
+    return best
+
+
+def time_pair(tag: str, kernel_fn, plain_fn, card: str) -> dict:
+    """CUDA-event median and profiler device time of a kernel and its plain
+    version, measured in turns on the same inputs."""
     import torch
 
-    rng = np.random.RandomState(seed)
-    hd = d // h
+    with torch.inference_mode():
+        ms = {"plain_ms": median_ms(plain_fn), "ms": median_ms(kernel_fn)}
+        ms["ms"] = min(ms["ms"], median_ms(kernel_fn))
+        ms["plain_ms"] = min(ms["plain_ms"], median_ms(plain_fn))
+        ms["dev_ms"] = device_ms(kernel_fn)
+        ms["plain_dev_ms"] = device_ms(plain_fn)
+    dev = (f"device {ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms" if ms["dev_ms"] > 0
+           else "device time not measured (the profiler saw no device time)")
+    slower = [name for name, k, p in (("CUDA events", ms["ms"], ms["plain_ms"]),
+                                      ("device time", ms["dev_ms"], ms["plain_dev_ms"])) if k > p > 0]
+    verdict = f"kernel SLOWER than plain by {' and '.join(slower)}" if slower else "kernel not slower"
+    log(f"  {tag} times, kernel / plain: CUDA events {ms['ms']:.4f} / {ms['plain_ms']:.4f} ms "
+        f"(median of 20, best of 2 turns); {dev}; {verdict} [{card}]")
+    return ms
+
+
+def check_close(tag: str, got, ref, rows=None) -> float:
+    """Hold a kernel's output against its plain version; returns max |diff|."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, r = got.float(), ref.float()
+    if rows is not None:
+        g, r = g[rows], r[rows]
+    if g.shape != r.shape:
+        raise RuntimeError(f"{tag}: kernel shape {tuple(g.shape)} vs plain {tuple(r.shape)}")
+    if not torch.isfinite(g).all():
+        raise RuntimeError(f"kernel output not finite at {tag}")
+    err = (g - r).abs()
+    if got.dtype == torch.float32:
+        bad = int((err > F32_ATOL + F32_RTOL * r.abs()).sum())
+        log(f"  {tag}: max|diff| {float(err.max()):.3e}, {bad} values outside rtol {F32_RTOL} / atol {F32_ATOL}")
+        if bad:
+            raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
+    else:
+        scale = float(r.abs().max())
+        log(f"  {tag}: max|diff| {float(err.max()):.3e} = {float(err.max()) / scale:.3%} of output scale {scale:.3f}")
+        if float(err.max()) > BF16_SCALE_FRAC * scale:
+            raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
+    return float(err.max())
+
+
+def _dev(rng, dtype):
+    import numpy as np
+    import torch
 
     def dev(a, dt=dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
 
-    def mat():
-        return dev(rng.normal(0, 1 / np.sqrt(d), (d, d)))
+    return dev
 
-    def vec(scale=0.02):
-        return dev(rng.normal(0, scale, d))
 
-    args = [dev(rng.randn(b, t, d))]
-    for _ in range(3):
-        args += [mat(), vec()]
-    args += [dev(rng.normal(0, 0.02, (h, hd))), dev(rng.normal(0, 0.02, (h, hd))), mat(), mat(), vec()]
-    lengths = rng.randint(max(1, t // 4), t + 1, size=b)
+def _mixed_lengths(rng, t: int):
+    import numpy as np
+
+    lengths = rng.randint(max(1, t // 4), t + 1, size=B)
     lengths[0] = t
-    kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"))
-    if with_norm:
-        kw.update(norm_w=dev(1 + rng.normal(0, 0.1, d), torch.float32),
-                  norm_b=dev(rng.normal(0, 0.1, d), torch.float32))
-    return args, kw, lengths
+    return np.asarray(lengths)
 
 
-def kernel_phase() -> dict:
+def _valid_rows(lengths, t: int):
+    import torch
+
+    rows = torch.zeros((len(lengths), t), dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lengths):
+        rows[i, :n] = True
+    return rows
+
+
+def _dtypes():
+    import torch
+
+    return ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+
+
+def attention_phase(card: str) -> dict:
+    import numpy as np
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
-    log("== kernel: rel_attention_block vs rel_attention_block_reference (B=8, D=512, H=8)")
-    max_err_f32 = 0.0
-    times = {}
+    log(f"== K1 rel_attention_block vs rel_attention_block_reference (B={B}, D={D}, H={H})")
+    out = {"max_abs_err": 0.0, "times": {}}
     for t in (126, 751):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, name in _dtypes():
             for with_norm in (True, False):
-                args, kw, lengths = attention_inputs(t, dtype, with_norm, seed=t + with_norm)
+                rng = np.random.RandomState(t + with_norm)
+                dev, hd = _dev(rng, dtype), D // H
+                args = [dev(rng.randn(B, t, D))]
+                for _ in range(3):
+                    args += [dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 0.02, D))]
+                args += [dev(rng.normal(0, 0.02, (H, hd))), dev(rng.normal(0, 0.02, (H, hd))),
+                         dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 1 / np.sqrt(D), (D, D))),
+                         dev(rng.normal(0, 0.02, D))]
+                lengths = _mixed_lengths(rng, t)
+                kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"))
+                if with_norm:
+                    kw.update(norm_w=dev(1 + rng.normal(0, 0.1, D), torch.float32),
+                              norm_b=dev(rng.normal(0, 0.1, D), torch.float32))
                 with torch.inference_mode():
                     got = RA.rel_attention_block(*args, **kw)
                     ref = RA.rel_attention_block_reference(*args, **kw)
-                torch.cuda.synchronize()
-                rows = torch.zeros(got.shape[:2], dtype=torch.bool, device="cuda")
-                for i, n in enumerate(lengths):
-                    rows[i, :n] = True
-                g, r = got.float()[rows], ref.float()[rows]
-                if not torch.isfinite(g).all():
-                    raise RuntimeError(f"kernel output not finite at T={t} {dtype} norm={with_norm}")
-                err = (g - r).abs()
-                tag = f"T={t} {str(dtype).replace('torch.', '')} norm+residual={with_norm}"
+                tag = f"K1 T'={t} {name} norm+residual={with_norm}"
+                err = check_close(tag, got, ref, _valid_rows(lengths, t))
                 if dtype == torch.float32:
-                    bad = int((err > F32_ATOL + F32_RTOL * r.abs()).sum())
-                    max_err_f32 = max(max_err_f32, float(err.max()))
-                    log(f"  {tag}: max|diff| {float(err.max()):.3e}, {bad} values outside "
-                        f"rtol {F32_RTOL} / atol {F32_ATOL}")
-                    if bad:
-                        raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
-                else:
-                    scale = float(r.abs().max())
-                    log(f"  {tag}: max|diff| {float(err.max()):.3e} = "
-                        f"{float(err.max()) / scale:.3%} of output scale {scale:.3f}")
-                    if float(err.max()) > BF16_SCALE_FRAC * scale:
-                        raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
-                if dtype == torch.float32 and with_norm:
-                    with torch.inference_mode():
-                        k_ms = median_ms(lambda: RA.rel_attention_block(*args, **kw))
-                        p_ms = median_ms(lambda: RA.rel_attention_block_reference(*args, **kw))
-                    times[t] = (k_ms, p_ms)
-                    verdict = "SLOWER than" if k_ms > p_ms else "faster than"
-                    log(f"  {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 20): "
-                        f"kernel {verdict} plain")
-    return {"max_abs_err": max_err_f32, "times": times}
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    if with_norm:
+                        out["times"][t] = time_pair(
+                            tag, lambda: RA.rel_attention_block(*args, **kw),
+                            lambda: RA.rel_attention_block_reference(*args, **kw), card)
+    return out
+
+
+def feed_forward_phase(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from parakeet_tpu_torch.ops import feed_forward as FF
+
+    log(f"== K6 fused_feed_forward vs fused_feed_forward_reference (B={B}, D={D}, F={FFN})")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for t in (126, 751):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(100 + t)
+            dev = _dev(rng, dtype)
+            x = dev(rng.randn(B, t, D))
+            norms = [dev(1 + 0.1 * rng.randn(D), torch.float32), dev(0.1 * rng.randn(D), torch.float32)]
+            weights = [dev(rng.randn(FFN, D) / np.sqrt(D)), dev(0.05 * rng.randn(FFN)),
+                       dev(rng.randn(D, FFN) / np.sqrt(FFN)), dev(0.05 * rng.randn(D))]
+            final = dict(final_norm_w=dev(1 + 0.1 * rng.randn(D), torch.float32),
+                         final_norm_b=dev(0.1 * rng.randn(D), torch.float32))
+            for with_final in (False, True):
+                kw = final if with_final else {}
+                args = (x, *norms, *weights)
+                with torch.inference_mode():
+                    got = FF.fused_feed_forward(*args, **kw)
+                    ref = FF.fused_feed_forward_reference(*args, **kw)
+                tag = f"K6 T'={t} {name} final_norm={with_final}"
+                err = check_close(tag, got, ref)
+                if dtype == torch.float32:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    if not with_final:
+                        out["times"][t] = time_pair(tag, lambda: FF.fused_feed_forward(*args, **kw),
+                                                    lambda: FF.fused_feed_forward_reference(*args, **kw), card)
+    return out
+
+
+def conv_module_phase(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from parakeet_tpu_torch.ops import conv_module as CM
+
+    log(f"== K5 fused_conv_module vs fused_conv_module_reference (B={B}, D={D}, k=9)")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for t in (126, 751):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(200 + t)
+            dev, f32 = _dev(rng, dtype), torch.float32
+            args = (dev(rng.randn(B, t, D)),
+                    dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
+                    dev(rng.randn(2 * D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(2 * D)),
+                    dev(rng.randn(D, 1, 9) / 3), dev(0.05 * rng.randn(D)),
+                    dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
+                    dev(0.1 * rng.randn(D), f32), dev(1 + 0.2 * np.abs(rng.randn(D)), f32),
+                    dev(rng.randn(D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(D)))
+            lengths = _mixed_lengths(rng, t)
+            for masked in (True, False):
+                lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda") if masked else None
+                with torch.inference_mode():
+                    got = CM.fused_conv_module(*args, lengths=lt)
+                    ref = CM.fused_conv_module_reference(*args, lengths=lt)
+                tag = f"K5 T'={t} {name} mixed_lengths={masked}"
+                err = check_close(tag, got, ref)
+                if dtype == torch.float32:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    if masked:
+                        out["times"][t] = time_pair(tag, lambda: CM.fused_conv_module(*args, lengths=lt),
+                                                    lambda: CM.fused_conv_module_reference(*args, lengths=lt), card)
+    return out
+
+
+def subsample_phase(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from parakeet_tpu_torch.ops import subsample as SS
+
+    log(f"== K8 fused_subsample_block1 vs fused_subsample_block1_reference (B={B}, mel {MEL}, C={SUB_C})")
+    out = {"max_abs_err": 0.0, "times": {}}
+    cases = [(t, dtype, name, "relu") for t in (1001, 6001) for dtype, name in _dtypes()]
+    cases.append((1001, torch.float32, "f32", "silu"))
+    for t, dtype, name, act in cases:
+        rng = np.random.RandomState(300 + t)
+        dev = _dev(rng, dtype)
+        args = (dev(rng.randn(B, t, MEL)),
+                dev(rng.randn(SUB_C, 1, 3, 3) / 3), dev(0.1 * rng.randn(SUB_C)),
+                dev(rng.randn(SUB_C, 1, 3, 3) / 3), dev(0.1 * rng.randn(SUB_C)),
+                dev(rng.randn(SUB_C, SUB_C, 1, 1) / 16), dev(0.1 * rng.randn(SUB_C)))
+        with torch.inference_mode():
+            got = SS.fused_subsample_block1(*args, activation=act)
+            ref = SS.fused_subsample_block1_reference(*args, activation=act)
+        tag = f"K8 T={t} {name} {act} -> {tuple(got.shape)}"
+        err = check_close(tag, got, ref)
+        if dtype == torch.float32:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if act == "relu":
+                out["times"][t] = time_pair(tag, lambda: SS.fused_subsample_block1(*args, activation=act),
+                                            lambda: SS.fused_subsample_block1_reference(*args, activation=act), card)
+    return out
 
 
 def synthetic_clips(n: int, seed: int, sr: int = 16000):
@@ -194,51 +370,70 @@ def compare_tokens(name: str, gpu_res, cpu_res, margin_fn) -> None:
         raise RuntimeError(f"{name}: card and CPU tokens differ")
 
 
-def slice_phase(card: str) -> dict:
-    import numpy as np
+def edit_distance(a: list[int], b: list[int]) -> int:
+    row = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, y in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1, prev + (x != y))
+    return row[-1]
+
+
+def counters():
+    from parakeet_tpu_torch.ops import conv_module, feed_forward, rel_attention, subsample
+
+    return {"rel_attention_block": rel_attention.rel_attention_block,
+            "fused_feed_forward": feed_forward.fused_feed_forward,
+            "fused_conv_module": conv_module.fused_conv_module,
+            "fused_subsample_block1": subsample.fused_subsample_block1}
+
+
+def path_phase(name: str, fused, flat, clips, card: str) -> dict:
+    """One encoder configuration end to end on the card against the CPU."""
     import torch
 
-    from parakeet_tpu_torch import params as P
     from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
     from parakeet_tpu_torch.config import make_110m_config
     from parakeet_tpu_torch.models.encoder import encoded_lengths
-    from parakeet_tpu_torch.ops.rel_attention import rel_attention_block
     from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions, Transcriber
 
     cfg = make_110m_config()
     layers = cfg.encoder.num_layers
-    log(f"== slice: tdt-ctc-110m, {layers} layers, d={cfg.encoder.hidden_size}, "
-        f"random weights (seed 0), f32")
-    flat = P.init_params_numpy(P.tdt_ctc_spec(cfg), seed=0)
-    gpu = Transcriber(config=cfg, params=flat, device="cuda")
-    cpu = Transcriber(config=cfg, params=flat, device="cpu")
-    clips = synthetic_clips(8, seed=1234)
+    log(f"== path {name}: tdt-ctc-110m, {layers} layers, d={cfg.encoder.hidden_size}, "
+        f"random weights (seed 0), f32, {fused}")
+    gpu = Transcriber(config=cfg, params=flat, device="cuda", fused=fused)
+    cpu = Transcriber(config=cfg, params=flat, device="cpu", fused=fused)
     audio_s = sum(len(c) for c in clips) / 16000.0
-    log(f"  8 clips, {', '.join(f'{len(c) / 16000:.2f}' for c in clips)} s ({audio_s:.2f} s audio)")
     tdt = TranscribeOptions(Decoder.TDT, timestamps=True)
     ctc = TranscribeOptions(Decoder.CTC)
 
     gpu.transcribe_batch(clips, tdt)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
-    rel_attention_block.launches = 0
+    per_call = {"rel_attention_block": layers,
+                "fused_feed_forward": 2 * layers if fused.ffn else 0,
+                "fused_conv_module": layers if fused.conv else 0,
+                "fused_subsample_block1": 1 if fused.subsample else 0}
+    for fn in counters().values():
+        fn.launches = 0
     gpu_tdt = gpu.transcribe_batch(clips, tdt)
-    after_tdt = rel_attention_block.launches
+    after_tdt = {k: fn.launches for k, fn in counters().items()}
     gpu_ctc = gpu.transcribe_batch(clips, ctc)
-    launches = rel_attention_block.launches
-    log(f"  kernel launches: {after_tdt} in the TDT call, {launches - after_tdt} in the CTC call "
-        f"(one encoder call each, {layers} conformer blocks)")
-    if after_tdt != layers or launches != 2 * layers:
-        raise RuntimeError(f"expected {layers} kernel launches per encoder call, got "
-                           f"{after_tdt} and {launches - after_tdt}")
+    launches = {k: fn.launches for k, fn in counters().items()}
+    log(f"  kernel launches (TDT call, CTC call; one encoder call each): "
+        + ", ".join(f"{k} {after_tdt[k]} + {launches[k] - after_tdt[k]}" for k in launches))
+    for k, n in per_call.items():
+        if after_tdt[k] != n or launches[k] != 2 * n:
+            raise RuntimeError(f"{name}: expected {n} {k} launches per encoder call, got "
+                               f"{after_tdt[k]} and {launches[k] - after_tdt[k]}")
 
     for r in gpu_tdt + gpu_ctc:
         if not r.token_ids:
-            raise RuntimeError("an item decoded to no tokens")
+            raise RuntimeError(f"{name}: an item decoded to no tokens")
     for r in gpu_tdt:
         for tok in r.timestamped_tokens:
             if not (0 <= tok.token_id < cfg.joint.vocab_size - 1 and tok.start_frame <= tok.end_frame
                     and 0.0 < tok.confidence <= 1.0):
-                raise RuntimeError(f"malformed timestamped token {tok}")
+                raise RuntimeError(f"{name}: malformed timestamped token {tok}")
 
     cpu_tdt = cpu.transcribe_batch(clips, tdt)
     cpu_ctc = cpu.transcribe_batch(clips, ctc)
@@ -249,12 +444,13 @@ def slice_phase(card: str) -> dict:
     enc_diff = max(float((enc_gpu[i, :n] - enc_cpu[i, :n]).abs().max()) for i, n in enumerate(enc_lens))
     enc_scale = max(float(enc_cpu[i, :n].abs().max()) for i, n in enumerate(enc_lens))
     if not torch.isfinite(enc_gpu).all():
-        raise RuntimeError("encoder output on the card is not finite")
-    if tuple(enc_gpu.shape) != (8, max(enc_lens), cfg.encoder.hidden_size):
-        raise RuntimeError(f"encoder output shape {tuple(enc_gpu.shape)}")
+        raise RuntimeError(f"{name}: encoder output on the card is not finite")
+    if tuple(enc_gpu.shape) != (len(clips), max(enc_lens), cfg.encoder.hidden_size):
+        raise RuntimeError(f"{name}: encoder output shape {tuple(enc_gpu.shape)}")
     log(f"  encoder card vs CPU: max|diff| {enc_diff:.3e} over valid frames (scale {enc_scale:.3f})")
     if enc_diff > ENC_SCALE_FRAC * enc_scale:
-        raise RuntimeError(f"encoder on the card differs from the CPU by more than {ENC_SCALE_FRAC:.0e} of scale")
+        raise RuntimeError(f"{name}: encoder on the card differs from the CPU by more than "
+                           f"{ENC_SCALE_FRAC:.0e} of scale")
 
     def tdt_margin_at(i, j, res):
         ts = res.timestamped_tokens
@@ -269,23 +465,66 @@ def slice_phase(card: str) -> dict:
         top2 = torch.topk(lp[frame], 2).values
         return float(top2[0] - top2[1])
 
-    compare_tokens("TDT", gpu_tdt, cpu_tdt, tdt_margin_at)
-    compare_tokens("CTC", gpu_ctc, cpu_ctc, ctc_margin_at)
+    compare_tokens(f"{name} TDT", gpu_tdt, cpu_tdt, tdt_margin_at)
+    compare_tokens(f"{name} CTC", gpu_ctc, cpu_ctc, ctc_margin_at)
     n_tdt = sum(len(r.token_ids) for r in gpu_tdt)
     n_ctc = sum(len(r.token_ids) for r in gpu_ctc)
     log(f"  tokens identical on card and CPU: TDT {n_tdt} tokens, CTC {n_ctc} tokens")
 
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
+    def wall_ms(fn, n: int) -> float:
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[n // 2]
+
+    feats_gpu = feats.to("cuda")
+    with torch.inference_mode():
+        front = wall_ms(lambda: gpu.prepare_batch(clips, tdt), 5)
+        enc = wall_ms(lambda: gpu.encode(feats_gpu, n_frames), 5)
+        enc_dev = device_ms(lambda: gpu.encode(feats_gpu, n_frames), calls=3)
+    wall = wall_ms(lambda: gpu.transcribe_batch(clips, tdt), 3)
+    batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1)
+    log(f"  stages, wall ms (median of 5): frontend {front:.3f}, encoder {enc:.3f} "
+        f"(device time {enc_dev:.3f}); warm TDT batch {wall:.1f} ms (median of 3), "
+        f"{audio_s / (wall / 1e3):.1f} audio s per wall s; one profiled batch: device time "
+        f"{batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall [{card}]")
+    return {"launches": launches, "wall_s": wall / 1e3, "rtfx": audio_s / (wall / 1e3), "enc_ms": enc,
+            "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_tdt],
+            "ctc": [r.token_ids for r in gpu_ctc]}
+
+
+def bf16_phase(fused, flat, clips, f32_tdt) -> None:
+    from parakeet_tpu_torch.config import make_110m_config
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions, Transcriber
+
+    log("== bf16: the fused path in bf16 on the card, TDT tokens against f32 (reported, not a gate)")
+    tr = Transcriber(config=make_110m_config(), params=flat, device="cuda", compute_dtype="bfloat16",
+                     fused=fused)
+    res = tr.transcribe_batch(clips, TranscribeOptions(Decoder.TDT))
+    dists = [edit_distance(r.token_ids, ref) for r, ref in zip(res, f32_tdt)]
+    log(f"  per-clip token edit distance bf16 vs f32: {dists} "
+        f"({sum(dists)} over {sum(len(t) for t in f32_tdt)} f32 tokens)")
+
+
+def build_phase() -> None:
+    from parakeet_tpu_torch.ops import _build
+
+    def timed(name):
         t0 = time.perf_counter()
-        gpu.transcribe_batch(clips, tdt)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = sorted(walls)[1]
-    log(f"  warm TDT batch wall time {wall * 1e3:.1f} ms (median of 3), "
-        f"{audio_s / wall:.1f} audio s per wall s [{card}]")
-    return {"launches": launches, "wall_s": wall, "rtfx": audio_s / wall, "enc_diff": enc_diff}
+        _build.build(name)
+        return name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        done = list(ex.map(timed, LIBRARIES))
+    log(f"== build: {len(done)} libraries in parallel, {time.perf_counter() - t0:.1f} s wall: "
+        + ", ".join(f"{name}.cu {s:.1f} s" for name, s in done))
+    for name in LIBRARIES:
+        _build.load(name)
 
 
 def main() -> int:
@@ -296,36 +535,54 @@ def main() -> int:
     if not (ROOT / "parakeet_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no parakeet_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
 
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.config import make_110m_config
+    from parakeet_tpu_torch.models.encoder import FusedLayers
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+
+    require_ieee_f32()  # the plain versions' f32 GEMMs and convs in IEEE f32
     card = card_line()
     log(f"== device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+    build_phase()
 
-    from parakeet_tpu_torch.ops import rel_attention as RA
+    kernel = {"rel_attention_block": attention_phase(card),
+              "fused_feed_forward": feed_forward_phase(card),
+              "fused_conv_module": conv_module_phase(card),
+              "fused_subsample_block1": subsample_phase(card)}
 
-    t0 = time.perf_counter()
-    RA.build()
-    log(f"== build: rel_attention.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    flat = P.init_params_numpy(P.tdt_ctc_spec(make_110m_config()), seed=0)
+    clips = synthetic_clips(8, seed=1234)
+    log(f"== clips: 8, {', '.join(f'{len(c) / 16000:.2f}' for c in clips)} s "
+        f"({sum(len(c) for c in clips) / 16000.0:.2f} s audio)")
+    default = path_phase("default", FusedLayers(), flat, clips, card)
+    fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
+    fused = path_phase("fused", fused_cfg, flat, clips, card)
+    same = sum(a == b for a, b in zip(fused["tdt"] + fused["ctc"], default["tdt"] + default["ctc"]))
+    log(f"== fused vs default on the card: {same}/16 items with identical tokens (TDT + CTC); "
+        f"encoder stage {fused['enc_ms']:.3f} vs {default['enc_ms']:.3f} ms; warm TDT batch "
+        f"{fused['wall_s'] * 1e3:.1f} vs {default['wall_s'] * 1e3:.1f} ms, RTFx {fused['rtfx']:.1f} vs "
+        f"{default['rtfx']:.1f} [{card}]")
+    bf16_phase(fused_cfg, flat, clips, fused["tdt"])
+    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    kern = kernel_phase()
-    k_ms, p_ms = kern["times"][126]
-    k_long, p_long = kern["times"][751]
-    log(f"  times [{card}]: T=126 kernel {k_ms:.4f} / plain {p_ms:.4f} ms; "
-        f"T=751 kernel {k_long:.4f} / plain {p_long:.4f} ms")
-
-    launches = slice_phase(card)["launches"]
-
+    sources = {"rel_attention_block": ("rel_attention.cu", "parakeet_tpu/ops/pallas_attention.py:510", 126),
+               "fused_feed_forward": ("feed_forward.cu", "parakeet_tpu/ops/pallas_ffn.py:62", 126),
+               "fused_conv_module": ("conv_module.cu", "parakeet_tpu/ops/pallas_conv.py:68", 126),
+               "fused_subsample_block1": ("subsample.cu", "parakeet_tpu/ops/pallas_subsample.py:168", 1001)}
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "rel_attention_block",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        "source": f"parakeet_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": fused["launches"][name],
+        "max_abs_err": kernel[name]["max_abs_err"],
+        "ms": kernel[name]["times"][t]["ms"],
+        "plain_ms": kernel[name]["times"][t]["plain_ms"],
+    } for name, (src, replaces, t) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

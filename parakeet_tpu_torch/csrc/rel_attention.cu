@@ -12,7 +12,9 @@
 //   ctx = softmax(score) v              (f32 softmax, normalised after AV)
 //   y = ctx Wo^T + bo (+ x when LN is fused)
 //
-// Three hand-written kernels, five launches in order on the caller's stream:
+// Three hand-written kernels, five launches in order on the caller's stream
+// (the first two live in gemm.cuh, shared with the FFN, conv-module and
+// subsampling kernels):
 //   row_stats_kernel   per-row LayerNorm mean and 1/std (only with LN)
 //   gemm_nt_kernel     tiled shared-memory GEMM, f32 accumulation; an LN
 //                      prologue on the A tile and two epilogues: QKV
@@ -30,175 +32,18 @@
 // tensor cores), far below the tensor-core roofline. The design keeps every
 // score and probability in registers and shared memory (nothing of size
 // T^2 reaches device memory) and loads each key tile's P band once. On an
-// H100 80GB HBM3 at 700 W the GEMMs reached ~12 TFLOP/s and the attention
-// core ~8 TFLOP/s of the 67 TFLOP/s f32 peak; the core issues one
-// shared-memory load per FMA, which is its bound. Register blocking, and
-// wgmma/TMA tiles for bf16, are later work.
+// H100 80GB HBM3 at 700 W the attention core reached ~8 TFLOP/s of the 67
+// TFLOP/s f32 peak; it issues one shared-memory load per FMA, which is its
+// bound, and takes most of a call at T'=751. A call at B=8 took 0.23 ms of
+// device time at T'=126 and 2.18 ms at T'=751 (the plain version 0.21 and
+// 1.84 ms). Register blocking, and wgmma/TMA tiles for bf16, are later work.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
 // cudaGetLastError() (0 = success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "gemm.cuh"
 
 namespace {
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Round a float32 value to the storage type T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ─── LayerNorm statistics: one warp per row ────────────────────────────────
-
-template <typename T>
-__global__ void row_stats_kernel(const T* __restrict__ x, float* __restrict__ stats,
-                                 int M, int K, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;  // whole warp leaves together
-  const T* xr = x + (size_t)row * K;
-  float s = 0.f;
-  for (int k = lane; k < K; k += 32) s += ld(xr + k);
-  const float mean = warp_sum(s) / (float)K;
-  float v = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float d = ld(xr + k) - mean;
-    v += d * d;
-  }
-  const float var = warp_sum(v) / (float)K;
-  if (lane == 0) {
-    stats[2 * row] = mean;
-    stats[2 * row + 1] = 1.f / sqrtf(var + eps);
-  }
-}
-
-// ─── GEMM: C[M, N] = A[M, K] @ W[N, K]^T ───────────────────────────────────
-
-constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
-constexpr int EPI_PLAIN = 0, EPI_QKV = 1;
-
-struct GemmArgs {
-  const void* a;                 // (M, K), activation dtype
-  const void* w[3];              // weight segments, torch layout (nseg, K) each
-  const void* bias[3];           // per-segment bias (nseg,) or null
-  const float* ln_stats;         // (M, 2) mean, 1/std; null = no LN prologue
-  const float* ln_w;             // (K,) f32
-  const float* ln_b;             // (K,) f32
-  const void* residual;          // (M, N) or null (EPI_PLAIN)
-  void* out[4];                  // PLAIN: out[0] (M, N); QKV: qu, qv, k, v (B, H, T, hd)
-  const void* bias_u;            // (D,) EPI_QKV
-  const void* bias_v;            // (D,) EPI_QKV
-  int M, N, K, nseg;
-  int T, H, HD;
-  float scale;
-};
-
-template <typename T, int EPI, bool LN>
-__global__ void __launch_bounds__(GTHREADS) gemm_nt_kernel(GemmArgs g) {
-  __shared__ __align__(16) float As[GBK][GBM + 4];
-  __shared__ __align__(16) float Ws[GBK][GBN + 4];
-  const T* A = static_cast<const T*>(g.a);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < g.K; k0 += GBK) {
-    for (int i = tid; i < GBM * GBK; i += GTHREADS) {
-      const int r = i / GBK, c = i % GBK;
-      const int m = m0 + r, k = k0 + c;
-      float a = 0.f;
-      if (m < g.M && k < g.K) {
-        a = ld(A + (size_t)m * g.K + k);
-        if (LN) {
-          const float mean = g.ln_stats[2 * m], rstd = g.ln_stats[2 * m + 1];
-          a = round_to<T>((a - mean) * rstd * g.ln_w[k] + g.ln_b[k]);
-        }
-      }
-      As[c][r] = a;
-    }
-    for (int i = tid; i < GBN * GBK; i += GTHREADS) {
-      const int r = i / GBK, c = i % GBK;
-      const int n = n0 + r, k = k0 + c;
-      float w = 0.f;
-      if (n < g.N && k < g.K) {
-        const int seg = n / g.nseg;
-        const T* W = static_cast<const T*>(g.w[seg]);
-        w = ld(W + (size_t)(n - seg * g.nseg) * g.K + k);
-      }
-      Ws[c][r] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 w4 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.N) continue;
-      const int seg = n / g.nseg, nn = n - seg * g.nseg;
-      float val = acc[i][j];
-      if (g.bias[seg] != nullptr) val += ld(static_cast<const T*>(g.bias[seg]) + nn);
-      if (EPI == EPI_PLAIN) {
-        const size_t o = (size_t)m * g.N + n;
-        if (g.residual != nullptr) val = ld(static_cast<const T*>(g.residual) + o) + val;
-        st(static_cast<T*>(g.out[0]) + o, val);
-      } else {
-        const int b = m / g.T, t = m - b * g.T;
-        const int h = nn / g.HD, c = nn - h * g.HD;
-        const size_t o = (((size_t)b * g.H + h) * g.T + t) * g.HD + c;
-        if (seg == 0) {
-          // 1/sqrt(hd) folded into q and the u/v biases, each rounded to T
-          // as the reference kernel rounds them
-          const float qs = round_to<T>(val * g.scale);
-          const float us = round_to<T>(ld(static_cast<const T*>(g.bias_u) + nn) * g.scale);
-          const float vs = round_to<T>(ld(static_cast<const T*>(g.bias_v) + nn) * g.scale);
-          st(static_cast<T*>(g.out[0]) + o, qs + us);
-          st(static_cast<T*>(g.out[1]) + o, qs + vs);
-        } else {
-          st(static_cast<T*>(g.out[seg + 1]) + o, val);
-        }
-      }
-    }
-  }
-}
 
 // ─── Attention core ─────────────────────────────────────────────────────────
 // Block: 64 query rows of one (b, h), 4 threads per row, each thread owning
@@ -324,16 +169,6 @@ cudaError_t launch_attn(const void* qu, const void* qv, const void* kh, const vo
   return cudaGetLastError();
 }
 
-template <typename T, int EPI>
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  dim3 grid((g.N + GBN - 1) / GBN, (g.M + GBM - 1) / GBM);
-  if (g.ln_stats != nullptr)
-    gemm_nt_kernel<T, EPI, true><<<grid, GTHREADS, 0, stream>>>(g);
-  else
-    gemm_nt_kernel<T, EPI, false><<<grid, GTHREADS, 0, stream>>>(g);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, const void* wq,
               const void* bq, const void* wk, const void* bk, const void* wv, const void* bv,
@@ -343,12 +178,8 @@ int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, co
               int D, int H, cudaStream_t stream) {
   const int M = B * Tn, HD = D / H;
   cudaError_t err;
-  if (ln_w != nullptr) {
-    const int threads = 256, rows_per_block = threads / 32;
-    row_stats_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, threads, 0, stream>>>(
-        static_cast<const T*>(x), stats, M, D, eps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  if (ln_w != nullptr && (err = launch_row_stats<T>(x, stats, M, D, eps, stream)) != cudaSuccess)
+    return (int)err;
 
   GemmArgs g = {};
   g.a = x;

@@ -3,8 +3,10 @@
 Each source under parakeet_tpu_torch/csrc/ compiles with nvcc into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), placed in build/parakeet_tpu_torch/ beside the package and named
-by a hash of the source, so an edited source rebuilds and concurrent
-processes never load a half-written file.
+by a hash of the source, of every header it includes from csrc/ and of
+the compiler flags, so an edited source or header rebuilds and concurrent
+processes never load a half-written file. `build` holds no lock: several
+libraries can build at once from separate threads.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -39,17 +43,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and every header it includes with #include "…",
+    followed transitively, in the order first reached."""
+    found: list[Path] = []
+    stack = [_CSRC / f"{name}.cu"]
+    while stack:
+        path = stack.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in reversed(_INCLUDE.findall(path.read_bytes())):
+            stack.append((path.parent / inc.decode()).resolve())
+    return found
+
+
+def source_digest(name: str) -> str:
+    """Hash of csrc/<name>.cu, the headers it includes and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cu at its present contents lives."""
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if not built yet) and return the library path."""
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = library_path(name)
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -69,4 +100,4 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-__all__ = ["BUILD_DIR", "build", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "source_digest", "library_path", "build", "load"]

@@ -1,0 +1,145 @@
+"""Fused conformer conv module: K5.
+
+Replaces the TPU kernel parakeet_tpu/ops/pallas_conv.py::fused_conv_module
+(body _conv_module_kernel / pallas_utils.conv_module_body), which the
+reference's encoder runs for every conformer layer under
+set_conv_layout("pallas") (bench.py --conv-layout pallas). Per call:
+
+    LN(x) → pointwise d→2d + b1 → round → GLU a·sigmoid_f32(g) → round →
+    rows at or past min(len_b, T) set to 0 → k-tap depthwise over time in
+    f32 + bd → inference BatchNorm folded to (scale, bias), each rounded →
+    round → SiLU → round → pointwise d→d + b2 → x + o in f32 → round
+
+`fused_conv_module` dispatches on the tensor's device: CUDA tensors run the
+hand-written kernel in csrc/conv_module.cu (or raise), CPU tensors run
+`fused_conv_module_reference`, the plain torch version built from
+ops/kernel_numerics.py with the TPU kernel's rounding points. What bounds
+the kernel on the card and how its design answers that is at the top of the
+.cu source. What it drops from the TPU kernel: T padded to 128 lanes, the
+SMEM length block, the tap-major depthwise weight padded to 8 sublanes and
+whole-array VMEM weight blocks; it takes any T, any width and any odd k.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_norm
+
+_F32 = torch.float32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _valid_rows(lengths, b: int, t: int, device) -> torch.Tensor:
+    """(B,) int32 valid row counts, min(len_b, T); all T without lengths."""
+    if lengths is None:
+        return torch.full((b,), t, dtype=torch.int32, device=device)
+    return torch.as_tensor(lengths, device=device).to(torch.int32).clamp(max=t)
+
+
+def fused_conv_module_reference(
+    x: torch.Tensor,  # (B, T, D)
+    norm_w, norm_b,  # (D,)
+    w1, b1,  # torch Conv1d (2D, D, 1), (2D,)
+    wd, bd,  # torch depthwise (D, 1, k), (D,)
+    bn_w, bn_b, bn_mean, bn_var,  # (D,)
+    w2, b2,  # (D, D, 1), (D,)
+    lengths=None,  # (B,) valid rows
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain torch version of the kernel: same signature, same rounding points."""
+    b, t, d = x.shape
+    k = wd.shape[-1]
+    scale, bias = fold_batch_norm(bn_w, bn_b, bn_mean, bn_var, d, x.dtype)
+    return conv_module_body(
+        x, _valid_rows(lengths, b, t, x.device), norm_w, norm_b, w1[:, :, 0], b1,
+        wd[:, 0, :].transpose(0, 1), bd, scale, bias, w2[:, :, 0], b2, eps, k,
+    )
+
+
+def _lib() -> ctypes.CDLL:
+    from parakeet_tpu_torch.ops._build import load
+
+    lib = load("conv_module")
+    fn = lib.pk_conv_module
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 14 + [ctypes.c_float] + [p] * 4 + [i] * 4 + [p]
+        fn.restype = i
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _lib()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):
+    b, t, d = x.shape
+    k = wd.shape[-1]
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"fused_conv_module kernel takes float32 or bfloat16, got {dt}")
+    if k % 2 == 0:
+        raise ValueError(f"fused_conv_module kernel: depthwise kernel size {k} must be odd")
+    mats = dict(w1=(w1, (2 * d, d, 1)), b1=(b1, (2 * d,)), wd=(wd, (d, 1, k)), bd=(bd, (d,)),
+                w2=(w2, (d, d, 1)), b2=(b2, (d,)))
+    for name, (w, shape) in mats.items():
+        if w.device != x.device or w.dtype != dt:
+            raise ValueError(f"fused_conv_module: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+        if tuple(w.shape) != shape:
+            raise ValueError(f"fused_conv_module: {name} has shape {tuple(w.shape)}, want {shape}")
+    w1, b1, wd, bd, w2, b2, x = (a.contiguous() for a in (w1, b1, wd, bd, w2, b2, x))
+    vecs = [v.to(device=x.device, dtype=_F32).contiguous() for v in (norm_w, norm_b, bn_w, bn_b, bn_mean, bn_var)]
+    valid = _valid_rows(lengths, b, t, x.device).contiguous()
+
+    out = torch.empty_like(x)
+    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
+    h, h2 = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pk_conv_module(
+            _DTYPE_CODE[dt], _ptr(x), _ptr(vecs[0]), _ptr(vecs[1]), _ptr(w1), _ptr(b1),
+            _ptr(wd), _ptr(bd), _ptr(vecs[2]), _ptr(vecs[3]), _ptr(vecs[4]), _ptr(vecs[5]),
+            _ptr(w2), _ptr(b2), _ptr(valid), float(eps), _ptr(stats), _ptr(h), _ptr(h2),
+            _ptr(out), b, t, d, k, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_conv_module kernel launch failed: CUDA error {rc}")
+    fused_conv_module.launches += 1
+    return out
+
+
+def fused_conv_module(
+    x: torch.Tensor,
+    norm_w, norm_b,
+    w1, b1,
+    wd, bd,
+    bn_w, bn_b, bn_mean, bn_var,
+    w2, b2,
+    lengths=None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + ConvModule(x) with pad rows masked, (B, T, D) in x.dtype.
+
+    On a CUDA tensor this launches the hand-written kernel or raises; on a
+    CPU tensor it runs `fused_conv_module_reference`. Each kernel launch
+    adds one to `fused_conv_module.launches`."""
+    args = (x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps)
+    if x.device.type == "cuda":
+        return _launch(*args)
+    if x.device.type == "cpu":
+        return fused_conv_module_reference(*args)
+    raise ValueError(f"fused_conv_module: no implementation for device {x.device}")
+
+
+fused_conv_module.launches = 0
+
+__all__ = ["fused_conv_module", "fused_conv_module_reference", "build"]

@@ -1,0 +1,129 @@
+"""Fused macaron feed-forward (+ optional final LayerNorm): K6.
+
+Replaces the TPU kernel parakeet_tpu/ops/pallas_ffn.py::fused_feed_forward
+(body _ffn_kernel / pallas_utils.ffn_body), which the reference's encoder
+runs for ffn1 and, with the block's final LayerNorm fused in, for ffn2
+when set_fused_ffn(True) (bench.py --fused-ffn). Per call:
+
+    LN(x) (f32 statistics) → fc1 + b1 → round → SiLU (f32 sigmoid) → round
+    → fc2 + b2 → x + 0.5·y in f32 → round [→ final LN → round]
+
+`fused_feed_forward` dispatches on the tensor's device: CUDA tensors run
+the hand-written kernel in csrc/feed_forward.cu (or raise), CPU tensors run
+`fused_feed_forward_reference`, the plain torch version built from
+ops/kernel_numerics.py with the TPU kernel's rounding points. What bounds
+the kernel on the card and how its design answers that is at the top of
+the .cu source. What it drops from the TPU kernel: T padded to 128 lanes,
+whole-array VMEM weight blocks and the caller's guards (T ≥ 64, 8 MiB of
+weights); it takes any T and any width.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
+
+_F32 = torch.float32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_feed_forward_reference(
+    x: torch.Tensor,  # (B, T, D)
+    norm_w, norm_b,  # (D,)
+    w1, b1,  # torch Linear (F, D), (F,)
+    w2, b2,  # (D, F), (D,)
+    final_norm_w=None, final_norm_b=None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain torch version of the kernel: same signature, same rounding points."""
+    out = ffn_body(x, norm_w, norm_b, w1, b1, w2, b2, eps)
+    if final_norm_w is not None:
+        out = kernel_layer_norm(out, final_norm_w, final_norm_b, eps)
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    from parakeet_tpu_torch.ops._build import load
+
+    lib = load("feed_forward")
+    fn = lib.pk_feed_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 3 + [p]
+        fn.restype = i
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _lib()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
+    b, t, d = x.shape
+    f = w1.shape[0]
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"fused_feed_forward kernel takes float32 or bfloat16, got {dt}")
+    shapes = dict(w1=(f, d), b1=(f,), w2=(d, f), b2=(d,))
+    for name, w in dict(w1=w1, b1=b1, w2=w2, b2=b2).items():
+        if w.device != x.device or w.dtype != dt:
+            raise ValueError(f"fused_feed_forward: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+        if tuple(w.shape) != shapes[name]:
+            raise ValueError(f"fused_feed_forward: {name} has shape {tuple(w.shape)}, want {shapes[name]}")
+    w1, b1, w2, b2, x = (a.contiguous() for a in (w1, b1, w2, b2, x))
+    norms = [norm_w, norm_b, final_norm_w, final_norm_b]
+    norms = [None if v is None else v.to(device=x.device, dtype=_F32).contiguous() for v in norms]
+    final = final_norm_w is not None
+
+    m = b * t
+    out = torch.empty_like(x)
+    stats = torch.empty((m, 2), dtype=_F32, device=x.device)
+    h = torch.empty((m, f), dtype=dt, device=x.device)
+    y = torch.empty_like(x) if final else None
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pk_feed_forward(
+            _DTYPE_CODE[dt], _ptr(x), _ptr(norms[0]), _ptr(norms[1]), _ptr(w1), _ptr(b1),
+            _ptr(w2), _ptr(b2), _ptr(norms[2]), _ptr(norms[3]), float(eps),
+            _ptr(stats), _ptr(h), _ptr(y), _ptr(out), m, d, f, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_feed_forward kernel launch failed: CUDA error {rc}")
+    fused_feed_forward.launches += 1
+    return out
+
+
+def fused_feed_forward(
+    x: torch.Tensor,
+    norm_w, norm_b,
+    w1, b1,
+    w2, b2,
+    final_norm_w=None, final_norm_b=None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + 0.5·FFN(LN(x)), then the final LayerNorm when its weights are
+    given; (B, T, D) in x.dtype.
+
+    On a CUDA tensor this launches the hand-written kernel or raises; on a
+    CPU tensor it runs `fused_feed_forward_reference`. Each kernel launch
+    adds one to `fused_feed_forward.launches`."""
+    args = (x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps)
+    if x.device.type == "cuda":
+        return _launch(*args)
+    if x.device.type == "cpu":
+        return fused_feed_forward_reference(*args)
+    raise ValueError(f"fused_feed_forward: no implementation for device {x.device}")
+
+
+fused_feed_forward.launches = 0
+
+__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build"]

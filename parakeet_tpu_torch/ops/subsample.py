@@ -1,0 +1,147 @@
+"""Fused front of the conv subsampling (conv1 → dw1 → conv2): K8.
+
+Replaces the TPU kernel parakeet_tpu/ops/pallas_subsample.py::
+fused_subsample_block1 (body _subsample_kernel, host prep _im2col_blocked),
+which the reference's encoder runs once per call under
+set_fused_subsample(True) (bench.py --fused-subsample). On mel x (B, T, F):
+
+    conv1 3×3/s2, 1→C, f32 from x, bias rounded to the activation dtype,
+    output not rounded and exactly 0 outside [0, T2) × [0, F2) → act →
+    depthwise 3×3/s2 accumulated in f32 from bd → round → pointwise conv2
+    C→C + b2 (rounded) → act → round
+
+with act ReLU or SiLU. It returns NCHW (B, C, T4, F4), the layout the
+port's subsampling continues in (the TPU kernel returns NHWC).
+
+`fused_subsample_block1` dispatches on the tensor's device: CUDA tensors
+run the hand-written kernel in csrc/subsample.cu (or raise), CPU tensors
+run `fused_subsample_block1_reference`, the plain torch version with the
+same rounding points. What bounds the kernel on the card and how its design
+answers that is at the top of the .cu source. What it drops from the TPU
+kernel: the blocked, parity-ordered im2col with its validity-gate column,
+the T4 tiles and the caller's guards (T4 ≥ 32, even F2); it takes any T
+and any F.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+_F32 = torch.float32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {"relu": 0, "silu": 1}
+
+
+def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "relu":
+        return torch.relu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _check_activation(activation: str) -> None:
+    if activation not in _ACT_CODE:
+        raise ValueError(f"activation must be one of {sorted(_ACT_CODE)}, got {activation!r}")
+
+
+def fused_subsample_block1_reference(
+    x: torch.Tensor,  # (B, T, F) mel features
+    w1, b1,  # torch Conv2d (C, 1, 3, 3), (C,)
+    wd, bd,  # torch depthwise (C, 1, 3, 3), (C,)
+    w2, b2,  # torch pointwise (C, C, 1, 1), (C,)
+    activation: str = "relu",
+) -> torch.Tensor:
+    """Plain torch version of the kernel: same signature, same rounding
+    points; (B, C, T4, F4) in x.dtype."""
+    _check_activation(activation)
+    dt = x.dtype
+    c = w1.shape[0]
+
+    def rounded(w):  # weight rounded to the activation dtype, math in f32
+        return w.to(dt).to(_F32)
+
+    y1 = F.conv2d(x.to(_F32)[:, None], rounded(w1), rounded(b1), stride=2, padding=1)
+    y1 = _act(y1, activation)  # f32, not rounded; dw1's padding is exact zeros
+    y2 = F.conv2d(y1, wd.to(_F32), bd.to(_F32), stride=2, padding=1, groups=c).to(dt)
+    z = F.conv2d(y2.to(_F32), rounded(w2), rounded(b2))
+    return _act(z, activation).to(dt)
+
+
+def _lib() -> ctypes.CDLL:
+    from parakeet_tpu_torch.ops._build import load
+
+    lib = load("subsample")
+    fn = lib.pk_subsample_block1
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 7 + [i] + [p] * 2 + [i] * 4 + [p]
+        fn.restype = i
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _lib()
+
+
+def _launch(x, w1, b1, wd, bd, w2, b2, activation):
+    b, t, f = x.shape
+    c = w1.shape[0]
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"fused_subsample_block1 kernel takes float32 or bfloat16, got {dt}")
+    shapes = dict(w1=(w1, (c, 1, 3, 3)), b1=(b1, (c,)), wd=(wd, (c, 1, 3, 3)), bd=(bd, (c,)),
+                  w2=(w2, (c, c, 1, 1)), b2=(b2, (c,)))
+    for name, (w, shape) in shapes.items():
+        if w.device != x.device or not w.is_floating_point():
+            raise ValueError(f"fused_subsample_block1: {name} is {w.dtype} on {w.device}, x is on {x.device}")
+        if tuple(w.shape) != shape:
+            raise ValueError(f"fused_subsample_block1: {name} has shape {tuple(w.shape)}, want {shape}")
+    x = x.contiguous()
+    w1m, b1v, w2m, b2v = (w.to(dt).reshape(c, -1).contiguous() for w in (w1, b1, w2, b2))
+    wdm, bdv = (w.to(_F32).reshape(c, -1).contiguous() for w in (wd, bd))
+    t4 = ((t - 1) // 2) // 2 + 1
+    f4 = ((f - 1) // 2) // 2 + 1
+
+    out = torch.empty((b, c, t4, f4), dtype=dt, device=x.device)
+    y2 = torch.empty((b * t4 * f4, c), dtype=dt, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pk_subsample_block1(
+            _DTYPE_CODE[dt], x.data_ptr(), w1m.data_ptr(), b1v.data_ptr(), wdm.data_ptr(),
+            bdv.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), _ACT_CODE[activation],
+            y2.data_ptr(), out.data_ptr(), b, t, f, c, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_subsample_block1 kernel launch failed: CUDA error {rc}")
+    fused_subsample_block1.launches += 1
+    return out
+
+
+def fused_subsample_block1(
+    x: torch.Tensor,
+    w1, b1,
+    wd, bd,
+    w2, b2,
+    activation: str = "relu",
+) -> torch.Tensor:
+    """conv1 → act → dw1 → conv2 → act on mel (B, T, F); (B, C, T4, F4).
+
+    On a CUDA tensor this launches the hand-written kernel or raises; on a
+    CPU tensor it runs `fused_subsample_block1_reference`. Each kernel
+    launch adds one to `fused_subsample_block1.launches`."""
+    _check_activation(activation)
+    args = (x, w1, b1, wd, bd, w2, b2, activation)
+    if x.device.type == "cuda":
+        return _launch(*args)
+    if x.device.type == "cpu":
+        return fused_subsample_block1_reference(*args)
+    raise ValueError(f"fused_subsample_block1: no implementation for device {x.device}")
+
+
+fused_subsample_block1.launches = 0
+
+__all__ = ["fused_subsample_block1", "fused_subsample_block1_reference", "build"]

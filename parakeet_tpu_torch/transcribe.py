@@ -4,6 +4,8 @@
 head) → greedy TDT or CTC decode → detokenize → word grouping. Batches are
 padded and length-masked. On a CUDA device each conformer block's attention
 runs the hand-written kernel; on the CPU it runs the plain torch version.
+`fused=FusedLayers(...)` sends the FFNs, the conv modules and the front of
+the subsampling through their kernels as well.
 
 Not in this slice, and rejected with NotImplementedError rather than
 ignored: beam search, LM fusion, phrase boosting, meshes, quantized
@@ -36,7 +38,7 @@ from parakeet_tpu_torch.models.ctc import (
     ctc_greedy_decode_with_timestamps,
     ctc_log_probs,
 )
-from parakeet_tpu_torch.models.encoder import encoded_lengths, fastconformer_encode
+from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths, fastconformer_encode
 from parakeet_tpu_torch.ops.layers import require_ieee_f32
 from parakeet_tpu_torch.params import Params
 from parakeet_tpu_torch.text.tokenizer import Tokenizer
@@ -105,10 +107,13 @@ class Transcriber:
         mesh=None,
         quantize: str | None = None,
         long_threshold_s: float = 40.0,
+        fused: FusedLayers = FusedLayers(),
     ):
         """params: a flat {name: array} dict (numpy or CPU tensors) used
         instead of weights_path. device: defaults to "cuda" when a card is
-        present, else "cpu". Clips longer than long_threshold_s raise."""
+        present, else "cpu". Clips longer than long_threshold_s raise.
+        fused: the encoder sublayers that run their fused kernels (all off
+        by default; attention always runs its kernel)."""
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) inference is not ported yet")
         if quantize:
@@ -121,6 +126,7 @@ class Transcriber:
         if self.device.type == "cuda":
             require_ieee_f32()
         self.long_threshold_s = long_threshold_s
+        self.fused = fused
         if params is None:
             params = P.load_params_numpy(
                 P.tdt_ctc_spec(self.config), weights_path, seed=seed,
@@ -138,7 +144,8 @@ class Transcriber:
         """(B, T, mel) features + per-item mel lengths → (B, T', d_model)."""
         x = feats.to(device=self.device, dtype=_DTYPES[self.compute_dtype])
         lengths = torch.as_tensor(lengths, dtype=torch.int64, device=self.device)
-        return fastconformer_encode(Params(self.params).sub("encoder_"), self.config.encoder, x, lengths)
+        return fastconformer_encode(
+            Params(self.params).sub("encoder_"), self.config.encoder, x, lengths, self.fused)
 
     @torch.inference_mode()
     def ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:

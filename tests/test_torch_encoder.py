@@ -136,3 +136,90 @@ def test_lengths_masks_and_position_table_match_reference():
     enc_lens = np.array([5, 2, 0])
     np.testing.assert_array_equal(TE.length_mask(torch.from_numpy(enc_lens), 5).numpy(),
                                   np.asarray(RE.length_mask(jnp.asarray(enc_lens), 5)))
+
+
+FUSED_MEL_LENGTHS = [520, 397, 233]  # T' = 65 ≥ 64, so the reference's FFN guard passes
+
+
+def _interpret_wrappers(monkeypatch):
+    """Run each reference Pallas kernel in interpret mode and count its calls."""
+    import parakeet_tpu.ops.pallas_attention as PA
+    import parakeet_tpu.ops.pallas_conv as PC
+    import parakeet_tpu.ops.pallas_ffn as PF
+    import parakeet_tpu.ops.pallas_subsample as PS
+
+    calls = {}
+    for mod, name in ((PA, "fused_rel_attention_block"), (PF, "fused_feed_forward"),
+                      (PC, "fused_conv_module"), (PS, "fused_subsample_block1")):
+        orig = getattr(mod, name)
+        calls[name] = 0
+
+        def interp(*args, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            kw["interpret"] = True
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(mod, name, interp)
+    monkeypatch.setattr(RE, "_SUBSAMPLE_T4_TILE", 4)
+    return calls
+
+
+def set_reference_fused(on: bool) -> None:
+    """The reference's process globals for bench.py --fused-mode block4hp
+    --fused-ffn --conv-layout pallas --fused-subsample (all off: defaults)."""
+    RE.set_fused_attention("block4hp" if on else False)
+    RE.set_fused_ffn(on)
+    RE.set_conv_layout("pallas" if on else "nch")
+    RE.set_fused_subsample(on)
+
+
+def test_fused_encoder_matches_reference_fused_kernels(model, monkeypatch):
+    rcfg, tcfg, rp, tp, _ = model
+    rng = np.random.RandomState(21)
+    mel = np.zeros((3, max(FUSED_MEL_LENGTHS), 80), np.float32)
+    for i, n in enumerate(FUSED_MEL_LENGTHS):
+        mel[i, :n] = rng.randn(n, 80)
+    calls = _interpret_wrappers(monkeypatch)
+    set_reference_fused(True)
+    try:
+        ref = np.asarray(RE.fastconformer_encode(rp, rcfg, jnp.asarray(mel), jnp.asarray(FUSED_MEL_LENGTHS)))
+    finally:
+        set_reference_fused(False)
+    layers = rcfg.num_layers
+    assert calls == {"fused_rel_attention_block": layers, "fused_feed_forward": 2 * layers,
+                     "fused_conv_module": layers, "fused_subsample_block1": 1}, calls
+    fused = TE.FusedLayers(ffn=True, conv=True, subsample=True)
+    got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), torch.tensor(FUSED_MEL_LENGTHS), fused=fused)
+    assert got.shape == ref.shape
+    for i, n in enumerate(FUSED_MEL_LENGTHS):
+        tv = RE.subsample_length(n)
+        np.testing.assert_allclose(got[i, :tv].numpy(), ref[i, :tv], rtol=RTOL, atol=ATOL, err_msg=f"item {i}")
+
+
+@pytest.mark.parametrize("field", ["ffn", "conv", "subsample"])
+def test_each_fused_layer_dispatches_its_kernel(model, monkeypatch, field):
+    """One field on sends exactly its sublayer through its dispatch function,
+    and the result stays within the kernel tolerance of the plain path."""
+    from parakeet_tpu_torch.ops import conv_module as TCM
+    from parakeet_tpu_torch.ops import feed_forward as TF
+    from parakeet_tpu_torch.ops import subsample as TS
+
+    rcfg, tcfg, rp, tp, mel = model
+    seen = {"ffn": [], "conv": [], "subsample": []}
+    spies = {"ffn": (TE, "fused_feed_forward", TF.fused_feed_forward),
+             "conv": (TE, "fused_conv_module", TCM.fused_conv_module),
+             "subsample": (TE, "fused_subsample_block1", TS.fused_subsample_block1)}
+    for key, (mod, name, orig) in spies.items():
+        def spy(*args, _orig=orig, _key=key, **kw):
+            seen[_key].append(kw.get("final_norm_w") is not None)
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    lengths = torch.tensor(MEL_LENGTHS)
+    got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths,
+                                  fused=TE.FusedLayers(**{field: True})).numpy()
+    want = {"ffn": [False, True] * tcfg.num_layers, "conv": [False] * tcfg.num_layers,
+            "subsample": [False]}
+    assert seen == {k: (want[k] if k == field else []) for k in seen}
+    plain = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths).numpy()
+    _valid_close(got, plain)

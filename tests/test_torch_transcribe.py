@@ -147,3 +147,79 @@ def test_unsupported_options_raise(setup, bad):
             tr.transcribe(waves[1], boost_phrases=["a b"])
         else:
             tr.transcribe(waves[2])  # 1.47 s > long_threshold_s
+
+
+@pytest.fixture(scope="module")
+def fused_setup(setup):
+    """Longer clips: the padded batch reaches T' ≥ 64, past the reference's
+    FFN-kernel guard, so every reference kernel runs."""
+    flat, _, vocab = setup
+    rng = np.random.RandomState(9)
+    waves = _waves(rng)
+    waves[0] = np.concatenate([_waves(rng)[2] for _ in range(4)])  # 5.86 s: T' = 74
+    return flat, waves, vocab
+
+
+@pytest.fixture(scope="module")
+def fused_reference_results(fused_setup):
+    """The JAX Transcriber with every encoder sublayer on its Pallas kernel
+    (block4hp attention, fused FFN, pallas conv layout, fused subsampling),
+    each kernel in interpret mode, with its calls counted."""
+    import parakeet_tpu.ops.pallas_attention as PA
+    import parakeet_tpu.ops.pallas_conv as PC
+    import parakeet_tpu.ops.pallas_ffn as PF
+    import parakeet_tpu.ops.pallas_subsample as PS
+    from parakeet_tpu.models import encoder as RE
+    from parakeet_tpu.transcribe import Decoder, TranscribeOptions, Transcriber
+
+    flat, waves, vocab = fused_setup
+    mp = pytest.MonkeyPatch()
+    calls = {}
+    for mod, name in ((PA, "fused_rel_attention_block"), (PF, "fused_feed_forward"),
+                      (PC, "fused_conv_module"), (PS, "fused_subsample_block1")):
+        calls[name] = 0
+
+        def interp(*args, _orig=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            kw["interpret"] = True
+            return _orig(*args, **kw)
+
+        mp.setattr(mod, name, interp)
+    mp.setattr(RE, "_SUBSAMPLE_T4_TILE", 4)
+    try:
+        tr = Transcriber(None, vocab, _cfg(RC), params=flat, kernels="block4hp")
+        RE.set_fused_ffn(True)
+        RE.set_conv_layout("pallas")
+        RE.set_fused_subsample(True)
+        out = {
+            dec: tr.transcribe_batch(waves, TranscribeOptions(getattr(Decoder, dec), timestamps=True))
+            for dec in ("TDT", "CTC")
+        }
+    finally:
+        RE.set_fused_attention(False)
+        RE.set_fused_ffn(False)
+        RE.set_conv_layout("nch")
+        RE.set_fused_subsample(False)
+        mp.undo()
+    layers = _cfg(RC).encoder.num_layers
+    assert calls == {"fused_rel_attention_block": 2 * layers, "fused_feed_forward": 4 * layers,
+                     "fused_conv_module": 2 * layers, "fused_subsample_block1": 2}, calls
+    return out
+
+
+@pytest.mark.parametrize("decoder", ["TDT", "CTC"])
+def test_fused_layers_tokens_identical_to_reference_kernels(fused_setup, fused_reference_results, decoder):
+    from parakeet_tpu_torch import FusedLayers
+
+    flat, waves, vocab = fused_setup
+    tr = TTranscriber(None, vocab, _cfg(TC), params=flat, device="cpu",
+                      fused=FusedLayers(ffn=True, conv=True, subsample=True))
+    got = tr.transcribe_batch(waves, TOptions(getattr(TDecoder, decoder), timestamps=True))
+    ref = fused_reference_results[decoder]
+    assert len({t for r in ref for t in r.token_ids}) >= 2, "degenerate case: one token type"
+    for g, r in zip(got, ref):
+        assert g.token_ids == r.token_ids
+        assert _spans(g) == _spans(r)
+        np.testing.assert_allclose([t.confidence for t in g.timestamped_tokens],
+                                   [t.confidence for t in r.timestamped_tokens], rtol=1e-4)
+        assert g.text == r.text
