@@ -14,17 +14,27 @@ Phases, each of which raises (exit code 1) on failure:
               (T'=126 and 751, with and without the final LayerNorm), K5
               conv module (T'=126 and 751, mixed lengths and none), K8
               subsampling front (mel (8, 1001, 80) and (8, 6001, 80),
-              C=256, ReLU, and SiLU once); median CUDA-event ms and device
-              ms (torch.profiler kernel time) of kernel and plain version
+              C=256, ReLU, and SiLU once), K4 conv module + ffn2 + final
+              LayerNorm and K7 ffn1 + attention block (T'=126 and 751,
+              mixed lengths), K2 v1 attention core (H=8, hd=64, T'=126,
+              751 and 1001, mixed lengths), K3 log-mel (10 s and 60 s
+              clips, f32 only, atol 2e-2 in log space); median CUDA-event
+              ms and device ms (torch.profiler kernel time) of kernel and
+              plain version
   4. paths    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
               seeded random weights, f32, 8 synthetic clips of 2-10 s
               through transcribe_batch with TDT + timestamps and with CTC,
-              in two configurations: the default (attention kernel only)
-              and FusedLayers(ffn, conv, subsample). Launch counts per
-              encoder call must be exact, and the tokens must equal a CPU
-              Transcriber's with the same option; then a bf16 run of the
-              fused configuration, its token edit distance against f32
-              reported (not a gate)
+              in four configurations: the default (attention kernel only),
+              FusedLayers(ffn, conv, subsample), the whole-block
+              FusedLayers(attention="mega", block2=True, subsample=True)
+              and FusedLayers(attention="v1"). Launch counts per encoder
+              call must be exact, and the tokens must equal a CPU
+              Transcriber's with the same option; then the fused
+              frontend: preprocess_audio_fused on each clip (K3) and
+              transcribe_features, tokens equal to a CPU Transcriber's on
+              the same features; then a bf16 run of the fused
+              configuration, its token edit distance against f32 reported
+              (not a gate)
 The last two lines of output are a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}.
 """
@@ -38,9 +48,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
-LIBRARIES = ("rel_attention", "feed_forward", "conv_module", "subsample")
+LIBRARIES = ("rel_attention", "feed_forward", "conv_module", "subsample", "conv_ffn_final",
+             "ffn_attention", "rel_attention_v1", "log_mel")
 F32_RTOL, F32_ATOL = 1e-3, 1e-5  # the reference's block-kernel tolerance
+LOG_MEL_ATOL = 2e-2  # K3: the reference frontend kernel's tolerance, in log space
 BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
 ENC_SCALE_FRAC = 1e-3  # f32 encoder, card vs CPU, 17 layers of reordered sums
 B, D, H, FFN = 8, 512, 8, 2048  # tdt-ctc-110m widths
@@ -123,7 +137,7 @@ def time_pair(tag: str, kernel_fn, plain_fn, card: str) -> dict:
     return ms
 
 
-def check_close(tag: str, got, ref, rows=None) -> float:
+def check_close(tag: str, got, ref, rows=None, atol: float = F32_ATOL, rtol: float = F32_RTOL) -> float:
     """Hold a kernel's output against its plain version; returns max |diff|."""
     import torch
 
@@ -137,8 +151,8 @@ def check_close(tag: str, got, ref, rows=None) -> float:
         raise RuntimeError(f"kernel output not finite at {tag}")
     err = (g - r).abs()
     if got.dtype == torch.float32:
-        bad = int((err > F32_ATOL + F32_RTOL * r.abs()).sum())
-        log(f"  {tag}: max|diff| {float(err.max()):.3e}, {bad} values outside rtol {F32_RTOL} / atol {F32_ATOL}")
+        bad = int((err > atol + rtol * r.abs()).sum())
+        log(f"  {tag}: max|diff| {float(err.max()):.3e}, {bad} values outside rtol {rtol} / atol {atol}")
         if bad:
             raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
     else:
@@ -150,7 +164,6 @@ def check_close(tag: str, got, ref, rows=None) -> float:
 
 
 def _dev(rng, dtype):
-    import numpy as np
     import torch
 
     def dev(a, dt=dtype):
@@ -160,8 +173,6 @@ def _dev(rng, dtype):
 
 
 def _mixed_lengths(rng, t: int):
-    import numpy as np
-
     lengths = rng.randint(max(1, t // 4), t + 1, size=B)
     lengths[0] = t
     return np.asarray(lengths)
@@ -183,7 +194,6 @@ def _dtypes():
 
 
 def attention_phase(card: str) -> dict:
-    import numpy as np
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
@@ -221,7 +231,6 @@ def attention_phase(card: str) -> dict:
 
 
 def feed_forward_phase(card: str) -> dict:
-    import numpy as np
     import torch
 
     from parakeet_tpu_torch.ops import feed_forward as FF
@@ -255,7 +264,6 @@ def feed_forward_phase(card: str) -> dict:
 
 
 def conv_module_phase(card: str) -> dict:
-    import numpy as np
     import torch
 
     from parakeet_tpu_torch.ops import conv_module as CM
@@ -290,7 +298,6 @@ def conv_module_phase(card: str) -> dict:
 
 
 def subsample_phase(card: str) -> dict:
-    import numpy as np
     import torch
 
     from parakeet_tpu_torch.ops import subsample as SS
@@ -319,13 +326,147 @@ def subsample_phase(card: str) -> dict:
     return out
 
 
-def synthetic_clips(n: int, seed: int, sr: int = 16000):
-    import numpy as np
+def _ffn_weights(rng, dev):
+    import torch
 
+    f32 = torch.float32
+    return [dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
+            dev(rng.randn(FFN, D) / np.sqrt(D)), dev(0.05 * rng.randn(FFN)),
+            dev(rng.randn(D, FFN) / np.sqrt(FFN)), dev(0.05 * rng.randn(D))]
+
+
+def _conv_weights(rng, dev):
+    import torch
+
+    f32 = torch.float32
+    return [dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
+            dev(rng.randn(2 * D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(2 * D)),
+            dev(rng.randn(D, 1, 9) / 3), dev(0.05 * rng.randn(D)),
+            dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
+            dev(0.1 * rng.randn(D), f32), dev(1 + 0.2 * np.abs(rng.randn(D)), f32),
+            dev(rng.randn(D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(D))]
+
+
+def _attention_weights(rng, dev):
+    hd = D // H
+    out = []
+    for _ in range(3):
+        out += [dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 0.02, D))]
+    return out + [dev(rng.normal(0, 0.02, (H, hd))), dev(rng.normal(0, 0.02, (H, hd))),
+                  dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 1 / np.sqrt(D), (D, D))),
+                  dev(rng.normal(0, 0.02, D))]
+
+
+def conv_ffn_final_phase(card: str) -> dict:
+    import torch
+
+    from parakeet_tpu_torch.ops import conv_ffn_final as K4
+
+    log(f"== K4 fused_conv_ffn_final vs fused_conv_ffn_final_reference (B={B}, D={D}, F={FFN}, k=9)")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for t in (126, 751):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(400 + t)
+            dev = _dev(rng, dtype)
+            args = (dev(rng.randn(B, t, D)), *_conv_weights(rng, dev), *_ffn_weights(rng, dev),
+                    dev(1 + 0.1 * rng.randn(D), torch.float32), dev(0.1 * rng.randn(D), torch.float32))
+            lengths = _mixed_lengths(rng, t)
+            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+            with torch.inference_mode():
+                got = K4.fused_conv_ffn_final(*args, lengths=lt)
+                ref = K4.fused_conv_ffn_final_reference(*args, lengths=lt)
+            tag = f"K4 T'={t} {name} mixed lengths"
+            err = check_close(tag, got, ref)
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["times"][t] = time_pair(tag, lambda: K4.fused_conv_ffn_final(*args, lengths=lt),
+                                            lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
+    return out
+
+
+def ffn_attention_phase(card: str) -> dict:
+    import torch
+
+    from parakeet_tpu_torch.ops import ffn_attention as K7
+
+    log(f"== K7 fused_ffn_attention vs fused_ffn_attention_reference (B={B}, D={D}, H={H}, F={FFN})")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for t in (126, 751):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(500 + t)
+            dev = _dev(rng, dtype)
+            args = (dev(rng.randn(B, t, D)), *_ffn_weights(rng, dev),
+                    dev(1 + 0.1 * rng.randn(D), torch.float32), dev(0.1 * rng.randn(D), torch.float32),
+                    *_attention_weights(rng, dev))
+            lengths = _mixed_lengths(rng, t)
+            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+            with torch.inference_mode():
+                got = K7.fused_ffn_attention(*args, lengths=lt)
+                ref = K7.fused_ffn_attention_reference(*args, lengths=lt)
+            tag = f"K7 T'={t} {name} mixed lengths"
+            err = check_close(tag, got, ref, _valid_rows(lengths, t))
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["times"][t] = time_pair(tag, lambda: K7.fused_ffn_attention(*args, lengths=lt),
+                                            lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
+    return out
+
+
+def rel_attention_v1_phase(card: str) -> dict:
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    hd = D // H
+    log(f"== K2 fused_rel_attention vs fused_rel_attention_reference (B={B}, H={H}, hd={hd})")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for t in (126, 751, 1001):  # 1001: past the reference's T <= 768 cap
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(600 + t)
+            dev = _dev(rng, dtype)
+            args = (*(dev(rng.randn(B, H, t, hd)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd)))
+            lengths = _mixed_lengths(rng, t)
+            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+            with torch.inference_mode():
+                got = RA.fused_rel_attention(*args, lengths=lt)
+                ref = RA.fused_rel_attention_reference(*args, lengths=lt)
+            tag = f"K2 T'={t} {name} mixed lengths"
+            err = check_close(tag, got.transpose(1, 2), ref.transpose(1, 2), _valid_rows(lengths, t))
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["times"][t] = time_pair(tag, lambda: RA.fused_rel_attention(*args, lengths=lt),
+                                            lambda: RA.fused_rel_attention_reference(*args, lengths=lt), card)
+    return out
+
+
+def log_mel_phase(card: str) -> dict:
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import _preemphasize_and_pad
+    from parakeet_tpu_torch.config import AudioConfig
+    from parakeet_tpu_torch.ops import log_mel as K3
+
+    log("== K3 fused_log_mel vs fused_log_mel_reference (one clip, n_fft 512, hop 160, 80 mels)")
+    out = {"max_abs_err": 0.0, "times": {}}
+    for seconds in (10, 60):
+        clip = synthetic_clips(1, seed=700 + seconds, min_s=seconds, max_s=seconds)[0]
+        x = torch.from_numpy(_preemphasize_and_pad(clip, AudioConfig())).to("cuda")
+        with torch.inference_mode():
+            got = K3.fused_log_mel(x)
+            ref = K3.fused_log_mel_reference(x)
+        tag = f"K3 {seconds} s clip -> {tuple(got.shape)} f32"
+        err = check_close(tag, got, ref, atol=LOG_MEL_ATOL, rtol=0.0)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["times"][seconds] = time_pair(tag, lambda: K3.fused_log_mel(x),
+                                          lambda: K3.fused_log_mel_reference(x), card)
+    return out
+
+
+def synthetic_clips(n: int, seed: int, sr: int = 16000, min_s: float = 2.0, max_s: float = 10.0):
     rng = np.random.RandomState(seed)
     clips = []
     for _ in range(n):
-        dur = rng.uniform(2.0, 10.0)
+        dur = rng.uniform(min_s, max_s)
         tt = np.arange(int(dur * sr)) / sr
         f0 = rng.uniform(90, 250)
         env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(2, 5) * tt))
@@ -380,12 +521,40 @@ def edit_distance(a: list[int], b: list[int]) -> int:
 
 
 def counters():
-    from parakeet_tpu_torch.ops import conv_module, feed_forward, rel_attention, subsample
+    from parakeet_tpu_torch.ops import (
+        conv_ffn_final, conv_module, feed_forward, ffn_attention, log_mel, rel_attention, subsample)
 
     return {"rel_attention_block": rel_attention.rel_attention_block,
             "fused_feed_forward": feed_forward.fused_feed_forward,
             "fused_conv_module": conv_module.fused_conv_module,
-            "fused_subsample_block1": subsample.fused_subsample_block1}
+            "fused_subsample_block1": subsample.fused_subsample_block1,
+            "fused_conv_ffn_final": conv_ffn_final.fused_conv_ffn_final,
+            "fused_ffn_attention": ffn_attention.fused_ffn_attention,
+            "fused_rel_attention": rel_attention.fused_rel_attention,
+            "fused_log_mel": log_mel.fused_log_mel}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def launches_per_encoder_call(fused, layers: int) -> dict:
+    """Each kernel's launches in one encoder call under `fused`, with the
+    reference's precedence (mega over ffn1; block2 over conv and ffn2)."""
+    mega = fused.attention == "mega"
+    return {"rel_attention_block": layers if fused.attention == "block" else 0,
+            "fused_feed_forward": layers * ((fused.ffn and not mega) + (fused.ffn and not fused.block2)),
+            "fused_conv_module": layers if fused.conv and not fused.block2 else 0,
+            "fused_subsample_block1": 1 if fused.subsample else 0,
+            "fused_conv_ffn_final": layers if fused.block2 else 0,
+            "fused_ffn_attention": layers if mega else 0,
+            "fused_rel_attention": layers if fused.attention == "v1" else 0,
+            "fused_log_mel": 0}
 
 
 def path_phase(name: str, fused, flat, clips, card: str) -> dict:
@@ -409,18 +578,14 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
 
     gpu.transcribe_batch(clips, tdt)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
-    per_call = {"rel_attention_block": layers,
-                "fused_feed_forward": 2 * layers if fused.ffn else 0,
-                "fused_conv_module": layers if fused.conv else 0,
-                "fused_subsample_block1": 1 if fused.subsample else 0}
-    for fn in counters().values():
-        fn.launches = 0
+    per_call = launches_per_encoder_call(fused, layers)
+    reset_counts()
     gpu_tdt = gpu.transcribe_batch(clips, tdt)
-    after_tdt = {k: fn.launches for k, fn in counters().items()}
+    after_tdt = read_counts()
     gpu_ctc = gpu.transcribe_batch(clips, ctc)
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counts()
     log(f"  kernel launches (TDT call, CTC call; one encoder call each): "
-        + ", ".join(f"{k} {after_tdt[k]} + {launches[k] - after_tdt[k]}" for k in launches))
+        + ", ".join(f"{k} {after_tdt[k]} + {launches[k] - after_tdt[k]}" for k in launches if per_call[k]))
     for k, n in per_call.items():
         if after_tdt[k] != n or launches[k] != 2 * n:
             raise RuntimeError(f"{name}: expected {n} {k} launches per encoder call, got "
@@ -493,8 +658,62 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
         f"{audio_s / (wall / 1e3):.1f} audio s per wall s; one profiled batch: device time "
         f"{batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall [{card}]")
     return {"launches": launches, "wall_s": wall / 1e3, "rtfx": audio_s / (wall / 1e3), "enc_ms": enc,
-            "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_tdt],
+            "enc_dev_ms": enc_dev, "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_tdt],
             "ctc": [r.token_ids for r in gpu_ctc]}
+
+
+def fused_frontend_phase(flat, clips, card: str) -> dict:
+    """preprocess_audio_fused (K3) on each clip on the card, then
+    transcribe_features; tokens against a CPU Transcriber on the same
+    features, and the card's features against the CPU's."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_fused
+    from parakeet_tpu_torch.config import make_110m_config
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions, Transcriber
+
+    cfg = make_110m_config()
+    log(f"== path fused frontend: preprocess_audio_fused per clip (K3), then transcribe_features "
+        f"(tdt-ctc-110m, default encoder configuration), f32")
+    gpu = Transcriber(config=cfg, params=flat, device="cuda")
+    cpu = Transcriber(config=cfg, params=flat, device="cpu")
+    audio_cfg = gpu._audio_cfg
+    preprocess_audio_fused(clips[0], audio_cfg, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    feats = [preprocess_audio_fused(c, audio_cfg, "cuda") for c in clips]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"  kernel launches: fused_log_mel {launches['fused_log_mel']} for {len(clips)} clips")
+    if launches["fused_log_mel"] != len(clips):
+        raise RuntimeError(f"fused frontend: expected {len(clips)} fused_log_mel launches, got "
+                           f"{launches['fused_log_mel']}")
+    feat_diff = 0.0
+    for c, f in zip(clips, feats):
+        want_t = len(c) // audio_cfg.hop_length + 1
+        if tuple(f.shape) != (1, want_t, audio_cfg.n_mels) or not torch.isfinite(f).all():
+            raise RuntimeError(f"fused frontend: features of shape {tuple(f.shape)} (want "
+                               f"{(1, want_t, audio_cfg.n_mels)}) or not finite")
+        feat_diff = max(feat_diff, float((f.cpu() - preprocess_audio_fused(c, audio_cfg, "cpu")).abs().max()))
+    log(f"  features card vs CPU (plain log-mel): max|diff| {feat_diff:.3e} (normalised features)")
+    if feat_diff > 2 * LOG_MEL_ATOL:
+        raise RuntimeError("fused frontend: card features differ from the CPU's")
+    opts = TranscribeOptions(Decoder.TDT)
+    host = [f[0].cpu().numpy() for f in feats]
+    gpu_res = [gpu.transcribe_features(f, opts) for f in host]
+    cpu_res = [cpu.transcribe_features(f, opts) for f in host]
+    for i, (g, c) in enumerate(zip(gpu_res, cpu_res)):
+        if not g.token_ids:
+            raise RuntimeError(f"fused frontend: item {i} decoded to no tokens")
+        if g.token_ids != c.token_ids:
+            raise RuntimeError(f"fused frontend: item {i} tokens differ on card and CPU")
+    log(f"  tokens identical on card and CPU: TDT {sum(len(r.token_ids) for r in gpu_res)} tokens")
+    with torch.inference_mode():
+        fused_ms = median_ms(lambda: [preprocess_audio_fused(c, audio_cfg, "cuda") for c in clips], iters=5)
+        batch_ms = median_ms(lambda: gpu.prepare_batch(clips), iters=5)
+    log(f"  frontend for the 8 clips, CUDA-event ms (median of 5): fused per clip {fused_ms:.3f}, "
+        f"batched plain {batch_ms:.3f} [{card}]")
+    return {"launches": launches}
 
 
 def bf16_phase(fused, flat, clips, f32_tdt) -> None:
@@ -551,7 +770,11 @@ def main() -> int:
     kernel = {"rel_attention_block": attention_phase(card),
               "fused_feed_forward": feed_forward_phase(card),
               "fused_conv_module": conv_module_phase(card),
-              "fused_subsample_block1": subsample_phase(card)}
+              "fused_subsample_block1": subsample_phase(card),
+              "fused_conv_ffn_final": conv_ffn_final_phase(card),
+              "fused_ffn_attention": ffn_attention_phase(card),
+              "fused_rel_attention": rel_attention_v1_phase(card),
+              "fused_log_mel": log_mel_phase(card)}
 
     flat = P.init_params_numpy(P.tdt_ctc_spec(make_110m_config()), seed=0)
     clips = synthetic_clips(8, seed=1234)
@@ -565,24 +788,40 @@ def main() -> int:
         f"encoder stage {fused['enc_ms']:.3f} vs {default['enc_ms']:.3f} ms; warm TDT batch "
         f"{fused['wall_s'] * 1e3:.1f} vs {default['wall_s'] * 1e3:.1f} ms, RTFx {fused['rtfx']:.1f} vs "
         f"{default['rtfx']:.1f} [{card}]")
+    whole = path_phase("whole-block", FusedLayers(attention="mega", block2=True, subsample=True),
+                       flat, clips, card)
+    v1 = path_phase("v1", FusedLayers(attention="v1"), flat, clips, card)
+    for name, res in (("whole-block", whole), ("v1", v1)):
+        same = sum(a == b for a, b in zip(res["tdt"] + res["ctc"], fused["tdt"] + fused["ctc"]))
+        log(f"== {name} vs fused on the card: {same}/16 items with identical tokens; encoder stage "
+            f"{res['enc_ms']:.3f} vs {fused['enc_ms']:.3f} ms wall, {res['enc_dev_ms']:.3f} vs "
+            f"{fused['enc_dev_ms']:.3f} ms device [{card}]")
+    frontend = fused_frontend_phase(flat, clips, card)
     bf16_phase(fused_cfg, flat, clips, fused["tdt"])
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    sources = {"rel_attention_block": ("rel_attention.cu", "parakeet_tpu/ops/pallas_attention.py:510", 126),
-               "fused_feed_forward": ("feed_forward.cu", "parakeet_tpu/ops/pallas_ffn.py:62", 126),
-               "fused_conv_module": ("conv_module.cu", "parakeet_tpu/ops/pallas_conv.py:68", 126),
-               "fused_subsample_block1": ("subsample.cu", "parakeet_tpu/ops/pallas_subsample.py:168", 1001)}
+    # kernel: (source, the TPU kernel it replaces, the path whose launches count, timed shape)
+    sources = {
+        "rel_attention_block": ("rel_attention.cu", "parakeet_tpu/ops/pallas_attention.py:510", fused, 126),
+        "fused_feed_forward": ("feed_forward.cu", "parakeet_tpu/ops/pallas_ffn.py:62", fused, 126),
+        "fused_conv_module": ("conv_module.cu", "parakeet_tpu/ops/pallas_conv.py:68", fused, 126),
+        "fused_subsample_block1": ("subsample.cu", "parakeet_tpu/ops/pallas_subsample.py:168", fused, 1001),
+        "fused_conv_ffn_final": ("conv_ffn_final.cu", "parakeet_tpu/ops/pallas_block.py:75", whole, 126),
+        "fused_ffn_attention": ("ffn_attention.cu", "parakeet_tpu/ops/pallas_attention.py:630", whole, 126),
+        "fused_rel_attention": ("rel_attention_v1.cu", "parakeet_tpu/ops/pallas_attention.py:100", v1, 126),
+        "fused_log_mel": ("log_mel.cu", "parakeet_tpu/ops/pallas_frontend.py:88", frontend, 10),
+    }
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"parakeet_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": fused["launches"][name],
+        "launches": path["launches"][name],
         "max_abs_err": kernel[name]["max_abs_err"],
         "ms": kernel[name]["times"][t]["ms"],
         "plain_ms": kernel[name]["times"][t]["plain_ms"],
-    } for name, (src, replaces, t) in sources.items()]}))
+    } for name, (src, replaces, path, t) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -10,6 +10,9 @@ is plain torch on the target device. The windowed DFT is the reference's
 hop-block GEMM form: every frame starts on a hop boundary of the padded
 buffer, so the windowed DFT is a sum of ⌈(lpad+win)/hop⌉ GEMMs over
 contiguous hop blocks, with the all-zero sin columns dropped for even n_fft.
+`preprocess_audio_fused` is the one-clip form whose log-mel runs the fused
+kernel (ops/log_mel.py: the CUDA kernel on the card, its plain version on
+the CPU).
 """
 
 from __future__ import annotations
@@ -186,4 +189,33 @@ def preprocess_audio(
     return feats
 
 
-__all__ = ["LOG_GUARD", "mel_filterbank", "preprocess_audio", "preprocess_audio_batch"]
+def preprocess_audio_fused(
+    samples, config: AudioConfig = AudioConfig(), device: str | torch.device = "cpu"
+) -> torch.Tensor:
+    """preprocess_audio through the fused log-mel kernel (the reference's
+    audio/frontend.py::preprocess_audio_fused): host preemphasis and
+    reflect pad, the kernel's log-mel for every frame, then the clip's
+    unmasked per-feature normalisation (N−1 variance, std + 1e-5). One
+    clip; (1, n_frames, n_mels) f32 on `device`."""
+    from parakeet_tpu_torch.ops.log_mel import fused_log_mel
+
+    cfg = config
+    x = np.asarray(samples, np.float32)
+    if x.ndim != 1:
+        raise ValueError(f"expected 1D waveform, got shape {x.shape}")
+    f_max = cfg.f_max if cfg.f_max > 0 else cfg.sample_rate / 2.0
+    padded = torch.from_numpy(_preemphasize_and_pad(x, cfg)).to(device)
+    log_mel = fused_log_mel(
+        padded, n_fft=cfg.n_fft, hop=cfg.hop_length, win_length=cfg.win_length,
+        n_mels=cfg.n_mels, sample_rate=float(cfg.sample_rate), f_min=cfg.f_min, f_max=f_max,
+    )
+    if cfg.normalize:
+        n_frames = log_mel.shape[0]
+        centered = log_mel - log_mel.mean(dim=0, keepdim=True)
+        var = torch.sum(centered * centered, dim=0, keepdim=True) / (n_frames - 1)
+        log_mel = centered / (torch.sqrt(var) + 1e-5)
+    return log_mel[None]
+
+
+__all__ = ["LOG_GUARD", "mel_filterbank", "preprocess_audio", "preprocess_audio_batch",
+           "preprocess_audio_fused"]

@@ -28,6 +28,12 @@
 //                                                            K5 pw1
 //   EPI_ACT_NCHW  + bias, ReLU or SiLU, stored (B, N, rows) channel-major
 //                                                            K8 conv2
+//   EPI_POWER     W rows interleaved (cos_j, sin_j) as EPI_GLU's: re*re +
+//                 im*im, each product and the sum rounded on its own
+//                                                            K3 DFT
+//   EPI_LOG       log(acc + 2^-24)                           K3 mel
+// A's rows are lda apart (lda = K when 0): K3's DFT reads overlapping
+// frames x[t*hop + k] straight from the waveform, without building them.
 
 #pragma once
 
@@ -132,24 +138,27 @@ cudaError_t launch_layer_norm_rows(const void* x, const float* w, const float* b
 
 constexpr int GBM = 64, GBN = 64, GBK = 16;
 constexpr int EPI_PLAIN = 0, EPI_QKV = 1, EPI_SILU = 2, EPI_HALF_RES = 3, EPI_GLU = 4,
-              EPI_ACT_NCHW = 5;
+              EPI_ACT_NCHW = 5, EPI_POWER = 6, EPI_LOG = 7;
 constexpr int ACT_RELU = 0, ACT_SILU = 1;
 
 struct GemmArgs {
-  const void* a;                 // (M, K), activation dtype
+  const void* a;                 // (M, K) with rows lda apart, activation dtype
   const void* w[3];              // weight segments, torch layout (nseg, K) each;
-                                 // EPI_GLU: w[0] the a rows, w[1] the g rows
+                                 // EPI_GLU: w[0] the a rows, w[1] the g rows;
+                                 // EPI_POWER: w[0] the cos rows, w[1] the sin rows
   const void* bias[3];           // per-segment bias (nseg,) or null
   const float* ln_stats;         // (M, 2) mean, 1/std; null = no LN prologue
   const float* ln_w;             // (K,) f32
   const float* ln_b;             // (K,) f32
   const void* residual;          // (M, N) or null (EPI_PLAIN, EPI_HALF_RES)
   void* out[4];                  // out[0] (M, N), (M, N/2) for EPI_GLU, (B, N, T) for
-                                 // EPI_ACT_NCHW; QKV: qu, qv, k, v (B, H, T, hd)
+                                 // EPI_ACT_NCHW, (M, N/2) for EPI_POWER;
+                                 // QKV: qu, qv, k, v (B, H, T, hd)
   const void* bias_u;            // (D,) EPI_QKV
   const void* bias_v;            // (D,) EPI_QKV
   const int* lengths;            // (B,) valid rows per item, EPI_GLU
   int M, N, K, nseg;
+  int lda;                       // A's row stride in elements; 0 = K
   int T, H, HD;                  // T: rows per batch item (EPI_QKV, EPI_GLU, EPI_ACT_NCHW)
   float scale;
   int act;                       // ACT_RELU or ACT_SILU (EPI_ACT_NCHW)
@@ -173,7 +182,7 @@ __global__ void __launch_bounds__(BM * 4) gemm_nt_kernel(GemmArgs g) {
   const int lr = tid >> 2, lc = (tid & 3) * 4;
   const int am = m0 + lr;
   const bool a_ok = am < g.M;
-  const T* a_row = A + (size_t)(a_ok ? am : 0) * g.K;
+  const T* a_row = A + (size_t)(a_ok ? am : 0) * (g.lda > 0 ? g.lda : g.K);
   float mean = 0.f, rstd = 0.f;
   if (LN && a_ok) {
     mean = g.ln_stats[2 * am];
@@ -187,7 +196,7 @@ __global__ void __launch_bounds__(BM * 4) gemm_nt_kernel(GemmArgs g) {
     w_ok[p] = n < g.N;
     int seg = 0, row = 0;
     if (w_ok[p]) {
-      if constexpr (EPI == EPI_GLU) {
+      if constexpr (EPI == EPI_GLU || EPI == EPI_POWER) {
         seg = n & 1;
         row = n >> 1;
       } else {
@@ -274,6 +283,19 @@ __global__ void __launch_bounds__(BM * 4) gemm_nt_kernel(GemmArgs g) {
       }
       continue;
     }
+    if constexpr (EPI == EPI_POWER) {
+      // columns (2c, 2c+1) of this thread are bin c's real and imaginary parts
+      const int half = g.N >> 1;
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int n = n0 + tx * 4 + j;
+        if (n >= g.N) continue;
+        const float re = acc[i][j], im = acc[i][j + 1];
+        st(static_cast<T*>(g.out[0]) + (size_t)m * half + (n >> 1),
+           __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
@@ -295,6 +317,8 @@ __global__ void __launch_bounds__(BM * 4) gemm_nt_kernel(GemmArgs g) {
         const int b = m / g.T, r = m - b * g.T;
         const float z = g.act == ACT_RELU ? fmaxf(val, 0.f) : val * sigmoid_f32(val);
         st(static_cast<T*>(g.out[0]) + ((size_t)b * g.N + n) * g.T + r, z);
+      } else if constexpr (EPI == EPI_LOG) {
+        st(static_cast<T*>(g.out[0]) + (size_t)m * g.N + n, logf(val + 5.96046448e-8f));
       } else if constexpr (EPI == EPI_QKV) {
         const int b = m / g.T, t = m - b * g.T;
         const int h = nn / g.HD, c = nn - h * g.HD;

@@ -21,6 +21,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parakeet_tpu_torch"
 NVCC_FLAGS = (
@@ -28,6 +30,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+# the dtype argument every kernel entry takes: 0 = float32, 1 = bfloat16
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -100,4 +105,20 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "source_digest", "library_path", "build", "load"]
+def ptr(t: torch.Tensor | None):
+    """A tensor's device address for a ctypes call (None for no tensor)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of `device`, as the kernels' last argument."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "sources", "source_digest", "library_path",
+           "build", "load", "ptr", "stream", "check_rc"]

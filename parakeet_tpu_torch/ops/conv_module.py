@@ -26,10 +26,10 @@ import ctypes
 
 import torch
 
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
 from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_norm
 
 _F32 = torch.float32
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _valid_rows(lengths, b: int, t: int, device) -> torch.Tensor:
@@ -60,8 +60,6 @@ def fused_conv_module_reference(
 
 
 def _lib() -> ctypes.CDLL:
-    from parakeet_tpu_torch.ops._build import load
-
     lib = load("conv_module")
     fn = lib.pk_conv_module
     if fn.argtypes is None:
@@ -76,43 +74,50 @@ def build() -> None:
     _lib()
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):
+def checked_args(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths,
+                 name: str = "fused_conv_module"):
+    """The kernel's operands, checked against x and made contiguous:
+    (x, w1, b1, wd, bd, w2, b2) in x's dtype, the six norm and BN vectors
+    in f32, and the (B,) int32 valid row counts. Raises on what the kernel
+    does not take. Shared with K4, which runs the conv-module sequence."""
     b, t, d = x.shape
     k = wd.shape[-1]
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"fused_conv_module kernel takes float32 or bfloat16, got {dt}")
+    if dt not in DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
     if k % 2 == 0:
-        raise ValueError(f"fused_conv_module kernel: depthwise kernel size {k} must be odd")
+        raise ValueError(f"{name} kernel: depthwise kernel size {k} must be odd")
     mats = dict(w1=(w1, (2 * d, d, 1)), b1=(b1, (2 * d,)), wd=(wd, (d, 1, k)), bd=(bd, (d,)),
                 w2=(w2, (d, d, 1)), b2=(b2, (d,)))
-    for name, (w, shape) in mats.items():
+    for key, (w, shape) in mats.items():
         if w.device != x.device or w.dtype != dt:
-            raise ValueError(f"fused_conv_module: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+            raise ValueError(f"{name}: {key} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
         if tuple(w.shape) != shape:
-            raise ValueError(f"fused_conv_module: {name} has shape {tuple(w.shape)}, want {shape}")
-    w1, b1, wd, bd, w2, b2, x = (a.contiguous() for a in (w1, b1, wd, bd, w2, b2, x))
+            raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {shape}")
+    tensors = tuple(a.contiguous() for a in (x, w1, b1, wd, bd, w2, b2))
     vecs = [v.to(device=x.device, dtype=_F32).contiguous() for v in (norm_w, norm_b, bn_w, bn_b, bn_mean, bn_var)]
-    valid = _valid_rows(lengths, b, t, x.device).contiguous()
+    return (*tensors, vecs, _valid_rows(lengths, b, t, x.device).contiguous())
+
+
+def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):
+    x, w1, b1, wd, bd, w2, b2, vecs, valid = checked_args(
+        x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths)
+    b, t, d = x.shape
+    k = wd.shape[-1]
+    dt = x.dtype
 
     out = torch.empty_like(x)
     stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
     h, h2 = torch.empty_like(x), torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pk_conv_module(
-            _DTYPE_CODE[dt], _ptr(x), _ptr(vecs[0]), _ptr(vecs[1]), _ptr(w1), _ptr(b1),
-            _ptr(wd), _ptr(bd), _ptr(vecs[2]), _ptr(vecs[3]), _ptr(vecs[4]), _ptr(vecs[5]),
-            _ptr(w2), _ptr(b2), _ptr(valid), float(eps), _ptr(stats), _ptr(h), _ptr(h2),
-            _ptr(out), b, t, d, k, stream,
+            DTYPE_CODE[dt], ptr(x), ptr(vecs[0]), ptr(vecs[1]), ptr(w1), ptr(b1),
+            ptr(wd), ptr(bd), ptr(vecs[2]), ptr(vecs[3]), ptr(vecs[4]), ptr(vecs[5]),
+            ptr(w2), ptr(b2), ptr(valid), float(eps), ptr(stats), ptr(h), ptr(h2),
+            ptr(out), b, t, d, k, stream(x.device),
         )
-    if rc != 0:
-        raise RuntimeError(f"fused_conv_module kernel launch failed: CUDA error {rc}")
+    check_rc(rc, "fused_conv_module")
     fused_conv_module.launches += 1
     return out
 

@@ -24,10 +24,10 @@ import ctypes
 
 import torch
 
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
 from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
 
 _F32 = torch.float32
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_feed_forward_reference(
@@ -46,8 +46,6 @@ def fused_feed_forward_reference(
 
 
 def _lib() -> ctypes.CDLL:
-    from parakeet_tpu_torch.ops._build import load
-
     lib = load("feed_forward")
     fn = lib.pk_feed_forward
     if fn.argtypes is None:
@@ -62,25 +60,33 @@ def build() -> None:
     _lib()
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+def checked_args(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w=None, final_norm_b=None,
+                 name: str = "fused_feed_forward"):
+    """The kernel's operands, checked against x and made contiguous: the
+    weights in x's dtype and device, the four norm vectors in f32 (None
+    where not given). Raises on what the kernel does not take. Shared with
+    the kernels that run the FFN sequence (K4, K7)."""
+    d = x.shape[-1]
+    f = w1.shape[0]
+    dt = x.dtype
+    if dt not in DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
+    shapes = dict(w1=(f, d), b1=(f,), w2=(d, f), b2=(d,))
+    for key, w in dict(w1=w1, b1=b1, w2=w2, b2=b2).items():
+        if w.device != x.device or w.dtype != dt:
+            raise ValueError(f"{name}: {key} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+        if tuple(w.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {shapes[key]}")
+    norms = [norm_w, norm_b, final_norm_w, final_norm_b]
+    norms = [None if v is None else v.to(device=x.device, dtype=_F32).contiguous() for v in norms]
+    return (*(a.contiguous() for a in (x, w1, b1, w2, b2)), norms)
 
 
 def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
+    x, w1, b1, w2, b2, norms = checked_args(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b)
     b, t, d = x.shape
     f = w1.shape[0]
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"fused_feed_forward kernel takes float32 or bfloat16, got {dt}")
-    shapes = dict(w1=(f, d), b1=(f,), w2=(d, f), b2=(d,))
-    for name, w in dict(w1=w1, b1=b1, w2=w2, b2=b2).items():
-        if w.device != x.device or w.dtype != dt:
-            raise ValueError(f"fused_feed_forward: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
-        if tuple(w.shape) != shapes[name]:
-            raise ValueError(f"fused_feed_forward: {name} has shape {tuple(w.shape)}, want {shapes[name]}")
-    w1, b1, w2, b2, x = (a.contiguous() for a in (w1, b1, w2, b2, x))
-    norms = [norm_w, norm_b, final_norm_w, final_norm_b]
-    norms = [None if v is None else v.to(device=x.device, dtype=_F32).contiguous() for v in norms]
     final = final_norm_w is not None
 
     m = b * t
@@ -90,14 +96,12 @@ def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
     y = torch.empty_like(x) if final else None
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pk_feed_forward(
-            _DTYPE_CODE[dt], _ptr(x), _ptr(norms[0]), _ptr(norms[1]), _ptr(w1), _ptr(b1),
-            _ptr(w2), _ptr(b2), _ptr(norms[2]), _ptr(norms[3]), float(eps),
-            _ptr(stats), _ptr(h), _ptr(y), _ptr(out), m, d, f, stream,
+            DTYPE_CODE[dt], ptr(x), ptr(norms[0]), ptr(norms[1]), ptr(w1), ptr(b1),
+            ptr(w2), ptr(b2), ptr(norms[2]), ptr(norms[3]), float(eps),
+            ptr(stats), ptr(h), ptr(y), ptr(out), m, d, f, stream(x.device),
         )
-    if rc != 0:
-        raise RuntimeError(f"fused_feed_forward kernel launch failed: CUDA error {rc}")
+    check_rc(rc, "fused_feed_forward")
     fused_feed_forward.launches += 1
     return out
 

@@ -31,9 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+
 _F32 = torch.float32
 _NEG_INF = -1e9
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -52,7 +53,8 @@ def position_table_np(seq_len: int, d_model: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _position_table(seq_len: int, d_model: int, device: torch.device, dtype: torch.dtype):
+def position_table(seq_len: int, d_model: int, device: torch.device, dtype: torch.dtype):
+    """position_table_np on `device` in `dtype`, cached per (T, d, device, dtype)."""
     return torch.from_numpy(position_table_np(seq_len, d_model)).to(device=device, dtype=dtype)
 
 
@@ -110,7 +112,7 @@ def rel_attention_block_reference(
     qu = (f(q_s) + f((f(bias_u).reshape(d) * scale).to(dt))).to(dt)
     qv = (f(q_s) + f((f(bias_v).reshape(d) * scale).to(dt))).to(dt)
 
-    pe = _position_table(t, d, x.device, dt)
+    pe = position_table(t, d, x.device, dt)
     pos = (f(pe) @ f(pos_w).T).to(dt)  # (2T−1, D)
     content = split(qu) @ split(k).transpose(-1, -2)  # (B, H, T, T)
     raw = split(qv) @ f(pos).view(2 * t - 1, heads, hd).permute(1, 2, 0)  # (B, H, T, 2T−1)
@@ -130,8 +132,6 @@ def rel_attention_block_reference(
 
 
 def _lib() -> ctypes.CDLL:
-    from parakeet_tpu_torch.ops._build import load
-
     lib = load("rel_attention")
     fn = lib.pk_rel_attention_block
     if fn.argtypes is None:
@@ -142,41 +142,51 @@ def _lib() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Compile (if needed) and load the kernel library."""
+    """Compile (if needed) and load the kernel libraries of K1 and K2."""
     _lib()
+    _lib_v1()
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
+def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b,
+                 name: str = "rel_attention_block") -> dict:
+    """The block kernel's operands, checked against x and made contiguous:
+    the weights in x's dtype, the norm vectors in f32 (None without the
+    fused pre-LN), the (B,) int32 key lengths and the position table pe.
+    Raises on what the kernel does not take. Shared with K7, which runs the
+    block's launch sequence after the FFN's."""
     b, t, d = x.shape
     heads, hd = bias_u.shape
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"rel_attention_block kernel takes float32 or bfloat16, got {dt}")
+    if dt not in DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
     if heads * hd != d or hd not in _HEAD_DIMS:
-        raise ValueError(f"rel_attention_block kernel: D={d}, H={heads} gives head dim {hd}; supported {_HEAD_DIMS}")
+        raise ValueError(f"{name} kernel: D={d}, H={heads} gives head dim {hd}; supported {_HEAD_DIMS}")
     mats = dict(wq=wq, wk=wk, wv=wv, pos_w=pos_w, wo=wo)
     vecs = dict(bq=bq, bk=bk, bv=bv, bo=bo, bias_u=bias_u, bias_v=bias_v)
-    for name, w in {**mats, **vecs}.items():
+    for key, w in {**mats, **vecs}.items():
         if w.device != x.device or w.dtype != dt:
-            raise ValueError(f"rel_attention_block: {name} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
-    for name, w in mats.items():
+            raise ValueError(f"{name}: {key} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
+    for key, w in mats.items():
         if tuple(w.shape) != (d, d):
-            raise ValueError(f"rel_attention_block: {name} has shape {tuple(w.shape)}, want {(d, d)}")
-    for name in ("bq", "bk", "bv", "bo"):
-        if vecs[name].numel() != d:
-            raise ValueError(f"rel_attention_block: {name} has {vecs[name].numel()} elements, want {d}")
-    mats = {k: w.contiguous() for k, w in mats.items()}
-    vecs = {k: w.contiguous() for k, w in vecs.items()}
-    x = x.contiguous()
+            raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {(d, d)}")
+    for key in ("bq", "bk", "bv", "bo"):
+        if vecs[key].numel() != d:
+            raise ValueError(f"{name}: {key} has {vecs[key].numel()} elements, want {d}")
+    out = {k: w.contiguous() for k, w in {**mats, **vecs}.items()}
     if norm_w is not None:
         norm_w = norm_w.to(device=x.device, dtype=_F32).contiguous()
         norm_b = norm_b.to(device=x.device, dtype=_F32).contiguous()
-    kv = _key_lengths(lengths, b, t, x.device).contiguous()
-    pe = _position_table(t, d, x.device, dt)
+    out.update(norm_w=norm_w, norm_b=norm_b, kv=_key_lengths(lengths, b, t, x.device).contiguous(),
+               pe=position_table(t, d, x.device, dt))
+    return out
+
+
+def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
+    a = checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b)
+    x = x.contiguous()
+    b, t, d = x.shape
+    heads, hd = bias_u.shape
+    dt = x.dtype
 
     out = torch.empty_like(x)
     stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
@@ -185,17 +195,15 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, n
     ctx = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pk_rel_attention_block(
-            _DTYPE_CODE[dt], _ptr(x), _ptr(norm_w), _ptr(norm_b), float(eps),
-            _ptr(mats["wq"]), _ptr(vecs["bq"]), _ptr(mats["wk"]), _ptr(vecs["bk"]),
-            _ptr(mats["wv"]), _ptr(vecs["bv"]), _ptr(vecs["bias_u"]), _ptr(vecs["bias_v"]),
-            _ptr(pe), _ptr(mats["pos_w"]), _ptr(mats["wo"]), _ptr(vecs["bo"]), _ptr(kv),
-            _ptr(stats), _ptr(qu), _ptr(qv), _ptr(kh), _ptr(vh), _ptr(pos), _ptr(ctx), _ptr(out),
-            b, t, d, heads, stream,
+            DTYPE_CODE[dt], ptr(x), ptr(a["norm_w"]), ptr(a["norm_b"]), float(eps),
+            ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]),
+            ptr(a["wv"]), ptr(a["bv"]), ptr(a["bias_u"]), ptr(a["bias_v"]),
+            ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]), ptr(a["bo"]), ptr(a["kv"]),
+            ptr(stats), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
+            b, t, d, heads, stream(x.device),
         )
-    if rc != 0:
-        raise RuntimeError(f"rel_attention_block kernel launch failed: CUDA error {rc}")
+    check_rc(rc, "rel_attention_block")
     rel_attention_block.launches += 1
     return out
 
@@ -228,9 +236,107 @@ def rel_attention_block(
 
 rel_attention_block.launches = 0
 
+
+# ─── K2: the attention core with the projections outside ("v1") ────────────
+
+
+def fused_rel_attention_reference(
+    q_u: torch.Tensor,  # (B, H, T, hd): q + pos_bias_u, rounded to the dtype
+    q_v: torch.Tensor,  # (B, H, T, hd): q + pos_bias_v
+    k: torch.Tensor,  # (B, H, T, hd)
+    v: torch.Tensor,  # (B, H, T, hd)
+    p: torch.Tensor,  # (H, 2T−1, hd): the projected position table, per head
+    lengths=None,  # (B,) valid key counts
+) -> torch.Tensor:
+    """Plain torch version of K2, with the TPU kernel's order of operations:
+    content (q_u kᵀ) and position (q_v Pᵀ, row t shifted to P[T−1−t+s]) in
+    f32, summed, then scaled by 1/√hd; keys at or past the length −1e9;
+    f32 softmax normalised before AV, the probabilities rounded to the
+    dtype; AV in f32, rounded. (B, H, T, hd). Pad query rows hold garbage,
+    as in the kernel."""
+    b, heads, t, hd = q_u.shape
+    dt = q_u.dtype
+
+    def f(a):
+        return a.to(_F32)
+
+    content = f(q_u) @ f(k).transpose(-1, -2)  # (B, H, T, T)
+    raw = f(q_v) @ f(p).transpose(-1, -2)  # (B, H, T, 2T−1)
+    ar = torch.arange(t, device=q_u.device)
+    idx = (t - 1 - ar[:, None] + ar[None, :]).expand(b, heads, t, t)  # r = T−1−t+s
+    scores = (content + raw.gather(-1, idx)) * (1.0 / math.sqrt(hd))
+    kv = _key_lengths(lengths, b, t, q_u.device)
+    scores = scores.masked_fill((ar[None, :] >= kv[:, None])[:, None, None, :], _NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    return (f(probs) @ f(v)).to(dt)
+
+
+def _lib_v1() -> ctypes.CDLL:
+    lib = load("rel_attention_v1")
+    fn = lib.pk_rel_attention_v1
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 7 + [i] * 4 + [p]
+        fn.restype = i
+    return lib
+
+
+def _launch_v1(q_u, q_v, k, v, p, lengths):
+    b, heads, t, hd = q_u.shape
+    dt = q_u.dtype
+    if dt not in DTYPE_CODE:
+        raise TypeError(f"fused_rel_attention kernel takes float32 or bfloat16, got {dt}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"fused_rel_attention kernel: head dim {hd}; supported {_HEAD_DIMS}")
+    want = dict(q_v=(q_v, (b, heads, t, hd)), k=(k, (b, heads, t, hd)), v=(v, (b, heads, t, hd)),
+                p=(p, (heads, 2 * t - 1, hd)))
+    for name, (a, shape) in want.items():
+        if a.device != q_u.device or a.dtype != dt:
+            raise ValueError(f"fused_rel_attention: {name} is {a.dtype} on {a.device}, q_u is {dt} on {q_u.device}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"fused_rel_attention: {name} has shape {tuple(a.shape)}, want {shape}")
+    q_u, q_v, k, v, p = (a.contiguous() for a in (q_u, q_v, k, v, p))
+    kv = _key_lengths(lengths, b, t, q_u.device).contiguous()
+    out = torch.empty_like(q_u)
+    lib = _lib_v1()
+    with torch.cuda.device(q_u.device):
+        rc = lib.pk_rel_attention_v1(
+            DTYPE_CODE[dt], ptr(q_u), ptr(q_v), ptr(k), ptr(v), ptr(p), ptr(kv), ptr(out),
+            b, heads, t, hd, stream(q_u.device),
+        )
+    check_rc(rc, "fused_rel_attention")
+    fused_rel_attention.launches += 1
+    return out
+
+
+def fused_rel_attention(q_u, q_v, k, v, p, lengths=None) -> torch.Tensor:
+    """softmax(((q_u kᵀ) + rel_shift(q_v Pᵀ))/√hd, keys masked by length) v,
+    per (b, h); (B, H, T, hd) in q_u's dtype. Port of the reference's v1
+    kernel (pallas_attention.py::fused_rel_attention); the q/k/v, position
+    and out projections stay outside, with the caller.
+
+    On a CUDA tensor this launches the hand-written kernel
+    (csrc/rel_attention_v1.cu) or raises; on a CPU tensor it runs
+    `fused_rel_attention_reference`. Each kernel launch adds one to
+    `fused_rel_attention.launches`. Unlike the reference (T ≤ 768 there),
+    any T runs."""
+    if q_u.device.type == "cuda":
+        return _launch_v1(q_u, q_v, k, v, p, lengths)
+    if q_u.device.type == "cpu":
+        return fused_rel_attention_reference(q_u, q_v, k, v, p, lengths)
+    raise ValueError(f"fused_rel_attention: no implementation for device {q_u.device}")
+
+
+fused_rel_attention.launches = 0
+
 __all__ = [
     "position_table_np",
+    "position_table",
     "rel_attention_block",
     "rel_attention_block_reference",
+    "fused_rel_attention",
+    "fused_rel_attention_reference",
+    "checked_args",
     "build",
 ]

@@ -30,8 +30,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, stream
+
 _F32 = torch.float32
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"relu": 0, "silu": 1}
 
 
@@ -70,8 +71,6 @@ def fused_subsample_block1_reference(
 
 
 def _lib() -> ctypes.CDLL:
-    from parakeet_tpu_torch.ops._build import load
-
     lib = load("subsample")
     fn = lib.pk_subsample_block1
     if fn.argtypes is None:
@@ -90,7 +89,7 @@ def _launch(x, w1, b1, wd, bd, w2, b2, activation):
     b, t, f = x.shape
     c = w1.shape[0]
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
+    if dt not in DTYPE_CODE:
         raise TypeError(f"fused_subsample_block1 kernel takes float32 or bfloat16, got {dt}")
     shapes = dict(w1=(w1, (c, 1, 3, 3)), b1=(b1, (c,)), wd=(wd, (c, 1, 3, 3)), bd=(bd, (c,)),
                   w2=(w2, (c, c, 1, 1)), b2=(b2, (c,)))
@@ -109,14 +108,12 @@ def _launch(x, w1, b1, wd, bd, w2, b2, activation):
     y2 = torch.empty((b * t4 * f4, c), dtype=dt, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pk_subsample_block1(
-            _DTYPE_CODE[dt], x.data_ptr(), w1m.data_ptr(), b1v.data_ptr(), wdm.data_ptr(),
+            DTYPE_CODE[dt], x.data_ptr(), w1m.data_ptr(), b1v.data_ptr(), wdm.data_ptr(),
             bdv.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), _ACT_CODE[activation],
-            y2.data_ptr(), out.data_ptr(), b, t, f, c, stream,
+            y2.data_ptr(), out.data_ptr(), b, t, f, c, stream(x.device),
         )
-    if rc != 0:
-        raise RuntimeError(f"fused_subsample_block1 kernel launch failed: CUDA error {rc}")
+    check_rc(rc, "fused_subsample_block1")
     fused_subsample_block1.launches += 1
     return out
 

@@ -59,7 +59,15 @@ def test_repo_sources_resolve():
     for cu in sorted(_build._CSRC.glob("*.cu")):
         names = [p.name for p in _build.sources(cu.stem)]
         assert names[0] == cu.name
-        text = cu.read_text()
-        for header in ("gemm.cuh",):
-            if f'#include "{header}"' in text:
-                assert header in names
+        for header in _build._INCLUDE.findall(cu.read_bytes()):
+            assert header.decode() in names
+
+
+@pytest.mark.parametrize("name, headers", [
+    ("conv_ffn_final", ["conv_module.cuh", "gemm.cuh", "feed_forward.cuh"]),
+    ("ffn_attention", ["feed_forward.cuh", "gemm.cuh", "rel_attention.cuh"]),
+])
+def test_composed_kernels_hash_the_sequences_they_include(name, headers):
+    """K4 and K7 run K5's, K6's and K1's launch sequences from their
+    headers, so an edit to any of those rebuilds them too."""
+    assert [p.name for p in _build.sources(name)] == [f"{name}.cu", *headers]

@@ -141,16 +141,21 @@ def test_lengths_masks_and_position_table_match_reference():
 FUSED_MEL_LENGTHS = [520, 397, 233]  # T' = 65 ≥ 64, so the reference's FFN guard passes
 
 
-def _interpret_wrappers(monkeypatch):
-    """Run each reference Pallas kernel in interpret mode and count its calls."""
+def _interpret_wrappers(monkeypatch, extra: bool = False):
+    """Run each reference Pallas kernel in interpret mode and count its
+    calls; with `extra`, also the whole-block and v1 kernels."""
     import parakeet_tpu.ops.pallas_attention as PA
+    import parakeet_tpu.ops.pallas_block as PB
     import parakeet_tpu.ops.pallas_conv as PC
     import parakeet_tpu.ops.pallas_ffn as PF
     import parakeet_tpu.ops.pallas_subsample as PS
 
+    kernels = [(PA, "fused_rel_attention_block"), (PF, "fused_feed_forward"),
+               (PC, "fused_conv_module"), (PS, "fused_subsample_block1")]
+    if extra:
+        kernels += [(PA, "fused_ffn_attention"), (PB, "fused_conv_ffn_final"), (PA, "fused_rel_attention")]
     calls = {}
-    for mod, name in ((PA, "fused_rel_attention_block"), (PF, "fused_feed_forward"),
-                      (PC, "fused_conv_module"), (PS, "fused_subsample_block1")):
+    for mod, name in kernels:
         orig = getattr(mod, name)
         calls[name] = 0
 
@@ -223,3 +228,106 @@ def test_each_fused_layer_dispatches_its_kernel(model, monkeypatch, field):
     assert seen == {k: (want[k] if k == field else []) for k in seen}
     plain = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths).numpy()
     _valid_close(got, plain)
+
+
+def _fused_mel():
+    rng = np.random.RandomState(21)
+    mel = np.zeros((3, max(FUSED_MEL_LENGTHS), 80), np.float32)
+    for i, n in enumerate(FUSED_MEL_LENGTHS):
+        mel[i, :n] = rng.randn(n, 80)
+    return mel
+
+
+def _reference_encode(rcfg, rp, mel, attention, block2=False, subsample=False):
+    """The reference encoder under bench.py --fused-mode <attention>
+    [--fused-block2] [--fused-subsample]; every process global reset after."""
+    RE.set_fused_attention(attention)
+    RE.set_fused_block2(block2)
+    RE.set_fused_subsample(subsample)
+    try:
+        return np.asarray(RE.fastconformer_encode(rp, rcfg, jnp.asarray(mel), jnp.asarray(FUSED_MEL_LENGTHS)))
+    finally:
+        RE.set_fused_attention(False)
+        RE.set_fused_block2(False)
+        RE.set_fused_subsample(False)
+
+
+def _assert_fused_valid_close(got, ref):
+    assert got.shape == ref.shape
+    for i, n in enumerate(FUSED_MEL_LENGTHS):
+        tv = RE.subsample_length(n)
+        np.testing.assert_allclose(got[i, :tv], ref[i, :tv], rtol=RTOL, atol=ATOL, err_msg=f"item {i}")
+
+
+def test_whole_block_encoder_matches_reference_mega_block2(model, monkeypatch):
+    """FusedLayers(attention="mega", block2=True, subsample=True) against
+    the reference's --fused-mode mega --fused-block2 --fused-subsample:
+    two kernels per block (K7, K4) and K8 once."""
+    rcfg, tcfg, rp, tp, _ = model
+    mel = _fused_mel()
+    calls = _interpret_wrappers(monkeypatch, extra=True)
+    ref = _reference_encode(rcfg, rp, mel, "mega", block2=True, subsample=True)
+    layers = rcfg.num_layers
+    assert calls == {"fused_rel_attention_block": 0, "fused_feed_forward": 0, "fused_conv_module": 0,
+                     "fused_subsample_block1": 1, "fused_ffn_attention": layers,
+                     "fused_conv_ffn_final": layers, "fused_rel_attention": 0}, calls
+    fused = TE.FusedLayers(attention="mega", block2=True, subsample=True)
+    got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), torch.tensor(FUSED_MEL_LENGTHS), fused=fused)
+    _assert_fused_valid_close(got.numpy(), ref)
+
+
+def test_v1_encoder_matches_reference_v1(model, monkeypatch):
+    """FusedLayers(attention="v1") against the reference's --fused-mode v1:
+    the attention core as K2 once per block, projections outside."""
+    rcfg, tcfg, rp, tp, _ = model
+    mel = _fused_mel()
+    calls = _interpret_wrappers(monkeypatch, extra=True)
+    ref = _reference_encode(rcfg, rp, mel, "v1")
+    assert calls["fused_rel_attention"] == rcfg.num_layers
+    assert sum(calls.values()) == rcfg.num_layers, calls
+    got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), torch.tensor(FUSED_MEL_LENGTHS),
+                                  fused=TE.FusedLayers(attention="v1"))
+    _assert_fused_valid_close(got.numpy(), ref)
+
+
+PRECEDENCE = {
+    # FusedLayers fields → calls of each kernel's dispatch per block
+    "mega+block2 over ffn+conv": (dict(ffn=True, conv=True, attention="mega", block2=True),
+                                  dict(ffn_attention=1, conv_ffn_final=1)),
+    "mega, ffn2 and conv as fields say": (dict(ffn=True, attention="mega"),
+                                          dict(ffn_attention=1, feed_forward=1)),
+    "block2, ffn1 and K1 as fields say": (dict(ffn=True, conv=True, block2=True),
+                                          dict(feed_forward=1, attention_block=1, conv_ffn_final=1)),
+    "v1 with fused FFNs": (dict(ffn=True, attention="v1"),
+                           dict(feed_forward=2, rel_attention_v1=1)),
+    "v1 with block2": (dict(conv=True, attention="v1", block2=True),
+                       dict(rel_attention_v1=1, conv_ffn_final=1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRECEDENCE))
+def test_fused_layers_precedence(model, monkeypatch, case):
+    """mega takes ffn1 and the attention whatever ffn says; block2 takes the
+    conv module, ffn2 and the final LayerNorm whatever ffn and conv say."""
+    rcfg, tcfg, rp, tp, mel = model
+    fields, want = PRECEDENCE[case]
+    names = dict(ffn_attention="fused_ffn_attention", conv_ffn_final="fused_conv_ffn_final",
+                 feed_forward="fused_feed_forward", conv_module="fused_conv_module",
+                 attention_block="rel_attention_block", rel_attention_v1="fused_rel_attention")
+    seen = dict.fromkeys(names, 0)
+    for key, name in names.items():
+        def spy(*args, _orig=getattr(TE, name), _key=key, **kw):
+            seen[_key] += 1
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(TE, name, spy)
+    lengths = torch.tensor(MEL_LENGTHS)
+    got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths, fused=TE.FusedLayers(**fields))
+    assert seen == {k: want.get(k, 0) * tcfg.num_layers for k in names}
+    plain = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths).numpy()
+    _valid_close(got.numpy(), plain)
+
+
+def test_unknown_attention_mode_is_rejected():
+    with pytest.raises(ValueError, match="attention"):
+        TE.FusedLayers(attention="block4hp")
