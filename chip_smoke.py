@@ -11,13 +11,16 @@ Phases, each of which raises (exit code 1) on failure:
               the same CUDA tensors at the 110m widths, in f32 and bf16:
               K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
               with and without the fused LayerNorm + residual), K6 FFN
-              (T'=126 and 751, with and without the final LayerNorm), K5
+              (T'=126 and 751, with and without the final LayerNorm, timed
+              in f32 and bf16; and D=1024, F=4096 at T'=126), K5
               conv module (T'=126 and 751, mixed lengths and none), K8
               subsampling front (mel (8, 1001, 80) and (8, 6001, 80),
               C=256, ReLU, and SiLU once), K4 conv module + ffn2 + final
               LayerNorm and K7 ffn1 + attention block (T'=126 and 751,
               mixed lengths), K2 v1 attention core (H=8, hd=64, T'=126,
-              751 and 1001, mixed lengths), K3 log-mel (10 s and 60 s
+              751 and 1001, mixed lengths, one pass, timed in f32 and
+              bf16; B=1 at T'=3000, past the one-pass limit, two
+              passes), K3 log-mel (10 s and 60 s
               clips, f32 only, atol 2e-2 in log space); median CUDA-event
               ms and device ms (torch.profiler kernel time) of kernel and
               plain version
@@ -236,7 +239,7 @@ def feed_forward_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import feed_forward as FF
 
     log(f"== K6 fused_feed_forward vs fused_feed_forward_reference (B={B}, D={D}, F={FFN})")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(100 + t)
@@ -253,13 +256,31 @@ def feed_forward_phase(card: str) -> dict:
                 with torch.inference_mode():
                     got = FF.fused_feed_forward(*args, **kw)
                     ref = FF.fused_feed_forward_reference(*args, **kw)
-                tag = f"K6 T'={t} {name} final_norm={with_final}"
+                plan = FF.ffn_plan(B * t, D, FFN, got.element_size())
+                tag = f"K6 T'={t} {name} final_norm={with_final} (fc2 in {plan.splits} k slices)"
                 err = check_close(tag, got, ref)
                 if dtype == torch.float32:
                     out["max_abs_err"] = max(out["max_abs_err"], err)
-                    if not with_final:
-                        out["times"][t] = time_pair(tag, lambda: FF.fused_feed_forward(*args, **kw),
-                                                    lambda: FF.fused_feed_forward_reference(*args, **kw), card)
+                if not with_final:
+                    key = "times" if dtype == torch.float32 else "bf16_times"
+                    out[key][t] = time_pair(tag, lambda: FF.fused_feed_forward(*args, **kw),
+                                            lambda: FF.fused_feed_forward_reference(*args, **kw), card)
+    # the 600m presets' widths (config.py make_600m_config: d=1024, ffn 4096)
+    d6, f6 = 1024, 4096
+    for dtype, name in _dtypes():
+        rng = np.random.RandomState(1100)
+        dev = _dev(rng, dtype)
+        args = (dev(rng.randn(B, 126, d6)), dev(1 + 0.1 * rng.randn(d6), torch.float32),
+                dev(0.1 * rng.randn(d6), torch.float32), dev(rng.randn(f6, d6) / np.sqrt(d6)),
+                dev(0.05 * rng.randn(f6)), dev(rng.randn(d6, f6) / np.sqrt(f6)), dev(0.05 * rng.randn(d6)))
+        kw = dict(final_norm_w=dev(1 + 0.1 * rng.randn(d6), torch.float32),
+                  final_norm_b=dev(0.1 * rng.randn(d6), torch.float32))
+        with torch.inference_mode():
+            got = FF.fused_feed_forward(*args, **kw)
+            ref = FF.fused_feed_forward_reference(*args, **kw)
+        err = check_close(f"K6 T'=126 D={d6} F={f6} {name} final_norm=True", got, ref)
+        if dtype == torch.float32:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -419,23 +440,31 @@ def rel_attention_v1_phase(card: str) -> dict:
 
     hd = D // H
     log(f"== K2 fused_rel_attention vs fused_rel_attention_reference (B={B}, H={H}, hd={hd})")
-    out = {"max_abs_err": 0.0, "times": {}}
-    for t in (126, 751, 1001):  # 1001: past the reference's T <= 768 cap
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}}
+    # 126, 751, 1001: one pass over the keys (1001 is past the reference's
+    # T <= 768 cap); B=1 at 3000: past the one-pass limit, the two-pass kernel
+    for b, t in ((B, 126), (B, 751), (B, 1001), (1, 3000)):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(600 + t)
             dev = _dev(rng, dtype)
-            args = (*(dev(rng.randn(B, H, t, hd)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd)))
-            lengths = _mixed_lengths(rng, t)
+            args = (*(dev(rng.randn(b, H, t, hd)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd)))
+            lengths = _mixed_lengths(rng, t) if b == B else np.asarray([rng.randint(t // 2, t)])
             lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
             with torch.inference_mode():
                 got = RA.fused_rel_attention(*args, lengths=lt)
                 ref = RA.fused_rel_attention_reference(*args, lengths=lt)
-            tag = f"K2 T'={t} {name} mixed lengths"
+            plan = RA.v1_plan(t, hd, got.element_size())
+            if plan.one_pass != (t <= 1001):
+                raise RuntimeError(f"K2 T'={t}: plan {plan} (one pass expected for T' <= 1001 only)")
+            passes = f"one pass, {plan.rows} rows per block" if plan.one_pass else "two passes"
+            tag = f"K2 B={b} T'={t} {name} lengths {lengths.min()}-{lengths.max()} ({passes})"
             err = check_close(tag, got.transpose(1, 2), ref.transpose(1, 2), _valid_rows(lengths, t))
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                out["times"][t] = time_pair(tag, lambda: RA.fused_rel_attention(*args, lengths=lt),
-                                            lambda: RA.fused_rel_attention_reference(*args, lengths=lt), card)
+            if b == B:
+                key = "times" if dtype == torch.float32 else "bf16_times"
+                out[key][t] = time_pair(tag, lambda: RA.fused_rel_attention(*args, lengths=lt),
+                                        lambda: RA.fused_rel_attention_reference(*args, lengths=lt), card)
     return out
 
 
@@ -821,6 +850,9 @@ def main() -> int:
         "max_abs_err": kernel[name]["max_abs_err"],
         "ms": kernel[name]["times"][t]["ms"],
         "plain_ms": kernel[name]["times"][t]["plain_ms"],
+        **({"bf16_ms": kernel[name]["bf16_times"][t]["ms"],
+            "bf16_plain_ms": kernel[name]["bf16_times"][t]["plain_ms"]}
+           if kernel[name].get("bf16_times") else {}),
     } for name, (src, replaces, path, t) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,45 +1,43 @@
 // Launch sequence of K6, the fused macaron feed-forward (see
 // feed_forward.cu for what it computes and what bounds it): run_ffn
-// launches LN statistics, fc1 with SiLU, fc2 with the half-step residual
-// and the optional final LayerNorm on the caller's stream. Included by
-// feed_forward.cu, conv_ffn_final.cu and ffn_attention.cu.
+// launches the LayerNorm, fc1 with SiLU, fc2 in k slices and the pass that
+// sums the slices into the half-step residual and the optional final
+// LayerNorm, on the caller's stream. Included by feed_forward.cu,
+// conv_ffn_final.cu and ffn_attention.cu.
 #pragma once
 
-#include "gemm.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
+// Scratch (allocated by the caller): xn (M, D) and h (M, F) in T, part
+// (splits, M, D) f32. splits must divide fc2's k steps, ceil(F / 32).
 template <typename T>
 int run_ffn(const void* x, const float* nw, const float* nb, const void* w1, const void* b1,
-            const void* w2, const void* b2, const float* fw, const float* fb, float eps,
-            float* stats, void* h, void* y, void* out, int M, int D, int F, cudaStream_t stream) {
+            const void* w2, const void* b2, const float* fw, const float* fb, float eps, void* xn,
+            void* h, float* part, void* out, int M, int D, int F, int splits,
+            cudaStream_t stream) {
+  if (M == 0) return 0;
   cudaError_t err;
-  if ((err = launch_row_stats<T>(x, stats, M, D, eps, stream)) != cudaSuccess) return (int)err;
-
-  GemmArgs up = {};
-  up.a = x;
-  up.w[0] = w1;
-  up.bias[0] = b1;
-  up.ln_stats = stats;
-  up.ln_w = nw;
-  up.ln_b = nb;
-  up.out[0] = h;
-  up.M = M; up.N = F; up.K = D; up.nseg = F;
-  if ((err = launch_gemm<T, EPI_SILU>(up, stream)) != cudaSuccess) return (int)err;
-
-  GemmArgs down = {};
-  down.a = h;
-  down.w[0] = w2;
-  down.bias[0] = b2;
-  down.residual = x;
-  down.out[0] = fw != nullptr ? y : out;
-  down.M = M; down.N = D; down.K = F; down.nseg = D;
-  if ((err = launch_gemm<T, EPI_HALF_RES>(down, stream)) != cudaSuccess) return (int)err;
-
-  if (fw != nullptr &&
-      (err = launch_layer_norm_rows<T>(y, fw, fb, out, M, D, eps, stream)) != cudaSuccess)
+  if ((err = launch_layer_norm_rows<T>(x, nw, nb, xn, M, D, eps, stream)) != cudaSuccess)
     return (int)err;
-  return (int)cudaGetLastError();
+
+  FfnGemmArgs up = {};
+  up.a = xn;
+  up.w = w1;
+  up.bias = b1;
+  up.out = h;
+  up.M = M; up.N = F; up.K = D;
+  if ((err = launch_ffn_gemm<T, FE_SILU>(up, 1, stream)) != cudaSuccess) return (int)err;
+
+  FfnGemmArgs down = {};
+  down.a = h;
+  down.w = w2;
+  down.out = part;
+  down.M = M; down.N = D; down.K = F;
+  if ((err = launch_ffn_gemm<T, FE_PARTIAL>(down, splits, stream)) != cudaSuccess) return (int)err;
+
+  return (int)launch_ffn_reduce<T>(part, splits, x, b2, fw, fb, eps, out, M, D, stream);
 }
 
 }  // namespace

@@ -34,6 +34,11 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 # the dtype argument every kernel entry takes: 0 = float32, 1 = bfloat16
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# the H100's dynamic shared memory per block (bytes) and its SM count, for
+# the launch plans that the wrappers compute and pass to the kernels
+SHARED_MEMORY_LIMIT = 232_448
+SM_COUNT = 132
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -120,5 +125,5 @@ def check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "sources", "source_digest", "library_path",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources", "source_digest", "library_path",
            "build", "load", "ptr", "stream", "check_rc"]

@@ -21,13 +21,61 @@ weights); it takes any T and any width.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import (
+    DTYPE_CODE, SHARED_MEMORY_LIMIT, SM_COUNT, check_rc, load, ptr, stream)
 from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
 
 _F32 = torch.float32
+
+# csrc/ffn_gemm.cuh: block tile, k step, and shared memory per block by
+# element size (f32: 3 stages of 256 rows of 36 floats; bf16: 4 stages of
+# 256 rows of 40 values)
+GEMM_TILE = (128, 128)
+GEMM_K_STEP = 32
+GEMM_SMEM = {4: 3 * 256 * 36 * 4, 2: 4 * 256 * 40 * 2}
+MAX_SPLITS = 16
+# fc2's blocks must fill at least this share of the waves (of one block per
+# SM) that they take
+WAVE_FILL = 0.9
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    """How K6 launches for (M, D, F): fc2's k slices, the GEMMs' shared
+    memory per block and the scratch the wrapper allocates (bytes)."""
+
+    tile: tuple[int, int]
+    splits: int
+    smem: int
+    scratch: int
+
+
+def ffn_plan(m: int, d: int, f: int, itemsize: int = 4) -> FfnPlan:
+    """fc2 (N = D, K = F) is cut into the fewest k slices, each of whole k
+    steps, whose blocks give every SM one and fill at least WAVE_FILL of
+    the waves they take (at B=8, 110m widths: 8 slices at T'=126, 2 at
+    T'=751, 1 from T'=1001); when no count up to MAX_SPLITS does, the most.
+    Scratch:
+    the LayerNorm output (M, D) and the hidden (M, F) in the activation
+    dtype, fc2's f32 partials (splits, M, D)."""
+    tiles = -(-m // GEMM_TILE[0]) * -(-d // GEMM_TILE[1])
+    steps = -(-f // GEMM_K_STEP)
+    divisors = [s for s in range(1, min(steps, MAX_SPLITS) + 1) if steps % s == 0]
+
+    def fills(s: int) -> bool:
+        blocks = tiles * s
+        return blocks >= SM_COUNT and blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
+
+    splits = next((s for s in divisors if fills(s)), divisors[-1])
+    smem = GEMM_SMEM[itemsize]
+    if smem > SHARED_MEMORY_LIMIT:
+        raise ValueError(f"ffn_plan: {smem} B of shared memory per block")
+    scratch = (m * d + m * f) * itemsize + splits * m * d * 4
+    return FfnPlan(GEMM_TILE, splits, smem, scratch)
 
 
 def fused_feed_forward_reference(
@@ -50,7 +98,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_feed_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 3 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 4 + [p]
         fn.restype = i
     return lib
 
@@ -87,19 +135,19 @@ def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
     b, t, d = x.shape
     f = w1.shape[0]
     dt = x.dtype
-    final = final_norm_w is not None
 
     m = b * t
     out = torch.empty_like(x)
-    stats = torch.empty((m, 2), dtype=_F32, device=x.device)
+    plan = ffn_plan(m, d, f, x.element_size())
+    xn = torch.empty((m, d), dtype=dt, device=x.device)
     h = torch.empty((m, f), dtype=dt, device=x.device)
-    y = torch.empty_like(x) if final else None
+    part = torch.empty((plan.splits, m, d), dtype=_F32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_feed_forward(
             DTYPE_CODE[dt], ptr(x), ptr(norms[0]), ptr(norms[1]), ptr(w1), ptr(b1),
             ptr(w2), ptr(b2), ptr(norms[2]), ptr(norms[3]), float(eps),
-            ptr(stats), ptr(h), ptr(y), ptr(out), m, d, f, stream(x.device),
+            ptr(xn), ptr(h), ptr(part), ptr(out), m, d, f, plan.splits, stream(x.device),
         )
     check_rc(rc, "fused_feed_forward")
     fused_feed_forward.launches += 1
@@ -130,4 +178,4 @@ def fused_feed_forward(
 
 fused_feed_forward.launches = 0
 
-__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build"]
+__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build", "FfnPlan", "ffn_plan"]

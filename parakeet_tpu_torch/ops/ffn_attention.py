@@ -58,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_ffn_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 5 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 24 + [i] * 6 + [p]
         fn.restype = i
     return lib
 
@@ -83,7 +83,9 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
     out = torch.empty_like(x)
     stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    x2, ctx = torch.empty_like(x), torch.empty_like(x)
+    plan = FF.ffn_plan(b * t, d, f, x.element_size())
+    part = torch.empty((plan.splits, b * t, d), dtype=_F32, device=x.device)
+    x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds the FFN's LayerNorm output
     qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
     pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
     lib = _lib()
@@ -93,9 +95,9 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
             ptr(fc2_w), ptr(fc2_b), ptr(a["norm_w"]), ptr(a["norm_b"]), float(eps),
             ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]), ptr(a["wv"]), ptr(a["bv"]),
             ptr(a["bias_u"]), ptr(a["bias_v"]), ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]),
-            ptr(a["bo"]), ptr(a["kv"]), ptr(stats), ptr(hf), ptr(x2),
+            ptr(a["bo"]), ptr(a["kv"]), ptr(stats), ptr(hf), ptr(part), ptr(x2),
             ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-            b, t, d, heads, f, stream(x.device),
+            b, t, d, heads, f, plan.splits, stream(x.device),
         )
     check_rc(rc, name)
     fused_ffn_attention.launches += 1

@@ -26,12 +26,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, SHARED_MEMORY_LIMIT, check_rc, load, ptr, stream
 
 _F32 = torch.float32
 _NEG_INF = -1e9
@@ -272,12 +273,47 @@ def fused_rel_attention_reference(
     return (f(probs) @ f(v)).to(dt)
 
 
+# K2's one-pass blocks, preferred first: (query rows BM, key tile BN); BM *
+# BN / 16 threads, each with a 4x4 patch of scores (csrc/rel_attention_v1.cu)
+V1_BLOCKS = ((64, 32), (32, 64), (16, 64))
+_V1_TWO_PASS = (64, 32)  # the two-pass kernel's query rows and key tile
+
+
+@dataclass(frozen=True)
+class V1Plan:
+    """How K2 launches for (T, hd): `rows` query rows per block of the
+    one-pass kernel (0: the two-pass kernel), its key tile, threads and
+    dynamic shared memory per block (bytes)."""
+
+    rows: int
+    key_tile: int
+    threads: int
+    smem: int
+
+    @property
+    def one_pass(self) -> bool:
+        return self.rows > 0
+
+
+def v1_plan(t: int, hd: int, itemsize: int = 4) -> V1Plan:
+    """The largest one-pass block whose score rows (BM × round4(T) f32),
+    q_u and q_v (BM × hd) and two ring stages (a key tile and its band of
+    BM + BN − 1 position rows, hd wide, in the activation dtype) fit the
+    card's shared memory; past that, the two-pass kernel (f32 tiles)."""
+    for bm, bn in V1_BLOCKS:
+        smem = 4 * bm * (-(-t // 4) * 4) + itemsize * hd * (2 * bm + 2 * (2 * bn + bm - 1))
+        if smem <= SHARED_MEMORY_LIMIT:
+            return V1Plan(bm, bn, bm * bn // 16, smem)
+    bm, bn = _V1_TWO_PASS
+    return V1Plan(0, bn, 256, (2 * bn + bm + bn - 1) * (hd + 4) * 4)
+
+
 def _lib_v1() -> ctypes.CDLL:
     lib = load("rel_attention_v1")
     fn = lib.pk_rel_attention_v1
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 7 + [i] * 4 + [p]
+        fn.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
         fn.restype = i
     return lib
 
@@ -299,11 +335,12 @@ def _launch_v1(q_u, q_v, k, v, p, lengths):
     q_u, q_v, k, v, p = (a.contiguous() for a in (q_u, q_v, k, v, p))
     kv = _key_lengths(lengths, b, t, q_u.device).contiguous()
     out = torch.empty_like(q_u)
+    plan = v1_plan(t, hd, q_u.element_size())
     lib = _lib_v1()
     with torch.cuda.device(q_u.device):
         rc = lib.pk_rel_attention_v1(
             DTYPE_CODE[dt], ptr(q_u), ptr(q_v), ptr(k), ptr(v), ptr(p), ptr(kv), ptr(out),
-            b, heads, t, hd, stream(q_u.device),
+            b, heads, t, hd, plan.rows, plan.smem, stream(q_u.device),
         )
     check_rc(rc, "fused_rel_attention")
     fused_rel_attention.launches += 1
@@ -317,10 +354,11 @@ def fused_rel_attention(q_u, q_v, k, v, p, lengths=None) -> torch.Tensor:
     and out projections stay outside, with the caller.
 
     On a CUDA tensor this launches the hand-written kernel
-    (csrc/rel_attention_v1.cu) or raises; on a CPU tensor it runs
-    `fused_rel_attention_reference`. Each kernel launch adds one to
-    `fused_rel_attention.launches`. Unlike the reference (T ≤ 768 there),
-    any T runs."""
+    (csrc/rel_attention_v1.cu: one pass over the keys while a block's score
+    rows fit in shared memory, two passes past that, as `v1_plan` says) or
+    raises; on a CPU tensor it runs `fused_rel_attention_reference`. Each
+    kernel launch adds one to `fused_rel_attention.launches`. Unlike the
+    reference (T ≤ 768 there), any T runs."""
     if q_u.device.type == "cuda":
         return _launch_v1(q_u, q_v, k, v, p, lengths)
     if q_u.device.type == "cpu":
@@ -337,6 +375,8 @@ __all__ = [
     "rel_attention_block_reference",
     "fused_rel_attention",
     "fused_rel_attention_reference",
+    "V1Plan",
+    "v1_plan",
     "checked_args",
     "build",
 ]
