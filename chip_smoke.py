@@ -10,20 +10,29 @@ Phases, each of which raises (exit code 1) on failure:
   3. kernels  each hand-written kernel against its plain torch version on
               the same CUDA tensors at the 110m widths, in f32 and bf16:
               K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
-              with and without the fused LayerNorm + residual), K6 FFN
-              (T'=126 and 751, with and without the final LayerNorm, timed
-              in f32 and bf16; and D=1024, F=4096 at T'=126), K5
-              conv module (T'=126 and 751, mixed lengths and none), K8
-              subsampling front (mel (8, 1001, 80) and (8, 6001, 80),
-              C=256, ReLU, and SiLU once), K4 conv module + ffn2 + final
-              LayerNorm and K7 ffn1 + attention block (T'=126 and 751,
-              mixed lengths), K2 v1 attention core (H=8, hd=64, T'=126,
-              751 and 1001, mixed lengths, one pass, timed in f32 and
-              bf16; B=1 at T'=3000, past the one-pass limit, two
-              passes), K3 log-mel (10 s and 60 s
-              clips, f32 only, atol 2e-2 in log space); median CUDA-event
-              ms and device ms (torch.profiler kernel time) of kernel and
-              plain version
+              with and without the fused LayerNorm + residual, timed in f32
+              and bf16; the 600m widths D=1024, hd=128 at T'=126; B=1 at
+              T'=3000, one kernel for every length), K6 FFN (T'=126 and
+              751, with and without the final LayerNorm, timed in f32 and
+              bf16; and D=1024, F=4096 at T'=126), K5 conv module (T'=126
+              and 751, mixed lengths and none, timed in f32 and bf16; and
+              D=1024 at T'=126), K8 subsampling front (mel (8, 1001, 80)
+              and (8, 6001, 80), C=256, ReLU, and SiLU once), K4 conv
+              module + ffn2 + final LayerNorm and K7 ffn1 + attention block
+              (T'=126 and 751, mixed lengths), K2 v1 attention core (H=8,
+              hd=64, T'=126, 751 and 1001, mixed lengths, one pass, timed
+              in f32 and bf16; B=1 at T'=3000, past the one-pass limit, two
+              passes), K3 log-mel (10 s and 60 s clips, f32 only, atol 2e-2
+              in log space); median CUDA-event ms and device ms
+              (torch.profiler kernel time) of kernel and plain version.
+              For K1 and K5 in f32 at T'=126 and 751 also each launch's
+              device time by kernel name, torch.matmul on each GEMM
+              stage's shapes as a yardstick (never a port path), and the
+              whole call with the other block-row choice of the QKV / pw1
+              GEMM. Each kernel's bound: its operations (FMAs counted over
+              the valid keys in the attention cores) at the published f32
+              peak (bf16: tensor-core peak) against its bytes (inputs read
+              once, outputs written once) at the memory rate
   4. paths    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
               seeded random weights, f32, 8 synthetic clips of 2-10 s
               through transcribe_batch with TDT + timestamps and with CTC,
@@ -38,8 +47,9 @@ Phases, each of which raises (exit code 1) on failure:
               the same features; then a bf16 run of the fused
               configuration, its token edit distance against f32 reported
               (not a gate)
-The last two lines of output are a JSON line of per-kernel numbers and
-{"ok": true, "device": {...}}.
+The card's name and power limit, a JSON line of per-kernel numbers (with
+bound_ms, bound_by and the bound's share of the kernel time) and
+{"ok": true, "device": {...}} are the last three lines of output.
 """
 
 from __future__ import annotations
@@ -62,6 +72,10 @@ BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
 ENC_SCALE_FRAC = 1e-3  # f32 encoder, card vs CPU, 17 layers of reordered sums
 B, D, H, FFN = 8, 512, 8, 2048  # tdt-ctc-110m widths
 MEL, SUB_C = 80, 256
+# published H100 SXM peaks (NVIDIA's data sheet): f32 FMA on the CUDA cores
+# (the f32 kernels use IEEE FMA, not TF32), bf16 dense on the tensor cores,
+# HBM3 bandwidth
+F32_PEAK, BF16_PEAK, MEM_RATE = 67e12, 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -140,6 +154,139 @@ def time_pair(tag: str, kernel_fn, plain_fn, card: str) -> dict:
     return ms
 
 
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK) -> dict:
+    """The least time the card could take for a function: the larger of its
+    operations over the peak rate and its bytes (each input read once,
+    each output written once) over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / MEM_RATE * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "gflop": flops / 1e9, "mbyte": nbytes / 1e6}
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped), each counted once."""
+    return sum(a.numel() * a.element_size() for a in tensors if a is not None)
+
+
+def core_flops(t: int, hd: int, heads: int, key_lens) -> float:
+    """The attention cores (K2, and K1's): score (content + position) and
+    AV FMAs over the valid keys of each item (an item with no valid key
+    averages all T)."""
+    keys = sum(min(int(n), t) if int(n) > 0 else t for n in key_lens)
+    return 6 * hd * heads * t * keys
+
+
+def attention_flops(b: int, t: int, d: int, heads: int, key_lens) -> float:
+    """K1: QKV 2·M·D·3D, position 2·(2T−1)·D², out 2·M·D², and the core."""
+    m = b * t
+    return 2 * m * d * 3 * d + 2 * (2 * t - 1) * d * d + core_flops(t, d // heads, heads, key_lens) + 2 * m * d * d
+
+
+def ffn_flops(m: int, d: int, f: int) -> float:
+    return 4 * m * d * f
+
+
+def conv_flops(m: int, d: int, k: int) -> float:
+    return 2 * m * d * 2 * d + 2 * m * d * d + 2 * m * d * k
+
+
+def subsample_flops(b: int, t: int, f: int, c: int) -> float:
+    """K8: conv1 (1→C, 3x3, stride 2) at (T2, F2), dw1 (3x3, stride 2) and
+    conv2 (C→C pointwise) at (T4, F4)."""
+    t2, f2 = (t - 1) // 2 + 1, (f - 1) // 2 + 1
+    t4, f4 = (t2 - 1) // 2 + 1, (f2 - 1) // 2 + 1
+    return 2 * b * t2 * f2 * c * 9 + 2 * b * t4 * f4 * c * 9 + 2 * b * t4 * f4 * c * c
+
+
+def _kernel_label(key: str) -> str:
+    import re
+
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    depth, out = 0, []
+    for ch in key:  # drop the argument list, keep the template arguments
+        if ch == "(" and depth == 0:
+            break
+        depth += ch == "<"
+        depth -= ch == ">"
+        out.append(ch)
+    return re.sub(r"\s+", " ", "".join(out))[:90]
+
+
+def stage_times(tag: str, fn, gemms, card: str, calls: int = 10) -> dict:
+    """Device time per call of each kernel `fn` launches (torch.profiler,
+    by kernel name), and beside it the device time of torch.matmul on each
+    GEMM stage's shapes in f32 with TF32 off: a yardstick for that stage,
+    which the port never calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        stages = {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+                label = _kernel_label(evt.key)
+                stages[label] = stages.get(label, 0.0) + evt.self_device_time_total / 1e3 / calls
+        yard = {}
+        for name, m, n, k in gemms:
+            a = torch.randn(m, k, device="cuda")
+            w = torch.randn(n, k, device="cuda")
+            yard[f"{name} ({m}x{k} @ {k}x{n})"] = device_ms(lambda: torch.matmul(a, w.t()))
+    log(f"  {tag} stages, device ms per call [{card}]:")
+    for label, ms in stages.items():
+        log(f"    {ms:.4f}  {label}")
+    for label, ms in yard.items():
+        log(f"    yardstick torch.matmul f32 (TF32 off), not a port path: {label} {ms:.4f}")
+    return {"stages": stages, "yardstick": yard}
+
+
+def tile_choice(tag: str, fn, module, plan_fn: str, field: str, card: str, itemsize: int = 4) -> dict:
+    """Device time of `fn` with the launch plan's block rows for one
+    nonlinear-epilogue GEMM (`field` of the plan that `module.plan_fn`
+    returns) and with each other choice of 64, 96 and 128 rows, each timed
+    twice. Only this measurement swaps the plan; the port always runs the
+    plan's choice."""
+    import dataclasses
+
+    import torch
+
+    from parakeet_tpu_torch.ops.gemm_plan import GEMM_ROWS, gemm_smem
+
+    planner = getattr(module, plan_fn)
+    chosen = {}
+
+    def with_rows(rows):
+        def plan_fn_rows(*args, **kw):
+            plan = planner(*args, **kw)
+            g = getattr(plan, field)
+            chosen.setdefault("plan", g.rows)
+            if rows is None:
+                return plan
+            return dataclasses.replace(plan, **{field: dataclasses.replace(g, rows=rows, smem=gemm_smem(rows, itemsize))})
+        return plan_fn_rows
+
+    ms = {}
+    with torch.inference_mode():
+        for rows in (None, *GEMM_ROWS, *reversed(GEMM_ROWS), None):
+            setattr(module, plan_fn, with_rows(rows))
+            try:
+                t = device_ms(fn)
+            finally:
+                setattr(module, plan_fn, planner)
+            key = chosen["plan"] if rows is None else rows
+            ms[key] = min(ms.get(key, float("inf")), t)
+    log(f"  {tag} {field} GEMM block rows, device ms of the whole call (best of 2): "
+        + ", ".join(f"{r} rows {ms[r]:.4f}{' (the plan)' if r == chosen['plan'] else ''}" for r in GEMM_ROWS)
+        + f" [{card}]")
+    return ms
+
+
 def check_close(tag: str, got, ref, rows=None, atol: float = F32_ATOL, rtol: float = F32_RTOL) -> float:
     """Hold a kernel's output against its plain version; returns max |diff|."""
     import torch
@@ -196,24 +343,24 @@ def _dtypes():
     return ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
 
 
+def _attention_args(rng, dev, b, t, d, heads):
+    x = dev(rng.randn(b, t, d))
+    return [x, *_attention_weights(rng, dev, d, heads)]
+
+
 def attention_phase(card: str) -> dict:
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
     log(f"== K1 rel_attention_block vs rel_attention_block_reference (B={B}, D={D}, H={H})")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             for with_norm in (True, False):
                 rng = np.random.RandomState(t + with_norm)
-                dev, hd = _dev(rng, dtype), D // H
-                args = [dev(rng.randn(B, t, D))]
-                for _ in range(3):
-                    args += [dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 0.02, D))]
-                args += [dev(rng.normal(0, 0.02, (H, hd))), dev(rng.normal(0, 0.02, (H, hd))),
-                         dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 1 / np.sqrt(D), (D, D))),
-                         dev(rng.normal(0, 0.02, D))]
+                dev = _dev(rng, dtype)
+                args = _attention_args(rng, dev, B, t, D, H)
                 lengths = _mixed_lengths(rng, t)
                 kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"))
                 if with_norm:
@@ -226,10 +373,36 @@ def attention_phase(card: str) -> dict:
                 err = check_close(tag, got, ref, _valid_rows(lengths, t))
                 if dtype == torch.float32:
                     out["max_abs_err"] = max(out["max_abs_err"], err)
-                    if with_norm:
-                        out["times"][t] = time_pair(
-                            tag, lambda: RA.rel_attention_block(*args, **kw),
-                            lambda: RA.rel_attention_block_reference(*args, **kw), card)
+                if with_norm:
+                    fn = lambda: RA.rel_attention_block(*args, **kw)  # noqa: E731
+                    key = "times" if dtype == torch.float32 else "bf16_times"
+                    out[key][t] = time_pair(tag, fn, lambda: RA.rel_attention_block_reference(*args, **kw), card)
+                    pe_bytes = (2 * t - 1) * D * got.element_size()
+                    out[key.replace("times", "work")][t] = (attention_flops(B, t, D, H, lengths),
+                                                            tensor_bytes(*args, *kw.values(), got) + pe_bytes)
+                    if dtype == torch.float32:
+                        m = B * t
+                        out["stages"][t] = stage_times(tag, fn, [("QKV", m, 3 * D, D), ("P", 2 * t - 1, D, D),
+                                                                 ("out", m, D, D)], card)
+                        out["stages"][t]["tiles"] = tile_choice(tag, fn, RA, "block_plan", "qkv", card)
+    # the 600m widths (D=1024, H=8, hd=128), and one long item past any
+    # length cap (B=1, T'=3000, a mixed length): one kernel for every T
+    for b, t, d in ((B, 126, 1024), (1, 3000, D)):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(40 + t + d)
+            dev = _dev(rng, dtype)
+            args = _attention_args(rng, dev, b, t, d, H)
+            lengths = _mixed_lengths(rng, t) if b == B else np.asarray([rng.randint(t // 2, t)])
+            kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+                      norm_w=dev(1 + rng.normal(0, 0.1, d), torch.float32),
+                      norm_b=dev(rng.normal(0, 0.1, d), torch.float32))
+            with torch.inference_mode():
+                got = RA.rel_attention_block(*args, **kw)
+                ref = RA.rel_attention_block_reference(*args, **kw)
+            tag = f"K1 B={b} T'={t} D={d} hd={d // H} {name} lengths {lengths.min()}-{lengths.max()}"
+            err = check_close(tag, got, ref, _valid_rows(lengths, t))
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -239,7 +412,7 @@ def feed_forward_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import feed_forward as FF
 
     log(f"== K6 fused_feed_forward vs fused_feed_forward_reference (B={B}, D={D}, F={FFN})")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(100 + t)
@@ -265,6 +438,7 @@ def feed_forward_phase(card: str) -> dict:
                     key = "times" if dtype == torch.float32 else "bf16_times"
                     out[key][t] = time_pair(tag, lambda: FF.fused_feed_forward(*args, **kw),
                                             lambda: FF.fused_feed_forward_reference(*args, **kw), card)
+                    out[key.replace("times", "work")][t] = (ffn_flops(B * t, D, FFN), tensor_bytes(*args, got))
     # the 600m presets' widths (config.py make_600m_config: d=1024, ffn 4096)
     d6, f6 = 1024, 4096
     for dtype, name in _dtypes():
@@ -284,24 +458,22 @@ def feed_forward_phase(card: str) -> dict:
     return out
 
 
+def _conv_args(rng, dev, b, t, d):
+    x = dev(rng.randn(b, t, d))
+    return (x, *_conv_weights(rng, dev, d))
+
+
 def conv_module_phase(card: str) -> dict:
     import torch
 
     from parakeet_tpu_torch.ops import conv_module as CM
 
     log(f"== K5 fused_conv_module vs fused_conv_module_reference (B={B}, D={D}, k=9)")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(200 + t)
-            dev, f32 = _dev(rng, dtype), torch.float32
-            args = (dev(rng.randn(B, t, D)),
-                    dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
-                    dev(rng.randn(2 * D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(2 * D)),
-                    dev(rng.randn(D, 1, 9) / 3), dev(0.05 * rng.randn(D)),
-                    dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
-                    dev(0.1 * rng.randn(D), f32), dev(1 + 0.2 * np.abs(rng.randn(D)), f32),
-                    dev(rng.randn(D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(D)))
+            args = _conv_args(rng, _dev(rng, dtype), B, t, D)
             lengths = _mixed_lengths(rng, t)
             for masked in (True, False):
                 lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda") if masked else None
@@ -312,9 +484,27 @@ def conv_module_phase(card: str) -> dict:
                 err = check_close(tag, got, ref)
                 if dtype == torch.float32:
                     out["max_abs_err"] = max(out["max_abs_err"], err)
-                    if masked:
-                        out["times"][t] = time_pair(tag, lambda: CM.fused_conv_module(*args, lengths=lt),
-                                                    lambda: CM.fused_conv_module_reference(*args, lengths=lt), card)
+                if masked:
+                    fn = lambda: CM.fused_conv_module(*args, lengths=lt)  # noqa: E731
+                    key = "times" if dtype == torch.float32 else "bf16_times"
+                    out[key][t] = time_pair(tag, fn, lambda: CM.fused_conv_module_reference(*args, lengths=lt), card)
+                    out[key.replace("times", "work")][t] = (conv_flops(B * t, D, 9), tensor_bytes(*args, lt, got))
+                    if dtype == torch.float32:
+                        m = B * t
+                        out["stages"][t] = stage_times(tag, fn, [("pw1", m, 2 * D, D), ("pw2", m, D, D)], card)
+                        out["stages"][t]["tiles"] = tile_choice(tag, fn, CM, "conv_plan", "pw1", card)
+    # the 600m widths (D=1024)
+    d6 = 1024
+    for dtype, name in _dtypes():
+        rng = np.random.RandomState(1200)
+        args = _conv_args(rng, _dev(rng, dtype), B, 126, d6)
+        lt = torch.as_tensor(_mixed_lengths(rng, 126), dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            got = CM.fused_conv_module(*args, lengths=lt)
+            ref = CM.fused_conv_module_reference(*args, lengths=lt)
+        err = check_close(f"K5 T'=126 D={d6} {name} mixed_lengths=True", got, ref)
+        if dtype == torch.float32:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -324,7 +514,7 @@ def subsample_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import subsample as SS
 
     log(f"== K8 fused_subsample_block1 vs fused_subsample_block1_reference (B={B}, mel {MEL}, C={SUB_C})")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
     cases = [(t, dtype, name, "relu") for t in (1001, 6001) for dtype, name in _dtypes()]
     cases.append((1001, torch.float32, "f32", "silu"))
     for t, dtype, name, act in cases:
@@ -344,6 +534,7 @@ def subsample_phase(card: str) -> dict:
             if act == "relu":
                 out["times"][t] = time_pair(tag, lambda: SS.fused_subsample_block1(*args, activation=act),
                                             lambda: SS.fused_subsample_block1_reference(*args, activation=act), card)
+                out["work"][t] = (subsample_flops(B, t, MEL, SUB_C), tensor_bytes(*args, got))
     return out
 
 
@@ -356,26 +547,26 @@ def _ffn_weights(rng, dev):
             dev(rng.randn(D, FFN) / np.sqrt(FFN)), dev(0.05 * rng.randn(D))]
 
 
-def _conv_weights(rng, dev):
+def _conv_weights(rng, dev, d=D):
     import torch
 
     f32 = torch.float32
-    return [dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
-            dev(rng.randn(2 * D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(2 * D)),
-            dev(rng.randn(D, 1, 9) / 3), dev(0.05 * rng.randn(D)),
-            dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
-            dev(0.1 * rng.randn(D), f32), dev(1 + 0.2 * np.abs(rng.randn(D)), f32),
-            dev(rng.randn(D, D, 1) / np.sqrt(D)), dev(0.05 * rng.randn(D))]
+    return [dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32),
+            dev(rng.randn(2 * d, d, 1) / np.sqrt(d)), dev(0.05 * rng.randn(2 * d)),
+            dev(rng.randn(d, 1, 9) / 3), dev(0.05 * rng.randn(d)),
+            dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32),
+            dev(0.1 * rng.randn(d), f32), dev(1 + 0.2 * np.abs(rng.randn(d)), f32),
+            dev(rng.randn(d, d, 1) / np.sqrt(d)), dev(0.05 * rng.randn(d))]
 
 
-def _attention_weights(rng, dev):
-    hd = D // H
+def _attention_weights(rng, dev, d=D, heads=H):
+    hd = d // heads
     out = []
     for _ in range(3):
-        out += [dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 0.02, D))]
-    return out + [dev(rng.normal(0, 0.02, (H, hd))), dev(rng.normal(0, 0.02, (H, hd))),
-                  dev(rng.normal(0, 1 / np.sqrt(D), (D, D))), dev(rng.normal(0, 1 / np.sqrt(D), (D, D))),
-                  dev(rng.normal(0, 0.02, D))]
+        out += [dev(rng.normal(0, 1 / np.sqrt(d), (d, d))), dev(rng.normal(0, 0.02, d))]
+    return out + [dev(rng.normal(0, 0.02, (heads, hd))), dev(rng.normal(0, 0.02, (heads, hd))),
+                  dev(rng.normal(0, 1 / np.sqrt(d), (d, d))), dev(rng.normal(0, 1 / np.sqrt(d), (d, d))),
+                  dev(rng.normal(0, 0.02, d))]
 
 
 def conv_ffn_final_phase(card: str) -> dict:
@@ -384,7 +575,7 @@ def conv_ffn_final_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import conv_ffn_final as K4
 
     log(f"== K4 fused_conv_ffn_final vs fused_conv_ffn_final_reference (B={B}, D={D}, F={FFN}, k=9)")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(400 + t)
@@ -402,6 +593,7 @@ def conv_ffn_final_phase(card: str) -> dict:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
                 out["times"][t] = time_pair(tag, lambda: K4.fused_conv_ffn_final(*args, lengths=lt),
                                             lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
+                out["work"][t] = (conv_flops(B * t, D, 9) + ffn_flops(B * t, D, FFN), tensor_bytes(*args, lt, got))
     return out
 
 
@@ -411,7 +603,7 @@ def ffn_attention_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import ffn_attention as K7
 
     log(f"== K7 fused_ffn_attention vs fused_ffn_attention_reference (B={B}, D={D}, H={H}, F={FFN})")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(500 + t)
@@ -430,6 +622,9 @@ def ffn_attention_phase(card: str) -> dict:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
                 out["times"][t] = time_pair(tag, lambda: K7.fused_ffn_attention(*args, lengths=lt),
                                             lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
+                pe_bytes = (2 * t - 1) * D * got.element_size()
+                out["work"][t] = (ffn_flops(B * t, D, FFN) + attention_flops(B, t, D, H, lengths),
+                                  tensor_bytes(*args, lt, got) + pe_bytes)
     return out
 
 
@@ -440,7 +635,7 @@ def rel_attention_v1_phase(card: str) -> dict:
 
     hd = D // H
     log(f"== K2 fused_rel_attention vs fused_rel_attention_reference (B={B}, H={H}, hd={hd})")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
     # 126, 751, 1001: one pass over the keys (1001 is past the reference's
     # T <= 768 cap); B=1 at 3000: past the one-pass limit, the two-pass kernel
     for b, t in ((B, 126), (B, 751), (B, 1001), (1, 3000)):
@@ -465,6 +660,7 @@ def rel_attention_v1_phase(card: str) -> dict:
                 key = "times" if dtype == torch.float32 else "bf16_times"
                 out[key][t] = time_pair(tag, lambda: RA.fused_rel_attention(*args, lengths=lt),
                                         lambda: RA.fused_rel_attention_reference(*args, lengths=lt), card)
+                out[key.replace("times", "work")][t] = (core_flops(t, hd, H, lengths), tensor_bytes(*args, lt, got))
     return out
 
 
@@ -476,7 +672,7 @@ def log_mel_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import log_mel as K3
 
     log("== K3 fused_log_mel vs fused_log_mel_reference (one clip, n_fft 512, hop 160, 80 mels)")
-    out = {"max_abs_err": 0.0, "times": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
     for seconds in (10, 60):
         clip = synthetic_clips(1, seed=700 + seconds, min_s=seconds, max_s=seconds)[0]
         x = torch.from_numpy(_preemphasize_and_pad(clip, AudioConfig())).to("cuda")
@@ -488,6 +684,11 @@ def log_mel_phase(card: str) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["times"][seconds] = time_pair(tag, lambda: K3.fused_log_mel(x),
                                           lambda: K3.fused_log_mel_reference(x), card)
+        # the DFT (frames x n_fft @ n_fft x 2·257) and the mel GEMM (x 257 @ 257 x 80);
+        # bytes: samples, the window·cos/sin and filterbank matrices, the log-mel
+        frames, bins = got.shape[0], 512 // 2 + 1
+        out["work"][seconds] = (2 * frames * 512 * 2 * bins + 2 * frames * bins * MEL,
+                                tensor_bytes(x, got) + 4 * (2 * bins * 512 + bins * MEL))
     return out
 
 
@@ -840,20 +1041,38 @@ def main() -> int:
         "fused_rel_attention": ("rel_attention_v1.cu", "parakeet_tpu/ops/pallas_attention.py:100", v1, 126),
         "fused_log_mel": ("log_mel.cu", "parakeet_tpu/ops/pallas_frontend.py:88", frontend, 10),
     }
+    rows = []
+    for name, (src, replaces, path, t) in sources.items():
+        k = kernel[name]
+        flops, nbytes = k["work"][t]
+        f32_bound = bound(flops, nbytes)
+        row = {"name": name, "route": "cuda", "source": f"parakeet_tpu_torch/csrc/{src}",
+               "replaces": replaces, "launches": path["launches"][name],
+               "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
+               "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
+               "plain_dev_ms": k["times"][t]["plain_dev_ms"],
+               "bound_ms": f32_bound["bound_ms"], "bound_by": f32_bound["bound_by"],
+               "bound_share": f32_bound["bound_ms"] / k["times"][t]["ms"],
+               "gflop": f32_bound["gflop"], "mbyte": f32_bound["mbyte"],
+               # no single PyTorch call computes any of these fused functions
+               "library_ms": None}
+        if k.get("bf16_times"):
+            # bf16 bound: this run's bf16 inputs, every operation at the tensor-core rate
+            b16 = bound(*k["bf16_work"][t], BF16_PEAK)
+            row.update(bf16_ms=k["bf16_times"][t]["ms"], bf16_plain_ms=k["bf16_times"][t]["plain_ms"],
+                       bf16_bound_ms=b16["bound_ms"], bf16_bound_by=b16["bound_by"])
+        rows.append(row)
+        log(f"  bound {name} at {t}: {f32_bound['gflop']:.3f} GFLOP, {f32_bound['mbyte']:.2f} MB -> "
+            f"{f32_bound['bound_ms']:.4f} ms by {f32_bound['bound_by']} (f32); kernel {row['ms']:.4f} ms, "
+            f"{row['bound_share']:.1%} of bound [{card}]")
+    for name in ("rel_attention_block", "fused_conv_module", "fused_conv_ffn_final", "fused_ffn_attention",
+                 "fused_feed_forward"):
+        if 751 in kernel[name]["work"]:
+            b751 = bound(*kernel[name]["work"][751])
+            log(f"  bound {name} at T'=751: {b751['bound_ms']:.4f} ms by {b751['bound_by']}; kernel "
+                f"{kernel[name]['times'][751]['ms']:.4f} ms, plain {kernel[name]['times'][751]['plain_ms']:.4f}")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"parakeet_tpu_torch/csrc/{src}",
-        "replaces": replaces,
-        "launches": path["launches"][name],
-        "max_abs_err": kernel[name]["max_abs_err"],
-        "ms": kernel[name]["times"][t]["ms"],
-        "plain_ms": kernel[name]["times"][t]["plain_ms"],
-        **({"bf16_ms": kernel[name]["bf16_times"][t]["ms"],
-            "bf16_plain_ms": kernel[name]["bf16_times"][t]["plain_ms"]}
-           if kernel[name].get("bf16_times") else {}),
-    } for name, (src, replaces, path, t) in sources.items()]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

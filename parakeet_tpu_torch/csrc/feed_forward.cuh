@@ -24,20 +24,20 @@ int run_ffn(const void* x, const float* nw, const float* nb, const void* w1, con
 
   FfnGemmArgs up = {};
   up.a = xn;
-  up.w = w1;
-  up.bias = b1;
-  up.out = h;
+  up.w[0] = w1;
+  up.bias[0] = b1;
+  up.out[0] = h;
   up.M = M; up.N = F; up.K = D;
-  if ((err = launch_ffn_gemm<T, FE_SILU>(up, 1, stream)) != cudaSuccess) return (int)err;
+  if ((err = launch_tiled_gemm<T, FE_SILU, 128>(up, 1, stream)) != cudaSuccess) return (int)err;
 
   FfnGemmArgs down = {};
   down.a = h;
-  down.w = w2;
-  down.out = part;
+  down.w[0] = w2;
+  down.out[0] = part;
   down.M = M; down.N = D; down.K = F;
-  if ((err = launch_ffn_gemm<T, FE_PARTIAL>(down, splits, stream)) != cudaSuccess) return (int)err;
+  if ((err = launch_tiled_gemm<T, FE_PARTIAL, 128>(down, splits, stream)) != cudaSuccess) return (int)err;
 
-  return (int)launch_ffn_reduce<T>(part, splits, x, b2, fw, fb, eps, out, M, D, stream);
+  return (int)launch_gemm_reduce<T>(part, splits, x, 0.5f, b2, fw, fb, eps, out, M, D, stream);
 }
 
 }  // namespace

@@ -12,32 +12,54 @@
 //   ctx = softmax(score) v              (f32 softmax, normalised after AV)
 //   y = ctx Wo^T + bo (+ x when LN is fused)
 //
-// Three hand-written kernels, five launches in order on the caller's stream
-// (the first two live in gemm.cuh, shared with the other kernels; the
-// core and the launch sequence, run_block, in rel_attention.cuh, which K7
-// includes as well):
-//   row_stats_kernel   per-row LayerNorm mean and 1/std (only with LN)
-//   gemm_nt_kernel     tiled shared-memory GEMM, f32 accumulation; an LN
-//                      prologue on the A tile and two epilogues: QKV
-//                      (bias, scale fold, head-major qu/qv/k/v) and plain
-//                      (bias, optional residual). Launched for QKV, for
-//                      P and for the out-projection.
-//   rel_attn_kernel    flash-style attention core: grid (T/64, B*H), key
-//                      tiles of 32 with an online f32 softmax, so any T
-//                      runs without a length cap; the rel-pos term reads a
-//                      band of projected P rows from shared memory.
+// Hand-written kernels, in order on the caller's stream (the LayerNorm in
+// gemm.cuh, the GEMMs and the closing pass in ffn_gemm.cuh, shared with the
+// other kernels; the core and the launch sequence, run_block, in
+// rel_attention.cuh, which K7 includes as well):
+//   layer_norm_rows_kernel  x' = round(LN(x)) once (only with the LN), so
+//                           that the QKV GEMM takes A by cp.async
+//   ffn_gemm<QKV>           x' [wq | wk | wv]^T: bias, the 1/sqrt(hd) fold
+//                           and the head-major qu, qv, k, v stores; 64-, 96-
+//                           or 128-row tiles by the launch plan
+//   ffn_gemm<PARTIAL>       P = pe Wpos^T in k slices by the plan, and
+//   gemm_reduce_kernel      its closing pass: in-order slice sum, round
+//   rel_attn_kernel         the register-blocked flash core: grid (T/BM,
+//                           B*H); key tiles with their values and P band
+//                           through a double-buffered cp.async ring; any T
+//                           runs with one kernel
+//   ffn_gemm<PARTIAL>       ctx Wo^T in k slices by the plan, and
+//   gemm_reduce_kernel      its closing pass: in-order slice sum, + bo,
+//                           + x with the LN, round once
 //
-// What bounds it on the card: at the 110m widths (D=512, T'=126..751) the
-// projections are the FLOPs (2*B*T*D*4D) and the attention core is
-// O(B*H*T^2*hd). Both run on the CUDA cores in IEEE f32 FMA (no TF32, no
-// tensor cores), far below the tensor-core roofline. The design keeps every
-// score and probability in registers and shared memory (nothing of size
-// T^2 reaches device memory) and loads each key tile's P band once. On an
-// H100 80GB HBM3 at 700 W the attention core reached ~8 TFLOP/s of the 67
-// TFLOP/s f32 peak; it issues one shared-memory load per FMA, which is its
-// bound, and takes most of a call at T'=751. A call at B=8 took 0.23 ms of
-// device time at T'=126 and 2.18 ms at T'=751 (the plain version 0.21 and
-// 1.84 ms). Register blocking, and wgmma/TMA tiles for bf16, are later work.
+// What bounds it on the card: the FLOPs, in IEEE f32 FMA on the CUDA cores
+// (no TF32: f32 parity needs it; 67 TFLOP/s peak): the projections
+// (2*B*T*D*4D + 2*(2T-1)*D*D) and the core (6*hd*H*T*sum of valid keys).
+// At B=8, T'=126, D=512 that is 2.51 GFLOP, a 0.037 ms bound, against ~10
+// MB of operands (0.003 ms). An SM's shared memory serves 32 words per
+// clock against 128 FMAs, so a design that feeds each FMA from shared
+// memory runs at a fraction of the FMA rate. The design: the GEMMs on
+// ffn_gemm.cuh's register-blocked tiles, 8 x 8 f32 outputs per thread on
+// 128-row tiles (0.25 shared words per FMA; mma.sync tensor cores in bf16),
+// split along k where N = D leaves SMs idle, and the QKV GEMM, which cannot
+// split, on the 64-, 96- or 128-row tiles that load the busiest SM least;
+// a core where each thread owns a 4 x 8 patch of
+// scores (4 x 4 at f32, hd = 128) and reads q rows, 8 key rows and the 11
+// band rows the rel_shift maps its patch to, 4 values per read (0.42 words
+// per FMA), and AV blocked over 4 rows x hd/8 head dims (0.31-0.5 words per
+// FMA); the online max and sum are reduced over the 8 threads of a row;
+// nothing of size T^2 reaches device memory, and keys at or past the
+// length are skipped. bf16 runs the core in f32 SIMT on bf16 loads; tensor
+// cores for the core are later work.
+//
+// Measured (device time, B=8, 110m widths, mixed lengths, kernel / plain
+// version; NVIDIA H100 80GB HBM3, 700.00 W): f32 0.136 / 0.214 ms at
+// T'=126 (QKV GEMM 0.070, position and out-projection GEMMs 0.027, their
+// closing passes 0.012, core 0.021, LayerNorm 0.004) and 0.873 / 1.850 ms
+// at T'=751 (QKV 0.311, core 0.398: 21 TFLOP/s over the valid keys, GEMMs
+// 0.115, closing passes 0.029); bf16 0.094 / 0.318 and 0.534 / 2.042 ms.
+// The design before it (64x64 GEMM tiles with the LayerNorm on the A
+// loads, a core of one shared-memory load per FMA) took 0.232 and 2.184 ms
+// in f32.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
 // cudaGetLastError() (0 = success).
@@ -47,26 +69,28 @@
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. ln_w == null skips the LayerNorm
-// prologue and the residual; otherwise out = x + attention(LN(x)).
-// Scratch (allocated by the caller): stats (B*T, 2) f32; qu, qv, kh, vh
-// (B, H, T, hd); pos (2T-1, D); ctx (B, T, D) — all in the activation dtype
-// except stats.
+// and the residual; otherwise out = x + attention(LN(x)). Scratch
+// (allocated by the caller): part, the f32 partials of the position GEMM
+// and the out-projection (the larger of the two); qu, qv, kh, vh (B, H, T, hd); pos (2T-1, D);
+// ctx (B, T, D), all in the activation dtype. qkv_rows, pos_splits,
+// out_splits: the launch plan (ops/rel_attention.py block_plan).
 int pk_rel_attention_block(int dtype, const void* x, const float* ln_w, const float* ln_b,
                            float eps, const void* wq, const void* bq, const void* wk,
                            const void* bk, const void* wv, const void* bv, const void* bias_u,
                            const void* bias_v, const void* pe, const void* pos_w, const void* wo,
-                           const void* bo, const int* lengths, float* stats, void* qu, void* qv,
+                           const void* bo, const int* lengths, float* part, void* qu, void* qv,
                            void* kh, void* vh, void* pos, void* ctx, void* out, int B, int T,
-                           int D, int H, void* stream) {
+                           int D, int H, int qkv_rows, int pos_splits, int out_splits,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_block<float>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe,
-                            pos_w, wo, bo, lengths, stats, qu, qv, kh, vh, pos, ctx, out, B, T, D,
-                            H, s);
+                            pos_w, wo, bo, lengths, part, qu, qv, kh, vh, pos, ctx, out, B, T, D,
+                            H, qkv_rows, pos_splits, out_splits, s);
   if (dtype == 1)
     return run_block<__nv_bfloat16>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v,
-                                    pe, pos_w, wo, bo, lengths, stats, qu, qv, kh, vh, pos, ctx,
-                                    out, B, T, D, H, s);
+                                    pe, pos_w, wo, bo, lengths, part, qu, qv, kh, vh, pos, ctx,
+                                    out, B, T, D, H, qkv_rows, pos_splits, out_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

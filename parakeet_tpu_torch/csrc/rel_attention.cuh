@@ -1,119 +1,246 @@
 // Device code and launch sequence of K1, the fused rel-pos attention block
 // (see rel_attention.cu for what it computes and what bounds it): the
-// flash-style attention core and run_block, which launches LN statistics,
-// the QKV GEMM, the position GEMM, the core and the out-projection on the
-// caller's stream. Included by rel_attention.cu and ffn_attention.cu.
+// register-blocked flash attention core and run_block, which launches the
+// LayerNorm, the QKV GEMM, the position GEMM, the core and the
+// out-projection (with its closing pass when split) on the caller's stream.
+// The GEMMs are ffn_gemm.cuh's. Included by rel_attention.cu and
+// ffn_attention.cu.
 #pragma once
 
-#include "gemm.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
 // ─── Attention core ─────────────────────────────────────────────────────────
-// Block: 64 query rows of one (b, h), 4 threads per row, each thread owning
-// HD/4 of the head dims. Keys stream in tiles of 32 through shared memory
-// with the matching band of BM+BN-1 projected position rows.
+// Block: BM query rows of one (b, h), 2 * BM threads: BM/4 row groups of 8
+// threads. Thread (ty, tx) owns the 4 x PN patch of scores of rows ty*4 + i
+// and keys tx*PN + j of each key tile (PN = BN/8), and the running output
+// of the same 4 rows over head dims (tx + 8g)*4 .. +3 (g < HD/32). Key
+// tiles of BN rows stream with their values and their band of BM + BN - 1
+// projected position rows through a double-buffered cp.async ring.
 
-constexpr int ABM = 64, ABN = 32, ATHREADS = 256;
+// (BM, BN) per activation type and head dim: the largest of 64 x 64 whose
+// ring fits the card's shared memory (f32 at hd = 128 takes 32 x 32)
+template <typename T, int HD>
+struct CoreTile {
+  static constexpr int BM = (sizeof(T) == 4 && HD == 128) ? 32 : 64;
+  static constexpr int BN = BM;
+};
 
-template <int HD>
-constexpr int attn_smem_bytes() {
-  return (2 * ABN + ABM + ABN - 1) * (HD + 4) * (int)sizeof(float);
+template <typename T, int HD>
+constexpr int core_smem_bytes() {
+  constexpr int BM = CoreTile<T, HD>::BM, BN = CoreTile<T, HD>::BN;
+  return 4 * BM * (BN + 4) + (int)sizeof(T) * HD * (2 * BM + 2 * (2 * BN + BM + BN - 1));
+}
+
+// Element offset of (row r, element e) in a shared tile of HD-wide rows
+// whose 16-byte chunks are XOR-swizzled by r/8, so that the rows 8 apart
+// that neighbouring threads read fall in distinct bank groups.
+template <typename T, int HD>
+__device__ __forceinline__ int core_swz(int r, int e) {
+  constexpr int CH = 16 / (int)sizeof(T), NC = HD / CH;
+  constexpr int MASK = (NC < 8 ? NC : 8) - 1;
+  return r * HD + (((e / CH) ^ ((r >> 3) & MASK)) * CH) + e % CH;
+}
+
+__device__ __forceinline__ float4 core_ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 core_ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Rows row0 .. row0 + n - 1 of src (HD-wide rows `stride` elements apart)
+// into a swizzled tile, zero for rows outside [0, hi), by 16-byte cp.async.
+template <typename T, int HD, int THREADS>
+__device__ __forceinline__ void core_copy_rows(T* dst, const T* src, size_t stride, int row0, int n,
+                                               int hi, int tid) {
+  constexpr int CH = 16 / (int)sizeof(T), NC = HD / CH;
+  for (int i = tid; i < n * NC; i += THREADS) {
+    const int j = i / NC, c = (i - j * NC) * CH;
+    const int r = row0 + j;
+    const bool ok = r >= 0 && r < hi;
+    cp_async16(dst + core_swz<T, HD>(j, c), ok ? src + (size_t)r * stride + c : src, ok);
+  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(ATHREADS) rel_attn_kernel(
+__global__ void __launch_bounds__(2 * CoreTile<T, HD>::BM) rel_attn_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv, const T* __restrict__ kh,
     const T* __restrict__ vh, const T* __restrict__ pos, const int* __restrict__ lengths,
     T* __restrict__ ctx, int Tn, int H) {
-  constexpr int DPT = HD / 4, LDS = HD + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + ABN * LDS;
-  float* Ps = Vs + ABN * LDS;
+  constexpr int BM = CoreTile<T, HD>::BM, BN = CoreTile<T, HD>::BN;
+  constexpr int THREADS = 2 * BM, PN = BN / 8, PB = BM + BN - 1, G = HD / 32;
+  constexpr int LDP = BN + 4;                   // f32 probabilities per shared row
+  constexpr int STAGE = (2 * BN + PB) * HD;     // keys, values, position band
+  extern __shared__ __align__(16) unsigned char core_smem[];
+  float* ps = reinterpret_cast<float*>(core_smem);
+  T* q_u = reinterpret_cast<T*>(ps + BM * LDP);
+  T* q_v = q_u + BM * HD;
+  T* ring = q_v + BM * HD;
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int t0 = blockIdx.x * ABM;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const int t = t0 + row;
+  const int t0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int D = H * HD;
-  const bool row_ok = t < Tn;
   const int kv_len = min(lengths[b], Tn);
   // keys past kv_len carry -1e9 and add exactly 0 once a valid key is seen;
   // an item with no valid key averages all Tn keys, as the reference does
   const int n_keys = kv_len > 0 ? kv_len : Tn;
-
+  const int tiles = (n_keys + BN - 1) / BN;
   const size_t head = (size_t)bh * Tn * HD;
-  float q_u[DPT], q_v[DPT], acc[DPT];
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) {
-    const size_t o = head + (size_t)t * HD + part * DPT + d;
-    q_u[d] = row_ok ? ld(qu + o) : 0.f;
-    q_v[d] = row_ok ? ld(qv + o) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
+  const T* ph = pos + (size_t)h * HD;
 
-  for (int s0 = 0; s0 < n_keys; s0 += ABN) {
-    for (int i = tid; i < ABN * HD; i += ATHREADS) {
-      const int r = i / HD, c = i - r * HD;
-      const int s = s0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (s < Tn) {
-        kx = ld(kh + head + (size_t)s * HD + c);
-        vx = ld(vh + head + (size_t)s * HD + c);
+  // band row j of key tile s0 holds P[Tn - BM - t0 + s0 + j]; score (row
+  // tr, key ks) reads band row ks - tr + BM - 1
+  auto load_tile = [&](int it) {
+    T* stage = ring + (it & 1) * STAGE;
+    core_copy_rows<T, HD, THREADS>(stage, kh + head, HD, it * BN, BN, Tn, tid);
+    core_copy_rows<T, HD, THREADS>(stage + BN * HD, vh + head, HD, it * BN, BN, Tn, tid);
+    core_copy_rows<T, HD, THREADS>(stage + 2 * BN * HD, ph, D, Tn - BM - t0 + it * BN, PB, 2 * Tn - 1, tid);
+  };
+  core_copy_rows<T, HD, THREADS>(q_u, qu + head, HD, t0, BM, Tn, tid);
+  core_copy_rows<T, HD, THREADS>(q_v, qv + head, HD, t0, BM, Tn, tid);
+  load_tile(0);
+  cp_async_commit();
+
+  float acc[4][4 * G], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 4 * G; ++d) acc[i][d] = 0.f;
+  }
+  const int band0 = tx * PN - ty * 4 + BM - 4;  // the patch reads band rows band0 .. band0 + PN + 2
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    // tile it has landed for every thread; every thread is done with tile
+    // it - 1 (its stage and the probabilities)
+    __syncthreads();
+    if (it + 1 < tiles) load_tile(it + 1);
+    cp_async_commit();
+    const T* ks = ring + (it & 1) * STAGE;
+    const T* vs = ks + BN * HD;
+    const T* pb = vs + BN * HD;
+
+    // scores: content (q_u . k) and position (q_v . P band) over hd in
+    // order, 4 values per shared read
+    float s[4][PN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < PN; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < HD; e += 4) {
+      float4 a[4], k[PN];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = core_ld4(q_u + core_swz<T, HD>(ty * 4 + i, e));
+#pragma unroll
+      for (int j = 0; j < PN; ++j) k[j] = core_ld4(ks + core_swz<T, HD>(tx * PN + j, e));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < PN; ++j) {
+          s[i][j] = fmaf(a[i].x, k[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, k[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, k[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, k[j].w, s[i][j]);
+        }
+      float4 band[PN + 3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = core_ld4(q_v + core_swz<T, HD>(ty * 4 + i, e));
+#pragma unroll
+      for (int q = 0; q < PN + 3; ++q) band[q] = core_ld4(pb + core_swz<T, HD>(band0 + q, e));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < PN; ++j) {
+          const float4 r = band[j - i + 3];
+          s[i][j] = fmaf(a[i].x, r.x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, r.y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, r.z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, r.w, s[i][j]);
+        }
+    }
+
+    // online softmax: the tile's row max over the 8 threads of a row group,
+    // the running sums and outputs rescaled, the probabilities to shared
+    const int s_base = it * BN + tx * PN;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < PN; ++j) {
+        const int key = s_base + j;
+        if (key >= n_keys) s[i][j] = -INFINITY;
+        else if (key >= kv_len) s[i][j] = -1e9f;
+        tmax = fmaxf(tmax, s[i][j]);
       }
-      Ks[r * LDS + c] = kx;
-      Vs[r * LDS + c] = vx;
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 4));
+      const float m_new = fmaxf(m[i], tmax);
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < 4 * G; ++d) acc[i][d] *= alpha;
+      float* prow = ps + (ty * 4 + i) * LDP + tx * PN;
+#pragma unroll
+      for (int j = 0; j < PN; j += 4) {
+        float4 p4;
+        p4.x = expf(s[i][j] - m_new);
+        p4.y = expf(s[i][j + 1] - m_new);
+        p4.z = expf(s[i][j + 2] - m_new);
+        p4.w = expf(s[i][j + 3] - m_new);
+        l[i] += p4.x + p4.y + p4.z + p4.w;
+        *reinterpret_cast<float4*>(prow + j) = p4;
+      }
     }
-    // band row j holds P[r_lo + j]; row (tr, ks) reads j = ks + ABM-1-tr
-    const int r_lo = Tn - ABM - t0 + s0;
-    for (int i = tid; i < (ABM + ABN - 1) * HD; i += ATHREADS) {
-      const int j = i / HD, c = i - j * HD;
-      const int r = r_lo + j;
-      Ps[j * LDS + c] = (r >= 0 && r < 2 * Tn - 1) ? ld(pos + (size_t)r * D + h * HD + c) : 0.f;
-    }
-    __syncthreads();
+    __syncthreads();  // the tile's probabilities are complete
 
-    float sc[ABN];
-    float tile_max = -INFINITY;
+    // AV: 4 rows x 4G head dims per thread, 4 keys per step; keys at or
+    // past n_keys have probability 0 and are skipped in whole steps of 4
+    const int lim = min(BN, (n_keys - it * BN + 3) & ~3);
+    for (int kk = 0; kk < lim; kk += 4) {
+      float4 pr[4];
 #pragma unroll
-    for (int ks = 0; ks < ABN; ++ks) {
-      const float* kr = Ks + ks * LDS + part * DPT;
-      const float* pr = Ps + (ks + ABM - 1 - row) * LDS + part * DPT;
-      float a = 0.f;
+      for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * LDP + kk);
 #pragma unroll
-      for (int d = 0; d < DPT; ++d) a = fmaf(q_u[d], kr[d], fmaf(q_v[d], pr[d], a));
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      const int s = s0 + ks;
-      if (s >= n_keys) a = -INFINITY;
-      else if (s >= kv_len) a = -1e9f;
-      sc[ks] = a;
-      tile_max = fmaxf(tile_max, a);
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const float4 v = core_ld4(vs + core_swz<T, HD>(kk + q, (tx + 8 * gi) * 4));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = q == 0 ? pr[i].x : q == 1 ? pr[i].y : q == 2 ? pr[i].z : pr[i].w;
+            acc[i][gi * 4 + 0] = fmaf(p, v.x, acc[i][gi * 4 + 0]);
+            acc[i][gi * 4 + 1] = fmaf(p, v.y, acc[i][gi * 4 + 1]);
+            acc[i][gi * 4 + 2] = fmaf(p, v.z, acc[i][gi * 4 + 2]);
+            acc[i][gi * 4 + 3] = fmaf(p, v.w, acc[i][gi * 4 + 3]);
+          }
+        }
+      }
     }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int ks = 0; ks < ABN; ++ks) {
-      const float p = expf(sc[ks] - m_new);
-      l += p;
-      const float* vr = Vs + ks * LDS + part * DPT;
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
-    }
-    m = m_new;
-    __syncthreads();
   }
 
-  if (row_ok) {
-    const float inv = 1.f / l;
-    T* o = ctx + ((size_t)b * Tn + t) * D + h * HD + part * DPT;
+  // normalise after AV: the row sum over the 8 threads of the row group
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) st(o + d, acc[d] * inv);
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int t = t0 + ty * 4 + i;
+    if (t >= Tn) continue;
+    const float inv = 1.f / li;
+    T* o = ctx + ((size_t)b * Tn + t) * D + h * HD;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int d = 0; d < 4; ++d) st(o + (tx + 8 * gi) * 4 + d, acc[i][gi * 4 + d] * inv);
   }
 }
 
@@ -121,49 +248,56 @@ template <typename T, int HD>
 cudaError_t launch_attn(const void* qu, const void* qv, const void* kh, const void* vh,
                         const void* pos, const int* lengths, void* ctx, int B, int Tn, int H,
                         cudaStream_t stream) {
-  constexpr int smem = attn_smem_bytes<HD>();
+  constexpr int smem = core_smem_bytes<T, HD>(), BM = CoreTile<T, HD>::BM;
+  static_assert(smem <= 232448, "an H100 block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(rel_attn_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tn + ABM - 1) / ABM, B * H);
-  rel_attn_kernel<T, HD><<<grid, ATHREADS, smem, stream>>>(
+  dim3 grid((Tn + BM - 1) / BM, B * H);
+  rel_attn_kernel<T, HD><<<grid, 2 * BM, smem, stream>>>(
       static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(kh),
       static_cast<const T*>(vh), static_cast<const T*>(pos), lengths, static_cast<T*>(ctx),
       Tn, H);
   return cudaGetLastError();
 }
 
+// The launch plan (ops/rel_attention.py block_plan): qkv_rows, the QKV
+// GEMM's block rows (64, 96 or 128); pos_splits and out_splits, the k slices
+// of the position GEMM and the out-projection. part holds max(pos_splits *
+// (2T-1), out_splits * B*T) x D f32 partials. With the LayerNorm, its
+// output borrows ctx until the core writes it.
 template <typename T>
 int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, const void* wq,
               const void* bq, const void* wk, const void* bk, const void* wv, const void* bv,
               const void* bias_u, const void* bias_v, const void* pe, const void* pos_w,
-              const void* wo, const void* bo, const int* lengths, float* stats, void* qu,
+              const void* wo, const void* bo, const int* lengths, float* part, void* qu,
               void* qv, void* kh, void* vh, void* pos, void* ctx, void* out, int B, int Tn,
-              int D, int H, cudaStream_t stream) {
+              int D, int H, int qkv_rows, int pos_splits, int out_splits, cudaStream_t stream) {
   const int M = B * Tn, HD = D / H;
+  if (M == 0) return 0;
   cudaError_t err;
-  if (ln_w != nullptr && (err = launch_row_stats<T>(x, stats, M, D, eps, stream)) != cudaSuccess)
-    return (int)err;
+  const void* a = x;
+  if (ln_w != nullptr) {
+    if ((err = launch_layer_norm_rows<T>(x, ln_w, ln_b, ctx, M, D, eps, stream)) != cudaSuccess)
+      return (int)err;
+    a = ctx;
+  }
 
-  GemmArgs g = {};
-  g.a = x;
+  FfnGemmArgs g = {};
+  g.a = a;
   g.w[0] = wq; g.w[1] = wk; g.w[2] = wv;
   g.bias[0] = bq; g.bias[1] = bk; g.bias[2] = bv;
-  g.ln_stats = ln_w != nullptr ? stats : nullptr;
-  g.ln_w = ln_w; g.ln_b = ln_b;
   g.out[0] = qu; g.out[1] = qv; g.out[2] = kh; g.out[3] = vh;
   g.bias_u = bias_u; g.bias_v = bias_v;
   g.M = M; g.N = 3 * D; g.K = D; g.nseg = D;
   g.T = Tn; g.H = H; g.HD = HD;
   g.scale = 1.f / sqrtf((float)HD);
-  if ((err = launch_gemm<T, EPI_QKV>(g, stream)) != cudaSuccess) return (int)err;
+  // D = H * hd with hd in {32, 64, 128}: rows are 16-byte aligned
+  if ((err = launch_tiled_gemm_rows<T, FE_QKV, false>(g, qkv_rows, stream)) != cudaSuccess) return (int)err;
 
-  GemmArgs p = {};
-  p.a = pe;
-  p.w[0] = pos_w;
-  p.out[0] = pos;
-  p.M = 2 * Tn - 1; p.N = D; p.K = D; p.nseg = D;
-  if ((err = launch_gemm<T, EPI_PLAIN>(p, stream)) != cudaSuccess) return (int)err;
+  if ((err = launch_linear<T, false>(pe, pos_w, nullptr, nullptr, pos, part, 2 * Tn - 1, D, D,
+                                     pos_splits, stream)) != cudaSuccess)
+    return (int)err;
 
   switch (HD) {
     case 32: err = launch_attn<T, 32>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
@@ -173,15 +307,8 @@ int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, co
   }
   if (err != cudaSuccess) return (int)err;
 
-  GemmArgs o = {};
-  o.a = ctx;
-  o.w[0] = wo;
-  o.bias[0] = bo;
-  o.residual = ln_w != nullptr ? x : nullptr;
-  o.out[0] = out;
-  o.M = M; o.N = D; o.K = D; o.nseg = D;
-  if ((err = launch_gemm<T, EPI_PLAIN>(o, stream)) != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_linear<T, false>(ctx, wo, bo, ln_w != nullptr ? x : nullptr, out, part, M, D, D,
+                                      out_splits, stream);
 }
 
 }  // namespace

@@ -32,7 +32,9 @@
 // one shared-memory or register read per FMA; at B=8, T=1001, F=80, C=256 it
 // is ~1 GFLOP of f32 FMA against the 164 MB conv1 tensor (written and read
 // once) that the plain layers move through device memory. conv2 is a
-// (B*T4*F4, C) x (C, C) GEMM on the CUDA cores (0.67 GFLOP at that shape).
+// (B*T4*F4, C) x (C, C) GEMM on the CUDA cores: 2*B*T4*F4*C^2 = 5.26 GFLOP
+// at that shape (B=8, T4=251, F4=20, C=256), most of the call's 6.2 GFLOP
+// (0.092 ms at the 67 TFLOP/s f32 peak).
 // On an H100 80GB HBM3 at 700 W a call took 0.37 ms of device time at that
 // shape and 2.05 ms at T=6001, against 0.69-0.73 and 4.01 ms for the plain
 // version.

@@ -57,7 +57,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_conv_ffn_final
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 22 + [ctypes.c_float] + [p] * 7 + [i] * 6 + [p]
+        fn.argtypes = [i] + [p] * 22 + [ctypes.c_float] + [p] * 6 + [i] * 8 + [p]
         fn.restype = i
     return lib
 
@@ -80,12 +80,13 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
     dt = x.dtype
 
     out = torch.empty_like(x)
-    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
     h, h2, x2 = (torch.empty_like(x) for _ in range(3))
     # the FFN half's LayerNorm output reuses h (see csrc/conv_ffn_final.cu)
     plan = FF.ffn_plan(b * t, d, f, x.element_size())
+    conv = CM.conv_plan(b * t, d, x.element_size())
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    part = torch.empty((plan.splits, b * t, d), dtype=_F32, device=x.device)
+    # pw2's partials, then fc2's: one buffer for both
+    part = torch.empty(max(plan.splits * b * t * d, conv.partials), dtype=_F32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_conv_ffn_final(
@@ -93,8 +94,8 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
             ptr(cvecs[2]), ptr(cvecs[3]), ptr(cvecs[4]), ptr(cvecs[5]), ptr(w2), ptr(b2), ptr(valid),
             ptr(fvecs[0]), ptr(fvecs[1]), ptr(fc1_w), ptr(fc1_b), ptr(fc2_w), ptr(fc2_b),
             ptr(fvecs[2]), ptr(fvecs[3]), float(eps),
-            ptr(stats), ptr(h), ptr(h2), ptr(x2), ptr(hf), ptr(part), ptr(out), b, t, d, k, f,
-            plan.splits, stream(x.device),
+            ptr(h), ptr(h2), ptr(x2), ptr(hf), ptr(part), ptr(out), b, t, d, k, f,
+            plan.splits, *conv.ints(), stream(x.device),
         )
     check_rc(rc, name)
     fused_conv_ffn_final.launches += 1

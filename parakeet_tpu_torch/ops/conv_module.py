@@ -23,10 +23,12 @@ whole-array VMEM weight blocks; it takes any T, any width and any odd k.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
 from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_norm
 
 _F32 = torch.float32
@@ -59,12 +61,34 @@ def fused_conv_module_reference(
     )
 
 
+@dataclass(frozen=True)
+class ConvPlan:
+    """How K5's GEMMs launch for (M, D) (ops/gemm_plan.py): pw1 (GLU
+    epilogue, no split: the 64-, 96- or 128-row tiles over W1's 2D rows
+    that load the busiest SM least), pw2 (k slices, closed by the
+    reduction pass) and pw2's f32 partials."""
+
+    pw1: GemmPlan
+    pw2: GemmPlan
+    partials: int
+
+    def ints(self) -> tuple[int, int]:
+        """(pw1_rows, pw2_splits), as the C entries take them."""
+        return self.pw1.rows, self.pw2.splits
+
+
+def conv_plan(m: int, d: int, itemsize: int = 4) -> ConvPlan:
+    pw1 = gemm_plan(m, 2 * d, d, itemsize, split_k=False)
+    pw2 = gemm_plan(m, d, d, itemsize)
+    return ConvPlan(pw1, pw2, partial_elems(m, d, pw2))
+
+
 def _lib() -> ctypes.CDLL:
     lib = load("conv_module")
     fn = lib.pk_conv_module
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 14 + [ctypes.c_float] + [p] * 4 + [i] * 4 + [p]
+        fn.argtypes = [i] + [p] * 14 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
         fn.restype = i
     return lib
 
@@ -107,15 +131,16 @@ def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, 
     dt = x.dtype
 
     out = torch.empty_like(x)
-    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
-    h, h2 = torch.empty_like(x), torch.empty_like(x)
+    plan = conv_plan(b * t, d, x.element_size())
+    part = torch.empty(plan.partials, dtype=_F32, device=x.device)
+    h, h2 = torch.empty_like(x), torch.empty_like(x)  # h2 also holds the LayerNorm output
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_conv_module(
             DTYPE_CODE[dt], ptr(x), ptr(vecs[0]), ptr(vecs[1]), ptr(w1), ptr(b1),
             ptr(wd), ptr(bd), ptr(vecs[2]), ptr(vecs[3]), ptr(vecs[4]), ptr(vecs[5]),
-            ptr(w2), ptr(b2), ptr(valid), float(eps), ptr(stats), ptr(h), ptr(h2),
-            ptr(out), b, t, d, k, stream(x.device),
+            ptr(w2), ptr(b2), ptr(valid), float(eps), ptr(part), ptr(h), ptr(h2),
+            ptr(out), b, t, d, k, *plan.ints(), stream(x.device),
         )
     check_rc(rc, "fused_conv_module")
     fused_conv_module.launches += 1
@@ -147,4 +172,4 @@ def fused_conv_module(
 
 fused_conv_module.launches = 0
 
-__all__ = ["fused_conv_module", "fused_conv_module_reference", "build"]
+__all__ = ["fused_conv_module", "fused_conv_module_reference", "build", "ConvPlan", "conv_plan"]

@@ -25,22 +25,16 @@ from dataclasses import dataclass
 
 import torch
 
-from parakeet_tpu_torch.ops._build import (
-    DTYPE_CODE, SHARED_MEMORY_LIMIT, SM_COUNT, check_rc, load, ptr, stream)
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops.gemm_plan import GEMM_K_STEP, MAX_SPLITS, gemm_plan
 from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
 
 _F32 = torch.float32
 
-# csrc/ffn_gemm.cuh: block tile, k step, and shared memory per block by
-# element size (f32: 3 stages of 256 rows of 36 floats; bf16: 4 stages of
-# 256 rows of 40 values)
+# fc1 and fc2 run on csrc/ffn_gemm.cuh's 128 x 128 tiles (fc1 keeps them
+# rather than the plan's rows for nonlinear epilogues, so K6's launches stay
+# as they were)
 GEMM_TILE = (128, 128)
-GEMM_K_STEP = 32
-GEMM_SMEM = {4: 3 * 256 * 36 * 4, 2: 4 * 256 * 40 * 2}
-MAX_SPLITS = 16
-# fc2's blocks must fill at least this share of the waves (of one block per
-# SM) that they take
-WAVE_FILL = 0.9
 
 
 @dataclass(frozen=True)
@@ -55,27 +49,14 @@ class FfnPlan:
 
 
 def ffn_plan(m: int, d: int, f: int, itemsize: int = 4) -> FfnPlan:
-    """fc2 (N = D, K = F) is cut into the fewest k slices, each of whole k
-    steps, whose blocks give every SM one and fill at least WAVE_FILL of
-    the waves they take (at B=8, 110m widths: 8 slices at T'=126, 2 at
-    T'=751, 1 from T'=1001); when no count up to MAX_SPLITS does, the most.
-    Scratch:
-    the LayerNorm output (M, D) and the hidden (M, F) in the activation
-    dtype, fc2's f32 partials (splits, M, D)."""
-    tiles = -(-m // GEMM_TILE[0]) * -(-d // GEMM_TILE[1])
-    steps = -(-f // GEMM_K_STEP)
-    divisors = [s for s in range(1, min(steps, MAX_SPLITS) + 1) if steps % s == 0]
-
-    def fills(s: int) -> bool:
-        blocks = tiles * s
-        return blocks >= SM_COUNT and blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
-
-    splits = next((s for s in divisors if fills(s)), divisors[-1])
-    smem = GEMM_SMEM[itemsize]
-    if smem > SHARED_MEMORY_LIMIT:
-        raise ValueError(f"ffn_plan: {smem} B of shared memory per block")
-    scratch = (m * d + m * f) * itemsize + splits * m * d * 4
-    return FfnPlan(GEMM_TILE, splits, smem, scratch)
+    """fc2 (N = D, K = F) is cut into k slices by the shared GEMM plan
+    (ops/gemm_plan.py gemm_plan: at B=8, 110m widths, 8 slices at T'=126,
+    2 at T'=751, 1 from T'=1001). Scratch: the LayerNorm output (M, D) and
+    the hidden (M, F) in the activation dtype, fc2's f32 partials (splits,
+    M, D)."""
+    fc2 = gemm_plan(m, d, f, itemsize)
+    scratch = (m * d + m * f) * itemsize + fc2.splits * m * d * 4
+    return FfnPlan(GEMM_TILE, fc2.splits, fc2.smem, scratch)
 
 
 def fused_feed_forward_reference(
@@ -178,4 +159,5 @@ def fused_feed_forward(
 
 fused_feed_forward.launches = 0
 
-__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build", "FfnPlan", "ffn_plan"]
+__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build", "FfnPlan", "ffn_plan",
+           "GEMM_K_STEP", "MAX_SPLITS"]

@@ -31,8 +31,6 @@ from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops import rel_attention as RA
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
 
-_F32 = torch.float32
-
 
 def fused_ffn_attention_reference(
     x: torch.Tensor,  # (B, T, D) block input
@@ -58,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_ffn_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 24 + [i] * 6 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 9 + [p]
         fn.restype = i
     return lib
 
@@ -81,11 +79,12 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
     dt = x.dtype
 
     out = torch.empty_like(x)
-    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
     plan = FF.ffn_plan(b * t, d, f, x.element_size())
-    part = torch.empty((plan.splits, b * t, d), dtype=_F32, device=x.device)
-    x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds the FFN's LayerNorm output
+    attn = RA.block_plan(b, t, d, x.element_size())
+    # fc2's partials, then the attention half's: one buffer for both
+    part = torch.empty(max(plan.splits * b * t * d, attn.partials), dtype=torch.float32, device=x.device)
+    x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds both LayerNorm outputs
     qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
     pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
     lib = _lib()
@@ -95,9 +94,9 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
             ptr(fc2_w), ptr(fc2_b), ptr(a["norm_w"]), ptr(a["norm_b"]), float(eps),
             ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]), ptr(a["wv"]), ptr(a["bv"]),
             ptr(a["bias_u"]), ptr(a["bias_v"]), ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]),
-            ptr(a["bo"]), ptr(a["kv"]), ptr(stats), ptr(hf), ptr(part), ptr(x2),
+            ptr(a["bo"]), ptr(a["kv"]), ptr(hf), ptr(part), ptr(x2),
             ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-            b, t, d, heads, f, plan.splits, stream(x.device),
+            b, t, d, heads, f, plan.splits, *attn.ints(), stream(x.device),
         )
     check_rc(rc, name)
     fused_ffn_attention.launches += 1

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, SHARED_MEMORY_LIMIT, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
 
 _F32 = torch.float32
 _NEG_INF = -1e9
@@ -132,12 +133,38 @@ def rel_attention_block_reference(
     return out.to(dt)
 
 
+@dataclass(frozen=True)
+class BlockPlan:
+    """How K1's GEMMs launch for (B, T, D) (ops/gemm_plan.py): the QKV
+    GEMM (nonlinear epilogue, no split: the 64-, 96- or 128-row tiles that
+    load the busiest SM least), the position
+    GEMM P = pe Wposᵀ and the out-projection (k slices, closed by the
+    reduction pass), and the f32 partials the two share."""
+
+    qkv: GemmPlan
+    pos: GemmPlan
+    out: GemmPlan
+    partials: int
+
+    def ints(self) -> tuple[int, int, int]:
+        """(qkv_rows, pos_splits, out_splits), as the C entries take them."""
+        return self.qkv.rows, self.pos.splits, self.out.splits
+
+
+def block_plan(b: int, t: int, d: int, itemsize: int = 4) -> BlockPlan:
+    m, p_rows = b * t, 2 * t - 1
+    qkv = gemm_plan(m, 3 * d, d, itemsize, split_k=False)
+    pos = gemm_plan(p_rows, d, d, itemsize)
+    out = gemm_plan(m, d, d, itemsize)
+    return BlockPlan(qkv, pos, out, max(partial_elems(p_rows, d, pos), partial_elems(m, d, out)))
+
+
 def _lib() -> ctypes.CDLL:
     lib = load("rel_attention")
     fn = lib.pk_rel_attention_block
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 4 + [p]
+        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 7 + [p]
         fn.restype = i
     return lib
 
@@ -190,10 +217,11 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, n
     dt = x.dtype
 
     out = torch.empty_like(x)
-    stats = torch.empty((b * t, 2), dtype=_F32, device=x.device)
+    plan = block_plan(b, t, d, x.element_size())
+    part = torch.empty(plan.partials, dtype=_F32, device=x.device)
     qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
     pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
-    ctx = torch.empty_like(x)
+    ctx = torch.empty_like(x)  # also holds the LayerNorm output until the core writes it
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_rel_attention_block(
@@ -201,8 +229,8 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, n
             ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]),
             ptr(a["wv"]), ptr(a["bv"]), ptr(a["bias_u"]), ptr(a["bias_v"]),
             ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]), ptr(a["bo"]), ptr(a["kv"]),
-            ptr(stats), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-            b, t, d, heads, stream(x.device),
+            ptr(part), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
+            b, t, d, heads, *plan.ints(), stream(x.device),
         )
     check_rc(rc, "rel_attention_block")
     rel_attention_block.launches += 1
@@ -377,6 +405,8 @@ __all__ = [
     "fused_rel_attention_reference",
     "V1Plan",
     "v1_plan",
+    "BlockPlan",
+    "block_plan",
     "checked_args",
     "build",
 ]

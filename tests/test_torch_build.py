@@ -65,19 +65,22 @@ def test_repo_sources_resolve():
 
 @pytest.mark.parametrize("name, headers", [
     ("feed_forward", ["feed_forward.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
-    ("conv_ffn_final", ["conv_module.cuh", "gemm.cuh", "feed_forward.cuh", "ffn_gemm.cuh",
-                        "async_copy.cuh"]),
+    ("rel_attention", ["rel_attention.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
+    ("conv_module", ["conv_module.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
+    ("conv_ffn_final", ["conv_module.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh",
+                        "feed_forward.cuh"]),
     ("ffn_attention", ["feed_forward.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh",
                        "rel_attention.cuh"]),
 ])
 def test_composed_kernels_hash_the_sequences_they_include(name, headers):
-    """K6, K4 and K7 run K6's launch sequence and its GEMMs from their
-    headers (K4 and K7 also K5's and K1's), so an edit to any of those
-    rebuilds them too; the libraries that do not run K6 do not hash its
-    GEMM header, so their sources and outputs stay as they were."""
+    """K6, K1 and K5 run their launch sequences and the shared tiled GEMM
+    from their headers (K4 and K7 compose K5's, K6's and K1's), so an edit
+    to any of those rebuilds them too; K8 and K3, which stay on gemm.cuh's
+    small GEMM, do not hash the tiled GEMM's header, so their sources and
+    outputs stay as they were."""
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", *headers]
-    for other in ("rel_attention", "conv_module", "subsample", "log_mel"):
+    for other in ("subsample", "log_mel"):
         names = [p.name for p in _build.sources(other)]
-        assert "ffn_gemm.cuh" not in names and "async_copy.cuh" not in names, other
+        assert names == [f"{other}.cu", "gemm.cuh"], other
     assert [p.name for p in _build.sources("rel_attention_v1")] == [
         "rel_attention_v1.cu", "async_copy.cuh", "gemm.cuh"]

@@ -1,4 +1,5 @@
-"""Launch plans of K6 (ops/feed_forward.py ffn_plan) and K2
+"""Launch plans of the shared tiled GEMM (ops/gemm_plan.py gemm_plan, as
+K6's ffn_plan, K1's block_plan and K5's conv_plan use it) and of K2
 (ops/rel_attention.py v1_plan), computed in Python and passed to the CUDA
 kernels as ints. A launch refused for too much shared memory never runs,
 so these checks are the guard that runs without a card."""
@@ -7,7 +8,9 @@ import pytest
 import torch
 
 from parakeet_tpu_torch.ops import _build
+from parakeet_tpu_torch.ops import conv_module as CM
 from parakeet_tpu_torch.ops import feed_forward as FF
+from parakeet_tpu_torch.ops import gemm_plan as GP
 from parakeet_tpu_torch.ops import rel_attention as RA
 
 LIMIT = 232_448  # an H100 block's dynamic shared memory, bytes
@@ -66,6 +69,72 @@ def test_ffn_plan_evens_out_the_last_wave_at_sixty_second_clips():
 def test_ffn_plan_takes_odd_widths():
     plan = FF.ffn_plan(10, 36, 70)
     assert plan.splits >= 1 and -(-70 // 32) % plan.splits == 0
+
+
+# the block kernels' GEMMs at the preset widths: (name, N as a multiple of
+# D, whether the epilogue is linear and may split k)
+BLOCK_GEMMS = (("qkv", 3, False), ("pw1", 2, False), ("out", 1, True), ("pw2", 1, True))
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("d", (512, 1024))
+@pytest.mark.parametrize("t", SEQ_LENS)
+@pytest.mark.parametrize("name, width, linear", BLOCK_GEMMS)
+def test_gemm_plan_fits_and_splits_whole_k_steps(name, width, linear, t, d, itemsize):
+    m, n = 8 * t, width * d
+    plan = GP.gemm_plan(m, n, d, itemsize, split_k=linear)
+    assert plan.smem <= LIMIT and plan.smem == GP.gemm_smem(plan.rows, itemsize)
+    assert plan.rows in GP.GEMM_ROWS
+    assert plan.blocks == -(-m // plan.rows) * -(-n // 128) * plan.splits
+    steps = -(-d // GP.GEMM_K_STEP)
+    assert steps % plan.splits == 0 and 1 <= plan.splits <= GP.MAX_SPLITS
+    if linear:
+        assert plan.rows == 128
+    else:
+        # a nonlinear epilogue never splits k; its block rows put the least
+        # work on the busiest SM, the fewest rows on a tie
+        def busiest(rows):
+            return -(-(-(-m // rows) * -(-n // 128)) // 132) * rows
+
+        assert plan.splits == 1
+        assert all(busiest(plan.rows) < busiest(r) or (busiest(plan.rows) == busiest(r) and plan.rows <= r)
+                   for r in GP.GEMM_ROWS)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("d", (512, 1024))
+def test_narrow_gemms_fill_the_card_at_ten_second_clips(d, itemsize):
+    """B=8, T'=126: the out-projection and pw2 (N = D) have too few
+    128x128 tiles alone (32 at D=512), so k is split: 8 slices at D=512."""
+    m = 8 * 126
+    assert GP.gemm_plan(m, d, d, itemsize).blocks >= 132
+    assert GP.gemm_plan(m, 512, 512, itemsize).splits == 8
+    # K1's QKV: 11 x 12 = 132 blocks of 96 rows, one per SM; K5's pw1: 128
+    # blocks of 64 rows
+    assert GP.gemm_plan(m, 3 * 512, 512, itemsize, split_k=False).rows == 96
+    assert GP.gemm_plan(m, 2 * 512, 512, itemsize, split_k=False).rows == 64
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("t", SEQ_LENS)
+def test_block_and_conv_plans_size_their_partials(t, itemsize):
+    """K1's position GEMM and out-projection share one f32 partials buffer
+    (their closing passes run one after the other); K5's pw2 has its own."""
+    b, d = 8, 512
+    plan = RA.block_plan(b, t, d, itemsize)
+    assert plan.qkv.splits == 1 and plan.ints() == (plan.qkv.rows, plan.pos.splits, plan.out.splits)
+    assert plan.partials == max(plan.pos.splits * (2 * t - 1) * d, plan.out.splits * b * t * d)
+    conv = CM.conv_plan(b * t, d, itemsize)
+    assert conv.pw1.splits == 1 and conv.ints() == (conv.pw1.rows, conv.pw2.splits)
+    assert conv.partials == conv.pw2.splits * b * t * d
+
+
+def test_ffn_plan_is_the_shared_plan_of_fc2():
+    for m, d, f in ((1008, 512, 2048), (6008, 512, 2048), (1008, 1024, 4096), (10, 36, 70)):
+        for itemsize in ITEMSIZES:
+            fc2 = GP.gemm_plan(m, d, f, itemsize)
+            plan = FF.ffn_plan(m, d, f, itemsize)
+            assert (plan.tile, plan.splits, plan.smem) == ((128, 128), fc2.splits, fc2.smem)
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
