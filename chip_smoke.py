@@ -17,22 +17,28 @@ Phases, each of which raises (exit code 1) on failure:
               bf16; and D=1024, F=4096 at T'=126), K5 conv module (T'=126
               and 751, mixed lengths and none, timed in f32 and bf16; and
               D=1024 at T'=126), K8 subsampling front (mel (8, 1001, 80)
-              and (8, 6001, 80), C=256, ReLU, and SiLU once), K4 conv
+              and (8, 6001, 80), C=256, ReLU timed in f32 and bf16, SiLU
+              checked at T=1001), K4 conv
               module + ffn2 + final LayerNorm and K7 ffn1 + attention block
               (T'=126 and 751, mixed lengths), K2 v1 attention core (H=8,
               hd=64, T'=126, 751 and 1001, mixed lengths, one pass, timed
               in f32 and bf16; B=1 at T'=3000, past the one-pass limit, two
               passes), K3 log-mel (10 s and 60 s clips, f32 only, atol 2e-2
               in log space); median CUDA-event ms and device ms
-              (torch.profiler kernel time) of kernel and plain version.
-              For K1 and K5 in f32 at T'=126 and 751 also each launch's
-              device time by kernel name, torch.matmul on each GEMM
-              stage's shapes as a yardstick (never a port path), and the
-              whole call with the other block-row choice of the QKV / pw1
-              GEMM. Each kernel's bound: its operations (FMAs counted over
-              the valid keys in the attention cores) at the published f32
-              peak (bf16: tensor-core peak) against its bytes (inputs read
-              once, outputs written once) at the memory rate
+              (torch.profiler kernel time) of kernel and plain version; a
+              call whose profile shows no device time is profiled again,
+              and fails the run if it still shows none. For K1 and K5 in
+              f32 at T'=126 and 751, K8 at T=1001 and 6001 (f32 and bf16)
+              and K3 at 10 and 60 s also each launch's device time by
+              kernel name, torch.matmul on each GEMM stage's shapes as a
+              yardstick (never a port path), and the whole call under the
+              other block-row choices of the QKV / pw1 / conv2 GEMM (K3:
+              each DFT plan of 64 or 128 rows and 1-8 k slices). Each
+              kernel's bound at every timed shape: its operations (FMAs
+              counted over the valid keys in the attention cores) at the
+              published f32 peak (bf16: tensor-core peak) against its
+              bytes (inputs read once, outputs written once) at the
+              memory rate
   4. paths    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
               seeded random weights, f32, 8 synthetic clips of 2-10 s
               through transcribe_batch with TDT + timestamps and with CTC,
@@ -40,7 +46,8 @@ Phases, each of which raises (exit code 1) on failure:
               FusedLayers(ffn, conv, subsample), the whole-block
               FusedLayers(attention="mega", block2=True, subsample=True)
               and FusedLayers(attention="v1"). Launch counts per encoder
-              call must be exact, and the tokens must equal a CPU
+              call must be exact (the reference's input guards
+              included), and the tokens must equal a CPU
               Transcriber's with the same option; then the fused
               frontend: preprocess_audio_fused on each clip (K3) and
               transcribe_features, tokens equal to a CPU Transcriber's on
@@ -48,7 +55,8 @@ Phases, each of which raises (exit code 1) on failure:
               configuration, its token edit distance against f32 reported
               (not a gate)
 The card's name and power limit, a JSON line of per-kernel numbers (with
-bound_ms, bound_by and the bound's share of the kernel time) and
+bound_ms, bound_by and the bound's share of the kernel time at the
+headline shape, and under "shapes" every timed shape with its bound) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -108,28 +116,43 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device time per call from torch.profiler: the summed durations of
-    the device events (kernels, copies, fills) over `calls` calls. Only
-    device events are summed: the profiler also books each kernel's time on
-    the host op that launched it. The larger of two profiles, since a
-    profile that drops events can only read low. 0.0 when it saw no
-    device time."""
+def profile_device(fn, calls: int):
+    """Device events of `calls` calls of fn under torch.profiler, as
+    {kernel name: device ms per call}. Only device events are summed: the
+    profiler also books each kernel's time on the host op that launched
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            times[evt.key] = times.get(evt.key, 0.0) + evt.self_device_time_total / 1e3 / calls
+    return times
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call from torch.profiler: the summed durations of
+    the device events (kernels, copies, fills) over `calls` calls. The
+    larger of two profiles, since a profile that drops events can only read
+    low. While no profile has seen device time, up to three more are taken;
+    then the measurement fails."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
     best = 0.0
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                       if evt.device_type == DeviceType.CUDA)
-        best = max(best, total_us / 1e3 / calls)
+    for attempt in range(5):
+        if attempt >= 2 and best > 0:
+            break
+        best = max(best, sum(profile_device(fn, calls).values()))
+    if best <= 0:
+        raise RuntimeError("the profiler saw no device time in 5 profiles")
     return best
 
 
@@ -142,15 +165,14 @@ def time_pair(tag: str, kernel_fn, plain_fn, card: str) -> dict:
         ms = {"plain_ms": median_ms(plain_fn), "ms": median_ms(kernel_fn)}
         ms["ms"] = min(ms["ms"], median_ms(kernel_fn))
         ms["plain_ms"] = min(ms["plain_ms"], median_ms(plain_fn))
-        ms["dev_ms"] = device_ms(kernel_fn)
+        ms["dev_ms"] = device_ms(kernel_fn)  # raises when the profiler sees none
         ms["plain_dev_ms"] = device_ms(plain_fn)
-    dev = (f"device {ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms" if ms["dev_ms"] > 0
-           else "device time not measured (the profiler saw no device time)")
     slower = [name for name, k, p in (("CUDA events", ms["ms"], ms["plain_ms"]),
-                                      ("device time", ms["dev_ms"], ms["plain_dev_ms"])) if k > p > 0]
+                                      ("device time", ms["dev_ms"], ms["plain_dev_ms"])) if k > p]
     verdict = f"kernel SLOWER than plain by {' and '.join(slower)}" if slower else "kernel not slower"
     log(f"  {tag} times, kernel / plain: CUDA events {ms['ms']:.4f} / {ms['plain_ms']:.4f} ms "
-        f"(median of 20, best of 2 turns); {dev}; {verdict} [{card}]")
+        f"(median of 20, best of 2 turns); device {ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms; "
+        f"{verdict} [{card}]")
     return ms
 
 
@@ -212,46 +234,48 @@ def _kernel_label(key: str) -> str:
     return re.sub(r"\s+", " ", "".join(out))[:90]
 
 
-def stage_times(tag: str, fn, gemms, card: str, calls: int = 10) -> dict:
+def stage_times(tag: str, fn, gemms, card: str, calls: int = 10, dtype=None) -> dict:
     """Device time per call of each kernel `fn` launches (torch.profiler,
     by kernel name), and beside it the device time of torch.matmul on each
-    GEMM stage's shapes in f32 with TF32 off: a yardstick for that stage,
-    which the port never calls."""
+    GEMM stage's shapes in `dtype` (f32 with TF32 off unless given): a
+    yardstick for that stage, which the port never calls. A profile that
+    sees no device time is taken again, then fails."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    dtype = dtype or torch.float32
     with torch.inference_mode():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        for _ in range(3):
+            raw = profile_device(fn, calls)
+            if raw:
+                break
+        else:
+            raise RuntimeError(f"{tag}: the profiler saw no device time in 3 profiles")
         stages = {}
-        for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
-                label = _kernel_label(evt.key)
-                stages[label] = stages.get(label, 0.0) + evt.self_device_time_total / 1e3 / calls
+        for key, ms in raw.items():
+            label = _kernel_label(key)
+            stages[label] = stages.get(label, 0.0) + ms
         yard = {}
         for name, m, n, k in gemms:
-            a = torch.randn(m, k, device="cuda")
-            w = torch.randn(n, k, device="cuda")
+            a = torch.randn(m, k, device="cuda", dtype=dtype)
+            w = torch.randn(n, k, device="cuda", dtype=dtype)
             yard[f"{name} ({m}x{k} @ {k}x{n})"] = device_ms(lambda: torch.matmul(a, w.t()))
+    name = "f32 (TF32 off)" if dtype == torch.float32 else str(dtype).replace("torch.", "")
     log(f"  {tag} stages, device ms per call [{card}]:")
     for label, ms in stages.items():
         log(f"    {ms:.4f}  {label}")
     for label, ms in yard.items():
-        log(f"    yardstick torch.matmul f32 (TF32 off), not a port path: {label} {ms:.4f}")
+        log(f"    yardstick torch.matmul {name}, not a port path: {label} {ms:.4f}")
     return {"stages": stages, "yardstick": yard}
 
 
-def tile_choice(tag: str, fn, module, plan_fn: str, field: str, card: str, itemsize: int = 4) -> dict:
+def tile_choice(tag: str, fn, module, plan_fn: str, field, card: str, itemsize: int = 4) -> dict:
     """Device time of `fn` with the launch plan's block rows for one
     nonlinear-epilogue GEMM (`field` of the plan that `module.plan_fn`
-    returns) and with each other choice of 64, 96 and 128 rows, each timed
-    twice. Only this measurement swaps the plan; the port always runs the
-    plan's choice."""
+    returns, or the plan itself when None) and with each other choice of
+    64, 96 and 128 rows, each timed twice. Only this measurement swaps the
+    plan; the port always runs the plan's choice."""
     import dataclasses
 
     import torch
@@ -264,11 +288,12 @@ def tile_choice(tag: str, fn, module, plan_fn: str, field: str, card: str, items
     def with_rows(rows):
         def plan_fn_rows(*args, **kw):
             plan = planner(*args, **kw)
-            g = getattr(plan, field)
+            g = plan if field is None else getattr(plan, field)
             chosen.setdefault("plan", g.rows)
             if rows is None:
                 return plan
-            return dataclasses.replace(plan, **{field: dataclasses.replace(g, rows=rows, smem=gemm_smem(rows, itemsize))})
+            g = dataclasses.replace(g, rows=rows, smem=gemm_smem(rows, itemsize))
+            return g if field is None else dataclasses.replace(plan, **{field: g})
         return plan_fn_rows
 
     ms = {}
@@ -281,7 +306,7 @@ def tile_choice(tag: str, fn, module, plan_fn: str, field: str, card: str, items
                 setattr(module, plan_fn, planner)
             key = chosen["plan"] if rows is None else rows
             ms[key] = min(ms.get(key, float("inf")), t)
-    log(f"  {tag} {field} GEMM block rows, device ms of the whole call (best of 2): "
+    log(f"  {tag} {field or 'the'} GEMM block rows, device ms of the whole call (best of 2): "
         + ", ".join(f"{r} rows {ms[r]:.4f}{' (the plan)' if r == chosen['plan'] else ''}" for r in GEMM_ROWS)
         + f" [{card}]")
     return ms
@@ -514,9 +539,9 @@ def subsample_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import subsample as SS
 
     log(f"== K8 fused_subsample_block1 vs fused_subsample_block1_reference (B={B}, mel {MEL}, C={SUB_C})")
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {}}
     cases = [(t, dtype, name, "relu") for t in (1001, 6001) for dtype, name in _dtypes()]
-    cases.append((1001, torch.float32, "f32", "silu"))
+    cases += [(1001, dtype, name, "silu") for dtype, name in _dtypes()]
     for t, dtype, name, act in cases:
         rng = np.random.RandomState(300 + t)
         dev = _dev(rng, dtype)
@@ -527,14 +552,22 @@ def subsample_phase(card: str) -> dict:
         with torch.inference_mode():
             got = SS.fused_subsample_block1(*args, activation=act)
             ref = SS.fused_subsample_block1_reference(*args, activation=act)
-        tag = f"K8 T={t} {name} {act} -> {tuple(got.shape)}"
+        m = B * SS.out_size(t) * SS.out_size(MEL)
+        plan = SS.subsample_plan(m, SUB_C, got.element_size())
+        tag = f"K8 T={t} {name} {act} -> {tuple(got.shape)} (conv2 on {plan.rows}-row tiles)"
         err = check_close(tag, got, ref)
         if dtype == torch.float32:
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            if act == "relu":
-                out["times"][t] = time_pair(tag, lambda: SS.fused_subsample_block1(*args, activation=act),
-                                            lambda: SS.fused_subsample_block1_reference(*args, activation=act), card)
-                out["work"][t] = (subsample_flops(B, t, MEL, SUB_C), tensor_bytes(*args, got))
+        if act != "relu":
+            continue
+        fn = lambda: SS.fused_subsample_block1(*args, activation=act)  # noqa: E731
+        key = "times" if dtype == torch.float32 else "bf16_times"
+        out[key][t] = time_pair(tag, fn, lambda: SS.fused_subsample_block1_reference(*args, activation=act), card)
+        out[key.replace("times", "work")][t] = (subsample_flops(B, t, MEL, SUB_C), tensor_bytes(*args, got))
+        stages = stage_times(tag, fn, [("conv2", m, SUB_C, SUB_C)], card, dtype=dtype)
+        out["stages"][(t, name)] = stages
+        if dtype == torch.float32 and t == 1001:
+            stages["tiles"] = tile_choice(tag, fn, SS, "subsample_plan", None, card)
     return out
 
 
@@ -664,6 +697,30 @@ def rel_attention_v1_phase(card: str) -> dict:
     return out
 
 
+def dft_choice(tag: str, fn, module, card: str) -> dict:
+    """Device time of `fn` under each DFT launch plan of 64 or 128 rows and
+    1, 2, 4 or 8 k slices (one slice: the power epilogue, no partials),
+    each timed twice; the port always runs `dft_plan`'s choice."""
+    import torch
+
+    from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_smem
+
+    planner = module.dft_plan
+    ms = {}
+    options = [(rows, splits) for rows in (64, 128) for splits in (1, 2, 4, 8)]
+    with torch.inference_mode():
+        for rows, splits in options + options[::-1]:
+            module.dft_plan = lambda t, n_fft, r=rows, z=splits: GemmPlan(r, z, gemm_smem(r, 4), 0)
+            try:
+                t = device_ms(fn)
+            finally:
+                module.dft_plan = planner
+            ms[(rows, splits)] = min(ms.get((rows, splits), float("inf")), t)
+    log(f"  {tag} DFT plans, device ms of the whole call (best of 2): "
+        + ", ".join(f"{r} rows x {z} slices {v:.4f}" for (r, z), v in ms.items()) + f" [{card}]")
+    return ms
+
+
 def log_mel_phase(card: str) -> dict:
     import torch
 
@@ -672,23 +729,31 @@ def log_mel_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import log_mel as K3
 
     log("== K3 fused_log_mel vs fused_log_mel_reference (one clip, n_fft 512, hop 160, 80 mels)")
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}, "stages": {}}
     for seconds in (10, 60):
         clip = synthetic_clips(1, seed=700 + seconds, min_s=seconds, max_s=seconds)[0]
         x = torch.from_numpy(_preemphasize_and_pad(clip, AudioConfig())).to("cuda")
         with torch.inference_mode():
             got = K3.fused_log_mel(x)
             ref = K3.fused_log_mel_reference(x)
-        tag = f"K3 {seconds} s clip -> {tuple(got.shape)} f32"
+        frames, bins = got.shape[0], 512 // 2 + 1
+        plan = K3.dft_plan(frames, 512)
+        tag = (f"K3 {seconds} s clip -> {tuple(got.shape)} f32 (DFT on {plan.rows}-row tiles, "
+               f"{plan.splits} k slice{'s' if plan.splits > 1 else ''})")
         err = check_close(tag, got, ref, atol=LOG_MEL_ATOL, rtol=0.0)
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["times"][seconds] = time_pair(tag, lambda: K3.fused_log_mel(x),
-                                          lambda: K3.fused_log_mel_reference(x), card)
-        # the DFT (frames x n_fft @ n_fft x 2·257) and the mel GEMM (x 257 @ 257 x 80);
-        # bytes: samples, the window·cos/sin and filterbank matrices, the log-mel
-        frames, bins = got.shape[0], 512 // 2 + 1
-        out["work"][seconds] = (2 * frames * 512 * 2 * bins + 2 * frames * bins * MEL,
-                                tensor_bytes(x, got) + 4 * (2 * bins * 512 + bins * MEL))
+        fn = lambda: K3.fused_log_mel(x)  # noqa: E731
+        out["times"][seconds] = time_pair(tag, fn, lambda: K3.fused_log_mel_reference(x), card)
+        # the DFT (frames x n_fft @ n_fft x 2·257) and the mel product over the
+        # filterbank's nonzero weights (501 of 257 x 80; the dense product
+        # adds exact zeros); bytes: samples, the window·cos/sin matrices, the
+        # nonzero weights, the log-mel
+        nnz = K3.filterbank_bands(K3._filterbank(512, MEL, 16000.0, 0.0, None))[0].size
+        out["work"][seconds] = (2 * frames * 512 * 2 * bins + 2 * frames * nnz,
+                                tensor_bytes(x, got) + 4 * (2 * bins * 512 + nnz))
+        stages = stage_times(tag, fn, [("DFT", frames, 2 * bins, 512), ("mel", frames, MEL, bins)], card)
+        stages["plans"] = dft_choice(tag, fn, K3, card)
+        out["stages"][seconds] = stages
     return out
 
 
@@ -773,15 +838,22 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def launches_per_encoder_call(fused, layers: int) -> dict:
-    """Each kernel's launches in one encoder call under `fused`, with the
-    reference's precedence (mega over ffn1; block2 over conv and ffn2)."""
-    mega = fused.attention == "mega"
-    return {"rel_attention_block": layers if fused.attention == "block" else 0,
-            "fused_feed_forward": layers * ((fused.ffn and not mega) + (fused.ffn and not fused.block2)),
-            "fused_conv_module": layers if fused.conv and not fused.block2 else 0,
-            "fused_subsample_block1": 1 if fused.subsample else 0,
-            "fused_conv_ffn_final": layers if fused.block2 else 0,
+def launches_per_encoder_call(fused, layers: int, mel_frames: int, mel_bins: int) -> dict:
+    """Each kernel's launches in one encoder call under `fused` on a batch
+    padded to `mel_frames`, with the reference's precedence (mega over
+    ffn1; block2 over conv and ffn2) and its input guards (the subsampling
+    kernel at T4 >= 32 and even F2; the FFN, mega and block2 kernels at
+    T' >= 64, "mega" giving way to the attention block kernel)."""
+    t4 = ((mel_frames - 1) // 2) // 2 + 1
+    long_enough = (t4 - 1) // 2 + 1 >= 64
+    sub = fused.subsample and t4 >= 32 and ((mel_bins - 1) // 2 + 1) % 2 == 0
+    ffn, block2 = fused.ffn and long_enough, fused.block2 and long_enough
+    mega = fused.attention == "mega" and long_enough
+    return {"rel_attention_block": layers if fused.attention != "v1" and not mega else 0,
+            "fused_feed_forward": layers * ((ffn and not mega) + (ffn and not block2)),
+            "fused_conv_module": layers if fused.conv and not block2 else 0,
+            "fused_subsample_block1": 1 if sub else 0,
+            "fused_conv_ffn_final": layers if block2 else 0,
             "fused_ffn_attention": layers if mega else 0,
             "fused_rel_attention": layers if fused.attention == "v1" else 0,
             "fused_log_mel": 0}
@@ -808,7 +880,8 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
 
     gpu.transcribe_batch(clips, tdt)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
-    per_call = launches_per_encoder_call(fused, layers)
+    feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
+    per_call = launches_per_encoder_call(fused, layers, feats.shape[1], feats.shape[2])
     reset_counts()
     gpu_tdt = gpu.transcribe_batch(clips, tdt)
     after_tdt = read_counts()
@@ -832,7 +905,6 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
 
     cpu_tdt = cpu.transcribe_batch(clips, tdt)
     cpu_ctc = cpu.transcribe_batch(clips, ctc)
-    feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
     enc_cpu = cpu.encode(feats, n_frames)
     enc_gpu = gpu.encode(feats, n_frames).cpu()
     enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
@@ -1044,8 +1116,7 @@ def main() -> int:
     rows = []
     for name, (src, replaces, path, t) in sources.items():
         k = kernel[name]
-        flops, nbytes = k["work"][t]
-        f32_bound = bound(flops, nbytes)
+        f32_bound = bound(*k["work"][t])
         row = {"name": name, "route": "cuda", "source": f"parakeet_tpu_torch/csrc/{src}",
                "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
@@ -1055,22 +1126,26 @@ def main() -> int:
                "bound_share": f32_bound["bound_ms"] / k["times"][t]["ms"],
                "gflop": f32_bound["gflop"], "mbyte": f32_bound["mbyte"],
                # no single PyTorch call computes any of these fused functions
-               "library_ms": None}
+               "library_ms": None, "shapes": []}
         if k.get("bf16_times"):
             # bf16 bound: this run's bf16 inputs, every operation at the tensor-core rate
             b16 = bound(*k["bf16_work"][t], BF16_PEAK)
             row.update(bf16_ms=k["bf16_times"][t]["ms"], bf16_plain_ms=k["bf16_times"][t]["plain_ms"],
                        bf16_bound_ms=b16["bound_ms"], bf16_bound_by=b16["bound_by"])
+        # every timed shape with its bound, computed from that shape's inputs
+        for dtype, times, work, peak in (("f32", "times", "work", F32_PEAK),
+                                         ("bf16", "bf16_times", "bf16_work", BF16_PEAK)):
+            for shape, ms in sorted(k.get(times, {}).items()):
+                bd = bound(*k[work][shape], peak)
+                row["shapes"].append({"shape": shape, "dtype": dtype, "ms": ms["ms"], "plain_ms": ms["plain_ms"],
+                                      "dev_ms": ms["dev_ms"], "plain_dev_ms": ms["plain_dev_ms"],
+                                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]})
+                log(f"  bound {name} {dtype} at {shape}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> "
+                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; kernel / plain device "
+                    f"{ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms, CUDA events {ms['ms']:.4f} / "
+                    f"{ms['plain_ms']:.4f}; bound {bd['bound_ms'] / ms['dev_ms']:.1%} of the kernel's "
+                    f"device time [{card}]")
         rows.append(row)
-        log(f"  bound {name} at {t}: {f32_bound['gflop']:.3f} GFLOP, {f32_bound['mbyte']:.2f} MB -> "
-            f"{f32_bound['bound_ms']:.4f} ms by {f32_bound['bound_by']} (f32); kernel {row['ms']:.4f} ms, "
-            f"{row['bound_share']:.1%} of bound [{card}]")
-    for name in ("rel_attention_block", "fused_conv_module", "fused_conv_ffn_final", "fused_ffn_attention",
-                 "fused_feed_forward"):
-        if 751 in kernel[name]["work"]:
-            b751 = bound(*kernel[name]["work"][751])
-            log(f"  bound {name} at T'=751: {b751['bound_ms']:.4f} ms by {b751['bound_by']}; kernel "
-                f"{kernel[name]['times'][751]['ms']:.4f} ms, plain {kernel[name]['times'][751]['plain_ms']:.4f}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

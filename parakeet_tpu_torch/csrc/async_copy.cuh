@@ -1,7 +1,7 @@
 // 16-byte asynchronous copies from device memory to shared memory
 // (cp.async, sm_80 and later) for the kernels that stream tiles through a
-// ring of shared-memory stages: K6's GEMMs (ffn_gemm.cuh) and K2's
-// one-pass core (rel_attention_v1.cu).
+// ring of shared-memory stages: the shared GEMM (ffn_gemm.cuh), K1's core
+// (rel_attention.cuh) and K2's one-pass core (rel_attention_v1.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,10 +1,18 @@
-// The tiled GEMM of the block kernels and the pass that closes a split-K
-// product: C[M, N] = A[M, K] @ W[N, K]^T (W in torch Linear layout) in
-// BM x 128 block tiles (BM = 128, 96 or 64, as the launch plan says), k
-// in steps of 32, fed by a ring of shared-memory stages that
+// The port's one GEMM design, and the pass that closes a split-K product:
+// C[M, N] = A[M, K] @ W[N, K]^T (W in torch Linear layout, A's rows lda
+// apart) in BM x 128 block tiles (BM = 128, 96 or 64, as the launch plan
+// says), k in steps of 32, fed by a ring of shared-memory stages that
 // 16-byte cp.async copies fill while the block computes on an earlier
-// stage. K6 (fc1, fc2), K1 (QKV, position, out-projection) and K5 (pw1,
-// pw2) run on it, and through them K4 and K7.
+// stage. Every kernel's GEMMs run on it: K6 (fc1, fc2), K1 (QKV, position,
+// out-projection), K5 (pw1, pw2), K8 (conv2), K3 (the DFT), and through
+// K6, K1 and K5 also K4 and K7.
+//
+// What bounds it: a GEMM of these shapes is bound by operations (K = 256
+// to 2048 against 4-byte elements), so the design keeps the FMA units fed:
+// 4 k per shared-memory read and 8 columns per thread put 0.25-0.375
+// shared-memory words under each f32 FMA, and the ring hides the device
+// memory latency. On an NVIDIA H100 80GB HBM3 at 700 W it ran K6's fc1 at
+// 32-36 TFLOP/s in f32 (the CUDA cores' peak is 67).
 //
 //   f32   IEEE FMA on the CUDA cores (no TF32): 256 threads, BM/16 x 8
 //         outputs each (rows ty + 16i, columns tx + 16j), 3 stages of
@@ -33,13 +41,25 @@
 //               bf16 layout a and g alternate (the accumulator pairs e, e+1).
 //               round(a + b_a), round(g + b_g), round(a * sigmoid(g)); rows
 //               at or past min(len_b, T) are written as 0 (K5 pw1)
+//   FE_ACT_NCHW + bias, ReLU or SiLU (act), rounded once to T, stored
+//               channel-major (B, N, T) with T rows per item (K8 conv2). A
+//               warp's accumulators span 16 channels, so the block's tile
+//               goes through the ring's shared memory (free after the last
+//               k step) and each warp then stores 32 consecutive positions
+//               of one channel
+//   FE_POWER    f32 only. W holds 64 cos rows then their 64 sin rows per
+//               128-column tile (the same pairing as FE_GLU's f32 loader,
+//               laid out by the caller), so a thread holds re and im of
+//               bin n0/2 + c in columns j and j + 4: re*re + im*im, each
+//               product and the sum rounded on its own, into (M, nseg) (K3)
 // gemm_reduce_kernel then sums the slices in a fixed order, adds the bias,
 // forms round(x + c * y) (or round(y) without a residual) and applies the
 // optional final LayerNorm.
 //
 // Rows and columns past M and N, and k past K, are zero-filled on load and
-// not stored. When K * sizeof(T) is not a multiple of 16 the rows are not
-// 16-byte aligned, and the same tiles are loaded element by element.
+// not stored. When K * sizeof(T) or lda * sizeof(T) is not a multiple of 16
+// the rows are not 16-byte aligned, and the same tiles are loaded element
+// by element.
 #pragma once
 
 #include "async_copy.cuh"
@@ -53,23 +73,32 @@ constexpr int BF16_STAGES = 4, BF16_LDS = FBK + 8;  // bf16 values per shared ro
 // shared memory per block (BM = 128, 96, 64): f32 110,592 / 96,768 / 82,944 B;
 // bf16 81,920 / 71,680 / 61,440 B
 template <typename T, int BM>
-constexpr int tiled_gemm_smem() {
+__host__ __device__ constexpr int tiled_gemm_smem() {
   return sizeof(T) == 4 ? F32_STAGES * (BM + FBN) * F32_LDS * 4 : BF16_STAGES * (BM + FBN) * BF16_LDS * 2;
 }
-constexpr int FE_SILU = 0, FE_PARTIAL = 1, FE_QKV = 2, FE_GLU = 3;
+constexpr int FE_SILU = 0, FE_PARTIAL = 1, FE_QKV = 2, FE_GLU = 3, FE_ACT_NCHW = 4, FE_POWER = 5;
+constexpr int ACT_RELU = 0, ACT_SILU = 1;  // FE_ACT_NCHW's act
+// FE_ACT_NCHW's channel-major tile: 128 channels of BM + 2 floats, a row
+// stride = 2 (mod 32) so that the f32 layout's stores miss each other's banks
+template <int BM>
+__host__ __device__ constexpr int nchw_ld() { return BM + 2; }
 
 struct FfnGemmArgs {
-  const void* a;         // (M, K), activation dtype
+  const void* a;         // (M, K) with rows lda apart, activation dtype
   const void* w[3];      // weight segments of nseg rows each, (nseg, K); FE_GLU: w[0] = W1
   const void* bias[3];   // per-segment bias (nseg,); FE_GLU: bias[0] = b1 (2 nseg,)
   void* out[4];          // FE_PARTIAL: (splits, M, N) f32; FE_QKV: qu, qv, k, v (B, H, T, hd);
-                         // FE_GLU: (M, nseg); otherwise (M, N)
+                         // FE_GLU, FE_POWER: (M, nseg); FE_ACT_NCHW: (B, N, T); otherwise (M, N)
   const void* bias_u;    // FE_QKV: (D,)
   const void* bias_v;
   const int* lengths;    // FE_GLU: (B,) valid rows per item
   int M, N, K;
-  int nseg;              // rows per weight segment (0: one segment of N rows)
-  int T, H, HD;          // FE_QKV, FE_GLU: rows per item; FE_QKV: heads, head dim
+  int lda;               // A's row stride in elements (0: K). K3's DFT reads
+                         // overlapping frames straight from the waveform
+  int nseg;              // rows per weight segment (0: one segment of N rows);
+                         // FE_POWER: bins stored per row
+  int T, H, HD;          // FE_QKV, FE_GLU, FE_ACT_NCHW: rows per item; FE_QKV: heads, head dim
+  int act;               // FE_ACT_NCHW: ACT_RELU or ACT_SILU
   float scale;           // FE_QKV: 1 / sqrt(hd)
   int steps;             // k steps of FBK per k slice
 };
@@ -147,6 +176,39 @@ __device__ __forceinline__ void gemm_store(const FfnGemmArgs& g, int m, int n, f
   }
 }
 
+// FE_ACT_NCHW: the tile's output at tile row ml, column nl into the
+// channel-major staging tile (bias and activation in f32, rounded at the
+// store)
+template <typename T, int BM>
+__device__ __forceinline__ void nchw_stage(const FfnGemmArgs& g, float* stage, int n0, int ml, int nl,
+                                           float acc) {
+  float v = 0.f;
+  if (n0 + nl < g.N) {
+    v = acc + ld(static_cast<const T*>(g.bias[0]) + n0 + nl);
+    v = g.act == ACT_RELU ? fmaxf(v, 0.f) : v * sigmoid_f32(v);
+  }
+  stage[nl * nchw_ld<BM>() + ml] = v;
+}
+
+// FE_ACT_NCHW: the staged tile to (B, N, T), consecutive threads on
+// consecutive positions of one channel; a tile may straddle items
+template <typename T, int BM>
+__device__ __forceinline__ void nchw_store(const FfnGemmArgs& g, const float* stage, int m0, int n0,
+                                           int tid) {
+  const int b0 = m0 / g.T, r0 = m0 - b0 * g.T;
+  T* out = static_cast<T*>(g.out[0]);
+  for (int i = tid; i < FBN * BM; i += FFN_THREADS) {
+    const int nl = i / BM, ml = i - nl * BM;
+    if (m0 + ml >= g.M || n0 + nl >= g.N) continue;
+    int b = b0, r = r0 + ml;
+    while (r >= g.T) {
+      r -= g.T;
+      ++b;
+    }
+    st(out + ((size_t)b * g.N + n0 + nl) * g.T + r, stage[nl * nchw_ld<BM>() + ml]);
+  }
+}
+
 // FE_GLU: output column o of row m from its a and g sums
 template <typename T>
 __device__ __forceinline__ void glu_store(const FfnGemmArgs& g, int m, int o, float a, float gt) {
@@ -174,7 +236,7 @@ __global__ void __launch_bounds__(FFN_THREADS, 1) ffn_gemm_f32_kernel(FfnGemmArg
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * FBN;
   const int step0 = blockIdx.z * g.steps;
   const int nsteps = min(g.steps, (g.K + FBK - 1) / FBK - step0);
-  auto a_row = [&](int r) -> const float* { return m0 + r < g.M ? A + (size_t)(m0 + r) * g.K : nullptr; };
+  auto a_row = [&](int r) -> const float* { return m0 + r < g.M ? A + (size_t)(m0 + r) * g.lda : nullptr; };
   auto b_row = [&](int r) { return w_row<float, EPI>(g, n0, r); };
 
   auto a_tile = [&](int stage) { return smem + stage * (BM + FBN) * F32_LDS; };
@@ -227,15 +289,36 @@ __global__ void __launch_bounds__(FFN_THREADS, 1) ffn_gemm_f32_kernel(FfnGemmArg
     }
   }
 
+  if constexpr (EPI == FE_ACT_NCHW) {
+    static_assert(FBN * nchw_ld<BM>() * 4 <= tiled_gemm_smem<float, BM>(), "staging tile fits the ring");
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is past its last read of the ring
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if constexpr (EPI == FE_GLU) {
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) glu_store<float>(g, m, (n0 >> 1) + tx + 16 * j, acc[i][j], acc[i][j + 4]);
-    } else {
+      for (int j = 0; j < 8; ++j) nchw_stage<float, BM>(g, smem, n0, ty + 16 * i, tx + 16 * j, acc[i][j]);
+    __syncthreads();
+    nchw_store<float, BM>(g, smem, m0, n0, tid);
+  } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) gemm_store<float, EPI>(g, m, n0 + tx + 16 * j, acc[i][j]);
+    for (int i = 0; i < MI; ++i) {
+      const int m = m0 + ty + 16 * i;
+      if constexpr (EPI == FE_GLU) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) glu_store<float>(g, m, (n0 >> 1) + tx + 16 * j, acc[i][j], acc[i][j + 4]);
+      } else if constexpr (EPI == FE_POWER) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int bin = (n0 >> 1) + tx + 16 * j;
+          if (m >= g.M || bin >= g.nseg) continue;
+          const float re = acc[i][j], im = acc[i][j + 4];
+          static_cast<float*>(g.out[0])[(size_t)m * g.nseg + bin] =
+              __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gemm_store<float, EPI>(g, m, n0 + tx + 16 * j, acc[i][j]);
+      }
     }
   }
 }
@@ -260,6 +343,7 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 
 template <int EPI, int BM, bool VEC>
 __global__ void __launch_bounds__(FFN_THREADS) ffn_gemm_bf16_kernel(FfnGemmArgs g) {
+  static_assert(EPI != FE_POWER, "FE_POWER is f32 only");
   using bf16 = __nv_bfloat16;
   constexpr int MT = BM / 32;  // m16 tiles per warp
   extern __shared__ __align__(16) unsigned char ffn_smem[];
@@ -270,7 +354,7 @@ __global__ void __launch_bounds__(FFN_THREADS) ffn_gemm_bf16_kernel(FfnGemmArgs 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * FBN;
   const int step0 = blockIdx.z * g.steps;
   const int nsteps = min(g.steps, (g.K + FBK - 1) / FBK - step0);
-  auto a_row = [&](int r) -> const bf16* { return m0 + r < g.M ? A + (size_t)(m0 + r) * g.K : nullptr; };
+  auto a_row = [&](int r) -> const bf16* { return m0 + r < g.M ? A + (size_t)(m0 + r) * g.lda : nullptr; };
   auto b_row = [&](int r) { return w_row<bf16, EPI>(g, n0, r); };
 
   auto a_tile = [&](int stage) { return smem + stage * (BM + FBN) * BF16_LDS; };
@@ -323,21 +407,38 @@ __global__ void __launch_bounds__(FFN_THREADS) ffn_gemm_bf16_kernel(FfnGemmArgs 
   }
 
   // accumulator e of tile (mt, nt): row lane/4 (+8 for e >= 2), column 2*(lane%4) + e%2
+  if constexpr (EPI == FE_ACT_NCHW) {
+    static_assert(FBN * nchw_ld<BM>() * 4 <= tiled_gemm_smem<bf16, BM>(), "staging tile fits the ring");
+    float* stage = reinterpret_cast<float*>(ffn_smem);
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is past its last read of the ring
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * (BM / 2) + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int n = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if constexpr (EPI == FE_GLU) {
-          // columns n (even: a) and n + 1 (odd: g) are output n / 2
-          if ((e & 1) == 0) glu_store<bf16>(g, m, n >> 1, acc[mt][nt][e], acc[mt][nt][e + 1]);
-        } else {
-          gemm_store<bf16, EPI>(g, m, n, acc[mt][nt][e]);
+        for (int e = 0; e < 4; ++e)
+          nchw_stage<bf16, BM>(g, stage, n0, wm * (BM / 2) + mt * 16 + (lane >> 2) + (e >> 1) * 8,
+                               wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1), acc[mt][nt][e]);
+    __syncthreads();
+    nchw_store<bf16, BM>(g, stage, m0, n0, tid);
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm * (BM / 2) + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int n = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
+          if constexpr (EPI == FE_GLU) {
+            // columns n (even: a) and n + 1 (odd: g) are output n / 2
+            if ((e & 1) == 0) glu_store<bf16>(g, m, n >> 1, acc[mt][nt][e], acc[mt][nt][e + 1]);
+          } else {
+            gemm_store<bf16, EPI>(g, m, n, acc[mt][nt][e]);
+          }
         }
-      }
+  }
 }
 
 template <typename T, int EPI, int BM, bool VEC>
@@ -360,16 +461,19 @@ cudaError_t start_ffn_gemm(const FfnGemmArgs& g, dim3 grid, cudaStream_t stream)
 // C = A @ W^T in BM-row tiles with k cut into `splits` slices of whole k
 // steps (blockIdx.z; splits > 1 only with FE_PARTIAL); splits must divide
 // the k steps. ANY_K = false leaves out the element-wise loader for callers
-// whose K * sizeof(T) is always a multiple of 16 (and refuses other K).
+// whose K and lda times sizeof(T) are always multiples of 16 (and refuses
+// others).
 template <typename T, int EPI, int BM, bool ANY_K = true>
 cudaError_t launch_tiled_gemm(FfnGemmArgs g, int splits, cudaStream_t stream) {
   static_assert(BM == 64 || BM == 96 || BM == 128, "block tiles of 64, 96 or 128 rows");
   const int steps = (g.K + FBK - 1) / FBK;
   if (splits < 1 || steps % splits != 0 || (splits > 1 && EPI != FE_PARTIAL)) return cudaErrorInvalidValue;
   if (g.nseg == 0) g.nseg = g.N;
+  if (g.lda == 0) g.lda = g.K;
   g.steps = steps / splits;
   const dim3 grid((g.N + FBN - 1) / FBN, (g.M + BM - 1) / BM, splits);
-  if ((g.K * (int)sizeof(T)) % 16 == 0) return start_ffn_gemm<T, EPI, BM, true>(g, grid, stream);
+  if ((g.K * (int)sizeof(T)) % 16 == 0 && (g.lda * (int)sizeof(T)) % 16 == 0)
+    return start_ffn_gemm<T, EPI, BM, true>(g, grid, stream);
   if constexpr (ANY_K) return start_ffn_gemm<T, EPI, BM, false>(g, grid, stream);
   return cudaErrorInvalidValue;
 }
@@ -440,13 +544,13 @@ cudaError_t launch_gemm_reduce(const float* part, int splits, const void* x, flo
   return cudaGetLastError();
 }
 
-// A GEMM with a nonlinear epilogue (no split) on the plan's block rows.
+// A GEMM on the plan's block rows: no split with a nonlinear epilogue.
 template <typename T, int EPI, bool ANY_K = true>
-cudaError_t launch_tiled_gemm_rows(const FfnGemmArgs& g, int rows, cudaStream_t stream) {
+cudaError_t launch_tiled_gemm_rows(const FfnGemmArgs& g, int rows, cudaStream_t stream, int splits = 1) {
   switch (rows) {
-    case 64: return launch_tiled_gemm<T, EPI, 64, ANY_K>(g, 1, stream);
-    case 96: return launch_tiled_gemm<T, EPI, 96, ANY_K>(g, 1, stream);
-    case 128: return launch_tiled_gemm<T, EPI, 128, ANY_K>(g, 1, stream);
+    case 64: return launch_tiled_gemm<T, EPI, 64, ANY_K>(g, splits, stream);
+    case 96: return launch_tiled_gemm<T, EPI, 96, ANY_K>(g, splits, stream);
+    case 128: return launch_tiled_gemm<T, EPI, 128, ANY_K>(g, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,29 +15,40 @@
 // port's dw2 takes.
 //
 // Two kernels on the caller's stream:
-//   conv1_dw1_kernel        one block per (t4, b, channel tile): the 7 mel
-//                           rows the block's conv1 taps reach go to shared
-//                           memory; each thread owns one channel and walks
-//                           f4, loading the 7x7 mel window into registers
-//                           and computing the 9 conv1 values dw1 needs
-//                           (81 FMAs, 9 activations) before dw1's 9 FMAs.
-//                           The conv1 output (B, T2, F2, C), the largest
-//                           tensor of the encoder, never reaches device
-//                           memory; y2 is written (B*T4*F4, C).
-//   gemm_nt_kernel<ACT_NCHW> conv2 as a GEMM over C with bias + act in the
-//                           epilogue, stored channel-major (gemm.cuh)
+//   conv1_dw1_kernel   one block per 4 rows of t4, item and 32 channels
+//                      (a warp's lanes): the 19 mel rows its conv1 taps
+//                      reach go to shared memory, then the 9 x (F2 + 2) x
+//                      32 conv1 values its dw1 taps read are computed once
+//                      each into a shared slab, 8 columns per warp step
+//                      from 16-byte broadcast reads of the mel rows, and
+//                      dw1 computes 4 outputs per warp step from 9 slab
+//                      columns. The conv1 output (B, T2, F2, C), the
+//                      largest tensor of the encoder, never reaches device
+//                      memory; y2 is written (B*T4*F4, C).
+//   conv2              ffn_gemm.cuh's tiled GEMM (B*T4*F4, C) x (C, C)^T
+//                      with the FE_ACT_NCHW epilogue: + b2, act, one
+//                      rounding, stored channel-major through a
+//                      shared-memory tile; block rows from the plan
+//                      (ops/subsample.py subsample_plan), no k split
 //
-// What bounds it on the card: the direct kernel recomputes each conv1 value
-// for each dw1 output that reads it (about 2.25 times on average) and issues
-// one shared-memory or register read per FMA; at B=8, T=1001, F=80, C=256 it
-// is ~1 GFLOP of f32 FMA against the 164 MB conv1 tensor (written and read
-// once) that the plain layers move through device memory. conv2 is a
-// (B*T4*F4, C) x (C, C) GEMM on the CUDA cores: 2*B*T4*F4*C^2 = 5.26 GFLOP
-// at that shape (B=8, T4=251, F4=20, C=256), most of the call's 6.2 GFLOP
-// (0.092 ms at the 67 TFLOP/s f32 peak).
-// On an H100 80GB HBM3 at 700 W a call took 0.37 ms of device time at that
-// shape and 2.05 ms at T=6001, against 0.69-0.73 and 4.01 ms for the plain
-// version.
+// What bounds it on the card: operations. At B=8, T=1001, F=80, C=256
+// conv2 is 2*B*T4*F4*C^2 = 5.26 GFLOP of the call's 6.19 (conv1 0.74, dw1
+// 0.19): 0.092 ms at the 67 TFLOP/s f32 peak, against 0.025 ms for the
+// 41 MB of y2 written and read and 41 MB of output. conv2 therefore runs
+// on the GEMM that reaches 32-36 TFLOP/s in K6 (bf16: mma.sync on the
+// tensor cores), and its channel-major stores go out in runs of 32
+// positions. conv1_dw1 computed each conv1 value once for every dw1
+// output that read it (about 2.25 times, from a 7 x 7 window in
+// registers) and took 0.103 of 0.281 ms at T=1001 in f32 and 0.104 of
+// 0.168 in bf16 once conv2 had moved; the slab computes each value 9/8
+// times (a block's first conv1 row is its neighbour's last). Its shared
+// reads and instructions set its time: a slab read one value per FMA
+// (0.148 ms, slower than the window), so each warp step shares its reads
+// across 8 conv1 columns (0.21 reads per FMA) or 4 dw1 outputs (0.75).
+// Before this
+// design conv2 ran on a 64x64 SIMT GEMM at 17-21 TFLOP/s: the whole call
+// took 0.3687 ms at T=1001 and 2.0779 at T=6001 (NVIDIA H100 80GB HBM3,
+// 700 W).
 // The TPU kernel's blocked im2col and parity row order are layout tricks
 // for the TPU's tiles and are not carried over: the direct form takes any T
 // and any F, odd F2 included.
@@ -45,14 +56,27 @@
 // Plain C interface, loaded with ctypes. Returns cudaGetLastError() (0 =
 // success).
 
-#include "gemm.cuh"
+#include "ffn_gemm.cuh"
 
 namespace {
 
-constexpr int SUB_THREADS = 128;
+// conv1_dw1_kernel's block: SUB_R4 rows of t4 of one item and SUB_CT = 32
+// channels (a warp's lanes), SUB_THREADS threads; each warp step computes
+// SUB_G1 neighbouring conv1 columns or SUB_G dw1 outputs
+constexpr int SUB_THREADS = 256, SUB_CT = 32, SUB_R4 = 4, SUB_G1 = 8, SUB_G = 4;
 
 __device__ __forceinline__ float act_f32(float v, int act) {
   return act == ACT_RELU ? fmaxf(v, 0.f) : v * sigmoid_f32(v);
+}
+
+// Row stride of the mel rows in shared memory: the 2 SUB_G1 groups + 1
+// columns that conv1's column groups read, in 16-byte rows
+__host__ __device__ inline int sub_xs_ld(int F2) { return 2 * SUB_G1 * ((F2 + SUB_G1 - 1) / SUB_G1) + 4; }
+
+// the 4 R4 + 3 mel rows its conv1 taps reach and the conv1 slab of
+// 2 R4 + 1 rows x (F2 + 2) columns x SUB_CT channels
+inline int conv1_dw1_smem_bytes(int F2) {
+  return ((4 * SUB_R4 + 3) * sub_xs_ld(F2) + (2 * SUB_R4 + 1) * (F2 + 2) * SUB_CT) * (int)sizeof(float);
 }
 
 template <typename T>
@@ -60,90 +84,129 @@ __global__ void __launch_bounds__(SUB_THREADS) conv1_dw1_kernel(
     const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
     const float* __restrict__ wd, const float* __restrict__ bd, T* __restrict__ y2, int Tn,
     int F, int T2, int F2, int T4, int F4, int C, int act) {
-  extern __shared__ float xs[];  // 7 rows x (F + 2) cols; col j holds mel column j - 1
-  const int t4 = blockIdx.x, b = blockIdx.y;
-  const int c = blockIdx.z * SUB_THREADS + threadIdx.x;
-  const int W = F + 2;
-  const int row0 = 4 * t4 - 3;  // first mel row the conv1 taps of this t4 reach
-  for (int i = threadIdx.x; i < 7 * W; i += SUB_THREADS) {
+  constexpr int WARPS = SUB_THREADS / 32;
+  static_assert(SUB_CT == 32 && SUB_G == 4 && SUB_G1 % 2 == 0, "a warp's lanes are the channels");
+  extern __shared__ __align__(16) float sub_smem[];
+  const int W = sub_xs_ld(F2), W2 = F2 + 2;
+  const int G1 = (F2 + SUB_G1 - 1) / SUB_G1, G4 = (F4 + SUB_G - 1) / SUB_G;
+  float* xs = sub_smem;                   // mel rows; column j holds mel column j - 1
+  float* ys = xs + (4 * SUB_R4 + 3) * W;  // conv1 slab (row, column q = f2 + 1, channel)
+  const int t40 = blockIdx.x * SUB_R4, b = blockIdx.y;
+  const int cl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.z * SUB_CT + cl;
+  const int row0 = 4 * t40 - 3;  // first mel row the block's conv1 taps reach
+  const int t20 = 2 * t40 - 1;   // first conv1 row its dw1 taps reach
+  for (int i = threadIdx.x; i < (4 * SUB_R4 + 3) * W; i += SUB_THREADS) {
     const int r = i / W, j = i - r * W;
     const int t = row0 + r, f = j - 1;
     xs[i] = (t >= 0 && t < Tn && f >= 0 && f < F) ? ld(x + ((size_t)b * Tn + t) * F + f) : 0.f;
   }
+  // dw1's padding: conv1 columns f2 = -1 and F2 are exact zeros
+  for (int i = threadIdx.x; i < (2 * SUB_R4 + 1) * 2 * SUB_CT; i += SUB_THREADS) {
+    const int rr = i / (2 * SUB_CT), side = (i / SUB_CT) & 1;
+    ys[(rr * W2 + side * (W2 - 1)) * SUB_CT + (i & 31)] = 0.f;
+  }
+  float w1r[9], wdr[9], b1c = 0.f, bdc = 0.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    w1r[k] = c < C ? ld(w1 + (size_t)c * 9 + k) : 0.f;
+    wdr[k] = c < C ? wd[(size_t)c * 9 + k] : 0.f;
+  }
+  if (c < C) {
+    b1c = ld(b1 + c);
+    bdc = bd[c];
+  }
+  __syncthreads();
+
+  // conv1 + act, each value once, SUB_G1 columns f2 = 8g .. 8g + 7 of one
+  // row per step: the 17 mel columns they read come as four 16-byte
+  // broadcast reads and one 4-byte read per mel row
+  for (int u = warp; u < (2 * SUB_R4 + 1) * G1; u += WARPS) {
+    const int rr = u / G1, g = u - rr * G1, t2 = t20 + rr;
+    const bool row_ok = t2 >= 0 && t2 < T2;  // outside: exact zeros
+    float acc[SUB_G1];
+#pragma unroll
+    for (int k = 0; k < SUB_G1; ++k) acc[k] = 0.f;
+    if (row_ok) {
+#pragma unroll
+      for (int et = 0; et < 3; ++et) {
+        // mel row 2 t2 - 1 + et (xs row 2 rr + et), columns 16 g - 1 .. 16 g + 15
+        const float* xr = xs + (2 * rr + et) * W + 2 * SUB_G1 * g;
+        float v[2 * SUB_G1 + 1];
+#pragma unroll
+        for (int q = 0; q < SUB_G1 / 2; ++q) {
+          const float4 c4 = *reinterpret_cast<const float4*>(xr + 4 * q);
+          v[4 * q] = c4.x; v[4 * q + 1] = c4.y; v[4 * q + 2] = c4.z; v[4 * q + 3] = c4.w;
+        }
+        v[2 * SUB_G1] = xr[2 * SUB_G1];
+#pragma unroll
+        for (int k = 0; k < SUB_G1; ++k)
+#pragma unroll
+          for (int ef = 0; ef < 3; ++ef) acc[k] = fmaf(v[2 * k + ef], w1r[et * 3 + ef], acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SUB_G1; ++k) {
+      const int f2 = SUB_G1 * g + k;
+      if (f2 < F2) ys[(rr * W2 + f2 + 1) * SUB_CT + cl] = row_ok ? act_f32(acc[k] + b1c, act) : 0.f;
+    }
+  }
   __syncthreads();
   if (c >= C) return;
 
-  float w1r[9], wdr[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    w1r[k] = ld(w1 + (size_t)c * 9 + k);
-    wdr[k] = wd[(size_t)c * 9 + k];
-  }
-  const float b1c = ld(b1 + c), bdc = bd[c];
-
-  for (int f4 = 0; f4 < F4; ++f4) {
-    // mel window: rows row0..row0+6, columns 4 f4 - 3 .. 4 f4 + 3 (xs col +1)
-    float win[7][7];
-#pragma unroll
-    for (int r = 0; r < 7; ++r)
-#pragma unroll
-      for (int q = 0; q < 7; ++q) {
-        const int j = 4 * f4 - 2 + q;
-        win[r][q] = (j >= 0 && j < W) ? xs[r * W + j] : 0.f;
-      }
-    float acc = bdc;
+  // dw1 from the slab, SUB_G outputs f4 = 4g .. 4g + 3 of one row per
+  // step: conv1 rows 2 t4 - 1 .. (slab rows 2 r4 ..), columns f2 = 8 g - 1
+  // .. 8 g + 7 (slab columns 8 g ..)
+  for (int u = warp; u < SUB_R4 * G4; u += WARPS) {
+    const int r4 = u / G4, g = u - r4 * G4, t4 = t40 + r4;
+    if (t4 >= T4) break;
+    float acc[SUB_G] = {bdc, bdc, bdc, bdc};
 #pragma unroll
     for (int dt = 0; dt < 3; ++dt) {
-      const int t2 = 2 * t4 - 1 + dt;
+      const float* yr = ys + ((2 * r4 + dt) * W2 + 8 * g) * SUB_CT + cl;
+      float v[9];
 #pragma unroll
-      for (int df = 0; df < 3; ++df) {
-        const int f2 = 2 * f4 - 1 + df;
-        float y = 0.f;
-        if (t2 >= 0 && t2 < T2 && f2 >= 0 && f2 < F2) {
-          // conv1 at (t2, f2) reads mel rows 2 t2 - 1 .. 2 t2 + 1 = window
-          // rows 2 dt .. 2 dt + 2, columns 2 f2 - 1 .. = window cols 2 df ..
-          float s = 0.f;
+      for (int i = 0; i < 9; ++i) v[i] = 8 * g + i < W2 ? yr[i * SUB_CT] : 0.f;  // past W2: unstored outputs
 #pragma unroll
-          for (int et = 0; et < 3; ++et)
+      for (int k = 0; k < SUB_G; ++k)
 #pragma unroll
-            for (int ef = 0; ef < 3; ++ef) s = fmaf(win[2 * dt + et][2 * df + ef], w1r[et * 3 + ef], s);
-          y = act_f32(s + b1c, act);
-        }
-        acc = fmaf(y, wdr[dt * 3 + df], acc);
-      }
+        for (int df = 0; df < 3; ++df) acc[k] = fmaf(v[2 * k + df], wdr[dt * 3 + df], acc[k]);
     }
-    st(y2 + (((size_t)b * T4 + t4) * F4 + f4) * C + c, acc);
+#pragma unroll
+    for (int k = 0; k < SUB_G; ++k) {
+      const int f4 = SUB_G * g + k;
+      if (f4 < F4) st(y2 + (((size_t)b * T4 + t4) * F4 + f4) * C + c, acc[k]);
+    }
   }
 }
 
 template <typename T>
 int run_subsample(const void* x, const void* w1, const void* b1, const float* wd, const float* bd,
                   const void* w2, const void* b2, int act, void* y2, void* out, int B, int Tn,
-                  int F, int C, cudaStream_t stream) {
+                  int F, int C, int conv2_rows, cudaStream_t stream) {
   const int T2 = (Tn - 1) / 2 + 1, T4 = (T2 - 1) / 2 + 1;
   const int F2 = (F - 1) / 2 + 1, F4 = (F2 - 1) / 2 + 1;
-  const int smem = 7 * (F + 2) * (int)sizeof(float);
+  const int smem = conv1_dw1_smem_bytes(F2);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(conv1_dw1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(T4, B, (C + SUB_THREADS - 1) / SUB_THREADS);
+  dim3 grid((T4 + SUB_R4 - 1) / SUB_R4, B, (C + SUB_CT - 1) / SUB_CT);
   conv1_dw1_kernel<T><<<grid, SUB_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1), wd, bd,
       static_cast<T*>(y2), Tn, F, T2, F2, T4, F4, C, act);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  GemmArgs g = {};
+  FfnGemmArgs g = {};
   g.a = y2;
   g.w[0] = w2;
   g.bias[0] = b2;
   g.out[0] = out;
-  g.M = B * T4 * F4; g.N = C; g.K = C; g.nseg = C;
+  g.M = B * T4 * F4; g.N = C; g.K = C;
   g.T = T4 * F4;
   g.act = act;
-  if ((err = launch_gemm<T, EPI_ACT_NCHW>(g, stream)) != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_tiled_gemm_rows<T, FE_ACT_NCHW>(g, conv2_rows, stream);
 }
 
 }  // namespace
@@ -153,16 +216,17 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x (B, T, F); w1 (C, 9), b1 (C,),
 // w2 (C, C), b2 (C,) in the activation dtype; wd (C, 9), bd (C,) f32.
 // act: 0 = ReLU, 1 = SiLU. Scratch (allocated by the caller): y2
-// (B*T4*F4, C). out (B, C, T4, F4).
+// (B*T4*F4, C). out (B, C, T4, F4). conv2_rows: conv2's block rows (64,
+// 96 or 128) from the launch plan.
 int pk_subsample_block1(int dtype, const void* x, const void* w1, const void* b1, const float* wd,
                         const float* bd, const void* w2, const void* b2, int act, void* y2,
-                        void* out, int B, int T, int F, int C, void* stream) {
+                        void* out, int B, int T, int F, int C, int conv2_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act != ACT_RELU && act != ACT_SILU) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return run_subsample<float>(x, w1, b1, wd, bd, w2, b2, act, y2, out, B, T, F, C, s);
+    return run_subsample<float>(x, w1, b1, wd, bd, w2, b2, act, y2, out, B, T, F, C, conv2_rows, s);
   if (dtype == 1)
-    return run_subsample<__nv_bfloat16>(x, w1, b1, wd, bd, w2, b2, act, y2, out, B, T, F, C, s);
+    return run_subsample<__nv_bfloat16>(x, w1, b1, wd, bd, w2, b2, act, y2, out, B, T, F, C, conv2_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 

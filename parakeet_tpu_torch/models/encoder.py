@@ -52,6 +52,13 @@ from parakeet_tpu_torch.params import Params
 
 ATTENTION_MODES = ("block", "mega", "v1")
 
+# The reference's input guards (parakeet_tpu/models/encoder.py
+# _subsample_fusable, _ffn_fusable): below them it runs the XLA layers,
+# which round where the kernels do not, so the port takes its plain layers
+# there too.
+_SUBSAMPLE_T4_TILE = 32  # K8: stage-2 frames T4 at least this, F2 even
+_FFN_MIN_FRAMES = 64  # K6, K7, K4: T' at least this
+
 
 @dataclass(frozen=True)
 class FusedLayers:
@@ -68,8 +75,14 @@ class FusedLayers:
     Precedence follows the reference's conformer_block: "mega" takes ffn1
     and the attention whatever `ffn` says; `block2` takes the conv module,
     ffn2 and the final LayerNorm whatever `ffn` and `conv` say. The
-    reference's shape guards (TPU VMEM budgets) are not ported: on CUDA a
-    configuration launches its kernels or raises."""
+    reference's input guards hold as there: the subsampling kernel runs
+    only when T4 ≥ _SUBSAMPLE_T4_TILE and F2 is even, and the FFN, mega and
+    block2 kernels only when T' ≥ _FFN_MIN_FRAMES; otherwise those layers
+    run plain, as with the field off ("mega" then runs the attention block
+    kernel K1, as the reference does). Its VMEM budgets (weight sizes,
+    score buffers, v1's T ≤ 768) size the TPU's memory, not the input, and
+    are not ported: on CUDA a configuration launches its kernels or
+    raises."""
 
     ffn: bool = False
     conv: bool = False
@@ -130,14 +143,27 @@ def conv_subsampling_stages(
     }
 
 
+def _subsample_fusable(x: torch.Tensor) -> bool:
+    """The reference's guard on K8's input (B, T, mel): T4 ≥ 32, F2 even."""
+    t4 = ((x.shape[1] - 1) // 2) // 2 + 1
+    f2 = (x.shape[2] - 1) // 2 + 1
+    return t4 >= _SUBSAMPLE_T4_TILE and f2 % 2 == 0
+
+
+def _ffn_fusable(x: torch.Tensor) -> bool:
+    """The reference's guard on the FFN kernels' input (B, T', D): T' ≥ 64."""
+    return x.shape[1] >= _FFN_MIN_FRAMES
+
+
 def conv_subsampling(
     p: Params, x: torch.Tensor, activation: str = "relu", fused: bool = False
 ) -> torch.Tensor:
     """(B, T, mel) → (B, T/8, d_model) (encoder.cpp:208-241). NCHW convs;
     the flatten stays channel-major (C·F), as in the reference. With
-    `fused`, conv1 → dw1 → conv2 run as one kernel (ops/subsample.py);
-    dw2, conv3 and proj stay plain either way."""
-    if not fused:
+    `fused` and an input the reference's guard takes, conv1 → dw1 → conv2
+    run as one kernel (ops/subsample.py); dw2, conv3 and proj stay plain
+    either way."""
+    if not (fused and _subsample_fusable(x)):
         return conv_subsampling_stages(p, x, activation)["subsampling_out"]
     act = torch.relu if activation == "relu" else silu
     c = p["conv1_.weight"].shape[0]
@@ -157,9 +183,10 @@ def feed_forward(
     p: Params, x: torch.Tensor, eps: float, fused: bool = False, final_norm: Params | None = None
 ) -> torch.Tensor:
     """Macaron FFN with 0.5 half-step residual (encoder.cpp:39-46), then
-    `final_norm` (the block's final LayerNorm) when given. With `fused` it
-    runs the fused FFN kernel, the final LayerNorm included."""
-    if fused:
+    `final_norm` (the block's final LayerNorm) when given. With `fused` and
+    T' ≥ _FFN_MIN_FRAMES it runs the fused FFN kernel, the final LayerNorm
+    included."""
+    if fused and _ffn_fusable(x):
         kw = {}
         if final_norm is not None:
             kw = dict(final_norm_w=final_norm["weight"], final_norm_b=final_norm["bias"])
@@ -286,10 +313,12 @@ def conformer_block(
     out-projection in torch around K2 ("v1"). block2 runs the conv module,
     ffn2 and the final LayerNorm as K4; otherwise the conv module follows
     fused.conv and ffn2 fused.ffn, the final LayerNorm inside ffn2's
-    kernel when it is fused, as in the reference."""
+    kernel when it is fused, as in the reference. Below the FFN guard
+    (T' < _FFN_MIN_FRAMES) "mega" and block2 give way as there: ffn1 and
+    ffn2 plain, the attention as K1, the conv module as fused.conv says."""
     eps = cfg.layer_norm_eps
     a = p.sub("attn_")
-    if fused.attention == "mega":
+    if fused.attention == "mega" and _ffn_fusable(x):
         f, mha = p.sub("ffn1_"), a.sub("mha_")
         x = fused_ffn_attention(
             x,
@@ -311,7 +340,7 @@ def conformer_block(
             x = x + rel_position_attention_v1(a, layer_norm(a.sub("norm_"), x, eps), lengths)
         else:
             x = _attention(a, x, lengths, norm=a.sub("norm_"), eps=eps)
-    if fused.block2:
+    if fused.block2 and _ffn_fusable(x):
         c, f = p.sub("conv_"), p.sub("ffn2_")
         if lengths is None and pad_mask is not None:
             lengths = (~pad_mask).sum(dim=1).to(torch.int32)

@@ -5,11 +5,14 @@ The GEMM runs C[M, N] = A[M, K] @ W[N, K]^T in block tiles of `rows` x 128
 outputs, k in steps of 32. A GEMM whose epilogue is linear (a bias and a
 residual added to the sum: K6's fc2, K1's position GEMM and
 out-projection, K5's pw2) writes the f32 sums of its k slices (one or
-more), which a closing pass sums in a fixed order, on 128-row tiles. One with a nonlinear
-epilogue (GLU, K1's QKV fold) cannot split; it takes the block rows (64,
-96 or 128) that put the least work on the busiest SM, ceil(blocks / SMs)
-x rows, the fewest rows on a tie. On an NVIDIA H100 80GB HBM3 at 700.00 W,
-f32, B=8 (chip_smoke.py tile_choice), 64-row tiles ran K1's QKV GEMM and
+more), which a closing pass sums in a fixed order, on 128-row tiles. One
+with a nonlinear epilogue (GLU, K1's QKV fold, K8's bias + act stored
+channel-major) cannot split; it takes the block rows (64, 96 or 128) that
+put the least work on the busiest SM, ceil(blocks / SMs) x rows, the
+fewest rows on a tie. K3's DFT (`dft_plan`) has both: one slice ends in
+its power epilogue, several in linear partials that its closing pass sums.
+On an NVIDIA H100 80GB HBM3 at 700.00 W, f32, B=8 (chip_smoke.py
+tile_choice), 64-row tiles ran K1's QKV GEMM and
 K5's pw1 faster than 128-row tiles at T'=126 (whole K1 call 0.138 against
 0.164 ms; K5 0.073 against 0.100) and at T'=751 (K1 0.863 against 0.998;
 K5 0.324 against 0.332): two 64-row blocks share an SM, so a tie in work
@@ -57,15 +60,17 @@ def tiles(m: int, n: int, rows: int = 128) -> int:
     return -(-m // rows) * -(-n // GEMM_COLS)
 
 
-def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True) -> GemmPlan:
-    """The plan of one (M, N, K) GEMM. split_k (linear epilogues): 128-row
-    tiles and the fewest k slices, each of whole k steps, whose blocks give
-    every SM one and fill at least WAVE_FILL of the waves they take; when
-    no count up to MAX_SPLITS does, the most. Otherwise (nonlinear
-    epilogues, n counting the weight rows): no split, and the block rows
-    with the least work on the busiest SM (the fewest on a tie)."""
+def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True,
+              rows: int = GEMM_ROWS[-1]) -> GemmPlan:
+    """The plan of one (M, N, K) GEMM. split_k (linear epilogues): `rows`-row
+    tiles (128 unless given) and the fewest k slices, each of whole k
+    steps, whose blocks give every SM one and fill at least WAVE_FILL of
+    the waves they take; when no count up to MAX_SPLITS does, the most.
+    Otherwise (nonlinear epilogues, n counting the weight rows): no split,
+    and the block rows with the least work on the busiest SM (the fewest on
+    a tie)."""
     if split_k:
-        base = tiles(m, n)
+        base = tiles(m, n, rows)
         steps = -(-k // GEMM_K_STEP)
         divisors = [s for s in range(1, min(steps, MAX_SPLITS) + 1) if steps % s == 0]
 
@@ -73,7 +78,7 @@ def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True) -
             blocks = base * s
             return blocks >= SM_COUNT and blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
 
-        rows, splits = GEMM_ROWS[-1], next((s for s in divisors if fills(s)), divisors[-1])
+        splits = next((s for s in divisors if fills(s)), divisors[-1])
     else:
         rows, splits = min(GEMM_ROWS, key=lambda r: -(-tiles(m, n, r) // SM_COUNT) * r), 1
     smem = gemm_smem(rows, itemsize)
@@ -82,10 +87,34 @@ def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True) -
     return GemmPlan(rows, splits, smem, tiles(m, n, rows) * splits)
 
 
+# K3's DFT: 64-row tiles (a 10 s clip has 1,001 frames)
+DFT_ROWS = 64
+
+
+def dft_cols(n_fft: int) -> int:
+    """Columns of K3's DFT GEMM: bins 0 .. n_fft/2 − 1, 64 a tile, each
+    tile 64 cos columns then their 64 sin columns (the Nyquist bin is
+    taken in the closing pass)."""
+    return -(-(n_fft // 2) // (GEMM_COLS // 2)) * GEMM_COLS
+
+
+def dft_plan(frames: int, n_fft: int) -> GemmPlan:
+    """K3's DFT (frames × n_fft @ n_fft × dft_cols, f32) on DFT_ROWS-row
+    tiles, split as a linear epilogue: the fewest k slices that give every
+    SM a block and fill their waves. One slice runs the power epilogue
+    (no partials); several write re/im partials that the closing pass sums
+    in order before it forms the power. On an NVIDIA H100 80GB HBM3 at
+    700.00 W (chip_smoke.py dft_choice, whole K3 call) it picks one pass on
+    a 60 s clip, the fastest plan (0.1009 ms; 2 slices 0.1105), and 4
+    slices on a 10 s clip (0.0325 ms; one pass 0.0398; 2 slices, which
+    leave 4 SMs without a block, 0.0295)."""
+    return gemm_plan(frames, dft_cols(n_fft), n_fft, 4, split_k=True, rows=DFT_ROWS)
+
+
 def partial_elems(m: int, n: int, plan: GemmPlan) -> int:
     """f32 partials a linear-epilogue GEMM writes before its closing pass."""
     return plan.splits * m * n
 
 
-__all__ = ["GEMM_COLS", "GEMM_ROWS", "GEMM_K_STEP", "MAX_SPLITS", "WAVE_FILL", "GemmPlan", "gemm_plan",
-           "gemm_smem", "partial_elems", "tiles"]
+__all__ = ["GEMM_COLS", "GEMM_ROWS", "GEMM_K_STEP", "MAX_SPLITS", "WAVE_FILL", "DFT_ROWS", "GemmPlan",
+           "gemm_plan", "gemm_smem", "dft_cols", "dft_plan", "partial_elems", "tiles"]

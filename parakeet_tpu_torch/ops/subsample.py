@@ -17,10 +17,12 @@ port's subsampling continues in (the TPU kernel returns NHWC).
 run the hand-written kernel in csrc/subsample.cu (or raise), CPU tensors
 run `fused_subsample_block1_reference`, the plain torch version with the
 same rounding points. What bounds the kernel on the card and how its design
-answers that is at the top of the .cu source. What it drops from the TPU
-kernel: the blocked, parity-ordered im2col with its validity-gate column,
-the T4 tiles and the caller's guards (T4 ≥ 32, even F2); it takes any T
-and any F.
+answers that is at the top of the .cu source: conv2 runs on the shared
+tiled GEMM (csrc/ffn_gemm.cuh) with the block rows of `subsample_plan`.
+What it drops from the TPU kernel: the blocked, parity-ordered im2col with
+its validity-gate column and the T4 tiles; it takes any T and any F. The
+caller's guards (T4 ≥ 32, even F2) are the encoder's, as in the reference
+(models/encoder.py).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, stream
+from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan
 
 _F32 = torch.float32
 _ACT_CODE = {"relu": 0, "silu": 1}
@@ -70,12 +73,24 @@ def fused_subsample_block1_reference(
     return _act(z, activation).to(dt)
 
 
+def out_size(n: int) -> int:
+    """Frames (or bins) after two 3×3 stride-2 convolutions with padding 1."""
+    return ((n - 1) // 2) // 2 + 1
+
+
+def subsample_plan(m: int, c: int, itemsize: int = 4) -> GemmPlan:
+    """How K8's conv2 launches (ops/gemm_plan.py) for m = B·T4·F4 positions
+    and C channels: a (m, C) × (C, C) GEMM with a nonlinear epilogue, so no
+    split; the 64-, 96- or 128-row tiles that load the busiest SM least."""
+    return gemm_plan(m, c, c, itemsize, split_k=False)
+
+
 def _lib() -> ctypes.CDLL:
     lib = load("subsample")
     fn = lib.pk_subsample_block1
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 7 + [i] + [p] * 2 + [i] * 4 + [p]
+        fn.argtypes = [i] + [p] * 7 + [i] + [p] * 2 + [i] * 5 + [p]
         fn.restype = i
     return lib
 
@@ -101,8 +116,8 @@ def _launch(x, w1, b1, wd, bd, w2, b2, activation):
     x = x.contiguous()
     w1m, b1v, w2m, b2v = (w.to(dt).reshape(c, -1).contiguous() for w in (w1, b1, w2, b2))
     wdm, bdv = (w.to(_F32).reshape(c, -1).contiguous() for w in (wd, bd))
-    t4 = ((t - 1) // 2) // 2 + 1
-    f4 = ((f - 1) // 2) // 2 + 1
+    t4, f4 = out_size(t), out_size(f)
+    plan = subsample_plan(b * t4 * f4, c, x.element_size())
 
     out = torch.empty((b, c, t4, f4), dtype=dt, device=x.device)
     y2 = torch.empty((b * t4 * f4, c), dtype=dt, device=x.device)
@@ -111,7 +126,7 @@ def _launch(x, w1, b1, wd, bd, w2, b2, activation):
         rc = lib.pk_subsample_block1(
             DTYPE_CODE[dt], x.data_ptr(), w1m.data_ptr(), b1v.data_ptr(), wdm.data_ptr(),
             bdv.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), _ACT_CODE[activation],
-            y2.data_ptr(), out.data_ptr(), b, t, f, c, stream(x.device),
+            y2.data_ptr(), out.data_ptr(), b, t, f, c, plan.rows, stream(x.device),
         )
     check_rc(rc, "fused_subsample_block1")
     fused_subsample_block1.launches += 1
@@ -141,4 +156,5 @@ def fused_subsample_block1(
 
 fused_subsample_block1.launches = 0
 
-__all__ = ["fused_subsample_block1", "fused_subsample_block1_reference", "build"]
+__all__ = ["subsample_plan", "out_size", "fused_subsample_block1",
+           "fused_subsample_block1_reference", "build"]

@@ -2,6 +2,7 @@
 the .cu, each header it includes from csrc/ (transitively) and the flags.
 Nothing here runs nvcc."""
 
+import re
 import subprocess
 
 import pytest
@@ -63,24 +64,36 @@ def test_repo_sources_resolve():
             assert header.decode() in names
 
 
+GEMM_HEADERS = ["ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]
+
+
 @pytest.mark.parametrize("name, headers", [
-    ("feed_forward", ["feed_forward.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
-    ("rel_attention", ["rel_attention.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
-    ("conv_module", ["conv_module.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]),
-    ("conv_ffn_final", ["conv_module.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh",
-                        "feed_forward.cuh"]),
-    ("ffn_attention", ["feed_forward.cuh", "ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh",
-                       "rel_attention.cuh"]),
+    ("feed_forward", ["feed_forward.cuh", *GEMM_HEADERS]),
+    ("rel_attention", ["rel_attention.cuh", *GEMM_HEADERS]),
+    ("conv_module", ["conv_module.cuh", *GEMM_HEADERS]),
+    ("conv_ffn_final", ["conv_module.cuh", *GEMM_HEADERS, "feed_forward.cuh"]),
+    ("ffn_attention", ["feed_forward.cuh", *GEMM_HEADERS, "rel_attention.cuh"]),
+    ("subsample", GEMM_HEADERS),
+    ("log_mel", GEMM_HEADERS),
 ])
 def test_composed_kernels_hash_the_sequences_they_include(name, headers):
-    """K6, K1 and K5 run their launch sequences and the shared tiled GEMM
-    from their headers (K4 and K7 compose K5's, K6's and K1's), so an edit
-    to any of those rebuilds them too; K8 and K3, which stay on gemm.cuh's
-    small GEMM, do not hash the tiled GEMM's header, so their sources and
-    outputs stay as they were."""
+    """Every kernel runs its GEMMs on the shared tiled GEMM (ffn_gemm.cuh):
+    K6, K1 and K5 from their launch sequences' headers (K4 and K7 compose
+    K5's, K6's and K1's), K8's conv2 and K3's DFT directly, so an edit to
+    any of those headers rebuilds each library that reaches it. K2 uses
+    only the helpers."""
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", *headers]
-    for other in ("subsample", "log_mel"):
-        names = [p.name for p in _build.sources(other)]
-        assert names == [f"{other}.cu", "gemm.cuh"], other
     assert [p.name for p in _build.sources("rel_attention_v1")] == [
         "rel_attention_v1.cu", "async_copy.cuh", "gemm.cuh"]
+
+
+def test_one_gemm_design_in_the_sources():
+    """The 64x64 GEMM that K8 and K3 ran on is gone: the tiled GEMM of
+    ffn_gemm.cuh is the only one, and gemm.cuh keeps the helpers and the
+    LayerNorm."""
+    text = {p.name: p.read_text() for p in _build._CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+    for word in (r"\bgemm_nt_kernel\b", r"\bGemmArgs\b", r"\blaunch_gemm\b", r"\bGBM\b", r"\bEPI_"):
+        assert not [name for name, src in text.items() if re.search(word, src)], word
+    assert "layer_norm_rows_kernel" in text["gemm.cuh"] and "FfnGemmArgs" not in text["gemm.cuh"]
+    for name in ("subsample.cu", "log_mel.cu"):
+        assert "launch_tiled_gemm_rows<" in text[name], name

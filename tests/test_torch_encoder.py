@@ -166,6 +166,7 @@ def _interpret_wrappers(monkeypatch, extra: bool = False):
 
         monkeypatch.setattr(mod, name, interp)
     monkeypatch.setattr(RE, "_SUBSAMPLE_T4_TILE", 4)
+    monkeypatch.setattr(TE, "_SUBSAMPLE_T4_TILE", 4)
     return calls
 
 
@@ -220,6 +221,9 @@ def test_each_fused_layer_dispatches_its_kernel(model, monkeypatch, field):
             return _orig(*args, **kw)
 
         monkeypatch.setattr(mod, name, spy)
+    # MEL_LENGTHS give T4 = 20 and T' = 10: below the reference's guards
+    monkeypatch.setattr(TE, "_SUBSAMPLE_T4_TILE", 4)
+    monkeypatch.setattr(TE, "_FFN_MIN_FRAMES", 1)
     lengths = torch.tensor(MEL_LENGTHS)
     got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths,
                                   fused=TE.FusedLayers(**{field: True})).numpy()
@@ -321,11 +325,65 @@ def test_fused_layers_precedence(model, monkeypatch, case):
             return _orig(*args, **kw)
 
         monkeypatch.setattr(TE, name, spy)
+    monkeypatch.setattr(TE, "_FFN_MIN_FRAMES", 1)  # T' = 10: below the reference's FFN guard
     lengths = torch.tensor(MEL_LENGTHS)
     got = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths, fused=TE.FusedLayers(**fields))
     assert seen == {k: want.get(k, 0) * tcfg.num_layers for k in names}
     plain = TE.fastconformer_encode(tp, tcfg, torch.from_numpy(mel), lengths).numpy()
     _valid_close(got.numpy(), plain)
+
+
+BELOW_GUARDS = {
+    # FusedLayers fields → the reference's globals; MEL_LENGTHS give T4 = 20
+    # (< 32) and T' = 10 (< 64), so every guarded kernel gives way, and
+    # "mega" falls back to the attention block kernel in both packages
+    "ffn+subsample": (dict(ffn=True, subsample=True), dict(attention="block4hp", ffn=True)),
+    "whole-block": (dict(attention="mega", block2=True, subsample=True), dict(attention="mega", block2=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BELOW_GUARDS))
+def test_fused_encoder_below_the_guards_is_the_plain_encoder(model, monkeypatch, case):
+    """bf16 below the reference's input guards: its fused globals run no
+    guarded Pallas kernel (only the attention block), and the port's fused
+    encoder is bit for bit its default encoder."""
+    import parakeet_tpu.ops.pallas_attention as PA
+    import parakeet_tpu.ops.pallas_block as PB
+    import parakeet_tpu.ops.pallas_ffn as PF
+    import parakeet_tpu.ops.pallas_subsample as PS
+
+    rcfg, tcfg, rp, tp, mel = model
+    fields, ref_globals = BELOW_GUARDS[case]
+    calls = {}
+    for mod, name in ((PA, "fused_rel_attention_block"), (PF, "fused_feed_forward"),
+                      (PS, "fused_subsample_block1"), (PA, "fused_ffn_attention"),
+                      (PB, "fused_conv_ffn_final")):
+        calls[name] = 0
+
+        def interp(*args, _orig=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            kw["interpret"] = True
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(mod, name, interp)
+    rp16 = RParams({k: v if "norm" in k else v.astype(jnp.bfloat16) for k, v in rp.data.items()}).sub("encoder_")
+    RE.set_fused_attention(ref_globals["attention"])
+    RE.set_fused_ffn(ref_globals.get("ffn", False))
+    RE.set_fused_block2(ref_globals.get("block2", False))
+    RE.set_fused_subsample(True)
+    try:
+        RE.fastconformer_encode(rp16, rcfg, jnp.asarray(mel).astype(jnp.bfloat16), jnp.asarray(MEL_LENGTHS))
+    finally:
+        RE.set_fused_attention(False)
+        RE.set_fused_ffn(False)
+        RE.set_fused_block2(False)
+        RE.set_fused_subsample(False)
+    assert calls == dict.fromkeys(calls, 0) | {"fused_rel_attention_block": rcfg.num_layers}, calls
+    tp16 = TParams({k: v if "norm" in k else v.to(torch.bfloat16) for k, v in tp.data.items()}).sub("encoder_")
+    x = torch.from_numpy(mel).to(torch.bfloat16)
+    lengths = torch.tensor(MEL_LENGTHS)
+    got = TE.fastconformer_encode(tp16, tcfg, x, lengths, fused=TE.FusedLayers(**fields))
+    assert torch.equal(got, TE.fastconformer_encode(tp16, tcfg, x, lengths))
 
 
 def test_unknown_attention_mode_is_rejected():

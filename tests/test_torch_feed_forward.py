@@ -11,7 +11,9 @@ import jax.numpy as jnp
 
 from parakeet_tpu import config as RC
 from parakeet_tpu import params as RP
+from parakeet_tpu.models import encoder as RE
 from parakeet_tpu.ops.pallas_ffn import fused_feed_forward as r_fused_feed_forward
+from parakeet_tpu_torch.models import encoder as TE
 from parakeet_tpu_torch.ops import feed_forward as TF
 from parakeet_tpu_torch.params import Params as TParams
 from parakeet_tpu_torch.params import params_from_numpy
@@ -85,6 +87,68 @@ def test_cpu_dispatch_runs_plain_version_and_counts_nothing(flat):
         got = _port(flat, x, final, False, fn=TF.fused_feed_forward)
         assert torch.equal(got, _port(flat, x, final, False))
     assert TF.fused_feed_forward.launches == before
+
+
+def _count_reference_kernel(monkeypatch):
+    import parakeet_tpu.ops.pallas_ffn as PF
+
+    orig, calls = PF.fused_feed_forward, []
+
+    def interp(*a, **kw):
+        calls.append(1)
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(PF, "fused_feed_forward", interp)
+    return calls
+
+
+@pytest.mark.parametrize("t", [40, 63])
+def test_fused_route_below_the_guard_is_the_plain_route(flat, monkeypatch, t):
+    """T' < 64: the reference's _ffn_fusable sends set_fused_ffn(True) to its
+    XLA layers, and the port's fused route runs its plain layers, bit for
+    bit, in bf16 (the kernel rounds LN(x) and h where they do not)."""
+    calls = _count_reference_kernel(monkeypatch)
+    x = np.random.RandomState(t).randn(3, t, D).astype(np.float32)
+    rp = RP.Params({k: jnp.asarray(v).astype(jnp.bfloat16) if "norm" not in k else jnp.asarray(v)
+                    for k, v in flat.items()}).sub(PREFIX[:-1])
+    RE.set_fused_ffn(True)
+    try:
+        RE.feed_forward(rp.sub("ffn1_"), jnp.asarray(x).astype(jnp.bfloat16), 1e-5)
+    finally:
+        RE.set_fused_ffn(False)
+    assert calls == [], "the reference ran its kernel below its guard"
+    seen = []
+    monkeypatch.setattr(TE, "fused_feed_forward", lambda *a, **kw: seen.append(1))
+    tp = TParams(params_from_numpy(flat, "cpu", torch.bfloat16)).sub(PREFIX[:-1])
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    for final in (None, tp.sub("final_norm_")):
+        got = TE.feed_forward(tp.sub("ffn2_"), xt, 1e-5, fused=True, final_norm=final)
+        assert torch.equal(got, TE.feed_forward(tp.sub("ffn2_"), xt, 1e-5, final_norm=final))
+    assert seen == []
+
+
+def test_fused_route_at_the_guard_runs_the_kernel(flat, monkeypatch):
+    calls = _count_reference_kernel(monkeypatch)
+    x = np.random.RandomState(64).randn(2, 64, D).astype(np.float32)
+    rp = RP.Params({k: jnp.asarray(v) for k, v in flat.items()}).sub(PREFIX[:-1])
+    RE.set_fused_ffn(True)
+    try:
+        ref = np.asarray(RE.feed_forward(rp.sub("ffn1_"), jnp.asarray(x), 1e-5))
+    finally:
+        RE.set_fused_ffn(False)
+    assert calls == [1]
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(1)
+        return TF.fused_feed_forward(*a, **kw)
+
+    monkeypatch.setattr(TE, "fused_feed_forward", spy)
+    tp = TParams(params_from_numpy(flat)).sub(PREFIX[:-1])
+    got = TE.feed_forward(tp.sub("ffn1_"), torch.from_numpy(x), 1e-5, fused=True).numpy()
+    assert seen == [1]
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 
 def test_other_devices_raise(flat):

@@ -1,7 +1,7 @@
 """Launch plans of the shared tiled GEMM (ops/gemm_plan.py gemm_plan, as
-K6's ffn_plan, K1's block_plan and K5's conv_plan use it) and of K2
-(ops/rel_attention.py v1_plan), computed in Python and passed to the CUDA
-kernels as ints. A launch refused for too much shared memory never runs,
+K6's ffn_plan, K1's block_plan, K5's conv_plan, K8's subsample_plan and
+K3's dft_plan use it) and of K2 (ops/rel_attention.py v1_plan), computed
+in Python and passed to the CUDA kernels as ints. A launch refused for too much shared memory never runs,
 so these checks are the guard that runs without a card."""
 
 import pytest
@@ -12,6 +12,7 @@ from parakeet_tpu_torch.ops import conv_module as CM
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops import gemm_plan as GP
 from parakeet_tpu_torch.ops import rel_attention as RA
+from parakeet_tpu_torch.ops import subsample as SS
 
 LIMIT = 232_448  # an H100 block's dynamic shared memory, bytes
 SEQ_LENS = (1, 37, 126, 751, 1001, 3000, 6001)
@@ -173,3 +174,58 @@ def test_plans_follow_the_dtype_itemsize():
     assert torch.empty((), dtype=torch.bfloat16).element_size() == 2
     assert RA.v1_plan(751, 64, 2).smem < RA.v1_plan(751, 64, 4).smem
     assert FF.ffn_plan(1008, 512, 2048, 2).smem < FF.ffn_plan(1008, 512, 2048, 4).smem
+
+
+# K8's conv2 at B=8, mel T = 1001 and 6001 (10 s and 60 s), C = 256; the
+# 600m presets' 128 mel bins too
+SUBSAMPLE_SHAPES = ((1001, 80), (6001, 80), (1001, 128), (129, 80))
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("t, mel", SUBSAMPLE_SHAPES)
+def test_subsample_plan_fits_and_never_splits(t, mel, itemsize):
+    """conv2's epilogue (bias, act, one rounding, channel-major stores) is
+    nonlinear: one k slice, the busiest-SM block rows, and the staging
+    tile of 128 channels x (rows + 2) floats inside the ring's shared
+    memory."""
+    m = 8 * SS.out_size(t) * SS.out_size(mel)
+    plan = SS.subsample_plan(m, 256, itemsize)
+    assert plan == GP.gemm_plan(m, 256, 256, itemsize, split_k=False)
+    assert plan.splits == 1 and plan.smem <= LIMIT
+    assert 128 * (plan.rows + 2) * 4 <= plan.smem
+    if t >= 1001:
+        assert plan.blocks >= 132  # hundreds of blocks: no SM idles
+
+
+def test_subsample_plan_at_ten_second_clips():
+    """B=8, T=1001: 40,160 positions; 64 and 128 rows both put 640 rows on
+    the busiest SM, and the tie goes to 64 (two blocks share an SM)."""
+    m = 8 * 251 * 20
+    assert SS.out_size(1001) == 251 and SS.out_size(80) == 20
+    assert SS.subsample_plan(m, 256).rows == 64
+    assert SS.subsample_plan(m, 256).blocks == 628 * 2
+
+
+@pytest.mark.parametrize("seconds", (1, 10, 30, 60))
+def test_dft_plan_fits_and_splits_whole_k_steps(seconds):
+    frames = (seconds * 16000 + 512 - 512) // 160 + 1
+    plan = GP.dft_plan(frames, 512)
+    assert GP.dft_cols(512) == 512 and plan.rows == GP.DFT_ROWS
+    assert plan.smem == GP.gemm_smem(plan.rows, 4) <= LIMIT
+    assert (512 // GP.GEMM_K_STEP) % plan.splits == 0 and 1 <= plan.splits <= GP.MAX_SPLITS
+    assert plan.blocks == -(-frames // plan.rows) * 4 * plan.splits
+
+
+def test_dft_plan_fills_the_card_at_ten_seconds_and_runs_one_pass_at_sixty():
+    """10 s: 16 x 4 tiles of 64 frames leave most SMs idle, so k is split
+    until every SM has a block; 60 s: 94 x 4 tiles fill their waves, so
+    the DFT runs in one pass with the power epilogue (no partials)."""
+    ten = GP.dft_plan(1001, 512)
+    assert ten.splits > 1 and ten.blocks >= 132
+    assert GP.dft_plan(6001, 512).splits == 1
+
+
+def test_dft_plan_takes_other_n_fft():
+    """n_fft 400 (200 bins): 4 tiles, the last one partly zero rows."""
+    assert GP.dft_cols(400) == 512
+    assert GP.dft_plan(1001, 400).smem <= LIMIT

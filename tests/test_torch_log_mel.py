@@ -89,6 +89,41 @@ def test_preprocess_audio_fused_matches_reference(n_samples, monkeypatch):
     np.testing.assert_allclose(got, plain, atol=2 * ATOL)
 
 
+@pytest.mark.parametrize("n_samples", [16000, 40000])
+def test_kernel_operands_reproduce_the_pallas_kernel(n_samples):
+    """The CUDA kernel's arithmetic on its own operands, in torch: the DFT
+    against the tile-laid-out W (64 cos then 64 sin rows per 128 columns),
+    re and im read back from that layout, the Nyquist bin from its own two
+    rows, then the filterbank and the log."""
+    x = _padded(n_samples, seed=3)
+    ref = np.asarray(RPF.fused_log_mel(jnp.asarray(x), interpret=True))
+    wdft, nyq, band_w, band_lo, band_off = TK._device_mats(512, 400, 80, 16000.0, 0.0, None, torch.device("cpu"))
+    assert tuple(wdft.shape) == (512, 512) and tuple(nyq.shape) == (2, 512)
+    assert band_lo.dtype == band_off.dtype == torch.int32 and band_off[-1] == band_w.numel()
+    frames = torch.from_numpy(x).unfold(0, 512, 160)
+    tiles = (frames @ wdft.T).view(-1, 4, 2, 64)
+    re, im = tiles[:, :, 0].reshape(-1, 256), tiles[:, :, 1].reshape(-1, 256)
+    nyq_re, nyq_im = frames @ nyq[0], frames @ nyq[1]
+    power = torch.cat([re * re + im * im, (nyq_re * nyq_re + nyq_im * nyq_im)[:, None]], dim=1)
+    mel = torch.stack([power[:, lo: lo + hi - o] @ band_w[o: hi]
+                       for lo, o, hi in zip(band_lo.tolist(), band_off[:-1].tolist(), band_off[1:].tolist())], 1)
+    got = torch.log(mel + 2.0 ** -24).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_filterbank_bands_hold_every_nonzero_weight(n_mels):
+    """Each mel filter's band runs from its first to its last nonzero
+    weight; rebuilt densely, the bands are the filterbank bit for bit."""
+    fb = TK._filterbank(512, n_mels, 16000.0, 0.0, None)
+    w, lo, off = TK.filterbank_bands(fb)
+    dense = np.zeros_like(fb)
+    for m in range(n_mels):
+        dense[lo[m]: lo[m] + off[m + 1] - off[m], m] = w[off[m]: off[m + 1]]
+    np.testing.assert_array_equal(dense, fb)
+    assert off[-1] == w.size < fb.size // 20  # a sparse product: under 5% of the weights
+
+
 def test_cpu_dispatch_runs_plain_version_and_counts_nothing():
     x = torch.from_numpy(_padded(8000, seed=4))
     before = TK.fused_log_mel.launches

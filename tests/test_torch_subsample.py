@@ -128,6 +128,7 @@ def test_fused_conv_subsampling_matches_reference_toggle(monkeypatch):
 
     monkeypatch.setattr(PS, "fused_subsample_block1", interp)
     monkeypatch.setattr(RE, "_SUBSAMPLE_T4_TILE", 4)
+    monkeypatch.setattr(TE, "_SUBSAMPLE_T4_TILE", 4)
     flat = _flat(80, seed=3)
     x = _mel(2, 99, 80, seed=3)
     RE.set_fused_subsample(True)
@@ -140,6 +141,66 @@ def test_fused_conv_subsampling_matches_reference_toggle(monkeypatch):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     plain = TE.conv_subsampling(_tp(flat), torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+
+
+def _count_reference_kernel(monkeypatch):
+    import parakeet_tpu.ops.pallas_subsample as PS
+
+    orig, calls = PS.fused_subsample_block1, []
+
+    def interp(*a, **kw):
+        calls.append(1)
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(PS, "fused_subsample_block1", interp)
+    return calls
+
+
+@pytest.mark.parametrize("t,mel", [(99, 80), (61, 80), (200, 78)])
+def test_fused_route_below_the_guard_is_the_plain_route(monkeypatch, t, mel):
+    """T4 = 25 and 16 (< 32), or F2 = 39 (odd): the reference's guard sends
+    set_fused_subsample(True) to its XLA layers, and the port's fused route
+    runs its plain layers, bit for bit, in bf16, where the kernel's
+    unrounded conv1 output would differ."""
+    calls = _count_reference_kernel(monkeypatch)
+    flat = _flat(mel, seed=3)
+    x = _mel(2, t, mel, seed=t)
+    RE.set_fused_subsample(True)
+    try:
+        RE.conv_subsampling(_rp(flat, bf16=True), jnp.asarray(x).astype(jnp.bfloat16))
+    finally:
+        RE.set_fused_subsample(False)
+    assert calls == [], "the reference ran its kernel below its guard"
+    seen = []
+    monkeypatch.setattr(TE, "fused_subsample_block1", lambda *a, **kw: seen.append(1))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = TE.conv_subsampling(_tp(flat, bf16=True), xt, fused=True)
+    assert seen == []
+    assert torch.equal(got, TE.conv_subsampling(_tp(flat, bf16=True), xt))
+
+
+def test_fused_route_at_the_guard_runs_the_kernel(monkeypatch):
+    """T = 129: T4 = 33 ≥ 32 and F2 = 40 even, so both take the kernel."""
+    calls = _count_reference_kernel(monkeypatch)
+    flat = _flat(80, seed=3)
+    x = _mel(1, 129, 80, seed=12)
+    RE.set_fused_subsample(True)
+    try:
+        ref = np.asarray(RE.conv_subsampling(_rp(flat), jnp.asarray(x)))
+    finally:
+        RE.set_fused_subsample(False)
+    assert calls == [1]
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(1)
+        return TS.fused_subsample_block1(*a, **kw)
+
+    monkeypatch.setattr(TE, "fused_subsample_block1", spy)
+    got = TE.conv_subsampling(_tp(flat), torch.from_numpy(x), fused=True).numpy()
+    assert seen == [1]
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 
 def test_cpu_dispatch_runs_plain_version_and_counts_nothing(flat80):
