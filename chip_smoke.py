@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (parakeet_tpu_torch) on one card.
 
     python3 chip_smoke.py        # needs one CUDA device
+    python3 chip_smoke.py --phases kernels600m,paths600m,long   # a subset, no result lines
 
 Phases, each of which raises (exit code 1) on failure:
   1. device   require CUDA; print the card's name and power limit
@@ -54,7 +55,24 @@ Phases, each of which raises (exit code 1) on failure:
               the same features; then a bf16 run of the fused
               configuration, its token edit distance against f32 reported
               (not a gate)
-The card's name and power limit, a JSON line of per-kernel numbers (with
+  5. kernels600m  the kernels at the 600m presets' shapes against their
+              plain versions in f32 and bf16, timed, each with its bound:
+              K8 on mel (8, 1001, 128), K7 and K4 at D=1024, F=4096, H=8,
+              T'=126 with mixed lengths, K2 at hd=128 and T'=126 and 751,
+              K1 at D=1024, B=1, T'=1188 (a dense 95 s clip)
+  6. paths600m  TDTTranscriber at full tdt-600m width (24 layers, d=1024,
+              128 mel, vocab 8193, two LSTM layers) in the default, fused,
+              whole-block and v1 configurations, and RNNTTranscriber at
+              full rnnt-600m width (80 mel, vocab 1025) in the default and
+              fused ones; seeded random weights, f32, the 8 clips; exact
+              launch counts, tokens and frames equal to a CPU facade's,
+              Decoder.CTC raising ValueError
+  7. long     tdt-600m, default configuration, clips of 95, 62 and 7 s
+              through transcribe_batch: long_audio="window" (20 windows of
+              10 s overlapping by 2 s in one call at B=20, the 7 s clip
+              densely) and long_audio="dense" (the 95 s clip alone at
+              T'=1188); tokens and frames equal to the CPU's
+Each phase prints its seconds, and the run its total. The card's name and power limit, a JSON line of per-kernel numbers (with
 bound_ms, bound_by and the bound's share of the kernel time at the
 headline shape, and under "shapes" every timed shape with its bound) and
 {"ok": true, "device": {...}} are the last three lines of output.
@@ -136,19 +154,21 @@ def profile_device(fn, calls: int):
     return times
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, profiles: int = 2) -> float:
     """Device time per call from torch.profiler: the summed durations of
     the device events (kernels, copies, fills) over `calls` calls. The
-    larger of two profiles, since a profile that drops events can only read
-    low. While no profile has seen device time, up to three more are taken;
-    then the measurement fails."""
+    largest of `profiles` profiles (two by default; one for whole decode
+    batches, whose tens of thousands of host ops make a profile slow), since
+    a profile that drops events can only read low. While no profile has
+    seen device time, up to three more are taken; then the measurement
+    fails."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     best = 0.0
-    for attempt in range(5):
-        if attempt >= 2 and best > 0:
+    for attempt in range(profiles + 3):
+        if attempt >= profiles and best > 0:
             break
         best = max(best, sum(profile_device(fn, calls).values()))
     if best <= 0:
@@ -571,13 +591,13 @@ def subsample_phase(card: str) -> dict:
     return out
 
 
-def _ffn_weights(rng, dev):
+def _ffn_weights(rng, dev, d=D, f=FFN):
     import torch
 
     f32 = torch.float32
-    return [dev(1 + 0.1 * rng.randn(D), f32), dev(0.1 * rng.randn(D), f32),
-            dev(rng.randn(FFN, D) / np.sqrt(D)), dev(0.05 * rng.randn(FFN)),
-            dev(rng.randn(D, FFN) / np.sqrt(FFN)), dev(0.05 * rng.randn(D))]
+    return [dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32),
+            dev(rng.randn(f, d) / np.sqrt(d)), dev(0.05 * rng.randn(f)),
+            dev(rng.randn(d, f) / np.sqrt(f)), dev(0.05 * rng.randn(d))]
 
 
 def _conv_weights(rng, dev, d=D):
@@ -697,6 +717,110 @@ def rel_attention_v1_phase(card: str) -> dict:
     return out
 
 
+def kernels_600m_phase(card: str) -> dict:
+    """The kernels at the 600m presets' shapes (d=1024, F=4096, H=8,
+    hd=128, 128 mel bins), each against its plain version in f32 and bf16,
+    timed, with its bound: K8 on mel (8, 1001, 128); K7 and K4 at T'=126
+    with mixed lengths; K2 at T'=126 and 751; K1 at B=1, T'=1188 (a dense
+    95 s clip). Returns per kernel the entries its phase above returns,
+    keyed by a shape label."""
+    import torch
+
+    from parakeet_tpu_torch.ops import conv_ffn_final as K4
+    from parakeet_tpu_torch.ops import ffn_attention as K7
+    from parakeet_tpu_torch.ops import rel_attention as RA
+    from parakeet_tpu_torch.ops import subsample as SS
+
+    d6, f6, hd6, mel6 = 1024, 4096, 1024 // H, 128
+    log(f"== 600m shapes: K8 mel {mel6}, K7 and K4 D={d6} F={f6}, K2 hd={hd6}, K1 D={d6} at T'=1188")
+    out = {name: {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
+           for name in ("fused_subsample_block1", "fused_ffn_attention", "fused_conv_ffn_final",
+                        "fused_rel_attention", "rel_attention_block")}
+
+    def run(name, shape, dtype, dtname, fn, plain_fn, work, rows=None, view=None):
+        with torch.inference_mode():
+            got, ref = fn(), plain_fn()
+        if view is not None:
+            got, ref = view(got), view(ref)
+        tag = f"{name} 600m {shape} {dtname}"
+        err = check_close(tag, got, ref, rows)
+        entry = out[name]
+        if dtype == torch.float32:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        key = "times" if dtype == torch.float32 else "bf16_times"
+        entry[key][shape] = time_pair(tag, fn, plain_fn, card)
+        entry[key.replace("times", "work")][shape] = work(got)
+        bd = bound(*entry[key.replace("times", "work")][shape], F32_PEAK if dtype == torch.float32 else BF16_PEAK)
+        ms = entry[key][shape]
+        log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']}; kernel / plain device {ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms "
+            f"[{card}]")
+
+    for dtype, name in _dtypes():
+        rng = np.random.RandomState(1300)
+        dev = _dev(rng, dtype)
+        t = 1001
+        args = (dev(rng.randn(B, t, mel6)),
+                dev(rng.randn(SUB_C, 1, 3, 3) / 3), dev(0.1 * rng.randn(SUB_C)),
+                dev(rng.randn(SUB_C, 1, 3, 3) / 3), dev(0.1 * rng.randn(SUB_C)),
+                dev(rng.randn(SUB_C, SUB_C, 1, 1) / 16), dev(0.1 * rng.randn(SUB_C)))
+        plan = SS.subsample_plan(B * SS.out_size(t) * SS.out_size(mel6), SUB_C, args[0].element_size())
+        run("fused_subsample_block1", f"mel ({B}, {t}, {mel6}) C={SUB_C} (conv2 {plan.rows}-row tiles)", dtype,
+            name, lambda: SS.fused_subsample_block1(*args), lambda: SS.fused_subsample_block1_reference(*args),
+            lambda got: (subsample_flops(B, t, mel6, SUB_C), tensor_bytes(*args, got)))
+
+        t = 126
+        rng = np.random.RandomState(1400)
+        dev = _dev(rng, dtype)
+        lengths = _mixed_lengths(rng, t)
+        lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+        k7 = (dev(rng.randn(B, t, d6)), *_ffn_weights(rng, dev, d6, f6),
+              dev(1 + 0.1 * rng.randn(d6), torch.float32), dev(0.1 * rng.randn(d6), torch.float32),
+              *_attention_weights(rng, dev, d6, H))
+        run("fused_ffn_attention", f"B={B} T'={t} D={d6} F={f6}", dtype, name,
+            lambda: K7.fused_ffn_attention(*k7, lengths=lt), lambda: K7.fused_ffn_attention_reference(*k7, lengths=lt),
+            lambda got: (ffn_flops(B * t, d6, f6) + attention_flops(B, t, d6, H, lengths),
+                         tensor_bytes(*k7, lt, got) + (2 * t - 1) * d6 * got.element_size()),
+            rows=_valid_rows(lengths, t))
+        k4 = (dev(rng.randn(B, t, d6)), *_conv_weights(rng, dev, d6), *_ffn_weights(rng, dev, d6, f6),
+              dev(1 + 0.1 * rng.randn(d6), torch.float32), dev(0.1 * rng.randn(d6), torch.float32))
+        run("fused_conv_ffn_final", f"B={B} T'={t} D={d6} F={f6}", dtype, name,
+            lambda: K4.fused_conv_ffn_final(*k4, lengths=lt),
+            lambda: K4.fused_conv_ffn_final_reference(*k4, lengths=lt),
+            lambda got: (conv_flops(B * t, d6, 9) + ffn_flops(B * t, d6, f6), tensor_bytes(*k4, lt, got)))
+
+        for t in (126, 751):
+            rng = np.random.RandomState(1500 + t)
+            dev = _dev(rng, dtype)
+            k2 = (*(dev(rng.randn(B, H, t, hd6)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd6)))
+            lengths = _mixed_lengths(rng, t)
+            lt2 = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+            plan = RA.v1_plan(t, hd6, k2[0].element_size())
+            passes = f"one pass, {plan.rows} rows per block" if plan.one_pass else "two passes"
+            run("fused_rel_attention", f"B={B} T'={t} hd={hd6} ({passes})", dtype, name,
+                lambda: RA.fused_rel_attention(*k2, lengths=lt2),
+                lambda: RA.fused_rel_attention_reference(*k2, lengths=lt2),
+                lambda got: (core_flops(t, hd6, H, lengths), tensor_bytes(*k2, lt2, got)),
+                rows=_valid_rows(lengths, t), view=lambda a: a.transpose(1, 2))
+
+        t = 1188
+        rng = np.random.RandomState(1600)
+        dev = _dev(rng, dtype)
+        k1 = _attention_args(rng, dev, 1, t, d6, H)
+        lengths = np.asarray([t])
+        kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+                  norm_w=dev(1 + rng.normal(0, 0.1, d6), torch.float32),
+                  norm_b=dev(rng.normal(0, 0.1, d6), torch.float32))
+        run("rel_attention_block", f"B=1 T'={t} D={d6} hd={hd6}", dtype, name,
+            lambda: RA.rel_attention_block(*k1, **kw), lambda: RA.rel_attention_block_reference(*k1, **kw),
+            lambda got: (attention_flops(1, t, d6, H, lengths),
+                         tensor_bytes(*k1, *kw.values(), got) + (2 * t - 1) * d6 * got.element_size()))
+        if dtype == torch.float32:  # where K1's time goes at the dense 95 s shape
+            stage_times(f"K1 600m B=1 T'={t} f32", lambda: RA.rel_attention_block(*k1, **kw),
+                        [("QKV", t, 3 * d6, d6), ("P", 2 * t - 1, d6, d6), ("out", t, d6, d6)], card)
+    return out
+
+
 def dft_choice(tag: str, fn, module, card: str) -> dict:
     """Device time of `fn` under each DFT launch plan of 64 or 128 rows and
     1, 2, 4 or 8 k slices (one slice: the power epilogue, no partials),
@@ -770,13 +894,15 @@ def synthetic_clips(n: int, seed: int, sr: int = 16000, min_s: float = 2.0, max_
     return clips
 
 
-def tdt_margin(tr, enc, item: int, tokens: list[int], step: int, frame: int) -> float:
-    """Top-2 label log-prob gap of the TDT decision after `step` emissions
-    of `tokens`, at encoder frame `frame`, on `tr`'s device."""
+def transducer_margin(tr, enc, item: int, tokens: list[int], step: int, frame: int) -> float:
+    """Top-2 label log-prob gap of the transducer decision after `step`
+    emissions of `tokens`, at encoder frame `frame`, on `tr`'s device: the
+    TDT joint's label head, or the RNNT joint's."""
     import torch
 
     from parakeet_tpu_torch.models.rnnt import (
-        joint_encoder_projection, prediction_step, prediction_zero_state, tdt_joint_precomputed)
+        joint_encoder_projection, prediction_step, prediction_zero_state, rnnt_joint_precomputed,
+        tdt_joint_precomputed)
     from parakeet_tpu_torch.params import Params
 
     cfg = tr.config
@@ -789,14 +915,27 @@ def tdt_margin(tr, enc, item: int, tokens: list[int], step: int, frame: int) -> 
             pred, state = prediction_step(pred_p, torch.tensor([tok], device=tr.device), state,
                                           cfg.prediction.num_lstm_layers)
         enc_pre = joint_encoder_projection(joint_p, enc[item: item + 1, frame])
-        label_lp, _ = tdt_joint_precomputed(joint_p, enc_pre, pred)
+        if tr.is_tdt:
+            label_lp, _ = tdt_joint_precomputed(joint_p, enc_pre, pred)
+        else:
+            label_lp = rnnt_joint_precomputed(joint_p, enc_pre, pred)
         top2 = torch.topk(label_lp[0], 2).values
     return float(top2[0] - top2[1])
 
 
+def _spans(res) -> list[tuple[int, int, int]]:
+    return [(t.token_id, t.start_frame, t.end_frame) for t in res.timestamped_tokens]
+
+
 def compare_tokens(name: str, gpu_res, cpu_res, margin_fn) -> None:
+    """Card and CPU tokens identical (and their frames, where timestamped);
+    at the first difference, its top-2 margin on the CPU, then a failure."""
     for i, (g, c) in enumerate(zip(gpu_res, cpu_res)):
         if g.token_ids == c.token_ids:
+            if _spans(g) != _spans(c):
+                j = next(k for k, (a, b) in enumerate(zip(_spans(g), _spans(c))) if a != b)
+                raise RuntimeError(f"{name}: item {i} token {j} frames differ: gpu {_spans(g)[j]} vs cpu "
+                                   f"{_spans(c)[j]}")
             continue
         j = next((k for k, (a, b) in enumerate(zip(g.token_ids, c.token_ids)) if a != b),
                  min(len(g.token_ids), len(c.token_ids)))
@@ -859,52 +998,104 @@ def launches_per_encoder_call(fused, layers: int, mel_frames: int, mel_bins: int
             "fused_log_mel": 0}
 
 
-def path_phase(name: str, fused, flat, clips, card: str) -> dict:
-    """One encoder configuration end to end on the card against the CPU."""
+# the facades chip_smoke drives: class, config preset, the decoders it checks
+MODELS = {
+    "tdt-ctc-110m": ("Transcriber", "make_110m_config", ("TDT", "CTC")),
+    "tdt-600m": ("TDTTranscriber", "make_tdt_600m_config", ("TDT",)),
+    "rnnt-600m": ("RNNTTranscriber", "make_rnnt_600m_config", ("RNNT",)),
+}
+
+
+def model_params(model: str) -> dict:
+    """Seeded random weights (seed 0) of a model at full width, as numpy."""
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+
+    spec = {"tdt-ctc-110m": P.tdt_ctc_spec, "tdt-600m": P.tdt_spec, "rnnt-600m": P.rnnt_spec}[model]
+    return P.init_params_numpy(spec(getattr(C, MODELS[model][1])()), seed=0)
+
+
+def facade(model: str, device: str, **kw):
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import transcribe as T
+
+    cls, cfg, _ = MODELS[model]
+    return getattr(T, cls)(config=getattr(C, cfg)(), device=device, **kw)
+
+
+def wall_ms(fn, n: int) -> float:
+    """Median host-clock ms of n synchronised calls."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m") -> dict:
+    """One model and encoder configuration end to end on the card against
+    the CPU: each of the model's decoders (TDT and CTC for tdt-ctc, the
+    transducer alone for TDT-only and RNNT, where CTC must raise)."""
     import torch
 
     from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
-    from parakeet_tpu_torch.config import make_110m_config
     from parakeet_tpu_torch.models.encoder import encoded_lengths
-    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions, Transcriber
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
 
-    cfg = make_110m_config()
+    gpu = facade(model, "cuda", params=flat, fused=fused)
+    cpu = facade(model, "cpu", params=flat, fused=fused)
+    cfg = gpu.config
     layers = cfg.encoder.num_layers
-    log(f"== path {name}: tdt-ctc-110m, {layers} layers, d={cfg.encoder.hidden_size}, "
-        f"random weights (seed 0), f32, {fused}")
-    gpu = Transcriber(config=cfg, params=flat, device="cuda", fused=fused)
-    cpu = Transcriber(config=cfg, params=flat, device="cpu", fused=fused)
+    log(f"== path {name}: {model}, {layers} layers, d={cfg.encoder.hidden_size}, {cfg.encoder.mel_bins} mel, "
+        f"vocab {cfg.joint.vocab_size}, {cfg.prediction.num_lstm_layers} LSTM layers, random weights (seed 0), "
+        f"f32, {fused}")
     audio_s = sum(len(c) for c in clips) / 16000.0
-    tdt = TranscribeOptions(Decoder.TDT, timestamps=True)
-    ctc = TranscribeOptions(Decoder.CTC)
+    decoders = MODELS[model][2]
+    opts = {dec: TranscribeOptions(Decoder.CTC) if dec == "CTC" else TranscribeOptions(Decoder.TDT, timestamps=True)
+            for dec in decoders}
+    tdt = opts[decoders[0]]
+    if not gpu.has_ctc:
+        try:
+            gpu.transcribe_batch(clips, TranscribeOptions(Decoder.CTC))
+        except ValueError as e:
+            log(f"  Decoder.CTC raises ValueError as it should: {e}")
+        else:
+            raise RuntimeError(f"{name}: Decoder.CTC on a model without a CTC head did not raise")
 
     gpu.transcribe_batch(clips, tdt)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
     feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
     per_call = launches_per_encoder_call(fused, layers, feats.shape[1], feats.shape[2])
     reset_counts()
-    gpu_tdt = gpu.transcribe_batch(clips, tdt)
-    after_tdt = read_counts()
-    gpu_ctc = gpu.transcribe_batch(clips, ctc)
-    launches = read_counts()
-    log(f"  kernel launches (TDT call, CTC call; one encoder call each): "
-        + ", ".join(f"{k} {after_tdt[k]} + {launches[k] - after_tdt[k]}" for k in launches if per_call[k]))
-    for k, n in per_call.items():
-        if after_tdt[k] != n or launches[k] != 2 * n:
-            raise RuntimeError(f"{name}: expected {n} {k} launches per encoder call, got "
-                               f"{after_tdt[k]} and {launches[k] - after_tdt[k]}")
+    gpu_res, steps = {}, []
+    for dec in decoders:
+        gpu_res[dec] = gpu.transcribe_batch(clips, opts[dec])
+        steps.append(read_counts())
+    launches = steps[-1]
+    per_dec = [{k: c[k] - (steps[i - 1][k] if i else 0) for k in c} for i, c in enumerate(steps)]
+    log(f"  kernel launches ({' call, '.join(decoders)} call; one encoder call each): "
+        + ", ".join(f"{k} {' + '.join(str(d[k]) for d in per_dec)}" for k in launches if per_call[k]))
+    for dec, counts in zip(decoders, per_dec):
+        for k, n in per_call.items():
+            if counts[k] != n:
+                raise RuntimeError(f"{name}: expected {n} {k} launches per encoder call, got {counts[k]} in the "
+                                   f"{dec} call")
 
-    for r in gpu_tdt + gpu_ctc:
-        if not r.token_ids:
-            raise RuntimeError(f"{name}: an item decoded to no tokens")
-    for r in gpu_tdt:
-        for tok in r.timestamped_tokens:
-            if not (0 <= tok.token_id < cfg.joint.vocab_size - 1 and tok.start_frame <= tok.end_frame
-                    and 0.0 < tok.confidence <= 1.0):
-                raise RuntimeError(f"{name}: malformed timestamped token {tok}")
+    for res in gpu_res.values():
+        for r in res:
+            if not r.token_ids:
+                raise RuntimeError(f"{name}: an item decoded to no tokens")
+            for tok in r.timestamped_tokens:
+                if not (0 <= tok.token_id < cfg.joint.vocab_size - 1 and tok.start_frame <= tok.end_frame
+                        and 0.0 < tok.confidence <= 1.0):
+                    raise RuntimeError(f"{name}: malformed timestamped token {tok}")
 
-    cpu_tdt = cpu.transcribe_batch(clips, tdt)
-    cpu_ctc = cpu.transcribe_batch(clips, ctc)
+    cpu_res = {dec: cpu.transcribe_batch(clips, opts[dec]) for dec in decoders}
     enc_cpu = cpu.encode(feats, n_frames)
     enc_gpu = gpu.encode(feats, n_frames).cpu()
     enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
@@ -915,14 +1106,11 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
     if tuple(enc_gpu.shape) != (len(clips), max(enc_lens), cfg.encoder.hidden_size):
         raise RuntimeError(f"{name}: encoder output shape {tuple(enc_gpu.shape)}")
     log(f"  encoder card vs CPU: max|diff| {enc_diff:.3e} over valid frames (scale {enc_scale:.3f})")
-    if enc_diff > ENC_SCALE_FRAC * enc_scale:
-        raise RuntimeError(f"{name}: encoder on the card differs from the CPU by more than "
-                           f"{ENC_SCALE_FRAC:.0e} of scale")
 
-    def tdt_margin_at(i, j, res):
+    def transducer_margin_at(i, j, res):
         ts = res.timestamped_tokens
         frame = ts[j].start_frame if j < len(ts) else enc_lens[i] - 1
-        return tdt_margin(cpu, enc_cpu, i, res.token_ids, j, frame)
+        return transducer_margin(cpu, enc_cpu, i, res.token_ids, j, frame)
 
     def ctc_margin_at(i, j, res):
         lp = cpu.ctc_log_probs(enc_cpu)[i, : enc_lens[i]]
@@ -932,36 +1120,114 @@ def path_phase(name: str, fused, flat, clips, card: str) -> dict:
         top2 = torch.topk(lp[frame], 2).values
         return float(top2[0] - top2[1])
 
-    compare_tokens(f"{name} TDT", gpu_tdt, cpu_tdt, tdt_margin_at)
-    compare_tokens(f"{name} CTC", gpu_ctc, cpu_ctc, ctc_margin_at)
-    n_tdt = sum(len(r.token_ids) for r in gpu_tdt)
-    n_ctc = sum(len(r.token_ids) for r in gpu_ctc)
-    log(f"  tokens identical on card and CPU: TDT {n_tdt} tokens, CTC {n_ctc} tokens")
+    for dec in decoders:
+        compare_tokens(f"{name} {dec}", gpu_res[dec], cpu_res[dec],
+                       ctc_margin_at if dec == "CTC" else transducer_margin_at)
+    log("  tokens identical on card and CPU: " + ", ".join(
+        f"{dec} {sum(len(r.token_ids) for r in gpu_res[dec])} tokens" for dec in decoders))
+    if enc_diff > ENC_SCALE_FRAC * enc_scale:
+        raise RuntimeError(f"{name}: encoder on the card differs from the CPU by more than "
+                           f"{ENC_SCALE_FRAC:.0e} of scale")
 
-    def wall_ms(fn, n: int) -> float:
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[n // 2]
-
-    feats_gpu = feats.to("cuda")
+    feats_gpu = feats.to(gpu.device)
     with torch.inference_mode():
         front = wall_ms(lambda: gpu.prepare_batch(clips, tdt), 5)
         enc = wall_ms(lambda: gpu.encode(feats_gpu, n_frames), 5)
         enc_dev = device_ms(lambda: gpu.encode(feats_gpu, n_frames), calls=3)
     wall = wall_ms(lambda: gpu.transcribe_batch(clips, tdt), 3)
-    batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1)
+    batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1, profiles=1)
     log(f"  stages, wall ms (median of 5): frontend {front:.3f}, encoder {enc:.3f} "
-        f"(device time {enc_dev:.3f}); warm TDT batch {wall:.1f} ms (median of 3), "
+        f"(device time {enc_dev:.3f}); warm {decoders[0]} batch {wall:.1f} ms (median of 3), "
         f"{audio_s / (wall / 1e3):.1f} audio s per wall s; one profiled batch: device time "
         f"{batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall [{card}]")
     return {"launches": launches, "wall_s": wall / 1e3, "rtfx": audio_s / (wall / 1e3), "enc_ms": enc,
-            "enc_dev_ms": enc_dev, "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_tdt],
-            "ctc": [r.token_ids for r in gpu_ctc]}
+            "enc_dev_ms": enc_dev, "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_res[decoders[0]]],
+            "ctc": [r.token_ids for r in gpu_res.get("CTC", [])]}
+
+
+def long_audio_phase(flat, card: str) -> dict:
+    """tdt-600m at full width on long clips of 95, 62 and 7 s through
+    transcribe_batch, in the default configuration, against the CPU:
+    long_audio="window" (the 12 + 8 = 20 windows of 10 s overlapping by
+    2 s in one call at B=20, the 7 s clip densely), then long_audio="dense"
+    (the 95 s clip alone, T' = 1188). Tokens and frames identical to the
+    CPU's, per call and merged; launch counts exact."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
+
+    model = "tdt-600m"
+    lengths_s = (95.0, 62.0, 7.0)
+    clips = [synthetic_clips(1, seed=900 + i, min_s=sec, max_s=sec)[0] for i, sec in enumerate(lengths_s)]
+    opts = TranscribeOptions(Decoder.TDT, timestamps=True)
+    out = {}
+    for mode, batch in (("window", clips), ("dense", clips[:1])):
+        gpu = facade(model, "cuda", params=flat, long_audio=mode)
+        cpu = facade(model, "cpu", params=flat, long_audio=mode)
+        layers = gpu.config.encoder.num_layers
+        log(f"== long audio, long_audio={mode!r}: {model} default configuration, clips of "
+            f"{', '.join(f'{len(c) / 16000:.0f}' for c in batch)} s")
+
+        def capture(tr):
+            calls = []
+            real = tr._transcribe_batch_dense
+
+            def dense(sources, o=None, **kw):
+                res = real(sources, o, **kw)
+                calls.append(([np.asarray(x) for x in sources], res))
+                return res
+
+            tr._transcribe_batch_dense = dense
+            return calls
+
+        gpu.transcribe_batch(batch, opts)  # warm-up
+        torch.cuda.synchronize()
+        gpu_calls, cpu_calls = capture(gpu), capture(cpu)
+        reset_counts()
+        gpu_res = gpu.transcribe_batch(batch, opts)
+        launches = read_counts()
+        sizes = [len(srcs) for srcs, _ in gpu_calls]
+        want_sizes = [1, 20] if mode == "window" else [1]
+        t_primes = [int(encoded_lengths(torch.as_tensor([max(len(x) for x in srcs) // 160 + 1]))[0])
+                    for srcs, _ in gpu_calls]
+        log(f"  dense calls: batch sizes {sizes}, padded T' {t_primes}; kernel launches {launches}")
+        if sizes != want_sizes:
+            raise RuntimeError(f"long audio {mode}: dense calls of {sizes} items, want {want_sizes}")
+        want = launches_per_encoder_call(FusedLayers(), layers, 1, gpu.config.encoder.mel_bins)
+        for k, n in want.items():
+            if launches[k] != n * len(sizes):
+                raise RuntimeError(f"long audio {mode}: {launches[k]} {k} launches, want {n * len(sizes)}")
+        cpu_res = cpu.transcribe_batch(batch, opts)
+        for (srcs, g), (_, c) in zip(gpu_calls, cpu_calls):
+            enc_cache = {}
+
+            def margin_at(i, j, res, srcs=srcs, enc_cache=enc_cache):
+                if not enc_cache:
+                    feats, n_frames = preprocess_audio_batch(srcs, cpu._audio_cfg, "cpu")
+                    enc_cache["enc"] = cpu.encode(feats, n_frames)
+                ts = res.timestamped_tokens
+                frame = ts[j].start_frame if j < len(ts) else enc_cache["enc"].shape[1] - 1
+                return transducer_margin(cpu, enc_cache["enc"], i, res.token_ids, j, frame)
+
+            compare_tokens(f"long audio {mode}, dense call of {len(srcs)}", g, c, margin_at)
+        for i, (g, c) in enumerate(zip(gpu_res, cpu_res)):
+            if g.token_ids != c.token_ids or _spans(g) != _spans(c):
+                raise RuntimeError(f"long audio {mode}: clip {i} merged tokens or frames differ on card and CPU")
+            if not g.token_ids:
+                raise RuntimeError(f"long audio {mode}: clip {i} decoded to no tokens")
+        log(f"  tokens and frames identical on card and CPU: {[len(r.token_ids) for r in gpu_res]} tokens per clip, "
+            f"each dense call too")
+        audio_s = sum(len(c) for c in batch) / 16000.0
+        wall = wall_ms(lambda: gpu.transcribe_batch(batch, opts), 3)
+        dev = device_ms(lambda: gpu.transcribe_batch(batch, opts), calls=1, profiles=1)
+        log(f"  warm call {wall:.1f} ms (median of 3), {audio_s / (wall / 1e3):.1f} audio s per wall s; one profiled "
+            f"call: device time {dev:.3f} ms, busy {dev / wall:.1%} of the median wall [{card}]")
+        out[mode] = {"launches": launches, "wall_ms": wall, "dev_ms": dev, "sizes": sizes, "t_primes": t_primes}
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    return out
 
 
 def fused_frontend_phase(flat, clips, card: str) -> dict:
@@ -1048,18 +1314,37 @@ def build_phase() -> None:
         _build.load(name)
 
 
-def main() -> int:
+PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES) + " (the default runs all and prints "
+                         "the result lines; a subset prints no result)")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if set(phases) - set(PHASES):
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
     if not (ROOT / "parakeet_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no parakeet_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
+    seconds = {}
 
-    from parakeet_tpu_torch import params as P
-    from parakeet_tpu_torch.config import make_110m_config
+    def timed(label, fn, *a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        seconds[label] = time.perf_counter() - t0
+        log(f"== phase {label}: {seconds[label]:.1f} s (run so far {time.perf_counter() - t_start:.1f} s)")
+        return res
+
     from parakeet_tpu_torch.models.encoder import FusedLayers
     from parakeet_tpu_torch.ops.layers import require_ieee_f32
 
@@ -1067,58 +1352,98 @@ def main() -> int:
     card = card_line()
     log(f"== device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    build_phase()
+    timed("build", build_phase)
 
-    kernel = {"rel_attention_block": attention_phase(card),
-              "fused_feed_forward": feed_forward_phase(card),
-              "fused_conv_module": conv_module_phase(card),
-              "fused_subsample_block1": subsample_phase(card),
-              "fused_conv_ffn_final": conv_ffn_final_phase(card),
-              "fused_ffn_attention": ffn_attention_phase(card),
-              "fused_rel_attention": rel_attention_v1_phase(card),
-              "fused_log_mel": log_mel_phase(card)}
+    kernel = {}
+    if "kernels" in phases:
+        kernel = {"rel_attention_block": timed("K1", attention_phase, card),
+                  "fused_feed_forward": timed("K6", feed_forward_phase, card),
+                  "fused_conv_module": timed("K5", conv_module_phase, card),
+                  "fused_subsample_block1": timed("K8", subsample_phase, card),
+                  "fused_conv_ffn_final": timed("K4", conv_ffn_final_phase, card),
+                  "fused_ffn_attention": timed("K7", ffn_attention_phase, card),
+                  "fused_rel_attention": timed("K2", rel_attention_v1_phase, card),
+                  "fused_log_mel": timed("K3", log_mel_phase, card)}
+    if "kernels600m" in phases:
+        for name, k6 in timed("kernels at 600m shapes", kernels_600m_phase, card).items():
+            k = kernel.setdefault(name, {"max_abs_err": 0.0})
+            k["max_abs_err"] = max(k["max_abs_err"], k6["max_abs_err"])
+            for key in ("times", "bf16_times", "work", "bf16_work"):
+                k.setdefault(key, {}).update(k6[key])
 
-    flat = P.init_params_numpy(P.tdt_ctc_spec(make_110m_config()), seed=0)
     clips = synthetic_clips(8, seed=1234)
     log(f"== clips: 8, {', '.join(f'{len(c) / 16000:.2f}' for c in clips)} s "
         f"({sum(len(c) for c in clips) / 16000.0:.2f} s audio)")
-    default = path_phase("default", FusedLayers(), flat, clips, card)
     fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
-    fused = path_phase("fused", fused_cfg, flat, clips, card)
-    same = sum(a == b for a, b in zip(fused["tdt"] + fused["ctc"], default["tdt"] + default["ctc"]))
-    log(f"== fused vs default on the card: {same}/16 items with identical tokens (TDT + CTC); "
-        f"encoder stage {fused['enc_ms']:.3f} vs {default['enc_ms']:.3f} ms; warm TDT batch "
-        f"{fused['wall_s'] * 1e3:.1f} vs {default['wall_s'] * 1e3:.1f} ms, RTFx {fused['rtfx']:.1f} vs "
-        f"{default['rtfx']:.1f} [{card}]")
-    whole = path_phase("whole-block", FusedLayers(attention="mega", block2=True, subsample=True),
-                       flat, clips, card)
-    v1 = path_phase("v1", FusedLayers(attention="v1"), flat, clips, card)
-    for name, res in (("whole-block", whole), ("v1", v1)):
-        same = sum(a == b for a, b in zip(res["tdt"] + res["ctc"], fused["tdt"] + fused["ctc"]))
-        log(f"== {name} vs fused on the card: {same}/16 items with identical tokens; encoder stage "
-            f"{res['enc_ms']:.3f} vs {fused['enc_ms']:.3f} ms wall, {res['enc_dev_ms']:.3f} vs "
-            f"{fused['enc_dev_ms']:.3f} ms device [{card}]")
-    frontend = fused_frontend_phase(flat, clips, card)
-    bf16_phase(fused_cfg, flat, clips, fused["tdt"])
-    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
+    whole_cfg = FusedLayers(attention="mega", block2=True, subsample=True)
+    v1_cfg = FusedLayers(attention="v1")
+    paths = {}
+    if "paths110m" in phases:
+        flat = model_params("tdt-ctc-110m")
+        default = paths["default"] = timed("path default", path_phase, "default", FusedLayers(), flat, clips, card)
+        fused = paths["fused"] = timed("path fused", path_phase, "fused", fused_cfg, flat, clips, card)
+        same = sum(a == b for a, b in zip(fused["tdt"] + fused["ctc"], default["tdt"] + default["ctc"]))
+        log(f"== fused vs default on the card: {same}/16 items with identical tokens (TDT + CTC); "
+            f"encoder stage {fused['enc_ms']:.3f} vs {default['enc_ms']:.3f} ms; warm TDT batch "
+            f"{fused['wall_s'] * 1e3:.1f} vs {default['wall_s'] * 1e3:.1f} ms, RTFx {fused['rtfx']:.1f} vs "
+            f"{default['rtfx']:.1f} [{card}]")
+        whole = paths["whole"] = timed("path whole-block", path_phase, "whole-block", whole_cfg, flat, clips, card)
+        v1 = paths["v1"] = timed("path v1", path_phase, "v1", v1_cfg, flat, clips, card)
+        for name, res in (("whole-block", whole), ("v1", v1)):
+            same = sum(a == b for a, b in zip(res["tdt"] + res["ctc"], fused["tdt"] + fused["ctc"]))
+            log(f"== {name} vs fused on the card: {same}/16 items with identical tokens; encoder stage "
+                f"{res['enc_ms']:.3f} vs {fused['enc_ms']:.3f} ms wall, {res['enc_dev_ms']:.3f} vs "
+                f"{fused['enc_dev_ms']:.3f} ms device [{card}]")
+        paths["frontend"] = timed("path fused frontend", fused_frontend_phase, flat, clips, card)
+        timed("bf16", bf16_phase, fused_cfg, flat, clips, fused["tdt"])
+        del flat
+    if "paths600m" in phases or "long" in phases:
+        t0 = time.perf_counter()
+        flat6 = model_params("tdt-600m")
+        log(f"== tdt-600m weights: {sum(a.size for a in flat6.values()) / 1e6:.1f} M parameters, "
+            f"{time.perf_counter() - t0:.1f} s to draw")
+        if "paths600m" in phases:
+            for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg), ("whole-block", whole_cfg),
+                               ("v1", v1_cfg)):
+                paths[f"tdt-600m {label}"] = timed(f"path tdt-600m {label}", path_phase, f"tdt-600m {label}", cfg,
+                                                   flat6, clips, card, model="tdt-600m")
+        if "long" in phases:
+            paths["long"] = timed("long audio tdt-600m", long_audio_phase, flat6, card)
+        del flat6
+        if "paths600m" in phases:
+            flat6 = model_params("rnnt-600m")
+            for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
+                paths[f"rnnt-600m {label}"] = timed(f"path rnnt-600m {label}", path_phase, f"rnnt-600m {label}",
+                                                    cfg, flat6, clips, card, model="rnnt-600m")
+            del flat6
+    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    if phases != list(PHASES):
+        return 0
 
     # kernel: (source, the TPU kernel it replaces, the path whose launches count, timed shape)
     sources = {
-        "rel_attention_block": ("rel_attention.cu", "parakeet_tpu/ops/pallas_attention.py:510", fused, 126),
-        "fused_feed_forward": ("feed_forward.cu", "parakeet_tpu/ops/pallas_ffn.py:62", fused, 126),
-        "fused_conv_module": ("conv_module.cu", "parakeet_tpu/ops/pallas_conv.py:68", fused, 126),
-        "fused_subsample_block1": ("subsample.cu", "parakeet_tpu/ops/pallas_subsample.py:168", fused, 1001),
-        "fused_conv_ffn_final": ("conv_ffn_final.cu", "parakeet_tpu/ops/pallas_block.py:75", whole, 126),
-        "fused_ffn_attention": ("ffn_attention.cu", "parakeet_tpu/ops/pallas_attention.py:630", whole, 126),
-        "fused_rel_attention": ("rel_attention_v1.cu", "parakeet_tpu/ops/pallas_attention.py:100", v1, 126),
-        "fused_log_mel": ("log_mel.cu", "parakeet_tpu/ops/pallas_frontend.py:88", frontend, 10),
+        "rel_attention_block": ("rel_attention.cu", "parakeet_tpu/ops/pallas_attention.py:510", "fused", 126),
+        "fused_feed_forward": ("feed_forward.cu", "parakeet_tpu/ops/pallas_ffn.py:62", "fused", 126),
+        "fused_conv_module": ("conv_module.cu", "parakeet_tpu/ops/pallas_conv.py:68", "fused", 126),
+        "fused_subsample_block1": ("subsample.cu", "parakeet_tpu/ops/pallas_subsample.py:168", "fused", 1001),
+        "fused_conv_ffn_final": ("conv_ffn_final.cu", "parakeet_tpu/ops/pallas_block.py:75", "whole", 126),
+        "fused_ffn_attention": ("ffn_attention.cu", "parakeet_tpu/ops/pallas_attention.py:630", "whole", 126),
+        "fused_rel_attention": ("rel_attention_v1.cu", "parakeet_tpu/ops/pallas_attention.py:100", "v1", 126),
+        "fused_log_mel": ("log_mel.cu", "parakeet_tpu/ops/pallas_frontend.py:88", "frontend", 10),
     }
+    # each kernel's launches on the 600m paths (the 110m paths' are "launches")
+    on_600m = {"rel_attention_block": "tdt-600m default", "fused_feed_forward": "tdt-600m fused",
+               "fused_conv_module": "tdt-600m fused", "fused_subsample_block1": "tdt-600m fused",
+               "fused_conv_ffn_final": "tdt-600m whole-block", "fused_ffn_attention": "tdt-600m whole-block",
+               "fused_rel_attention": "tdt-600m v1", "fused_log_mel": None}
     rows = []
     for name, (src, replaces, path, t) in sources.items():
         k = kernel[name]
         f32_bound = bound(*k["work"][t])
         row = {"name": name, "route": "cuda", "source": f"parakeet_tpu_torch/csrc/{src}",
-               "replaces": replaces, "launches": path["launches"][name],
+               "replaces": replaces, "launches": paths[path]["launches"][name],
+               "launches_600m": paths[on_600m[name]]["launches"][name] if on_600m[name] else 0,
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],
@@ -1127,7 +1452,7 @@ def main() -> int:
                "gflop": f32_bound["gflop"], "mbyte": f32_bound["mbyte"],
                # no single PyTorch call computes any of these fused functions
                "library_ms": None, "shapes": []}
-        if k.get("bf16_times"):
+        if t in k.get("bf16_times", {}):
             # bf16 bound: this run's bf16 inputs, every operation at the tensor-core rate
             b16 = bound(*k["bf16_work"][t], BF16_PEAK)
             row.update(bf16_ms=k["bf16_times"][t]["ms"], bf16_plain_ms=k["bf16_times"][t]["plain_ms"],
@@ -1135,7 +1460,7 @@ def main() -> int:
         # every timed shape with its bound, computed from that shape's inputs
         for dtype, times, work, peak in (("f32", "times", "work", F32_PEAK),
                                          ("bf16", "bf16_times", "bf16_work", BF16_PEAK)):
-            for shape, ms in sorted(k.get(times, {}).items()):
+            for shape, ms in k.get(times, {}).items():
                 bd = bound(*k[work][shape], peak)
                 row["shapes"].append({"shape": shape, "dtype": dtype, "ms": ms["ms"], "plain_ms": ms["plain_ms"],
                                       "dev_ms": ms["dev_ms"], "plain_dev_ms": ms["plain_dev_ms"],

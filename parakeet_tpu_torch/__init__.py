@@ -1,20 +1,26 @@
 """parakeet_tpu_torch: the PyTorch/CUDA port of parakeet_tpu.
 
-Offline tdt-ctc speech recognition on an NVIDIA H100: mel frontend →
-FastConformer encoder (each block's rel-pos attention a hand-written CUDA
-kernel, ops/rel_attention.py + csrc/rel_attention.cu; with FusedLayers the
-FFNs, conv modules and subsampling front too) → greedy TDT or CTC decode →
-text. Module paths mirror the JAX reference package parakeet_tpu,
-which this package never imports.
+Offline speech recognition on an NVIDIA H100 with the tdt-ctc, TDT-only
+and RNNT models (`Transcriber`, `TDTTranscriber`, `RNNTTranscriber`): mel
+frontend → FastConformer encoder (each block's rel-pos attention a
+hand-written CUDA kernel, ops/rel_attention.py + csrc/rel_attention.cu;
+with FusedLayers the FFNs, conv modules and subsampling front too) →
+greedy TDT, RNNT or CTC decode → text, with windowed or dense long audio,
+forced alignment, VAD and WAV/FLAC/MP3/OGG input. Entry points run on the
+card unless given device="cpu". Module paths mirror the JAX reference
+package parakeet_tpu, which this package never imports.
 """
 
-from parakeet_tpu_torch.config import make_110m_config
+from parakeet_tpu_torch.config import make_110m_config, make_rnnt_600m_config, make_tdt_600m_config
 from parakeet_tpu_torch.models.encoder import FusedLayers
 from parakeet_tpu_torch.transcribe import (
     Decoder,
+    RNNTTranscriber,
+    TDTTranscriber,
     TranscribeOptions,
     TranscribeResult,
     Transcriber,
 )
 
-__all__ = ["Decoder", "FusedLayers", "TranscribeOptions", "TranscribeResult", "Transcriber", "make_110m_config"]
+__all__ = ["Decoder", "FusedLayers", "RNNTTranscriber", "TDTTranscriber", "TranscribeOptions", "TranscribeResult",
+           "Transcriber", "make_110m_config", "make_rnnt_600m_config", "make_tdt_600m_config"]

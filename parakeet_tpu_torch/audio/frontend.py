@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from parakeet_tpu_torch.config import AudioConfig
+from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 # NeMo's log guard: 2^-24 (audio.cpp:134-135).
 LOG_GUARD = 5.96046448e-8
@@ -159,12 +160,14 @@ def _preemphasize_and_pad(w, cfg: AudioConfig) -> np.ndarray:
 
 
 def preprocess_audio_batch(
-    waves, config: AudioConfig = AudioConfig(), device: str | torch.device = "cpu"
+    waves, config: AudioConfig = AudioConfig(), device: str | torch.device = DEFAULT_DEVICE
 ) -> tuple[torch.Tensor, list[int]]:
     """List of waveforms → ((B, T_max, n_mels) f32 on `device`, frame counts).
 
     n_frames = len // hop + 1 per clip. Every valid frame equals the clip's
-    own preprocess_audio; normalized pad frames are exactly 0."""
+    own preprocess_audio; normalized pad frames are exactly 0. `device` is
+    the card unless given ("cpu" for the CPU); with no card it raises."""
+    device = resolve_device(device)
     cfg = config
     pres = [_preemphasize_and_pad(w, cfg) for w in waves]
     n_frames = [(len(p) - 2 * (cfg.n_fft // 2)) // cfg.hop_length + 1 for p in pres]
@@ -178,10 +181,11 @@ def preprocess_audio_batch(
 
 
 def preprocess_audio(
-    samples, config: AudioConfig = AudioConfig(), device: str | torch.device = "cpu"
+    samples, config: AudioConfig = AudioConfig(), device: str | torch.device = DEFAULT_DEVICE
 ) -> torch.Tensor:
     """Waveform (num_samples,) → features (1, n_frames, n_mels),
-    n_frames = num_samples // hop + 1 (torch.stft center=True)."""
+    n_frames = num_samples // hop + 1 (torch.stft center=True), on `device`
+    (the card unless given)."""
     x = np.asarray(samples, np.float32)
     if x.ndim != 1:
         raise ValueError(f"expected 1D waveform, got shape {x.shape}")
@@ -190,15 +194,16 @@ def preprocess_audio(
 
 
 def preprocess_audio_fused(
-    samples, config: AudioConfig = AudioConfig(), device: str | torch.device = "cpu"
+    samples, config: AudioConfig = AudioConfig(), device: str | torch.device = DEFAULT_DEVICE
 ) -> torch.Tensor:
     """preprocess_audio through the fused log-mel kernel (the reference's
     audio/frontend.py::preprocess_audio_fused): host preemphasis and
     reflect pad, the kernel's log-mel for every frame, then the clip's
     unmasked per-feature normalisation (N−1 variance, std + 1e-5). One
-    clip; (1, n_frames, n_mels) f32 on `device`."""
+    clip; (1, n_frames, n_mels) f32 on `device` (the card unless given)."""
     from parakeet_tpu_torch.ops.log_mel import fused_log_mel
 
+    device = resolve_device(device)
     cfg = config
     x = np.asarray(samples, np.float32)
     if x.ndim != 1:

@@ -2,7 +2,9 @@
 (port of parakeet_tpu/audio/io.py, numpy only).
 
 WAV is decoded natively (RIFF parser: PCM 8/16/24/32, IEEE float, G.711
-A-law/µ-law). FLAC, MP3 and OGG are not ported yet and raise. Downmix is
+A-law/µ-law); FLAC, MP3 and OGG through audio/codecs.py (the repository's
+FLAC decoder, libmpg123, libvorbisfile), then the optional soundfile and
+librosa backends, as in the reference's decode chain. Downmix is
 the mean over channels (audio_io.cpp:198-214); the resampler is the
 reference's windowed-sinc Kaiser filter (β=7.857, half-width 16 taps,
 cutoff min(1, dst/src), per-output normalization by the weight sum).
@@ -159,6 +161,68 @@ def _parse_wav(data: bytes):
     return x, sample_rate, channels
 
 
+def _decode_with_backend(data: bytes, fmt: str):
+    """FLAC via the repository's decoder (csrc/flac_decoder.cpp), MP3 and
+    OGG via the system libraries; all three also via optional python
+    backends."""
+    import io as _io
+
+    # Native/system decoders first; on failure fall through to the python
+    # backends below, which may handle streams these decoders can't. The
+    # native failure is preserved and chained so a corrupt file surfaces its
+    # real cause, not just "no decoder available".
+    native_err: Exception | None = None
+    try:
+        if fmt == AudioFormat.FLAC:
+            from parakeet_tpu_torch.audio.codecs import flac_available, flac_decode
+
+            if flac_available():
+                return flac_decode(data)
+        if fmt == AudioFormat.MP3:
+            from parakeet_tpu_torch.audio.codecs import mp3_available, mp3_decode
+
+            if mp3_available():
+                return mp3_decode(data)
+        if fmt == AudioFormat.OGG:
+            from parakeet_tpu_torch.audio.codecs import ogg_available, ogg_decode
+
+            if ogg_available():
+                return ogg_decode(data)
+    except (ValueError, RuntimeError) as e:
+        native_err = e
+
+    try:
+        import soundfile  # type: ignore
+
+        x, sr = soundfile.read(_io.BytesIO(data), dtype="float32", always_2d=True)
+        return x.reshape(-1), sr, x.shape[1]
+    except ImportError:
+        pass
+    except Exception as e:  # noqa: BLE001 — a failing backend must not
+        # preempt the next one (e.g. libsndfile without MP3 support raises
+        # LibsndfileError while librosa could still decode the stream)
+        native_err = native_err or e
+    try:
+        import librosa  # type: ignore
+
+        x, sr = librosa.load(_io.BytesIO(data), sr=None, mono=False)
+        if x.ndim == 1:
+            return x.astype(np.float32), int(sr), 1
+        return x.T.reshape(-1).astype(np.float32), int(sr), x.shape[0]
+    except ImportError:
+        pass
+    except Exception as e:  # noqa: BLE001 — keep the first real failure
+        native_err = native_err or e
+    if native_err is not None:
+        raise RuntimeError(
+            f"Decoding {fmt} failed: {native_err} (no python fallback backend available)"
+        ) from native_err
+    raise RuntimeError(
+        f"No decoder available for {fmt} (install soundfile or librosa); "
+        "WAV decoding is always available"
+    )
+
+
 # ─── Downmix + resample ──────────────────────────────────────────────────────
 
 
@@ -224,9 +288,10 @@ def _decode_bytes(data: bytes, fmt_hint: str = AudioFormat.UNKNOWN):
         fmt = detect_format_by_magic(data)
     if fmt == AudioFormat.UNKNOWN:
         raise ValueError("Unknown audio format (magic bytes not recognized)")
-    if fmt != AudioFormat.WAV:
-        raise NotImplementedError(f"{fmt} decoding is not ported yet; WAV and raw PCM are")
-    inter, sr, ch = _parse_wav(data)
+    if fmt == AudioFormat.WAV:
+        inter, sr, ch = _parse_wav(data)
+    else:
+        inter, sr, ch = _decode_with_backend(data, fmt)
     return inter, sr, ch, fmt
 
 
@@ -282,6 +347,109 @@ def read_audio(
     )
 
 
+def _flac_streaminfo_duration(data: bytes) -> float | None:
+    """Duration from the FLAC STREAMINFO metadata block (no decode).
+
+    Mirrors the reference's drflac header path (audio_io.cpp:553-562):
+    totalPCMFrameCount / sampleRate, both read from STREAMINFO. Returns None
+    when the header is unparsable or the total-samples field is 0
+    ("unknown" per the FLAC spec) — caller falls back to full decode."""
+    if len(data) < 4 or data[:4] != b"fLaC":
+        return None
+    pos = 4
+    while pos + 4 <= len(data):
+        hdr = data[pos]
+        btype = hdr & 0x7F
+        (length,) = struct.unpack(">I", b"\x00" + data[pos + 1 : pos + 4])
+        body = data[pos + 4 : pos + 4 + length]
+        if btype == 0:  # STREAMINFO
+            if len(body) < 18:
+                return None
+            sr = (body[10] << 12) | (body[11] << 4) | (body[12] >> 4)
+            total = (
+                ((body[13] & 0x0F) << 32)
+                | (body[14] << 24)
+                | (body[15] << 16)
+                | (body[16] << 8)
+                | body[17]
+            )
+            if sr == 0 or total == 0:
+                return None
+            return total / sr
+        if hdr & 0x80:  # last-metadata-block flag
+            break
+        pos += 4 + length
+    return None
+
+
+def _ogg_granule_duration(data: bytes) -> float | None:
+    """Duration from OGG page headers (no decode): sample rate from the
+    Vorbis identification header, total samples from the last page's
+    granule position — the stb_vorbis stream_length_in_samples approach the
+    reference uses (audio_io.cpp:568-582)."""
+    if len(data) < 27 or data[:4] != b"OggS":
+        return None
+    # Vorbis id header packet: \x01vorbis | version u32 | channels u8 | rate u32
+    ident = data.find(b"\x01vorbis", 0, 4096)
+    if ident < 0 or ident + 16 > len(data):
+        return None
+    (sr,) = struct.unpack("<I", data[ident + 12 : ident + 16])
+    if sr == 0:
+        return None
+    # Last page with a valid granulepos (bytes 6..14 of the page header).
+    # 'OggS' is not escaped inside page payloads, so a raw byte match can be
+    # a false sync — validate the stream-structure version byte (must be 0)
+    # and the header-type flags (only bits 0..2 defined) before trusting it.
+    pos = len(data)
+    while True:
+        pos = data.rfind(b"OggS", 0, pos)
+        if pos < 0:
+            return None
+        if pos + 27 <= len(data) and data[pos + 4] == 0 and data[pos + 5] <= 0x07:
+            (granule,) = struct.unpack("<q", data[pos + 6 : pos + 14])
+            if granule >= 0:
+                return granule / sr
+
+
+def get_audio_duration(path: str | Path) -> float:
+    """Header-only duration for WAV/FLAC/OGG; full decode fallback for MP3
+    and unparsable headers (audio_io.cpp:527-586)."""
+    path = Path(path)
+    data = path.read_bytes()
+    fmt = detect_format_by_extension(path)
+    if fmt == AudioFormat.UNKNOWN:
+        fmt = detect_format_by_magic(data)
+    if fmt == AudioFormat.WAV:
+        x, sr, ch = _parse_wav(data)
+        return len(x) / ch / sr
+    if fmt == AudioFormat.FLAC:
+        d = _flac_streaminfo_duration(data)
+        if d is not None:
+            return d
+    elif fmt == AudioFormat.OGG:
+        d = _ogg_granule_duration(data)
+        if d is not None:
+            return d
+    # full-decode fallback (MP3 etc.): duration needs only the decoded
+    # sample count at the ORIGINAL rate — skip the resampler entirely
+    # (materializing a resample of an hour-long file just to discard it)
+    inter, sr, ch, _ = _decode_bytes(data, fmt)
+    return len(inter) / ch / sr if sr else 0.0
+
+
+def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int = 16000) -> None:
+    """Write mono float32 samples as 16-bit PCM WAV (test/tooling helper)."""
+    import wave
+
+    x = np.clip(np.asarray(samples, np.float32), -1.0, 1.0)
+    pcm = (x * 32767.0).astype("<i2")
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sample_rate)
+        f.writeframes(pcm.tobytes())
+
+
 __all__ = [
     "AudioData",
     "AudioFormat",
@@ -290,4 +458,6 @@ __all__ = [
     "downmix_to_mono",
     "resample",
     "read_audio",
+    "get_audio_duration",
+    "write_wav",
 ]

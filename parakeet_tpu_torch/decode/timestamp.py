@@ -50,6 +50,27 @@ def _is_sentence_end(word: str) -> bool:
     return bool(word) and word[-1] in ".?!"
 
 
+def group_token_words(
+    tokens: list[TimestampedToken], pieces: list[str] | None
+) -> list[list[TimestampedToken]]:
+    """Timestamped tokens grouped into words by group_timestamps' boundary
+    rule (a word starts at a ▁-prefixed piece), keeping every token:
+    out-of-range ids continue the current word. The long-audio merge owns
+    whole words by this grouping. pieces=None: every token is its own word."""
+    words: list[list[TimestampedToken]] = []
+    for t in tokens:
+        starts_word = (
+            pieces is None
+            or not words
+            or (0 <= t.token_id < len(pieces) and pieces[t.token_id].startswith(SP_MARKER))
+        )
+        if starts_word:
+            words.append([t])
+        else:
+            words[-1].append(t)
+    return words
+
+
 def group_timestamps(
     tokens: list[TimestampedToken],
     pieces: list[str],
@@ -127,5 +148,6 @@ __all__ = [
     "TimestampedToken",
     "WordTimestamp",
     "TimestampMode",
+    "group_token_words",
     "group_timestamps",
 ]

@@ -7,6 +7,9 @@ by a hash of the source, of every header it includes from csrc/ and of
 the compiler flags, so an edited source or header rebuilds and concurrent
 processes never load a half-written file. `build` holds no lock: several
 libraries can build at once from separate threads.
+
+`build_host` does the same for a host C++ source of the repository's
+csrc/ (the FLAC decoder) with g++, into the same directory.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_HOST_CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parakeet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 # the dtype argument every kernel entry takes: 0 = float32, 1 = bfloat16
@@ -82,24 +87,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (if not built yet) and return the library path."""
-    lib = library_path(name)
-    if lib.is_file():
-        return lib
+def _compile(compiler: list[str], src: Path, lib: Path) -> Path:
+    """Compile `src` into `lib` through a temporary file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+    cmd = [*compiler, "-o", tmp, str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu (if not built yet) and return the library path."""
+    lib = library_path(name)
+    if lib.is_file():
+        return lib
+    return _compile([_nvcc(), *NVCC_FLAGS], _CSRC / f"{name}.cu", lib)
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library of the repository's csrc/<name>.cpp lives, named by
+    a hash of the source and the g++ flags."""
+    src = _HOST_CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.name.encode() + b"\0" + src.read_bytes() + b"\0" + " ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the repository's standalone host source csrc/<name>.cpp with
+    g++ (if not built yet) and return the library path."""
+    lib = host_library_path(name)
+    if lib.is_file():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: cannot build csrc/{name}.cpp")
+    return _compile([gxx, *GXX_FLAGS], _HOST_CSRC / f"{name}.cpp", lib)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -125,5 +155,6 @@ def check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources", "source_digest", "library_path",
-           "build", "load", "ptr", "stream", "check_rc"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources",
+           "source_digest", "library_path", "build", "host_library_path", "build_host", "load", "ptr", "stream",
+           "check_rc"]

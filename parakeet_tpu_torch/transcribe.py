@@ -1,22 +1,34 @@
 """Offline transcription API (port of parakeet_tpu/transcribe.py, greedy slice).
 
-`Transcriber` runs tdt-ctc models: read → mel frontend → encoder (+CTC
-head) → greedy TDT or CTC decode → detokenize → word grouping. Batches are
-padded and length-masked. On a CUDA device each conformer block's attention
-runs the hand-written kernel; on the CPU it runs the plain torch version.
-`fused=FusedLayers(...)` sends the FFNs, the conv modules and the front of
-the subsampling through their kernels as well.
+Three facades share one pipeline, `_TranscriberBase`: read → mel frontend →
+encoder (+CTC head) → greedy TDT/RNNT or CTC decode → detokenize → word
+grouping.
+  * `Transcriber`: tdt-ctc (default tdt-ctc-110m), TDT or CTC decode;
+  * `TDTTranscriber`: TDT-only (default tdt-600m), joint under "joint_";
+  * `RNNTTranscriber`: RNNT (default rnnt-600m), decoded as TDT with
+    durations (0,).
+Batches are padded and length-masked. On a CUDA device each conformer
+block's attention runs the hand-written kernel; on the CPU it runs the plain
+torch version. `fused=FusedLayers(...)` (or the reference's `kernels=`
+mode names) sends the FFNs, the conv modules and the front of the
+subsampling through their kernels as well. Every facade runs on the card
+unless `device="cpu"` is given; without a card it raises.
+
+Clips longer than `long_threshold_s` decode through overlapping windows
+batched across clips (`long_audio="window"`, the default) or in one dense
+call (`long_audio="dense"`). `align*` force-aligns a known transcript with
+the CTC head; `transcribe_vad` decodes only the speech that the energy VAD
+finds.
 
 Not in this slice, and rejected with NotImplementedError rather than
-ignored: beam search, LM fusion, phrase boosting, meshes, quantized
-weights, and clips longer than `long_threshold_s` (the reference windows
-those; the port has no windowed decode yet).
+ignored: beam search, LM fusion, phrase boosting, meshes and quantized
+weights.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 
 import numpy as np
@@ -25,14 +37,25 @@ import torch
 from parakeet_tpu_torch import params as P
 from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
 from parakeet_tpu_torch.audio.io import read_audio
-from parakeet_tpu_torch.config import AudioConfig, TDTCTCConfig, make_110m_config
+from parakeet_tpu_torch.config import (
+    AudioConfig,
+    RNNTConfig,
+    TDTConfig,
+    TDTCTCConfig,
+    make_110m_config,
+    make_rnnt_600m_config,
+    make_tdt_600m_config,
+)
 from parakeet_tpu_torch.decode.timestamp import (
+    FRAME_DURATION_S,
     TimestampedToken,
     TimestampMode,
     WordTimestamp,
     group_timestamps,
+    group_token_words,
 )
 from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from parakeet_tpu_torch.models.ctc import (
     ctc_greedy_decode,
     ctc_greedy_decode_with_timestamps,
@@ -46,6 +69,12 @@ from parakeet_tpu_torch.text.tokenizer import Tokenizer
 DEFAULT_BOOST_SCORE = 5.0  # the reference's decode/phrase_boost.py default
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the reference's kernels= attention modes (models/encoder.py
+# set_fused_attention) → FusedLayers.attention: every block-kernel variant
+# (batch packing "blockN"/"bdN", head pairs "hp") is K1's function
+_BLOCK_MODES = ("block", "block2", "block4", "block8", "bd2", "bd4", "bd8",
+                "blockhp", "block2hp", "block4hp", "block8hp")
 
 
 class Decoder(enum.Enum):
@@ -71,7 +100,8 @@ class TranscribeOptions:
     beam_size: int = 0
     lm: object | None = None
     lm_weight: float = 0.0
-    # on_progress(stage, done, total) at "load", "preprocess" and "decode"
+    # on_progress(stage, done, total) at "load", "preprocess", "decode" and,
+    # in windowed long-audio decode, "window"
     on_progress: object | None = None
 
 
@@ -80,62 +110,102 @@ def _emit_progress(opts: TranscribeOptions, stage: str, done: int, total: int) -
         opts.on_progress(stage, done, total)
 
 
-def _check_options(opts: TranscribeOptions) -> None:
-    if opts.beam_size > 0:
-        raise NotImplementedError("beam search (beam_size > 0) is not ported yet; use beam_size=0")
-    if opts.lm is not None:
-        raise NotImplementedError("LM fusion is not ported yet; pass lm=None")
-    if opts.boost_phrases:
-        raise NotImplementedError("phrase boosting is not ported yet; pass no boost_phrases")
+def fused_layers_for(kernels, fused: FusedLayers | None) -> FusedLayers:
+    """The encoder configuration of a facade from the reference's `kernels=`
+    and the port's `fused=`. kernels None or True, and every "block*"/"bd*"
+    mode, is the attention block kernel K1; "mega" and "v1" are those
+    modes. False and "off" raise: on the card the port has no path without
+    kernels. A kernels= that disagrees with an explicit fused= raises."""
+    if kernels is None or kernels is True:
+        attention = None if kernels is None else "block"
+    elif kernels is False or kernels == "off":
+        raise ValueError(f"kernels={kernels!r}: the port has no kernel-free path on the card; "
+                         "its CPU path is the plain version (device=\"cpu\")")
+    elif kernels in _BLOCK_MODES:
+        attention = "block"
+    elif kernels in ("mega", "v1"):
+        attention = kernels
+    else:
+        raise ValueError(f"unknown kernels mode {kernels!r}")
+    if fused is None:
+        return FusedLayers(attention=attention or "block")
+    if attention is not None and fused.attention != attention:
+        raise ValueError(f"kernels={kernels!r} selects attention {attention!r}, "
+                         f"but fused= has attention {fused.attention!r}")
+    return fused
 
 
-class Transcriber:
-    """Offline TDT-CTC transcriber (transcribe.hpp:55-190); default 110m."""
+class _TranscriberBase:
+    """Shared pipeline of the TDT-CTC, TDT-only and RNNT facades."""
 
+    has_ctc = False
     joint_prefix = "tdt_joint_"
+    is_tdt = True
 
     def __init__(
         self,
         weights_path: str | None = None,
         vocab_path: str | None = None,
-        config: TDTCTCConfig | None = None,
+        config=None,
         *,
         params: dict | None = None,
         compute_dtype: str = "float32",
         seed: int = 0,
-        device: str | torch.device | None = None,
+        device: str | torch.device = DEFAULT_DEVICE,
         mesh=None,
+        kernels: str | bool | None = None,
         quantize: str | None = None,
+        long_audio: str = "window",
         long_threshold_s: float = 40.0,
-        fused: FusedLayers = FusedLayers(),
+        long_window_s: float = 10.0,
+        long_overlap_s: float = 2.0,
+        fused: FusedLayers | None = None,
     ):
         """params: a flat {name: array} dict (numpy or CPU tensors) used
-        instead of weights_path. device: defaults to "cuda" when a card is
-        present, else "cpu". Clips longer than long_threshold_s raise.
-        fused: the encoder sublayers that run their fused kernels (all off
-        by default; attention always runs its kernel)."""
+        instead of weights_path. device: the card unless given; "cpu" runs
+        the plain versions on the CPU. fused / kernels: the encoder
+        sublayers that run their fused kernels (`fused_layers_for`).
+        long_audio: "window" decodes clips longer than long_threshold_s
+        through windows of long_window_s overlapping by long_overlap_s,
+        batched across clips (always with timestamps); "dense" decodes any
+        length in one call."""
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) inference is not ported yet")
         if quantize:
             raise NotImplementedError(f"quantize={quantize!r}: quantized inference is not ported yet")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
-        self.config = config or make_110m_config()
+        if long_audio not in ("window", "dense"):
+            raise ValueError(f"long_audio must be 'window' or 'dense', got {long_audio!r}")
+        if not 0 <= long_overlap_s < long_window_s:
+            raise ValueError(
+                f"long_overlap_s ({long_overlap_s}) must be >= 0 and < long_window_s ({long_window_s})"
+            )
+        self.fused = fused_layers_for(kernels, fused)
+        self.config = config
         self.compute_dtype = compute_dtype
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.long_audio = long_audio
+        self.long_threshold_s = long_threshold_s
+        self.long_window_s = long_window_s
+        self.long_overlap_s = long_overlap_s
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             require_ieee_f32()
-        self.long_threshold_s = long_threshold_s
-        self.fused = fused
         if params is None:
             params = P.load_params_numpy(
-                P.tdt_ctc_spec(self.config), weights_path, seed=seed,
-                warn=lambda m: print(f"[parakeet] {m}"),
+                self._spec(), weights_path, seed=seed, warn=lambda m: print(f"[parakeet] {m}"),
             )
         self.params = P.params_from_numpy(params, self.device, _DTYPES[compute_dtype])
         self.tokenizer = Tokenizer(vocab_path) if vocab_path else Tokenizer()
-        self._audio_cfg = AudioConfig(n_mels=self.config.encoder.mel_bins)
-        self._blank_id = self.config.joint.vocab_size - 1
+        self._audio_cfg = AudioConfig(n_mels=config.encoder.mel_bins)
+        self._blank_id = config.joint.vocab_size - 1
+
+    def _spec(self):
+        raise NotImplementedError
+
+    def to_gpu(self) -> None:
+        """API-compatibility no-op (the reference C++ API moves weights to
+        its GPU here); the facade already holds its weights on `device`."""
 
     # ── Model stages ─────────────────────────────────────────────────────
 
@@ -150,6 +220,17 @@ class Transcriber:
     @torch.inference_mode()
     def ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
         return ctc_log_probs(Params(self.params).sub("ctc_decoder_"), enc)
+
+    def _check_options(self, opts: TranscribeOptions) -> None:
+        """Option errors, raised before any device work."""
+        if opts.decoder == Decoder.CTC and not self.has_ctc:
+            raise ValueError("this model has no CTC head; use Decoder.TDT")
+        if opts.beam_size > 0:
+            raise NotImplementedError("beam search (beam_size > 0) is not ported yet; use beam_size=0")
+        if opts.lm is not None:
+            raise NotImplementedError("LM fusion is not ported yet; pass lm=None")
+        if opts.boost_phrases:
+            raise NotImplementedError("phrase boosting is not ported yet; pass no boost_phrases")
 
     # ── Input handling ───────────────────────────────────────────────────
 
@@ -186,7 +267,36 @@ class Transcriber:
     def transcribe_batch(
         self, sources: list, opts: TranscribeOptions | None = None, *, pad_to_multiple: int | None = None
     ) -> list[TranscribeResult]:
-        """Batched inference: exactly decode_prepared(prepare_batch(...))."""
+        """Batched inference. Under long_audio="window", clips longer than
+        long_threshold_s go through `transcribe_long_batch`; the short clips
+        of the batch still decode densely together, and the result order
+        is kept. Each clip is loaded once."""
+        opts = opts or TranscribeOptions()
+        if self.long_audio == "window" and sources:
+            thr = int(self.long_threshold_s * self._audio_cfg.sample_rate)
+            waves = [self._to_samples(s) for s in sources]
+            long_ix = {i for i, w in enumerate(waves) if len(w) > thr}
+            if long_ix:
+                results: list = [None] * len(waves)
+                short_ix = [i for i in range(len(waves)) if i not in long_ix]
+                if short_ix:
+                    dense = self._transcribe_batch_dense(
+                        [waves[i] for i in short_ix], opts, pad_to_multiple=pad_to_multiple)
+                    for i, r in zip(short_ix, dense):
+                        results[i] = r
+                order = sorted(long_ix)
+                for i, r in zip(order, self.transcribe_long_batch(
+                        [waves[i] for i in order], opts.decoder, opts=opts)):
+                    results[i] = r
+                return results
+            sources = waves  # already loaded; decode densely
+        return self._transcribe_batch_dense(sources, opts, pad_to_multiple=pad_to_multiple)
+
+    def _transcribe_batch_dense(
+        self, sources: list, opts: TranscribeOptions | None = None, *, pad_to_multiple: int | None = None
+    ) -> list[TranscribeResult]:
+        """One dense decode whatever the clips' length (no window routing):
+        exactly decode_prepared(prepare_batch(...))."""
         return self.decode_prepared(self.prepare_batch(sources, opts, pad_to_multiple=pad_to_multiple))
 
     def prepare_batch(
@@ -195,20 +305,13 @@ class Transcriber:
         """Stage 1: load audio and run the mel frontend on the device.
         Returns an opaque handle for `decode_prepared`."""
         opts = opts or TranscribeOptions()
-        _check_options(opts)
+        self._check_options(opts)
         if not sources:
             return ("empty", opts, pad_to_multiple, None, None)
         waves = []
         for i, s in enumerate(sources):
             waves.append(self._to_samples(s))
             _emit_progress(opts, "load", i + 1, len(sources))
-        limit = int(self.long_threshold_s * self._audio_cfg.sample_rate)
-        too_long = [i for i, w in enumerate(waves) if len(w) > limit]
-        if too_long:
-            raise NotImplementedError(
-                f"clips {too_long} are longer than long_threshold_s={self.long_threshold_s} s; "
-                "windowed long-audio decode is not ported yet (raise long_threshold_s to decode densely)"
-            )
         feats, n_frames = preprocess_audio_batch(waves, self._audio_cfg, self.device)
         _emit_progress(opts, "preprocess", 1, 1)
         return ("padded", opts, pad_to_multiple, feats, n_frames)
@@ -218,15 +321,13 @@ class Transcriber:
         kind, opts, pad_to_multiple, feats, n_frames = prepared
         if kind == "empty":
             return []
-        results = self._decode_padded(feats, n_frames, opts, pad_to_multiple)
-        _emit_progress(opts, "decode", 1, 1)
-        return results
+        return self._decode_padded(feats, n_frames, opts, pad_to_multiple)
 
     def transcribe_features(self, features, opts: TranscribeOptions | None = None):
         """Decode precomputed mel features, (T, mel) or (B, T, mel); returns
         one result for 2-D / batch-1 input, else a list."""
         opts = opts or TranscribeOptions()
-        _check_options(opts)
+        self._check_options(opts)
         f = np.asarray(features, np.float32)
         if f.ndim == 2:
             f = f[None]
@@ -236,6 +337,8 @@ class Transcriber:
         return results[0] if len(results) == 1 else results
 
     def _decode_padded(self, batch, mel_lens: list[int], opts: TranscribeOptions, pad_to_multiple):
+        """Encoder + decode + result assembly; emits the "decode" stage once
+        the results are on the host."""
         t_max = batch.shape[1]
         if pad_to_multiple:
             pad_t = -(-t_max // pad_to_multiple) * pad_to_multiple - t_max
@@ -247,24 +350,327 @@ class Transcriber:
             log_probs = self.ctc_log_probs(enc)
             if opts.timestamps:
                 ts = ctc_greedy_decode_with_timestamps(log_probs, self._blank_id, enc_lens)
-                return [self._result_from_ts(t, opts.timestamp_mode) for t in ts]
-            toks = ctc_greedy_decode(log_probs, self._blank_id, enc_lens)
-            return [self._result_from_tokens(t) for t in toks]
+                results = [self._result_from_ts(t, opts.timestamp_mode) for t in ts]
+            else:
+                toks = ctc_greedy_decode(log_probs, self._blank_id, enc_lens)
+                results = [self._result_from_tokens(t) for t in toks]
+        else:
+            with torch.inference_mode():
+                res = transducer_greedy_decode(
+                    self.params,
+                    enc,
+                    pred_hidden=self.config.prediction.pred_hidden,
+                    num_lstm_layers=self.config.prediction.num_lstm_layers,
+                    durations=tuple(self.config.durations) if self.is_tdt else (0,),
+                    blank_id=self._blank_id,
+                    is_tdt=self.is_tdt,
+                    joint_prefix=self.joint_prefix,
+                    enc_lengths=enc_lens,
+                )
+            if opts.timestamps:
+                results = [self._result_from_ts(t, opts.timestamp_mode) for t in res.timestamped]
+            else:
+                results = [self._result_from_tokens(t) for t in res.tokens]
+        _emit_progress(opts, "decode", 1, 1)
+        return results
 
-        with torch.inference_mode():
-            res = transducer_greedy_decode(
-                self.params,
-                enc,
-                pred_hidden=self.config.prediction.pred_hidden,
-                num_lstm_layers=self.config.prediction.num_lstm_layers,
-                durations=tuple(self.config.durations),
-                blank_id=self._blank_id,
-                joint_prefix=self.joint_prefix,
-                enc_lengths=enc_lens,
+    # ── Long audio ───────────────────────────────────────────────────────
+
+    def transcribe_long(
+        self,
+        source,
+        decoder: Decoder = Decoder.TDT,
+        *,
+        window_s: float = 60.0,
+        overlap_s: float = 10.0,
+        boost_phrases: list[str] | None = None,
+        boost_score: float = DEFAULT_BOOST_SCORE,
+        timestamp_mode: TimestampMode = TimestampMode.WORDS,
+        on_progress=None,
+        progress_batch: int = 8,
+    ) -> TranscribeResult:
+        """One long clip through overlapping windows and an ownership merge:
+        windows of `window_s` overlapping by `overlap_s` decode with
+        timestamps, and each window keeps the words that start in its
+        exclusive half of the overlaps, so every instant has one owner.
+        A clip that fits one window decodes densely. With on_progress, the
+        windows run `progress_batch` at a time and ("window", done, total)
+        fires after each; without it they run as one batched call."""
+        if overlap_s < 0 or overlap_s >= window_s:
+            raise ValueError(f"overlap_s ({overlap_s}) must be >= 0 and < window_s ({window_s})")
+        samples = self._to_samples(source)
+        sr = self._audio_cfg.sample_rate
+        win = int(window_s * sr)
+        hop = int((window_s - overlap_s) * sr)
+        if len(samples) <= win:
+            # densely, not through transcribe(): that would re-enter the
+            # auto-routing with the facade's window geometry
+            opts1 = TranscribeOptions(decoder, True, list(boost_phrases or []), boost_score, timestamp_mode)
+            return self._transcribe_batch_dense([samples], opts1)[0]
+
+        starts = self._long_window_starts(len(samples), win, hop)
+        opts = TranscribeOptions(decoder, True, list(boost_phrases or []), boost_score)
+        windows = [samples[s0: s0 + win] for s0 in starts]
+        if on_progress is None:
+            results = self._transcribe_batch_dense(windows, opts)
+        else:
+            results = []
+            step = max(1, int(progress_batch))
+            for lo in range(0, len(windows), step):
+                results.extend(self._transcribe_batch_dense(windows[lo: lo + step], opts))
+                on_progress("window", min(lo + step, len(windows)), len(windows))
+        return self._merge_long_results(len(samples), starts, results, win, window_s, overlap_s, timestamp_mode)
+
+    def _long_window_starts(self, n_samples: int, win: int, hop: int) -> list[int]:
+        """Window start offsets (samples). A trailing sliver (under 0.25 s)
+        is dropped only when the previous window already reaches the end of
+        the audio; otherwise no window would own its words."""
+        sr = self._audio_cfg.sample_rate
+        starts: list[int] = []
+        for s0 in range(0, n_samples, hop):
+            if n_samples - s0 < sr // 4 and starts and starts[-1] + win >= n_samples:
+                break
+            starts.append(s0)
+            if s0 + win >= n_samples:
+                break
+        return starts
+
+    def _merge_long_results(
+        self,
+        n_samples: int,
+        starts: list[int],
+        results: list[TranscribeResult],
+        win: int,
+        window_s: float,
+        overlap_s: float,
+        timestamp_mode: TimestampMode,
+    ) -> TranscribeResult:
+        """Overlap merge of per-window decodes, owned by word: a window owns
+        every word whose start falls in its exclusive half of the overlaps
+        and contributes that word's tokens whole. Without a vocab every
+        token is its own word."""
+        sr = self._audio_cfg.sample_rate
+        pieces = self.tokenizer.pieces if self.tokenizer.loaded else None
+        owned_words: list[list[TimestampedToken]] = []
+        for wi, (s0, res) in enumerate(zip(starts, results)):
+            offset_s = s0 / sr
+            keep_lo = 0.0 if wi == 0 else offset_s + overlap_s / 2.0
+            keep_hi = (
+                float("inf")
+                if s0 + win >= n_samples or wi == len(starts) - 1
+                else offset_s + window_s - overlap_s / 2.0
             )
-        if opts.timestamps:
-            return [self._result_from_ts(t, opts.timestamp_mode) for t in res.timestamped]
-        return [self._result_from_tokens(t) for t in res.tokens]
+            frame_off = int(round(offset_s / FRAME_DURATION_S))
+            shifted = [
+                TimestampedToken(t.token_id, t.start_frame + frame_off, t.end_frame + frame_off, t.confidence)
+                for t in res.timestamped_tokens
+            ]
+            for word in group_token_words(shifted, pieces):
+                if keep_lo <= word[0].start_frame * FRAME_DURATION_S < keep_hi:
+                    owned_words.append(word)
+        owned_words.sort(key=lambda w: w[0].start_frame)
+        return self._result_from_ts([t for w in owned_words for t in w], timestamp_mode)
+
+    def transcribe_long_batch(
+        self,
+        sources: list,
+        decoder: Decoder = Decoder.TDT,
+        *,
+        window_s: float | None = None,
+        overlap_s: float | None = None,
+        boost_phrases: list[str] | None = None,
+        boost_score: float = DEFAULT_BOOST_SCORE,
+        timestamp_mode: TimestampMode = TimestampMode.WORDS,
+        max_batch: int = 192,
+        opts: TranscribeOptions | None = None,
+    ) -> list[TranscribeResult]:
+        """Many long clips, their windows batched across clips: every clip
+        is cut into `window_s` windows overlapping by `overlap_s` (default
+        the facade's long_window_s / long_overlap_s), all windows decode in
+        `max_batch`-sized calls, and each clip is merged as in
+        transcribe_long. Emits ("window", done, total) on opts.on_progress
+        after each call. `opts` passes decoder and progress on from
+        transcribe_batch; timestamps are forced on (the merge needs them)."""
+        window_s = self.long_window_s if window_s is None else window_s
+        overlap_s = self.long_overlap_s if overlap_s is None else overlap_s
+        if overlap_s < 0 or overlap_s >= window_s:
+            raise ValueError(f"overlap_s ({overlap_s}) must be >= 0 and < window_s ({window_s})")
+        base = opts or TranscribeOptions(decoder, True, list(boost_phrases or []), boost_score, timestamp_mode)
+        timestamp_mode = base.timestamp_mode
+        wopts = replace(base, timestamps=True)
+        sr = self._audio_cfg.sample_rate
+        win = int(window_s * sr)
+        hop = int((window_s - overlap_s) * sr)
+
+        all_windows: list[np.ndarray] = []
+        spans: list[tuple[int, list[int], int]] = []
+        for s in sources:
+            w = self._to_samples(s)
+            starts = [0] if len(w) <= win else self._long_window_starts(len(w), win, hop)
+            spans.append((len(all_windows), starts, len(w)))
+            all_windows.extend(w[s0: s0 + win] for s0 in starts)
+
+        results: list[TranscribeResult] = []
+        step = max(1, int(max_batch))
+        for lo in range(0, len(all_windows), step):
+            results.extend(self._transcribe_batch_dense(all_windows[lo: lo + step], wopts))
+            _emit_progress(base, "window", min(lo + step, len(all_windows)), len(all_windows))
+
+        out: list[TranscribeResult] = []
+        for off, starts, n_samples in spans:
+            rs = results[off: off + len(starts)]
+            if len(starts) == 1:
+                out.append(self._result_from_ts(rs[0].timestamped_tokens, timestamp_mode))
+            else:
+                out.append(self._merge_long_results(n_samples, starts, rs, win, window_s, overlap_s,
+                                                    timestamp_mode))
+        return out
+
+    # ── VAD ──────────────────────────────────────────────────────────────
+
+    def transcribe_vad(
+        self,
+        source,
+        decoder: Decoder = Decoder.TDT,
+        *,
+        opts: TranscribeOptions | None = None,
+        vad_config=None,
+        boost_phrases: list[str] | None = None,
+        boost_score: float = DEFAULT_BOOST_SCORE,
+        timestamp_mode: TimestampMode = TimestampMode.WORDS,
+    ) -> TranscribeResult:
+        """Transcribe only the speech regions the energy VAD finds
+        (audio/vad.py), all in one batched call, with timestamps shifted
+        back to the untrimmed audio. `opts` is the full decode configuration
+        (timestamps forced on); the keyword arguments apply only without
+        it."""
+        from parakeet_tpu_torch.audio.vad import vad_segments
+
+        if opts is None:
+            opts = TranscribeOptions(decoder, True, list(boost_phrases or []), boost_score, timestamp_mode)
+        else:
+            opts = replace(opts, timestamps=True)
+            timestamp_mode = opts.timestamp_mode
+        samples = self._to_samples(source)
+        sr = self._audio_cfg.sample_rate
+        segments = vad_segments(samples, sr, vad_config)
+        if not segments:
+            return TranscribeResult()
+        results = self.transcribe_batch([samples[lo:hi] for lo, hi in segments], opts)
+        merged: list[TimestampedToken] = []
+        for (lo, _), res in zip(segments, results):
+            frame_off = int(round(lo / sr / FRAME_DURATION_S))
+            merged.extend(
+                TimestampedToken(t.token_id, t.start_frame + frame_off, t.end_frame + frame_off, t.confidence)
+                for t in res.timestamped_tokens
+            )
+        return self._result_from_ts(merged, timestamp_mode)
+
+    # ── Forced alignment ─────────────────────────────────────────────────
+
+    def _check_align(self) -> None:
+        if not self.has_ctc:
+            raise ValueError("forced alignment needs the CTC head (tdt-ctc models)")
+        if not self.tokenizer.loaded:
+            raise ValueError("forced alignment needs a vocab (tokenizer not loaded)")
+
+    def _ctc_log_probs_np(self, waves: list[np.ndarray], pad_to_multiple: int | None = None):
+        """CTC log-probs of the padded batch (B, T', V) on the host, and each
+        item's encoded length."""
+        feats, n_frames = preprocess_audio_batch(waves, self._audio_cfg, self.device)
+        if pad_to_multiple:
+            t_max = feats.shape[1]
+            feats = torch.nn.functional.pad(feats, (0, 0, 0, -(-t_max // pad_to_multiple) * pad_to_multiple - t_max))
+        lp = self.ctc_log_probs(self.encode(feats, n_frames))
+        enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+        return lp.to(torch.float32).cpu().numpy(), enc_lens
+
+    def align(self, source, text: str, *, timestamp_mode: TimestampMode = TimestampMode.WORDS) -> TranscribeResult:
+        """Forced alignment: token and word timings for a known transcript,
+        the most probable CTC path that emits exactly its tokens
+        (decode/align.py). Needs the CTC head and a vocab; ValueError when
+        the clip is too short for the transcript."""
+        return self.align_batch([source], [text], timestamp_mode=timestamp_mode)[0]
+
+    def align_batch(
+        self,
+        sources: list,
+        texts: list[str],
+        *,
+        timestamp_mode: TimestampMode = TimestampMode.WORDS,
+        pad_to_multiple: int | None = None,
+    ) -> list[TranscribeResult]:
+        """Forced-align several clips in one padded encoder call."""
+        from parakeet_tpu_torch.decode.align import ctc_forced_align
+
+        self._check_align()
+        if len(sources) != len(texts):
+            raise ValueError(f"{len(sources)} sources vs {len(texts)} texts")
+        token_lists = [self.tokenizer.encode(t) for t in texts]
+        for text, toks in zip(texts, token_lists):
+            if not toks:
+                raise ValueError(f"text tokenized to zero tokens: {text!r}")
+        lp_np, enc_lens = self._ctc_log_probs_np([self._to_samples(s) for s in sources], pad_to_multiple)
+        return [
+            self._result_from_ts(
+                ctc_forced_align(lp_np[i], token_lists[i], self._blank_id, length=enc_lens[i]), timestamp_mode)
+            for i in range(len(sources))
+        ]
+
+    def align_long(
+        self,
+        source,
+        text: str,
+        *,
+        window_s: float = 60.0,
+        overlap_s: float = 10.0,
+        timestamp_mode: TimestampMode = TimestampMode.WORDS,
+    ) -> TranscribeResult:
+        """Forced alignment past one window: overlapping windows give CTC
+        log-probs, each absolute frame is owned by one window (the exclusive
+        half of the overlaps, decode/align.py stitch_frame_ownership), and
+        one Viterbi pass aligns the whole transcript over the stitched
+        frames. The hop is snapped to the 0.08 s encoder frame grid, so
+        stitched rows carry exact absolute frame indices."""
+        from parakeet_tpu_torch.decode.align import ctc_forced_align, stitch_frame_ownership
+
+        self._check_align()
+        if overlap_s < 0 or overlap_s >= window_s:
+            raise ValueError(f"overlap_s ({overlap_s}) must be >= 0 and < window_s ({window_s})")
+        samples = self._to_samples(source)
+        sr = self._audio_cfg.sample_rate
+        win = int(window_s * sr)
+        if len(samples) <= win:
+            return self.align(samples, text, timestamp_mode=timestamp_mode)
+        tokens = self.tokenizer.encode(text)
+        if not tokens:
+            raise ValueError("text tokenized to zero tokens")
+
+        frame_samples = 8 * self._audio_cfg.hop_length
+        hop_frames = max(1, round((window_s - overlap_s) * sr / frame_samples))
+        hop = hop_frames * frame_samples
+        starts = list(range(0, max(len(samples) - win, 0) + hop, hop))
+        lp_np, enc_lens = self._ctc_log_probs_np([samples[s0: s0 + win] for s0 in starts])
+
+        abs_starts = [s0 // frame_samples for s0 in starts]
+        ranges = stitch_frame_ownership(abs_starts, enc_lens, win // frame_samples - hop_frames)
+        stitched = np.concatenate([lp_np[i, lo:hi] for i, (lo, hi) in enumerate(ranges)], axis=0)
+        abs_frames = np.concatenate([np.arange(lo, hi) + abs_starts[i] for i, (lo, hi) in enumerate(ranges)])
+
+        # host DP footprint guard: the (T, S) backpointer table is the cost
+        n_states = 2 * len(tokens) + 1
+        if stitched.shape[0] * n_states > 1_500_000_000:
+            raise ValueError(
+                f"alignment lattice too large ({stitched.shape[0]} frames × {n_states} states); "
+                "split the transcript and align sections")
+        ts = ctc_forced_align(stitched, tokens, self._blank_id)
+        remapped = [
+            TimestampedToken(t.token_id, int(abs_frames[t.start_frame]), int(abs_frames[t.end_frame]), t.confidence)
+            for t in ts
+        ]
+        return self._result_from_ts(remapped, timestamp_mode)
+
+    # ── Result assembly ──────────────────────────────────────────────────
 
     def _result_from_tokens(self, token_ids: list[int]) -> TranscribeResult:
         r = TranscribeResult(token_ids=token_ids)
@@ -282,4 +688,47 @@ class Transcriber:
         return r
 
 
-__all__ = ["Decoder", "TranscribeOptions", "TranscribeResult", "Transcriber"]
+class Transcriber(_TranscriberBase):
+    """Offline TDT-CTC transcriber (transcribe.hpp:55-190); default 110m."""
+
+    has_ctc = True
+    joint_prefix = "tdt_joint_"
+
+    def __init__(self, weights_path=None, vocab_path=None, config: TDTCTCConfig | None = None, **kw):
+        super().__init__(weights_path, vocab_path, config or make_110m_config(), **kw)
+
+    def _spec(self):
+        return P.tdt_ctc_spec(self.config)
+
+
+class TDTTranscriber(_TranscriberBase):
+    """TDT-only transcriber for the 600m models (transcribe.hpp:200-299);
+    default tdt-600m."""
+
+    has_ctc = False
+    joint_prefix = "joint_"
+
+    def __init__(self, weights_path=None, vocab_path=None, config: TDTConfig | None = None, **kw):
+        super().__init__(weights_path, vocab_path, config or make_tdt_600m_config(), **kw)
+
+    def _spec(self):
+        return P.tdt_spec(self.config)
+
+
+class RNNTTranscriber(_TranscriberBase):
+    """RNNT transcriber (parakeet-rnnt-0.6b by default): greedy decode as
+    TDT with durations (0,)."""
+
+    has_ctc = False
+    joint_prefix = "joint_"
+    is_tdt = False
+
+    def __init__(self, weights_path=None, vocab_path=None, config: RNNTConfig | None = None, **kw):
+        super().__init__(weights_path, vocab_path, config or make_rnnt_600m_config(), **kw)
+
+    def _spec(self):
+        return P.rnnt_spec(self.config)
+
+
+__all__ = ["Decoder", "TranscribeOptions", "TranscribeResult", "Transcriber", "TDTTranscriber",
+           "RNNTTranscriber", "fused_layers_for"]

@@ -229,3 +229,62 @@ def test_dft_plan_takes_other_n_fft():
     """n_fft 400 (200 bins): 4 tiles, the last one partly zero rows."""
     assert GP.dft_cols(400) == 512
     assert GP.dft_plan(1001, 400).smem <= LIMIT
+
+
+# ─── the 600m shapes (tdt-600m, rnnt-600m: D=1024, F=4096, H=8, hd=128) ─────
+# (B, T'): the 8-clip batch, 20 windows of 10 s, one dense 95 s clip
+SHAPES_600M = ((8, 126), (20, 126), (1, 1188))
+
+
+def _conv1_dw1_smem(mel: int) -> int:
+    """csrc/subsample.cu conv1_dw1_smem_bytes: 4·4+3 mel rows of the padded
+    row stride and a 9-row conv1 slab of (F2 + 2) columns x 32 channels."""
+    f2 = (mel - 1) // 2 + 1
+    row = 2 * 8 * -(-f2 // 8) + 4
+    return ((4 * 4 + 3) * row + (2 * 4 + 1) * (f2 + 2) * 32) * 4
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("mel", (80, 128))
+def test_subsample_plans_at_the_600m_mel_bins(mel, itemsize):
+    """K8 on 128 mel bins (tdt-600m): F2 = 64, twice the columns of 80, in
+    the conv1_dw1 slab and in conv2's GEMM; both fit a block."""
+    assert _conv1_dw1_smem(mel) <= LIMIT
+    assert _conv1_dw1_smem(128) == 86_064
+    for b, t in ((8, 1001), (20, 1001), (1, 9501)):
+        m = b * SS.out_size(t) * SS.out_size(mel)
+        plan = SS.subsample_plan(m, 256, itemsize)
+        assert plan.splits == 1 and plan.smem <= LIMIT and 128 * (plan.rows + 2) * 4 <= plan.smem
+        assert plan.blocks == -(-m // plan.rows) * 2
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("t", (126, 751, 1188))
+def test_v1_plan_at_head_dim_128(t, itemsize):
+    """K2 at hd=128 holds twice the position and key columns of hd=64: one
+    pass to T'=751 (64 query rows at 126, 16 at 751 in f32), and at
+    T'=1188 one pass in bf16 only (16 query rows), two in f32."""
+    plan = RA.v1_plan(t, 128, itemsize)
+    assert plan.smem <= LIMIT
+    assert plan.one_pass == (t <= 751 or itemsize == 2)
+    if plan.one_pass:
+        assert plan.smem == 4 * plan.rows * (-(-t // 4) * 4) + itemsize * 128 * (
+            2 * plan.rows + 2 * (2 * plan.key_tile + plan.rows - 1))
+    assert [RA.v1_plan(tt, 128).rows for tt in (126, 751, 1188)] == [64, 16, 0]
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b, t", SHAPES_600M)
+def test_k7_and_k4_plans_at_the_600m_widths(b, t, itemsize):
+    """K7 runs ffn_plan then block_plan, K4 conv_plan then ffn_plan, at
+    D=1024, F=4096: every GEMM fits a block and splits whole k steps."""
+    d, f, m = 1024, 4096, b * t
+    ffn = FF.ffn_plan(m, d, f, itemsize)
+    attn = RA.block_plan(b, t, d, itemsize)
+    conv = CM.conv_plan(m, d, itemsize)
+    assert ffn.smem <= LIMIT and (f // GP.GEMM_K_STEP) % ffn.splits == 0
+    for g, k in ((attn.qkv, d), (attn.pos, d), (attn.out, d), (conv.pw1, d), (conv.pw2, d)):
+        assert g.smem <= LIMIT and g.smem == GP.gemm_smem(g.rows, itemsize)
+        assert (k // GP.GEMM_K_STEP) % g.splits == 0 and 1 <= g.splits <= GP.MAX_SPLITS
+    assert attn.qkv.splits == 1 and conv.pw1.splits == 1
+    assert attn.partials == max(attn.pos.splits * (2 * t - 1) * d, attn.out.splits * m * d)

@@ -79,13 +79,13 @@ def test_preprocess_audio_fused_matches_reference(n_samples, monkeypatch):
     wave = (0.3 * np.random.RandomState(2).randn(n_samples)).astype(np.float32)
     ref = np.asarray(RF.preprocess_audio_fused(wave, RAudioConfig()))
     assert calls == [1]
-    got = TF.preprocess_audio_fused(wave, AudioConfig()).numpy()
+    got = TF.preprocess_audio_fused(wave, AudioConfig(), "cpu").numpy()
     assert got.shape == ref.shape == (1, n_samples // 160 + 1, 80)
     # normalised features: the log-space tolerance scaled by 1/std of the
     # features (std ≥ 0.5 on this noise)
     np.testing.assert_allclose(got, ref, atol=2 * ATOL)
     # and the unfused frontend computes the same features
-    plain = TF.preprocess_audio(wave, AudioConfig()).numpy()
+    plain = TF.preprocess_audio(wave, AudioConfig(), "cpu").numpy()
     np.testing.assert_allclose(got, plain, atol=2 * ATOL)
 
 

@@ -115,7 +115,7 @@ def test_single_clip_wav_features_and_no_timestamps_agree(setup, reference_resul
 
     from parakeet_tpu_torch.audio.frontend import preprocess_audio
 
-    feats = preprocess_audio(waves[1]).numpy()[0]
+    feats = preprocess_audio(waves[1], device="cpu").numpy()[0]
     assert tr.transcribe_features(feats).token_ids == reference_results["TDT"][1].token_ids
 
 
@@ -138,15 +138,27 @@ def test_unsupported_options_raise(setup, bad):
             TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", **{bad: "int8"})
         return
     tr = TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", long_threshold_s=1.0)
+    if bad == "long_clip":
+        # no longer refused: a clip past long_threshold_s (1.47 s > 1 s) routes
+        # through the windowed decode; it fits one 10 s window, so it decodes
+        # as the dense route does, with timestamps
+        routed = []
+        real = tr.transcribe_long_batch
+        tr.transcribe_long_batch = lambda clips, *a, **k: routed.append(len(clips)) or real(clips, *a, **k)
+        got = tr.transcribe(waves[2])
+        dense = TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", long_audio="dense",
+                             long_threshold_s=1.0)
+        want = dense.transcribe(waves[2], timestamps=True)
+        assert routed == [1] and got.timestamped_tokens
+        assert got.token_ids == want.token_ids and _spans(got) == _spans(want)
+        return
     with pytest.raises(NotImplementedError):
         if bad == "beam_size":
             tr.transcribe(waves[1], beam_size=4)
         elif bad == "lm":
             tr.transcribe(waves[1], lm=object())
-        elif bad == "boost_phrases":
-            tr.transcribe(waves[1], boost_phrases=["a b"])
         else:
-            tr.transcribe(waves[2])  # 1.47 s > long_threshold_s
+            tr.transcribe(waves[1], boost_phrases=["a b"])
 
 
 @pytest.fixture(scope="module")
