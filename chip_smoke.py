@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (parakeet_tpu_torch) on one card.
 
     python3 chip_smoke.py        # needs one CUDA device
-    python3 chip_smoke.py --phases kernels600m,paths600m,long   # a subset, no result lines
+    python3 chip_smoke.py --phases streaming,diarize   # a subset, no result lines
 
 Phases, each of which raises (exit code 1) on failure:
   1. device   require CUDA; print the card's name and power limit
@@ -72,6 +72,22 @@ Phases, each of which raises (exit code 1) on failure:
               10 s overlapping by 2 s in one call at B=20, the 7 s clip
               densely) and long_audio="dense" (the 95 s clip alone at
               T'=1188); tokens and frames equal to the CPU's
+  8. streaming  eou-120m (StreamingTranscriber) at full width, B=1, 8 s in
+              160 ms pushes, f32 (and bf16: edit distance against f32);
+              StreamingBatchTranscriber eou-120m at B=8, fused frontend,
+              int16 wire, with held steps and a reset_slot; nemotron-600m
+              (NemotronTranscriber) in latency modes 0, 1, 6 and 13, 4 s
+              each; tokens and frames equal to a CPU facade fed the same
+              pushes, no kernel launched (the streaming encoder is plain in
+              the reference too), per-push wall ms (median, p95) and the
+              device busy share
+  9. diarize  Sortformer-117m at full width: forward on 10 s and 60 s clips
+              (K1 17 times a forward), diarize_chunk over 10 s in 160 ms
+              chunks, DiarizedTranscriber.transcribe on 10 s (tdt-ctc-110m +
+              Sortformer); probabilities against the CPU, segments and
+              speakers identical except frames within 1e-4 of the threshold
+              (reported); K1 at B=1, T'=751, D=512 against its plain version,
+              timed, with its bound
 Each phase prints its seconds, and the run its total. The card's name and power limit, a JSON line of per-kernel numbers (with
 bound_ms, bound_by and the bound's share of the kernel time at the
 headline shape, and under "shapes" every timed shape with its bound) and
@@ -96,6 +112,7 @@ F32_RTOL, F32_ATOL = 1e-3, 1e-5  # the reference's block-kernel tolerance
 LOG_MEL_ATOL = 2e-2  # K3: the reference frontend kernel's tolerance, in log space
 BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
 ENC_SCALE_FRAC = 1e-3  # f32 encoder, card vs CPU, 17 layers of reordered sums
+DIAR_PROB_ATOL = 1e-3  # f32 Sortformer probabilities, card vs CPU
 B, D, H, FFN = 8, 512, 8, 2048  # tdt-ctc-110m widths
 MEL, SUB_C = 80, 256
 # published H100 SXM peaks (NVIDIA's data sheet): f32 FMA on the CUDA cores
@@ -134,16 +151,18 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def profile_device(fn, calls: int):
+def profile_device(fn, calls: int, host_ops: bool = True):
     """Device events of `calls` calls of fn under torch.profiler, as
     {kernel name: device ms per call}. Only device events are summed: the
     profiler also books each kernel's time on the host op that launched
-    it."""
+    it. Without `host_ops` only the device is traced, which keeps a profile
+    of tens of thousands of launches cheap."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -156,11 +175,11 @@ def profile_device(fn, calls: int):
 
 def device_ms(fn, calls: int = 10, profiles: int = 2) -> float:
     """Device time per call from torch.profiler: the summed durations of
-    the device events (kernels, copies, fills) over `calls` calls. The
-    largest of `profiles` profiles (two by default; one for whole decode
-    batches, whose tens of thousands of host ops make a profile slow), since
-    a profile that drops events can only read low. While no profile has
-    seen device time, up to three more are taken; then the measurement
+    the device events (kernels, copies, fills) over `calls` calls, the
+    device alone traced. The largest of `profiles` profiles (two by
+    default; one for whole decode batches), since a profile that drops
+    events can only read low. While no profile has seen device time, up to
+    three more are taken, tracing host ops too; then the measurement
     fails."""
     import torch
 
@@ -170,7 +189,7 @@ def device_ms(fn, calls: int = 10, profiles: int = 2) -> float:
     for attempt in range(profiles + 3):
         if attempt >= profiles and best > 0:
             break
-        best = max(best, sum(profile_device(fn, calls).values()))
+        best = max(best, sum(profile_device(fn, calls, host_ops=attempt >= profiles).values()))
     if best <= 0:
         raise RuntimeError("the profiler saw no device time in 5 profiles")
     return best
@@ -1297,6 +1316,366 @@ def bf16_phase(fused, flat, clips, f32_tdt) -> None:
         f"({sum(dists)} over {sum(len(t) for t in f32_tdt)} f32 tokens)")
 
 
+def _percentile(values, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def _stream_pushes(audio, size: int = 2560):
+    """160 ms pushes of a 16 kHz clip."""
+    return [audio[i: i + size] for i in range(0, len(audio), size)]
+
+
+def _run_stream(tr, pushes, times=None):
+    """A streaming facade from reset() through `pushes`; each chunk's
+    synchronised wall ms into `times` when given. Returns (tokens, spans)."""
+    import torch
+
+    tr.reset()
+    for x in pushes:
+        if times is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        tr.transcribe_chunk(x)
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return tr.get_tokens(), [(t.token_id, t.start_frame, t.end_frame) for t in tr.get_timestamped_tokens()]
+
+
+def _same_spans(name: str, gpu_spans, cpu_spans) -> None:
+    if gpu_spans != cpu_spans:
+        j = next((k for k, (a, b) in enumerate(zip(gpu_spans, cpu_spans)) if a != b),
+                 min(len(gpu_spans), len(cpu_spans)))
+        raise RuntimeError(f"{name}: card and CPU differ first at token {j}: gpu {gpu_spans[j:j + 3]} vs cpu "
+                           f"{cpu_spans[j:j + 3]} ({len(gpu_spans)} vs {len(cpu_spans)} tokens)")
+
+
+def _no_launches(name: str, launches: dict) -> None:
+    """The streaming encoder runs no kernel, as in the reference (its
+    cached attention and chunk-sized layers are plain XLA there)."""
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: kernel launches on the streaming path: {launches}")
+
+
+def streaming_facade_check(name: str, gpu, cpu, pushes, card: str) -> dict:
+    """One streaming facade on the card against the CPU facade fed the same
+    pushes: tokens and frames identical, no kernel launched, per-chunk
+    synchronised wall ms, and the device busy share over the first 6
+    chunks (a profile of tens of thousands of host ops is slow)."""
+    t0 = time.perf_counter()
+    _run_stream(gpu, pushes)  # warm-up (cuDNN autotune, allocator)
+    reset_counts()
+    times = []
+    toks, spans = _run_stream(gpu, pushes, times)
+    launches = read_counts()
+    _no_launches(name, launches)
+    _, cpu_spans = _run_stream(cpu, pushes)
+    _same_spans(name, spans, cpu_spans)
+    if not toks:
+        raise RuntimeError(f"{name}: no tokens")
+    head = pushes[:6]
+    wall = wall_ms(lambda: _run_stream(gpu, head), 3)
+    dev = device_ms(lambda: _run_stream(gpu, head), calls=1, profiles=1)
+    res = {"launches": launches, "tokens": toks, "chunk_ms": float(np.median(times)),
+           "chunk_p95_ms": _percentile(times, 0.95), "busy": dev / wall}
+    log(f"  {name}: {len(toks)} tokens, identical to the CPU with their frames; kernel launches none; per 160 ms "
+        f"push, synchronised wall ms: median {res['chunk_ms']:.3f}, p95 {res['chunk_p95_ms']:.3f} over "
+        f"{len(times)} pushes; first {len(head)} pushes {wall:.1f} ms wall, {dev:.3f} ms device, busy "
+        f"{res['busy']:.1%} [{card}] ({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+def batch_stream_scenario(bt, pcm, times=None) -> tuple[list, int]:
+    """B slots of int16 PCM in 160 ms pushes: slot 3's push 10 arrives one
+    push late (its lag is held), slot 5 is reset at push 20 and replays its
+    audio from the start; steps run whenever a slot can step, the lagging
+    slots held. Returns (each slot's spans, held steps)."""
+    import torch
+
+    bt.reset()
+    pushes = [_stream_pushes(p) for p in pcm]
+    held = 0
+
+    def drain():
+        nonlocal held
+        while bt.ready_any():
+            hold = bt.lagging_slots()
+            held += bool(hold)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bt.step(hold=hold)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+
+    for k in range(len(pushes[0])):
+        for i in range(bt.batch):
+            if (i, k) == (3, 10):
+                continue
+            if (i, k) == (3, 11):
+                bt.push(i, pushes[i][10])
+            bt.push(i, pushes[i][k])
+        if k == 20:
+            bt.reset_slot(5)
+            for x in pushes[5][: k + 1]:
+                bt.push(5, x)
+        drain()
+    return [[(t.token_id, t.start_frame, t.end_frame) for t in bt.get_timestamped_tokens(i)]
+            for i in range(bt.batch)], held
+
+
+def streaming_phase(card: str) -> dict:
+    """Streaming ASR at full width: eou-120m (StreamingTranscriber, B=1, 8 s
+    in 160 ms pushes, f32 and bf16), nemotron-600m (NemotronTranscriber) in
+    latency modes 0, 1, 6 and 13 (4 s each), and StreamingBatchTranscriber
+    eou-120m at B=8 with the fused frontend and the int16 wire (a held step
+    and a reset_slot); each against a CPU facade fed the same pushes."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.streaming import NemotronTranscriber, StreamingBatchTranscriber, StreamingTranscriber
+
+    out = {}
+    eou_cfg = C.make_eou_120m_config()
+    flat = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
+    audio = synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0]
+    pushes = _stream_pushes(audio)
+    log(f"== streaming eou-120m: {eou_cfg.encoder.num_layers} layers, d={eou_cfg.encoder.hidden_size}, "
+        f"left {eou_cfg.encoder.att_context_left}, right {eou_cfg.encoder.att_context_right}, random weights "
+        f"(seed 0), f32, B=1, 8 s in {len(pushes)} pushes")
+    gpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cuda")
+    cpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cpu")
+    out["eou"] = streaming_facade_check("eou-120m B=1", gpu, cpu, pushes, card)
+    b16 = StreamingTranscriber(config=eou_cfg, params=flat, device="cuda", compute_dtype="bfloat16")
+    b16_toks, _ = _run_stream(b16, pushes)
+    dist = edit_distance(b16_toks, out["eou"]["tokens"])
+    log(f"  eou-120m bf16 on the card: {len(b16_toks)} tokens, edit distance {dist} against the "
+        f"{len(out['eou']['tokens'])} f32 tokens (reported, not a gate)")
+    out["eou"]["bf16_edit_distance"] = dist
+    del gpu, cpu, b16
+
+    t0 = time.perf_counter()
+    log("== streaming StreamingBatchTranscriber eou-120m: B=8, fused frontend, int16 wire, 8 s per slot")
+    clips = synthetic_clips(8, seed=1800, min_s=8, max_s=8)
+    pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in clips]
+    kw = dict(config=eou_cfg, params=flat, frontend="fused", wire_dtype="int16")
+    gpu = StreamingBatchTranscriber(8, device="cuda", **kw)
+    cpu = StreamingBatchTranscriber(8, device="cpu", **kw)
+    batch_stream_scenario(gpu, pcm)  # warm-up
+    reset_counts()
+    times = []
+    spans, held = batch_stream_scenario(gpu, pcm, times)
+    launches = read_counts()
+    _no_launches("batch B=8", launches)
+    cpu_spans, cpu_held = batch_stream_scenario(cpu, pcm)
+    for i, (g, c) in enumerate(zip(spans, cpu_spans)):
+        _same_spans(f"batch B=8 slot {i}", g, c)
+    if not held or held != cpu_held or not all(spans):
+        raise RuntimeError(f"batch B=8: {held} held steps (CPU {cpu_held}), tokens per slot "
+                           f"{[len(s) for s in spans]}")
+    head = [p[: 6 * 2560] for p in pcm]
+    wall = wall_ms(lambda: batch_stream_scenario(gpu, head), 3)
+    dev = device_ms(lambda: batch_stream_scenario(gpu, head), calls=1, profiles=1)
+    out["batch"] = {"launches": launches, "step_ms": float(np.median(times)),
+                    "step_p95_ms": _percentile(times, 0.95), "busy": dev / wall}
+    log(f"  tokens per slot {[len(s) for s in spans]}, identical to the CPU with their frames; {held} steps with "
+        f"held slots; kernel launches none; per step, synchronised wall ms: median {out['batch']['step_ms']:.3f}, "
+        f"p95 {out['batch']['step_p95_ms']:.3f} over {len(times)} steps; 6 pushes per slot {wall:.1f} ms wall, "
+        f"{dev:.3f} ms device, busy {out['batch']['busy']:.1%} [{card}] ({time.perf_counter() - t0:.1f} s)")
+    del gpu, cpu, flat
+
+    t0 = time.perf_counter()
+    nemo_flat = P.init_params_numpy(P.nemotron_spec(C.make_nemotron_600m_config()), seed=0)
+    nemo_audio = synthetic_clips(1, seed=1750, min_s=4, max_s=4)[0]
+    log(f"== streaming nemotron-600m: {sum(a.size for a in nemo_flat.values()) / 1e6:.1f} M parameters "
+        f"({time.perf_counter() - t0:.1f} s to draw), f32, B=1, 4 s in {len(_stream_pushes(nemo_audio))} pushes "
+        f"per latency mode")
+    for mode in (0, 1, 6, 13):
+        cfg = C.make_nemotron_600m_config(mode)
+        gpu = NemotronTranscriber(config=cfg, params=nemo_flat, device="cuda")
+        cpu = NemotronTranscriber(config=cfg, params=nemo_flat, device="cpu")
+        out[f"nemotron-{mode}"] = streaming_facade_check(f"nemotron-600m latency {mode} (right {mode})", gpu, cpu,
+                                                         _stream_pushes(nemo_audio), card)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _diarization_agrees(name: str, gpu_probs, cpu_probs, gpu_segs, cpu_segs, thr: float) -> dict:
+    """Probabilities within DIAR_PROB_ATOL of the CPU's; frames active on
+    the card and the CPU alike except where the CPU's probability lies
+    within 1e-4 of the threshold (reported); the segments identical when no
+    frame lies there."""
+    g, c = np.asarray(gpu_probs), np.asarray(cpu_probs)
+    if g.shape != c.shape or not np.isfinite(g).all():
+        raise RuntimeError(f"{name}: probabilities of shape {g.shape} vs {c.shape}, or not finite")
+    diff = float(np.abs(g - c).max()) if g.size else 0.0
+    near = np.abs(c - thr) < 1e-4
+    if diff > DIAR_PROB_ATOL or not np.array_equal((g > thr)[~near], (c > thr)[~near]):
+        raise RuntimeError(f"{name}: probabilities differ by {diff:.3e} or frames flip away from the threshold")
+    seg = lambda s: [(x.speaker_id, x.start, x.end) for x in s]  # noqa: E731
+    if not near.any() and seg(gpu_segs) != seg(cpu_segs):
+        raise RuntimeError(f"{name}: segments differ on card and CPU")
+    return {"max_abs_diff": diff, "near_threshold": int(near.sum()), "segments": len(gpu_segs)}
+
+
+def diarize_phase(card: str) -> dict:
+    """Sortformer-117m at full width (17 NEST layers, d=512, 128 mel, 18
+    post-norm transformer layers): forward on 10 s and 60 s clips (K1 17
+    times a forward), diarize_chunk over 10 s in 160 ms chunks (the
+    streaming NEST session, no kernel), DiarizedTranscriber.transcribe on a
+    10 s clip (tdt-ctc-110m and Sortformer, K1 17 + 17), each against the
+    CPU; then K1 at Sortformer's B=1, T'=751, D=512 against its plain
+    version, timed, with its bound."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio
+    from parakeet_tpu_torch.diarize import DiarizedTranscriber
+    from parakeet_tpu_torch.models import sortformer as SF
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    cfg = C.make_sortformer_117m_config()
+    thr = cfg.activity_threshold
+    flat = P.init_params_numpy(P.sortformer_spec(cfg), seed=0)
+    gpu = SF.Sortformer(config=cfg, params=flat, device="cuda")
+    cpu = SF.Sortformer(config=cfg, params=flat, device="cpu")
+    acfg = C.AudioConfig(n_mels=cfg.nest_encoder.mel_bins, normalize=False)
+    layers = cfg.nest_encoder.num_layers
+    log(f"== diarize: Sortformer-117m, NEST {layers} layers d={cfg.nest_encoder.hidden_size}, "
+        f"{cfg.nest_encoder.mel_bins} mel, transformer {cfg.transformer.num_layers} layers d="
+        f"{cfg.transformer.hidden_size}, random weights (seed 0), f32")
+    out = {"forward": {}}
+    clips = {sec: synthetic_clips(1, seed=1900 + sec, min_s=sec, max_s=sec)[0] for sec in (10, 60)}
+    for sec, clip in clips.items():
+        feats = preprocess_audio(clip, acfg, "cpu")
+        gpu.forward(feats)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        probs = gpu.forward(feats)[0].cpu().numpy()
+        launches = read_counts()
+        want = {k: (layers if k == "rel_attention_block" else 0) for k in launches}
+        if launches != want:
+            raise RuntimeError(f"Sortformer {sec} s: kernel launches {launches}, want {want}")
+        cpu_probs = cpu.forward(feats)[0].numpy()
+        agree = _diarization_agrees(f"Sortformer {sec} s", probs, cpu_probs, SF.probs_to_segments(probs, thr),
+                                    SF.probs_to_segments(cpu_probs, thr), thr)
+        with torch.inference_mode():
+            wall = wall_ms(lambda: gpu.forward(feats), 5)
+            dev = device_ms(lambda: gpu.forward(feats), calls=3)
+        out["forward"][sec] = dict(agree, launches=launches, wall_ms=wall, dev_ms=dev, frames=probs.shape[0])
+        log(f"  forward {sec} s (T'={probs.shape[0]}): K1 launches {launches['rel_attention_block']}; probabilities "
+            f"max|diff| {agree['max_abs_diff']:.3e} vs the CPU; {agree['segments']} segments, "
+            f"{agree['near_threshold']} frame-speakers within 1e-4 of the threshold; wall {wall:.3f} ms (median "
+            f"of 5), device {dev:.3f} ms, busy {dev / wall:.1%} [{card}]")
+    out["launches"] = out["forward"][60]["launches"]
+
+    feats10 = preprocess_audio(clips[10], acfg, "cpu").numpy()
+    chunks = [feats10[:, i: i + 16] for i in range(0, feats10.shape[1], 16)]
+
+    def run_chunks(sf, times=None):
+        sf.reset_stream()
+        aosc, segs, probs = SF.AOSCCache(cfg.max_speakers), [], []
+        real = SF.probs_to_segments
+        SF.probs_to_segments = lambda p, t=0.5: (probs.append(np.asarray(p)), real(p, t))[1]
+        try:
+            for ch in chunks:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                segs.append(sf.diarize_chunk(ch, aosc))
+                torch.cuda.synchronize()
+                if times is not None:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            SF.probs_to_segments = real
+        return segs, probs, aosc.speaker_order()
+
+    run_chunks(gpu)  # warm-up
+    reset_counts()
+    times = []
+    g_segs, g_probs, g_order = run_chunks(gpu, times)
+    launches = read_counts()
+    _no_launches("diarize_chunk", launches)
+    c_segs, c_probs, c_order = run_chunks(cpu)
+    near = 0
+    for i, (gs, gp, cs, cp) in enumerate(zip(g_segs, g_probs, c_segs, c_probs)):
+        near += _diarization_agrees(f"diarize_chunk {i}", gp, cp, gs, cs, thr)["near_threshold"]
+    if len(g_probs) != len(c_probs) or (not near and g_order != c_order):
+        raise RuntimeError(f"diarize_chunk: {len(g_probs)} vs {len(c_probs)} chunks decoded, arrival order "
+                           f"{g_order} vs {c_order}")
+    diff = max(float(np.abs(g - c).max()) for g, c in zip(g_probs, c_probs) if g.size)
+    out["chunks"] = {"launches": launches, "chunk_ms": float(np.median(times)),
+                     "chunk_p95_ms": _percentile(times, 0.95)}
+    log(f"  diarize_chunk over 10 s in {len(chunks)} chunks of 16 mel frames: kernel launches none; probabilities "
+        f"max|diff| {diff:.3e}; {sum(map(len, g_segs))} segments, {near} frame-speakers within 1e-4 of the "
+        f"threshold; arrival order {g_order}; per chunk, synchronised wall ms: median {out['chunks']['chunk_ms']:.3f}, "
+        f"p95 {out['chunks']['chunk_p95_ms']:.3f} [{card}]")
+    del gpu, cpu
+
+    asr_flat = model_params("tdt-ctc-110m")
+    asr_cfg = C.make_110m_config()
+    # no vocabulary ships with the repo: one word piece per token, so each
+    # token is a word with its own times
+    vocab = ROOT / "build" / "parakeet_tpu_torch" / "smoke_vocab.txt"
+    vocab.parent.mkdir(parents=True, exist_ok=True)
+    vocab.write_text("".join(f"\u2581w{i}\n" for i in range(asr_cfg.joint.vocab_size - 1)), encoding="utf-8")
+    dts = {dev: DiarizedTranscriber(vocab_path=str(vocab), config=asr_cfg, sf_config=cfg, asr_params=asr_flat,
+                                    sortformer_params=flat, device=dev) for dev in ("cuda", "cpu")}
+    probs = {}
+    for dev, dt in dts.items():
+        real = dt.sortformer.forward
+        dt.sortformer.forward = lambda f, real=real, dev=dev: probs.setdefault(dev, real(f))
+    dts["cuda"].transcribe(clips[10])  # warm-up
+    probs.clear()
+    reset_counts()
+    res = dts["cuda"].transcribe(clips[10])
+    launches = read_counts()
+    want = {k: (2 * layers if k == "rel_attention_block" else 0) for k in launches}
+    if launches != want:
+        raise RuntimeError(f"DiarizedTranscriber: kernel launches {launches}, want {want}")
+    cres = dts["cpu"].transcribe(clips[10])
+    words = lambda r: [(w.word, w.start, w.end) for w in r.word_timestamps]  # noqa: E731
+    if words(res) != words(cres) or not res.words:
+        raise RuntimeError("DiarizedTranscriber: words or their times differ on card and CPU, or none")
+    agree = _diarization_agrees("DiarizedTranscriber", probs["cuda"][0].cpu().numpy(), probs["cpu"][0].numpy(),
+                                res.segments, cres.segments, thr)
+    speakers = [w.speaker_id for w in res.words]
+    if not agree["near_threshold"] and speakers != [w.speaker_id for w in cres.words]:
+        raise RuntimeError("DiarizedTranscriber: speakers differ on card and CPU")
+    wall = wall_ms(lambda: dts["cuda"].transcribe(clips[10]), 3)
+    out["transcriber"] = {"launches": launches, "wall_ms": wall}
+    log(f"  DiarizedTranscriber.transcribe 10 s: {len(res.words)} words, identical to the CPU with their times and "
+        f"speakers {sorted(set(speakers))}; K1 launches {launches['rel_attention_block']} (ASR {layers} + "
+        f"Sortformer {layers}); warm call {wall:.1f} ms (median of 3) [{card}]")
+    del dts
+
+    t = out["forward"][60]["frames"]
+    rng = np.random.RandomState(1950)
+    dev = _dev(rng, torch.float32)
+    d = cfg.nest_encoder.hidden_size
+    k1 = _attention_args(rng, dev, 1, t, d, H)
+    lengths = np.asarray([t])
+    kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+              norm_w=dev(1 + rng.normal(0, 0.1, d), torch.float32), norm_b=dev(rng.normal(0, 0.1, d), torch.float32))
+    with torch.inference_mode():
+        got = RA.rel_attention_block(*k1, **kw)
+        ref = RA.rel_attention_block_reference(*k1, **kw)
+    shape = f"B=1 T'={t} D={d} hd={d // H} (Sortformer 60 s)"
+    tag = f"K1 {shape} f32"
+    err = check_close(tag, got, ref)
+    ms = time_pair(tag, lambda: RA.rel_attention_block(*k1, **kw), lambda: RA.rel_attention_block_reference(*k1, **kw),
+                   card)
+    work = (attention_flops(1, t, d, H, lengths), tensor_bytes(*k1, *kw.values(), got) + (2 * t - 1) * d * 4)
+    bd = bound(*work)
+    log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']}; kernel / plain device {ms['dev_ms']:.4f} / {ms['plain_dev_ms']:.4f} ms [{card}]")
+    out["k1"] = {"max_abs_err": err, "times": {shape: ms}, "work": {shape: work}}
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -1314,7 +1693,7 @@ def build_phase() -> None:
         _build.load(name)
 
 
-PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long")
+PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long", "streaming", "diarize")
 
 
 def main(argv=None) -> int:
@@ -1416,6 +1795,15 @@ def main(argv=None) -> int:
                 paths[f"rnnt-600m {label}"] = timed(f"path rnnt-600m {label}", path_phase, f"rnnt-600m {label}",
                                                     cfg, flat6, clips, card, model="rnnt-600m")
             del flat6
+    if "streaming" in phases:
+        paths["streaming"] = timed("streaming", streaming_phase, card)
+        torch.cuda.empty_cache()
+    if "diarize" in phases:
+        paths["diarize"] = timed("diarize", diarize_phase, card)
+        k1 = kernel.setdefault("rel_attention_block", {"max_abs_err": 0.0})
+        k1["max_abs_err"] = max(k1["max_abs_err"], paths["diarize"]["k1"]["max_abs_err"])
+        for key in ("times", "work"):
+            k1.setdefault(key, {}).update(paths["diarize"]["k1"][key])
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if phases != list(PHASES):
@@ -1444,6 +1832,9 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": f"parakeet_tpu_torch/csrc/{src}",
                "replaces": replaces, "launches": paths[path]["launches"][name],
                "launches_600m": paths[on_600m[name]]["launches"][name] if on_600m[name] else 0,
+               # one Sortformer-117m forward; the streaming paths launch no kernel
+               "launches_sortformer": paths["diarize"]["launches"][name],
+               "launches_streaming": sum(paths["streaming"][p]["launches"][name] for p in paths["streaming"]),
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],

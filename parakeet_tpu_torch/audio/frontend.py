@@ -13,6 +13,11 @@ contiguous hop blocks, with the all-zero sin columns dropped for even n_fft.
 `preprocess_audio_fused` is the one-clip form whose log-mel runs the fused
 kernel (ops/log_mel.py: the CUDA kernel on the card, its plain version on
 the CPU).
+
+Streaming (`StreamingAudioPreprocessor`, `streaming_log_mel_batch`): the
+same hop-block GEMMs framed without a centre pad (center=False), the mel
+and the log, no normalisation; the preemphasis carries the previous raw
+sample across pushes.
 """
 
 from __future__ import annotations
@@ -88,13 +93,12 @@ def _fb_for(cfg: AudioConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _hop_block_weights(cfg: AudioConfig) -> tuple[np.ndarray, bool]:
+def _hop_block_weights(cfg: AudioConfig, lpad: int) -> tuple[np.ndarray, bool]:
     """(nblk, hop, F + nim) windowed cos|sin DFT weights, the window at
     offset lpad of the n_fft frame (zero rows above it), split into hop
     blocks; and whether the zero sin columns (k = 0, n_fft/2) were dropped."""
     n_fft, hop, win = cfg.n_fft, cfg.hop_length, cfg.win_length
     f = n_fft // 2 + 1
-    lpad = (n_fft - win) // 2
     k = np.arange(f, dtype=np.float64)
     n = np.arange(n_fft, dtype=np.float64)
     ang = 2.0 * np.pi * np.outer(n, k) / n_fft
@@ -111,9 +115,16 @@ def _hop_block_weights(cfg: AudioConfig) -> tuple[np.ndarray, bool]:
     return wfull.reshape(nblk, hop, -1), trim
 
 
-def _stft_power_gemm(padded: torch.Tensor, cfg: AudioConfig, n_frames: int) -> torch.Tensor:
-    """(B, L) preemphasized, padded waveforms → (B, n_frames, F) power."""
-    wj_np, trim = _hop_block_weights(cfg)
+def _stft_power_gemm(
+    padded: torch.Tensor, cfg: AudioConfig, n_frames: int, center: bool = True
+) -> torch.Tensor:
+    """(B, L) preemphasized waveforms → (B, n_frames, F) power. center: the
+    buffer is reflect-padded and each n_fft frame holds the window at its
+    centre (torch.stft center=True); otherwise frames of win_length start
+    every hop at sample 0, the streaming grid (pad placement only shifts
+    phase, so the power is the same as the window zero-padded to n_fft)."""
+    lpad = (cfg.n_fft - cfg.win_length) // 2 if center else 0
+    wj_np, trim = _hop_block_weights(cfg, lpad)
     wj = torch.from_numpy(wj_np).to(padded.device)
     nblk, hop = wj.shape[0], cfg.hop_length
     f = cfg.n_fft // 2 + 1
@@ -222,5 +233,77 @@ def preprocess_audio_fused(
     return log_mel[None]
 
 
+# ─── Streaming ───────────────────────────────────────────────────────────────
+
+
+def _streaming_log_mel(pre: torch.Tensor, cfg: AudioConfig, n_frames: int) -> torch.Tensor:
+    """(B, S) preemphasized samples → (B, n_frames, n_mels): center=False
+    power, the Slaney filterbank, log(x + 2⁻²⁴), no normalisation. The
+    per-push and the batched streaming frontends both run this."""
+    power = _stft_power_gemm(pre, cfg, n_frames, center=False)
+    fb = torch.from_numpy(_fb_for(cfg)).to(pre.device)
+    return torch.log(power @ fb + LOG_GUARD)
+
+
+def streaming_log_mel_batch(
+    x: torch.Tensor, prev: torch.Tensor, cfg: AudioConfig, n_frames: int
+) -> torch.Tensor:
+    """Batched streaming mel: (B, S) raw f32 samples and the (B,)
+    preemphasis carry-in (each row's previous raw sample) → (B, n_frames,
+    n_mels) unnormalised log-mel, center=False, on x's device. S must be
+    (n_frames-1)·hop + win: a step consumes exactly n_frames windows, the
+    grid restarting at the consumed samples as in StreamingAudioPreprocessor
+    fed S-sample pushes."""
+    need = (n_frames - 1) * cfg.hop_length + cfg.win_length
+    if x.shape[1] != need:
+        raise ValueError(
+            f"streaming_log_mel_batch needs exactly (n_frames-1)*hop + win "
+            f"= {need} samples per row, got {x.shape[1]}"
+        )
+    shifted = torch.cat([prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
+    return _streaming_log_mel(x - 0.97 * shifted, cfg, n_frames)
+
+
+class StreamingAudioPreprocessor:
+    """Stateful chunk-wise mel frontend (reference: audio.cpp:171-259).
+
+    State, on the host: the last raw sample for preemphasis continuity and
+    an overlap buffer of already-preemphasized samples shorter than one
+    window. process_chunk returns unnormalised log-mel (1, n_frames,
+    n_mels) on `device` (the card unless given), or None while fewer than
+    win_length samples are buffered."""
+
+    def __init__(self, config: AudioConfig = AudioConfig(), device: str | torch.device = DEFAULT_DEVICE):
+        self.config = config
+        self.device = resolve_device(device)
+        self.reset()
+
+    def reset(self) -> None:
+        self._preemph_last = 0.0
+        self._overlap = np.zeros(0, dtype=np.float32)
+
+    def process_chunk(self, samples) -> torch.Tensor | None:
+        cfg = self.config
+        x = np.asarray(samples, dtype=np.float32).reshape(-1)
+        if x.size:
+            pre = x.copy()
+            pre[0] -= 0.97 * self._preemph_last
+            pre[1:] -= 0.97 * x[:-1]
+            self._preemph_last = float(x[-1])
+            buf = np.concatenate([self._overlap, pre])
+        else:
+            buf = self._overlap
+
+        total = buf.shape[0]
+        if total < cfg.win_length:
+            self._overlap = buf
+            return None
+        n_frames = (total - cfg.win_length) // cfg.hop_length + 1
+        consumed = (n_frames - 1) * cfg.hop_length + cfg.win_length
+        self._overlap = buf[consumed:].copy()
+        pre_t = torch.from_numpy(np.ascontiguousarray(buf[:consumed])).to(self.device)
+        return _streaming_log_mel(pre_t[None], cfg, n_frames)
+
+
 __all__ = ["LOG_GUARD", "mel_filterbank", "preprocess_audio", "preprocess_audio_batch",
-           "preprocess_audio_fused"]
+           "preprocess_audio_fused", "streaming_log_mel_batch", "StreamingAudioPreprocessor"]

@@ -61,8 +61,19 @@ def transducer_greedy_decode(
     is_tdt: bool = True,
     joint_prefix: str = "tdt_joint_",
     enc_lengths=None,
+    init_token=None,
+    init_lstm=None,
+    frame_offset: int = 0,
+    max_out: int | None = None,
     clamp_end: bool = True,
 ) -> TransducerResult:
+    """Greedy decode of (B, T, H) encoder frames. A streaming caller carries
+    the decode state across chunks: `init_token` (B,) and `init_lstm`
+    (L, 2, B, H) from the previous chunk's `last_token` and `lstm_state`
+    (blank and zeros when None), `frame_offset` added to every reported
+    start and end frame, and `max_out` emission slots per item (default
+    max(8, T · max_symbols); past it the last slot is overwritten, as in
+    the reference)."""
     b, t_max, _ = enc.shape
     dev = enc.device
     root = Params(params)
@@ -72,15 +83,22 @@ def transducer_greedy_decode(
         enc_len = torch.full((b,), t_max, dtype=torch.int64, device=dev)
     else:
         enc_len = torch.as_tensor(enc_lengths, device=dev).to(torch.int64)
-    max_out = max(8, t_max * max_symbols)
+    if max_out is None:
+        max_out = max(8, t_max * max_symbols)
     dur_arr = torch.as_tensor(durations, dtype=torch.int64, device=dev)
     batch_ix = torch.arange(b, device=dev)
 
     enc_pre = joint_encoder_projection(joint_p, enc)  # (B, T, joint_h)
 
     t = torch.zeros(b, dtype=torch.int64, device=dev)
-    token = torch.full((b,), blank_id, dtype=torch.int64, device=dev)
-    lstm = prediction_zero_state(num_lstm_layers, b, pred_hidden, device=dev)
+    if init_token is None:
+        token = torch.full((b,), blank_id, dtype=torch.int64, device=dev)
+    else:
+        token = torch.as_tensor(init_token, device=dev).to(torch.int64)
+    if init_lstm is None:
+        lstm = prediction_zero_state(num_lstm_layers, b, pred_hidden, device=dev)
+    else:
+        lstm = torch.as_tensor(init_lstm, device=dev)
     sym = torch.zeros_like(t)
     n_out = torch.zeros_like(t)
     # emission records token | start | end | f32 confidence bits, one
@@ -138,7 +156,7 @@ def transducer_greedy_decode(
         toks, starts, ends = pack[i, :n, :3].T.tolist()
         tokens.append(toks)
         timestamped.append([
-            TimestampedToken(tok, s, e, c)
+            TimestampedToken(tok, s + frame_offset, e + frame_offset, c)
             for tok, s, e, c in zip(toks, starts, ends, conf[i, :n].tolist())
         ])
     return TransducerResult(tokens, timestamped, token, lstm, steps)

@@ -261,7 +261,7 @@ def init_params_numpy(spec: Spec, seed: int = 0) -> dict[str, np.ndarray]:
     return out
 
 
-def _is_norm_param(key: str) -> bool:
+def is_norm_param(key: str) -> bool:
     # LayerNorm/BatchNorm weights, biases and running stats feed f32
     # normalization math, so they stay f32 under a bf16 compute dtype
     return "norm" in key
@@ -283,7 +283,7 @@ def params_from_numpy(
                 f"{key}: integer ({arr.dtype}) weights are quantized checkpoints, "
                 "which the port does not load yet"
             )
-        target = torch.float32 if _is_norm_param(key) else dtype
+        target = torch.float32 if is_norm_param(key) else dtype
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             device=device, dtype=target
         )
@@ -353,6 +353,7 @@ __all__ = [
     "sortformer_spec",
     "init_params_numpy",
     "init_params",
+    "is_norm_param",
     "params_from_numpy",
     "load_params_numpy",
 ]

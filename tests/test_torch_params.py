@@ -162,7 +162,9 @@ def test_port_import_pulls_in_no_jax():
         "import importlib, pkgutil, sys, parakeet_tpu_torch\n"
         "for m in pkgutil.walk_packages(parakeet_tpu_torch.__path__, 'parakeet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'parakeet_tpu_torch.audio.codecs' in sys.modules and 'parakeet_tpu_torch.decode.align' in sys.modules\n"
+        "for name in ('audio.codecs', 'decode.align', 'streaming', 'models.streaming_encoder',\n"
+        "             'models.transformer', 'models.sortformer', 'diarize'):\n"
+        "    assert 'parakeet_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parakeet_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
