@@ -88,9 +88,35 @@ Phases, each of which raises (exit code 1) on failure:
               speakers identical except frames within 1e-4 of the threshold
               (reported); K1 at B=1, T'=751, D=512 against its plain version,
               timed, with its bound
-Each phase prints its seconds, and the run its total. The card's name and power limit, a JSON line of per-kernel numbers (with
-bound_ms, bound_by and the bound's share of the kernel time at the
-headline shape, and under "shapes" every timed shape with its bound) and
+ 10. options  (runs after long, while the tdt-600m weights are drawn)
+              quantized weights and the decode options at full width,
+              seeded random weights, f32, against CPU facades with the same
+              options: tdt-ctc-110m with quantize="int8" and "int4" in the
+              default and fused configurations, tdt-600m int8 default,
+              each a path as in 4 with exact launch counts under
+              the reference's weight guards (K2 17 or 24, K8 1 and K5 17
+              fused, never K1, K6, K7, K4); W8A8 (set_int8_compute(True),
+              int8, default): every integer product of an encoder call
+              equal to the CPU's, the encoder's mean error against
+              weight-only int8 within 1.25x the CPU's, the W8A8 TDT and CTC decodes from
+              one encoder output identical on card and CPU, the whole
+              pipeline's token edit distance reported (W8A8 is a step
+              function of the activations: the card's ~1e-6 differences
+              move codes); each quantized encoder's device
+              ms against f32 (and W8A8) in turns and the resident weight
+              bytes (torch.cuda.memory_allocated after load); on 4 clips of
+              tdt-ctc-110m (default, a synthetic vocab under build/): TDT
+              and CTC boost_phrases (must change tokens), TDT beam 4 and
+              beam 1 (must equal greedy), CTC beam 8 with a bigram ARPA LM
+              written under build/, TDT beam 4 rescored by NeuralLM.random,
+              tokens and frames equal to the CPU's, beam path scores within
+              1e-4; eou-120m streaming with int8, B=1, 50 pushes, no kernel
+              launched, and its push wall against f32 in turns
+Each phase prints its seconds, and the run its total. The card's name and
+power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
+and the bound's share of the kernel time at the headline shape, under
+"shapes" every timed shape with its bound, and launches_quantized, the
+kernel's launches in one encoder call of the int8 fused 110m path) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -101,6 +127,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -113,6 +140,9 @@ LOG_MEL_ATOL = 2e-2  # K3: the reference frontend kernel's tolerance, in log spa
 BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
 ENC_SCALE_FRAC = 1e-3  # f32 encoder, card vs CPU, 17 layers of reordered sums
 DIAR_PROB_ATOL = 1e-3  # f32 Sortformer probabilities, card vs CPU
+BEAM_SCORE_RTOL = 1e-4  # beam path scores, card vs CPU
+W8A8_ERR_RATIO = 1.25  # W8A8 encoder's mean error against weight-only int8, card over CPU:
+#   the same rounding noise drawn twice (the card's ~1e-6 differences move codes)
 B, D, H, FFN = 8, 512, 8, 2048  # tdt-ctc-110m widths
 MEL, SUB_C = 80, 256
 # published H100 SXM peaks (NVIDIA's data sheet): f32 FMA on the CUDA cores
@@ -996,12 +1026,20 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def launches_per_encoder_call(fused, layers: int, mel_frames: int, mel_bins: int) -> dict:
+def launches_per_encoder_call(fused, layers: int, mel_frames: int, mel_bins: int, quantized: bool = False) -> dict:
     """Each kernel's launches in one encoder call under `fused` on a batch
     padded to `mel_frames`, with the reference's precedence (mega over
     ffn1; block2 over conv and ffn2) and its input guards (the subsampling
     kernel at T4 >= 32 and even F2; the FFN, mega and block2 kernels at
-    T' >= 64, "mega" giving way to the attention block kernel)."""
+    T' >= 64, "mega" giving way to the attention block kernel). On a
+    `quantized` model (every linear weight int8 or int4) its weight guards
+    too: the FFN, mega and block2 kernels and K1 decline, every attention
+    takes the v1 route (K2), the conv modules follow fused.conv."""
+    if quantized:
+        plain = {k: 0 for k in launches_per_encoder_call(fused, layers, mel_frames, mel_bins)}
+        sub = launches_per_encoder_call(fused, layers, mel_frames, mel_bins)["fused_subsample_block1"]
+        return dict(plain, fused_subsample_block1=sub, fused_rel_attention=layers,
+                    fused_conv_module=layers if fused.conv else 0)
     t4 = ((mel_frames - 1) // 2) // 2 + 1
     long_enough = (t4 - 1) // 2 + 1 >= 64
     sub = fused.subsample and t4 >= 32 and ((mel_bins - 1) // 2 + 1) % 2 == 0
@@ -1056,23 +1094,39 @@ def wall_ms(fn, n: int) -> float:
     return sorted(times)[n // 2]
 
 
-def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m") -> dict:
+def resident(make):
+    """(make(), the device bytes it holds): torch.cuda.memory_allocated
+    before and after make() builds a facade."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    obj = make()
+    torch.cuda.synchronize()
+    return obj, torch.cuda.memory_allocated() - before
+
+
+def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m", quantize=None) -> dict:
     """One model and encoder configuration end to end on the card against
     the CPU: each of the model's decoders (TDT and CTC for tdt-ctc, the
-    transducer alone for TDT-only and RNNT, where CTC must raise)."""
+    transducer alone for TDT-only and RNNT, where CTC must raise). With
+    `quantize` ("int8" or "int4") both facades quantize the weights and the
+    launch counts follow the reference's weight guards."""
     import torch
 
     from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
     from parakeet_tpu_torch.models.encoder import encoded_lengths
     from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
 
-    gpu = facade(model, "cuda", params=flat, fused=fused)
-    cpu = facade(model, "cpu", params=flat, fused=fused)
+    gpu, weight_bytes = resident(lambda: facade(model, "cuda", params=flat, fused=fused, quantize=quantize))
+    cpu = facade(model, "cpu", params=flat, fused=fused, quantize=quantize)
     cfg = gpu.config
     layers = cfg.encoder.num_layers
     log(f"== path {name}: {model}, {layers} layers, d={cfg.encoder.hidden_size}, {cfg.encoder.mel_bins} mel, "
         f"vocab {cfg.joint.vocab_size}, {cfg.prediction.num_lstm_layers} LSTM layers, random weights (seed 0), "
-        f"f32, {fused}")
+        f"f32, {fused}, weights {quantize or 'f32'}: {weight_bytes / 1e9:.3f} GB on the card "
+        f"(torch.cuda.memory_allocated after load)")
     audio_s = sum(len(c) for c in clips) / 16000.0
     decoders = MODELS[model][2]
     opts = {dec: TranscribeOptions(Decoder.CTC) if dec == "CTC" else TranscribeOptions(Decoder.TDT, timestamps=True)
@@ -1089,7 +1143,7 @@ def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-1
     gpu.transcribe_batch(clips, tdt)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
     feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
-    per_call = launches_per_encoder_call(fused, layers, feats.shape[1], feats.shape[2])
+    per_call = launches_per_encoder_call(fused, layers, feats.shape[1], feats.shape[2], quantized=bool(quantize))
     reset_counts()
     gpu_res, steps = {}, []
     for dec in decoders:
@@ -1148,20 +1202,24 @@ def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-1
         raise RuntimeError(f"{name}: encoder on the card differs from the CPU by more than "
                            f"{ENC_SCALE_FRAC:.0e} of scale")
 
+    wall = wall_ms(lambda: gpu.transcribe_batch(clips, tdt), 3)
+    out = {"launches": launches, "per_call": per_dec[0], "wall_s": wall / 1e3, "rtfx": audio_s / (wall / 1e3),
+           "enc_diff": enc_diff, "weight_bytes": weight_bytes,
+           "tdt": [r.token_ids for r in gpu_res[decoders[0]]], "ctc": [r.token_ids for r in gpu_res.get("CTC", [])]}
+    if quantize:  # its encoder's device time is taken in turns with f32's (options_phase)
+        log(f"  warm {decoders[0]} batch {wall:.1f} ms (median of 3), {out['rtfx']:.1f} audio s per wall s [{card}]")
+        return out
     feats_gpu = feats.to(gpu.device)
     with torch.inference_mode():
         front = wall_ms(lambda: gpu.prepare_batch(clips, tdt), 5)
         enc = wall_ms(lambda: gpu.encode(feats_gpu, n_frames), 5)
         enc_dev = device_ms(lambda: gpu.encode(feats_gpu, n_frames), calls=3)
-    wall = wall_ms(lambda: gpu.transcribe_batch(clips, tdt), 3)
     batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1, profiles=1)
     log(f"  stages, wall ms (median of 5): frontend {front:.3f}, encoder {enc:.3f} "
         f"(device time {enc_dev:.3f}); warm {decoders[0]} batch {wall:.1f} ms (median of 3), "
-        f"{audio_s / (wall / 1e3):.1f} audio s per wall s; one profiled batch: device time "
+        f"{out['rtfx']:.1f} audio s per wall s; one profiled batch: device time "
         f"{batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall [{card}]")
-    return {"launches": launches, "wall_s": wall / 1e3, "rtfx": audio_s / (wall / 1e3), "enc_ms": enc,
-            "enc_dev_ms": enc_dev, "enc_diff": enc_diff, "tdt": [r.token_ids for r in gpu_res[decoders[0]]],
-            "ctc": [r.token_ids for r in gpu_res.get("CTC", [])]}
+    return dict(out, enc_ms=enc, enc_dev_ms=enc_dev)
 
 
 def long_audio_phase(flat, card: str) -> dict:
@@ -1617,11 +1675,7 @@ def diarize_phase(card: str) -> dict:
 
     asr_flat = model_params("tdt-ctc-110m")
     asr_cfg = C.make_110m_config()
-    # no vocabulary ships with the repo: one word piece per token, so each
-    # token is a word with its own times
-    vocab = ROOT / "build" / "parakeet_tpu_torch" / "smoke_vocab.txt"
-    vocab.parent.mkdir(parents=True, exist_ok=True)
-    vocab.write_text("".join(f"\u2581w{i}\n" for i in range(asr_cfg.joint.vocab_size - 1)), encoding="utf-8")
+    vocab = smoke_vocab(asr_cfg.joint.vocab_size)
     dts = {dev: DiarizedTranscriber(vocab_path=str(vocab), config=asr_cfg, sf_config=cfg, asr_params=asr_flat,
                                     sortformer_params=flat, device=dev) for dev in ("cuda", "cpu")}
     probs = {}
@@ -1676,6 +1730,352 @@ def diarize_phase(card: str) -> dict:
     return out
 
 
+def smoke_vocab(vocab_size: int) -> Path:
+    """No vocabulary ships with the repo: a synthetic one under build/, one
+    word piece per token, so each token is a word with its own times."""
+    path = ROOT / "build" / "parakeet_tpu_torch" / "smoke_vocab.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(f"▁w{i}\n" for i in range(vocab_size - 1)), encoding="utf-8")
+    return path
+
+
+def smoke_arpa(pieces: list[str], seed: int = 2100) -> Path:
+    """A bigram ARPA LM over `pieces` under build/, drawn from a seed:
+    every piece a unigram with a backoff, 4000 random bigrams."""
+    rng = np.random.RandomState(seed)
+    uni = np.log10(rng.dirichlet(np.ones(len(pieces) + 1)))
+    pairs = sorted({(int(a), int(b)) for a, b in rng.randint(0, len(pieces), size=(4000, 2))})
+    lines = ["\\data\\", f"ngram 1={len(pieces) + 2}", f"ngram 2={len(pairs)}", "", "\\1-grams:",
+             "-99 <s> -0.3"]
+    lines += [f"{lp:.4f} {p} -0.3" for lp, p in zip(uni, pieces)] + [f"{uni[-1]:.4f} </s>", "", "\\2-grams:"]
+    lines += [f"{np.log10(rng.uniform(0.05, 0.5)):.4f} {pieces[a]} {pieces[b]}" for a, b in pairs]
+    path = ROOT / "build" / "parakeet_tpu_torch" / "smoke_lm.arpa"
+    path.write_text("\n".join(lines + ["", "\\end\\", ""]), encoding="utf-8")
+    return path
+
+
+def encoder_turns(tag: str, facades: dict, feats, n_frames, card: str) -> dict:
+    """Device ms of each facade's encoder on the same features, in turns
+    (every facade, then again in reverse order), the lesser of the two."""
+    import torch
+
+    feats = feats.to(next(iter(facades.values())).device)
+    ms = {}
+    with torch.inference_mode():
+        for name in [*facades, *reversed(facades)]:
+            t = device_ms(lambda: facades[name].encode(feats, n_frames), calls=3)
+            ms[name] = min(ms.get(name, float("inf")), t)
+    log(f"  {tag} encoder device ms (torch.profiler, best of 2 turns): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
+    return ms
+
+
+def decode_options_phase(flat, clips, card: str) -> dict:
+    """Phrase boosting, beam search and LMs on tdt-ctc-110m (default
+    configuration, f32, a synthetic vocab under build/) against the CPU:
+    TDT and CTC with boost_phrases, TDT beam 4 (and beam 1, which must
+    equal greedy), CTC beam 8 with an n-gram LM written by this script,
+    TDT beam 4 rescored by NeuralLM.random. Beam scores from the same
+    encoder output (the CPU's) on the card and the CPU within
+    BEAM_SCORE_RTOL, the CTC beam's from each device's log-probs."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.decode.beam_transducer import transducer_beam_decode
+    from parakeet_tpu_torch.decode.ctc_beam import ctc_beam_search
+    from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths
+    from parakeet_tpu_torch.text.neural_lm import NeuralLM, NeuralLMConfig
+    from parakeet_tpu_torch.text.ngram_lm import NgramLM
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
+
+    vocab = smoke_vocab(1025)
+    gpu = facade("tdt-ctc-110m", "cuda", params=flat, vocab_path=str(vocab))
+    cpu = facade("tdt-ctc-110m", "cpu", params=flat, vocab_path=str(vocab))
+    cfg = gpu.config
+    layers = cfg.encoder.num_layers
+    feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
+    per_call = launches_per_encoder_call(FusedLayers(), layers, feats.shape[1], feats.shape[2])
+    pieces = gpu.tokenizer.pieces
+    ngram = NgramLM.from_arpa(smoke_arpa(pieces)).bind(pieces)
+    lm_cfg = NeuralLMConfig(vocab_size=cfg.joint.vocab_size)
+    lms = {tr: NeuralLM.random(lm_cfg, seed=0, device=tr.device) for tr in (gpu, cpu)}
+    log(f"== decode options: tdt-ctc-110m default configuration, f32, {len(clips)} clips, synthetic vocab "
+        f"({len(pieces)} pieces), n-gram LM {ngram.lm.order}-gram ({len(ngram.lm.probs)} n-grams), "
+        f"NeuralLM.random d={lm_cfg.hidden} {lm_cfg.num_layers} layers")
+    boost = dict(boost_phrases=["w10 w20 w30", "w7 w8", "w512"], boost_score=5.0)
+    # name: (options, LM, checked against the CPU); greedy and beam 1 are the card's own baselines
+    runs = {
+        "TDT greedy": (TranscribeOptions(Decoder.TDT, timestamps=True), None, False),
+        "TDT boost": (TranscribeOptions(Decoder.TDT, timestamps=True, **boost), None, True),
+        "CTC greedy": (TranscribeOptions(Decoder.CTC, timestamps=True), None, False),
+        "CTC boost": (TranscribeOptions(Decoder.CTC, timestamps=True, **boost), None, True),
+        "TDT beam 1": (TranscribeOptions(Decoder.TDT, timestamps=True, beam_size=1), None, False),
+        "TDT beam 4": (TranscribeOptions(Decoder.TDT, timestamps=True, beam_size=4), None, True),
+        "CTC beam 8 + n-gram LM": (TranscribeOptions(Decoder.CTC, timestamps=True, beam_size=8, lm=ngram,
+                                                     lm_weight=0.2), None, True),
+        "TDT beam 4 + neural LM": (TranscribeOptions(Decoder.TDT, timestamps=True, beam_size=4, lm_weight=0.5),
+                                   "neural", True),
+    }
+    out = {}
+    for name, (opts, lm, on_cpu) in runs.items():
+        cpu_opts = opts
+        if lm == "neural":
+            opts, cpu_opts = replace(opts, lm=lms[gpu]), replace(opts, lm=lms[cpu])
+        gpu.transcribe_batch(clips, opts)  # warm-up
+        reset_counts()
+        res = gpu.transcribe_batch(clips, opts)
+        launches = read_counts()
+        if launches != per_call:
+            raise RuntimeError(f"{name}: kernel launches {launches}, want {per_call}")
+        for i, (g, c) in enumerate(zip(res, cpu.transcribe_batch(clips, cpu_opts) if on_cpu else res)):
+            if g.token_ids != c.token_ids or _spans(g) != _spans(c):
+                raise RuntimeError(f"{name}: item {i} tokens or frames differ on card and CPU")
+        if not any(r.token_ids for r in res):
+            raise RuntimeError(f"{name}: no tokens in the batch")
+        wall = wall_ms(lambda: gpu.transcribe_batch(clips, opts), 3)
+        out[name] = {"wall_ms": wall, "tokens": [r.token_ids for r in res], "starts": [
+            [t.start_frame for t in r.timestamped_tokens] for r in res]}
+        same = ", identical to the CPU with their frames" if on_cpu else ""
+        log(f"  {name}: {sum(len(r.token_ids) for r in res)} tokens{same}; K1 launches "
+            f"{launches['rel_attention_block']}; warm batch of {len(clips)} {wall:.1f} ms wall (median of 3) [{card}]")
+    for dec in ("TDT", "CTC"):
+        changed = sum(a != b for a, b in zip(out[f"{dec} boost"]["tokens"], out[f"{dec} greedy"]["tokens"]))
+        log(f"  {dec} boost changed the tokens of {changed}/{len(clips)} clips against greedy")
+        if not changed:
+            raise RuntimeError(f"{dec} boost changed no clip: the boost did not reach the decode")
+    if (out["TDT beam 1"]["tokens"], out["TDT beam 1"]["starts"]) != (out["TDT greedy"]["tokens"],
+                                                                      out["TDT greedy"]["starts"]):
+        raise RuntimeError("TDT beam 1 differs from the greedy decode on the card")
+    log("  TDT beam 1 equals greedy on the card (tokens and emission frames)")
+
+    # path scores: the transducer beam from the CPU's encoder output on both
+    # devices; the CTC beam from each device's own log-probs
+    enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+    enc_cpu = cpu.encode(feats, n_frames)
+    kw = dict(num_lstm_layers=cfg.prediction.num_lstm_layers, durations=tuple(cfg.durations),
+              blank_id=gpu._blank_id, joint_prefix=gpu.joint_prefix, enc_lengths=enc_lens, beam_size=4, n_best=4)
+    g_hyps = transducer_beam_decode(gpu.params, enc_cpu.to(gpu.device), **kw)
+    c_hyps = transducer_beam_decode(cpu.params, enc_cpu, **kw)
+    worst = 0.0
+    for i, (gl, cl) in enumerate(zip(g_hyps, c_hyps)):
+        if [(h.tokens, h.frames) for h in gl] != [(h.tokens, h.frames) for h in cl]:
+            raise RuntimeError(f"TDT beam 4: item {i} n-best tokens or frames differ on card and CPU")
+        worst = max([worst] + [abs(g.score - c.score) / abs(c.score) for g, c in zip(gl, cl)])
+    ctc_worst = 0.0
+    lp_g = gpu.ctc_log_probs(gpu.encode(feats, n_frames)).cpu().numpy()
+    lp_c = cpu.ctc_log_probs(enc_cpu).numpy()
+    for i, t in enumerate(enc_lens):
+        g = ctc_beam_search(lp_g[i, :t], gpu._blank_id, beam_size=8, lm=ngram, lm_weight=0.2)[0]
+        c = ctc_beam_search(lp_c[i, :t], cpu._blank_id, beam_size=8, lm=ngram, lm_weight=0.2)[0]
+        if g.tokens != c.tokens:
+            raise RuntimeError(f"CTC beam 8 + n-gram LM: item {i} tokens differ on card and CPU")
+        ctc_worst = max(ctc_worst, abs(g.score - c.score) / abs(c.score))
+    log(f"  beam path scores card vs CPU, worst relative difference: TDT beam 4 n-best {worst:.2e} (same encoder "
+        f"output), CTC beam 8 + LM {ctc_worst:.2e} (each device's log-probs); limit {BEAM_SCORE_RTOL:.0e}")
+    if max(worst, ctc_worst) > BEAM_SCORE_RTOL:
+        raise RuntimeError("beam path scores differ on card and CPU")
+    return {name: {"wall_ms": r["wall_ms"]} for name, r in out.items()} | {
+        "tdt_beam_score_rel": worst, "ctc_beam_score_rel": ctc_worst}
+
+
+def w8a8_phase(flat, clips, card: str) -> dict:
+    """W8A8 (set_int8_compute(True)) on tdt-ctc-110m int8, default
+    configuration, against the CPU. W8A8 rounds every activation to an int8
+    code, a step function: the card's and the CPU's encoders differ by
+    ~1e-6 before the first rounding, which moves some codes by one, so
+    their tokens need not be identical. What must agree: every integer
+    product of one encoder call bit for bit (torch._int_mm on the card's
+    codes against the CPU's float64 product of the same codes), the launch
+    counts, W8A8's mean error against weight-only int8 (on the CPU) on the
+    card within W8A8_ERR_RATIO of the CPU's own, and the
+    decoders under W8A8 from one encoder output (the card's, on both
+    devices): TDT tokens with their frames and CTC tokens identical. The
+    whole pipeline's token edit distances are reported."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+    from parakeet_tpu_torch.models.ctc import ctc_greedy_decode
+    from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths
+    from parakeet_tpu_torch.ops import layers as L
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
+
+    gpu = facade("tdt-ctc-110m", "cuda", params=flat, quantize="int8")
+    cpu = facade("tdt-ctc-110m", "cpu", params=flat, quantize="int8")
+    layers = gpu.config.encoder.num_layers
+    feats, n_frames = preprocess_audio_batch(clips, cpu._audio_cfg, "cpu")
+    valid = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+    per_call = launches_per_encoder_call(FusedLayers(), layers, feats.shape[1], feats.shape[2], quantized=True)
+    opts = {"TDT": TranscribeOptions(Decoder.TDT, timestamps=True), "CTC": TranscribeOptions(Decoder.CTC)}
+    weight_only = cpu.encode(feats, n_frames)
+    log("== W8A8: tdt-ctc-110m int8 weights, set_int8_compute(True), default configuration, f32 activations")
+
+    def diffs(a, b):
+        d = [(a[i, :n] - b[i, :n]).abs() for i, n in enumerate(valid)]
+        return max(float(x.max()) for x in d), float(torch.cat([x.flatten() for x in d]).mean())
+
+    L.set_int8_compute(True)
+    real = L.int8_matmul
+    try:
+        exact = []
+
+        def checked(xq, w):
+            y = real(xq, w)
+            exact.append(torch.equal(y.cpu(), real(xq.cpu(), w.cpu())))
+            return y
+
+        L.int8_matmul = checked
+        try:
+            enc_gpu = gpu.encode(feats, n_frames).cpu()
+        finally:
+            L.int8_matmul = real
+        if not exact or not all(exact):
+            raise RuntimeError(f"W8A8: {exact.count(False)} of {len(exact)} integer products differ from the CPU's")
+        enc_cpu = cpu.encode(feats, n_frames)
+        if not torch.isfinite(enc_gpu).all():
+            raise RuntimeError("W8A8: encoder output on the card is not finite")
+        card_max, card_mean = diffs(enc_gpu, enc_cpu)
+        own_max, own_mean = diffs(enc_cpu, weight_only)
+        card_own_max, card_own_mean = diffs(enc_gpu, weight_only)
+        log(f"  {len(exact)} integer products of one encoder call identical on card and CPU (torch._int_mm vs "
+            f"float64); encoder card vs CPU max|diff| {card_max:.3e}, mean {card_mean:.3e}; W8A8's error against "
+            f"weight-only int8 (CPU): on the CPU max {own_max:.3e}, mean {own_mean:.3e}, on the card max "
+            f"{card_own_max:.3e}, mean {card_own_mean:.3e} (limit {W8A8_ERR_RATIO} x the CPU's mean)")
+        if card_own_mean > W8A8_ERR_RATIO * own_mean:
+            raise RuntimeError("W8A8: the card's error against weight-only int8 exceeds the CPU's")
+
+        # the decoders under W8A8 from one encoder output (the card's, on
+        # both devices): TDT tokens and frames, CTC tokens identical
+        kw = dict(pred_hidden=gpu.config.prediction.pred_hidden, durations=tuple(gpu.config.durations),
+                  num_lstm_layers=gpu.config.prediction.num_lstm_layers, blank_id=gpu._blank_id,
+                  enc_lengths=valid)
+        same_enc = []  # (card, CPU): TDT spans, CTC tokens
+        for tr, enc in ((gpu, enc_gpu.to(gpu.device)), (cpu, enc_gpu)):
+            with torch.inference_mode():
+                tdt = transducer_greedy_decode(tr.params, enc, **kw)
+                ctc = ctc_greedy_decode(tr.ctc_log_probs(enc), tr._blank_id, valid)
+            same_enc.append(([[(t.token_id, t.start_frame, t.end_frame) for t in ts] for ts in tdt.timestamped],
+                             ctc))
+        if same_enc[0] != same_enc[1]:
+            raise RuntimeError("W8A8: from one encoder output, the card's TDT or CTC decode differs from the CPU's")
+        log(f"  from one encoder output (the card's): W8A8 TDT decode {sum(map(len, same_enc[1][0]))} tokens "
+            f"with frames, CTC {sum(map(len, same_enc[1][1]))} tokens, identical on card and CPU")
+
+        gpu.transcribe_batch(clips, opts["TDT"])  # warm-up
+        reset_counts()
+        res, steps = {}, []
+        for dec, o in opts.items():
+            res[dec] = gpu.transcribe_batch(clips, o)
+            steps.append(read_counts())
+        for i, (dec, counts) in enumerate(zip(opts, steps)):
+            got = {k: v - (steps[i - 1][k] if i else 0) for k, v in counts.items()}
+            if got != per_call:
+                raise RuntimeError(f"W8A8 {dec}: kernel launches {got}, want {per_call}")
+        dist = {dec: [edit_distance(g.token_ids, c.token_ids)
+                      for g, c in zip(res[dec], cpu.transcribe_batch(clips, o))] for dec, o in opts.items()}
+        enc_dev = device_ms(lambda: gpu.encode(feats.to(gpu.device), n_frames), calls=3)
+        wall = wall_ms(lambda: gpu.transcribe_batch(clips, opts["TDT"]), 3)
+    finally:
+        L.set_int8_compute(False)
+    log(f"  launches per encoder call {', '.join(f'{k} {v}' for k, v in per_call.items() if v)}; token edit "
+        f"distance card vs CPU per clip: " + "; ".join(
+            f"{dec} {d} of {sum(len(r.token_ids) for r in res[dec])}" for dec, d in dist.items())
+        + f" (reported); encoder device {enc_dev:.3f} ms, warm TDT batch {wall:.1f} ms wall [{card}]")
+    return {"per_call": steps[0], "enc_dev_ms": enc_dev, "wall_ms": wall, "edit_distance": dist,
+            "products": len(exact), "enc_mean_diff": card_mean, "own_mean_err": own_mean,
+            "card_own_mean_err": card_own_mean}
+
+
+def options_phase(flat6, clips, card: str) -> dict:
+    """Quantized weights and the decode options at full width: tdt-ctc-110m
+    with quantize="int8" and "int4" in the default and fused
+    configurations and W8A8 (int8, default), tdt-600m with int8 (default),
+    each a path against the CPU with exact launch counts under the weight
+    guards; each quantized encoder's device ms against f32 in turns, with
+    resident weight bytes; the decode options (decode_options_phase); and
+    eou-120m streaming with int8, no kernel launched."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import FusedLayers
+    from parakeet_tpu_torch.ops.layers import set_int8_compute
+    from parakeet_tpu_torch.streaming import StreamingTranscriber
+
+    t0 = time.perf_counter()
+
+    def part(name):
+        log(f"  ({name}: {time.perf_counter() - t0:.1f} s into the phase)")
+
+    flat = model_params("tdt-ctc-110m")
+    fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
+    out = {}
+    for mode in ("int8", "int4"):
+        for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
+            out[f"{mode} {label}"] = path_phase(f"{mode} {label}", cfg, flat, clips, card, quantize=mode)
+    part("110m quantized paths")
+    out["w8a8 default"] = w8a8_phase(flat, clips, card)
+    part("W8A8")
+
+    feats, n_frames = preprocess_audio_batch(clips, C.AudioConfig(n_mels=80), "cpu")
+    for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
+        facades, held = {}, {}
+        for mode in ("f32", "int8", "int4"):
+            facades[mode], held[mode] = resident(lambda: facade("tdt-ctc-110m", "cuda", params=flat, fused=cfg,
+                                                                quantize=None if mode == "f32" else mode))
+        set_int8_compute(True)
+        try:
+            w8 = encoder_turns(f"110m {label} W8A8", {"w8a8": facades["int8"]}, feats, n_frames, card)
+        finally:
+            set_int8_compute(False)
+        out[f"110m {label} encoder"] = dict(encoder_turns(f"110m {label}", facades, feats, n_frames, card), **w8,
+                                            bytes=held)
+        log(f"  110m weights on the card: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in held.items()))
+        del facades
+    del flat
+    part("110m encoder times")
+
+    out["600m int8 default"] = path_phase("tdt-600m int8 default", FusedLayers(), flat6, clips, card,
+                                          model="tdt-600m", quantize="int8")
+    feats, n_frames = preprocess_audio_batch(clips, C.AudioConfig(n_mels=128), "cpu")
+    facades, held = {}, {}
+    for mode in ("f32", "int8"):
+        facades[mode], held[mode] = resident(lambda: facade("tdt-600m", "cuda", params=flat6,
+                                                            quantize=None if mode == "f32" else mode))
+    out["600m default encoder"] = dict(encoder_turns("tdt-600m default", facades, feats, n_frames, card), bytes=held)
+    log(f"  tdt-600m weights on the card: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in held.items()))
+    del facades
+    torch.cuda.empty_cache()
+    part("tdt-600m int8")
+
+    out["decode"] = decode_options_phase(model_params("tdt-ctc-110m"), clips[:4], card)
+    part("decode options")
+
+    eou_cfg = C.make_eou_120m_config()
+    flat_e = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
+    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:50]
+    log(f"== options streaming: eou-120m quantize='int8', f32, B=1, {len(pushes)} pushes of 160 ms")
+    gpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda", quantize="int8")
+    cpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cpu", quantize="int8")
+    out["streaming int8"] = streaming_facade_check("eou-120m int8 B=1", gpu, cpu, pushes, card)
+    # int8 against f32 on this host: wall per push over the first 20 pushes
+    # in turns (f32, int8, int8, f32), the lesser of each; device ms over 6
+    trs = {"f32": StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda"), "int8": gpu}
+    push_ms, dev_ms = {}, {}
+    for name in [*trs, *reversed(trs)]:
+        t = wall_ms(lambda: _run_stream(trs[name], pushes[:20]), 1) / 20
+        push_ms[name] = min(push_ms.get(name, float("inf")), t)
+    for name, tr in trs.items():
+        dev_ms[name] = device_ms(lambda: _run_stream(tr, pushes[:6]), calls=1, profiles=1) / 6
+    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 20 pushes, best of 2 turns) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in push_ms.items()) + "; device ms (first 6 pushes) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()) + f" [{card}]")
+    out["streaming int8"].update(push_ms=push_ms, push_dev_ms=dev_ms)
+    part("streaming")
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -1693,7 +2093,7 @@ def build_phase() -> None:
         _build.load(name)
 
 
-PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long", "streaming", "diarize")
+PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long", "streaming", "diarize", "options")
 
 
 def main(argv=None) -> int:
@@ -1776,7 +2176,7 @@ def main(argv=None) -> int:
         paths["frontend"] = timed("path fused frontend", fused_frontend_phase, flat, clips, card)
         timed("bf16", bf16_phase, fused_cfg, flat, clips, fused["tdt"])
         del flat
-    if "paths600m" in phases or "long" in phases:
+    if "paths600m" in phases or "long" in phases or "options" in phases:
         t0 = time.perf_counter()
         flat6 = model_params("tdt-600m")
         log(f"== tdt-600m weights: {sum(a.size for a in flat6.values()) / 1e6:.1f} M parameters, "
@@ -1788,6 +2188,9 @@ def main(argv=None) -> int:
                                                    flat6, clips, card, model="tdt-600m")
         if "long" in phases:
             paths["long"] = timed("long audio tdt-600m", long_audio_phase, flat6, card)
+        if "options" in phases:
+            paths["options"] = timed("options", options_phase, flat6, clips, card)
+            torch.cuda.empty_cache()
         del flat6
         if "paths600m" in phases:
             flat6 = model_params("rnnt-600m")
@@ -1835,6 +2238,8 @@ def main(argv=None) -> int:
                # one Sortformer-117m forward; the streaming paths launch no kernel
                "launches_sortformer": paths["diarize"]["launches"][name],
                "launches_streaming": sum(paths["streaming"][p]["launches"][name] for p in paths["streaming"]),
+               # one encoder call of the quantized (int8) fused 110m path
+               "launches_quantized": paths["options"]["int8 fused"]["per_call"][name],
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],

@@ -10,6 +10,16 @@ Semantics (tdt.cpp:66-105):
     when clamp_end; confidence = exp(label log-prob)
   * RNNT ≡ TDT with durations (0,): blank advances by 1, non-blank stays.
 
+Phrase boosting (phrase_boost.cpp:180-258) rides along as the trie's dense
+transition table (decode/phrase_boost.py): the boosted tokens are
+(active @ reach) > 0, the selection is label_lp + score·mask, the
+confidence stays unboosted, and the trie advances only on an emission with
+the root always active.
+
+Quantized prediction and joint weights are converted once per call, before
+the loop (ops/layers.py hoist_dequant), which is identical to converting
+them at every step.
+
 The whole batch steps in lockstep on the device, each item running its own
 state machine; an item whose t has reached its length takes exact no-op
 steps. Python drives the loop and asks the device whether any item is
@@ -31,6 +41,7 @@ from parakeet_tpu_torch.models.rnnt import (
     rnnt_joint_precomputed,
     tdt_joint_precomputed,
 )
+from parakeet_tpu_torch.ops.layers import hoist_dequant
 from parakeet_tpu_torch.params import Params
 
 # steps between host checks of "any item still active"; extra steps taken
@@ -46,6 +57,7 @@ class TransducerResult:
     timestamped: list[list[TimestampedToken]]
     last_token: torch.Tensor  # (B,)
     lstm_state: torch.Tensor  # (L, 2, B, H)
+    boost_active: torch.Tensor | None = None  # (B, N) bool, the trie states
     steps: int = 0  # loop steps run, the masked tail included
 
 
@@ -63,6 +75,7 @@ def transducer_greedy_decode(
     enc_lengths=None,
     init_token=None,
     init_lstm=None,
+    boost=None,
     frame_offset: int = 0,
     max_out: int | None = None,
     clamp_end: bool = True,
@@ -73,10 +86,11 @@ def transducer_greedy_decode(
     (blank and zeros when None), `frame_offset` added to every reported
     start and end frame, and `max_out` emission slots per item (default
     max(8, T · max_symbols); past it the last slot is overwritten, as in
-    the reference)."""
+    the reference). `boost`: (transitions (N, V), initial active (B, N)
+    bool, score), as ContextTrie.device_boost gives it."""
     b, t_max, _ = enc.shape
     dev = enc.device
-    root = Params(params)
+    root = Params(hoist_dequant(params, ("prediction_", joint_prefix)))
     pred_p = root.sub("prediction_")
     joint_p = root.sub(joint_prefix)
     if enc_lengths is None:
@@ -104,6 +118,12 @@ def transducer_greedy_decode(
     # emission records token | start | end | f32 confidence bits, one
     # (B, 4) row per step: one gather and one scatter commit all four
     out_pack = torch.zeros((b, max_out, 4), dtype=torch.int32, device=dev)
+    boost_active = None
+    if boost is not None:
+        trans, boost_active, boost_score = boost
+        trans = torch.as_tensor(trans, device=dev).to(torch.int64)
+        boost_active = torch.as_tensor(boost_active, device=dev).to(torch.bool)
+        reach = (trans >= 0).to(torch.float32)  # (N, V)
 
     steps = 0
     while steps % CHECK_EVERY or bool((t < enc_len).any()):
@@ -117,8 +137,12 @@ def transducer_greedy_decode(
             label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred)
             skip = torch.zeros_like(t)
 
-        tok_id = torch.argmax(label_lp, dim=-1)
-        raw_lp = label_lp[batch_ix, tok_id]
+        select_lp = label_lp
+        if boost is not None:
+            mask = (boost_active.to(torch.float32) @ reach) > 0  # (B, V): children of active nodes
+            select_lp = label_lp + boost_score * mask.to(torch.float32)
+        tok_id = torch.argmax(select_lp, dim=-1)
+        raw_lp = label_lp[batch_ix, tok_id]  # unboosted: the confidence
 
         is_blank = tok_id == blank_id
         emit = active & ~is_blank
@@ -144,6 +168,14 @@ def transducer_greedy_decode(
         token = torch.where(emit, tok_id, token)
         lstm = torch.where(emit[None, None, :, None], new_lstm, lstm)
         n_out = n_out + emit.to(n_out.dtype)
+        if boost is not None:
+            # advance on emission: each active node's child by the token
+            child = trans.t()[tok_id]  # (B, N)
+            valid = boost_active & (child >= 0)
+            advanced = torch.zeros(valid.shape, device=dev).scatter_add(
+                1, child.clamp(min=0), valid.to(torch.float32)) > 0
+            advanced[:, 0] = True  # root always active
+            boost_active = torch.where(emit[:, None], advanced, boost_active)
         steps += 1
 
     n_host = n_out.cpu().tolist()
@@ -159,7 +191,7 @@ def transducer_greedy_decode(
             TimestampedToken(tok, s + frame_offset, e + frame_offset, c)
             for tok, s, e, c in zip(toks, starts, ends, conf[i, :n].tolist())
         ])
-    return TransducerResult(tokens, timestamped, token, lstm, steps)
+    return TransducerResult(tokens, timestamped, token, lstm, boost_active, steps)
 
 
 __all__ = ["transducer_greedy_decode", "TransducerResult"]

@@ -1,4 +1,4 @@
-"""Minimal, dependency-free safetensors reader.
+"""Minimal, dependency-free safetensors reader and writer.
 
 Replaces the reference's `axiom::io::safetensors::load` (used at every model
 ctor, e.g. transcribe.hpp:62-64). Implemented directly against the format
@@ -39,6 +39,9 @@ _DTYPES: dict[str, np.dtype] = {
 if _BF16 is not None:
     _DTYPES["BF16"] = _BF16
 
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
 def load_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     """Load a .safetensors file into a dict of numpy arrays."""
     data = Path(path).read_bytes()
@@ -78,4 +81,36 @@ def load_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     return out
 
 
-__all__ = ["load_safetensors"]
+def save_safetensors(
+    tensors: dict[str, np.ndarray],
+    path: str | Path,
+    metadata: dict[str, str] | None = None,
+) -> None:
+    """Write a dict of numpy arrays as a .safetensors file: tensors in
+    sorted key order, a compact JSON header, int8 and uint8 (quantized
+    codes) kept as I8 and U8, any dtype without a safetensors name written
+    as F32 — byte for byte what the reference's writer produces."""
+    header: dict[str, object] = {}
+    if metadata:
+        header["__metadata__"] = metadata
+    offset = 0
+    blobs: list[bytes] = []
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        dt = _DTYPE_NAMES.get(arr.dtype)
+        if dt is None:
+            arr = arr.astype(np.float32)
+            dt = "F32"
+        blob = arr.tobytes()
+        header[name] = {"dtype": dt, "shape": list(arr.shape), "data_offsets": [offset, offset + len(blob)]}
+        offset += len(blob)
+        blobs.append(blob)
+    hdr = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hdr)))
+        f.write(hdr)
+        for blob in blobs:
+            f.write(blob)
+
+
+__all__ = ["load_safetensors", "save_safetensors"]

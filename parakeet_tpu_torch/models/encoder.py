@@ -79,7 +79,10 @@ class FusedLayers:
     only when T4 ≥ _SUBSAMPLE_T4_TILE and F2 is even, and the FFN, mega and
     block2 kernels only when T' ≥ _FFN_MIN_FRAMES; otherwise those layers
     run plain, as with the field off ("mega" then runs the attention block
-    kernel K1, as the reference does). Its VMEM budgets (weight sizes,
+    kernel K1, as the reference does). Its weight guards hold too: a
+    sublayer with quantized weights (int8 or packed int4) runs plain, and
+    an attention with quantized projections takes the v1 route around K2
+    whatever the mode. Its VMEM budgets (weight sizes,
     score buffers, v1's T ≤ 768) size the TPU's memory, not the input, and
     are not ported: on CUDA a configuration launches its kernels or
     raises."""
@@ -143,16 +146,38 @@ def conv_subsampling_stages(
     }
 
 
-def _subsample_fusable(x: torch.Tensor) -> bool:
-    """The reference's guard on K8's input (B, T, mel): T4 ≥ 32, F2 even."""
+def _float_weights(p: Params, keys: tuple[str, ...]) -> bool:
+    """No quantized (int8 or packed int4) weight among `keys`: the kernels
+    read float weights, and the reference sends a sublayer with integer
+    weights to its plain layers (quantize_params' include= can quantize any
+    subset)."""
+    return all(p[k].is_floating_point() for k in keys)
+
+
+_ATTN_WEIGHTS = ("mha_.q_proj.weight", "mha_.k_proj.weight", "mha_.v_proj.weight", "mha_.out_proj.weight",
+                 "pos_proj_.weight")
+
+
+def _subsample_fusable(p: Params, x: torch.Tensor) -> bool:
+    """The reference's guard on K8 (models/encoder.py _subsample_fusable):
+    input (B, T, mel) with T4 ≥ 32 and F2 even, float conv1, dw1, conv2."""
     t4 = ((x.shape[1] - 1) // 2) // 2 + 1
     f2 = (x.shape[2] - 1) // 2 + 1
-    return t4 >= _SUBSAMPLE_T4_TILE and f2 % 2 == 0
+    return (t4 >= _SUBSAMPLE_T4_TILE and f2 % 2 == 0
+            and _float_weights(p, ("conv1_.weight", "dw1_.weight", "conv2_.weight")))
 
 
-def _ffn_fusable(x: torch.Tensor) -> bool:
-    """The reference's guard on the FFN kernels' input (B, T', D): T' ≥ 64."""
-    return x.shape[1] >= _FFN_MIN_FRAMES
+def _ffn_fusable(p: Params, x: torch.Tensor) -> bool:
+    """The reference's guard on the FFN kernels (_ffn_fusable): input
+    (B, T', D) with T' ≥ 64, float fc1 and fc2 (`p` at the FFN prefix)."""
+    return x.shape[1] >= _FFN_MIN_FRAMES and _float_weights(p, ("fc1_.weight", "fc2_.weight"))
+
+
+def _attention_fusable(p: Params) -> bool:
+    """The reference's weight guard on the attention block kernels
+    (_attn_block_fusable): float q, k, v, out and pos projections (`p` at
+    the attention prefix)."""
+    return _float_weights(p, _ATTN_WEIGHTS)
 
 
 def conv_subsampling(
@@ -163,7 +188,7 @@ def conv_subsampling(
     `fused` and an input the reference's guard takes, conv1 → dw1 → conv2
     run as one kernel (ops/subsample.py); dw2, conv3 and proj stay plain
     either way."""
-    if not (fused and _subsample_fusable(x)):
+    if not (fused and _subsample_fusable(p, x)):
         return conv_subsampling_stages(p, x, activation)["subsampling_out"]
     act = torch.relu if activation == "relu" else silu
     c = p["conv1_.weight"].shape[0]
@@ -186,7 +211,7 @@ def feed_forward(
     `final_norm` (the block's final LayerNorm) when given. With `fused` and
     T' ≥ _FFN_MIN_FRAMES it runs the fused FFN kernel, the final LayerNorm
     included."""
-    if fused and _ffn_fusable(x):
+    if fused and _ffn_fusable(p, x):
         kw = {}
         if final_norm is not None:
             kw = dict(final_norm_w=final_norm["weight"], final_norm_b=final_norm["bias"])
@@ -245,6 +270,13 @@ def conv_module(
 
 
 def _attention(p: Params, x, lengths, norm: Params | None = None, eps: float = 1e-5):
+    """K1 on float projections (with the pre-LN and the residual when `norm`
+    is given); on quantized ones the reference's fallback, the v1 route
+    with the attention core K2."""
+    if not _attention_fusable(p):
+        if norm is None:
+            return rel_position_attention_v1(p, x, lengths)
+        return x + rel_position_attention_v1(p, layer_norm(norm, x, eps), lengths)
     mha = p.sub("mha_")
     kw = {}
     if norm is not None:
@@ -318,7 +350,7 @@ def conformer_block(
     ffn2 plain, the attention as K1, the conv module as fused.conv says."""
     eps = cfg.layer_norm_eps
     a = p.sub("attn_")
-    if fused.attention == "mega" and _ffn_fusable(x):
+    if fused.attention == "mega" and _ffn_fusable(p.sub("ffn1_"), x) and _attention_fusable(a):
         f, mha = p.sub("ffn1_"), a.sub("mha_")
         x = fused_ffn_attention(
             x,
@@ -340,7 +372,7 @@ def conformer_block(
             x = x + rel_position_attention_v1(a, layer_norm(a.sub("norm_"), x, eps), lengths)
         else:
             x = _attention(a, x, lengths, norm=a.sub("norm_"), eps=eps)
-    if fused.block2 and _ffn_fusable(x):
+    if fused.block2 and _ffn_fusable(p.sub("ffn2_"), x):
         c, f = p.sub("conv_"), p.sub("ffn2_")
         if lengths is None and pad_mask is not None:
             lengths = (~pad_mask).sum(dim=1).to(torch.int32)

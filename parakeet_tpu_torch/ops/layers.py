@@ -8,6 +8,10 @@ rounds once to the activation dtype; normalization runs in float32. On
 CUDA that needs IEEE float32 products, so the port turns TF32 off for
 matmuls and cuDNN convolutions before it first runs there
 (`require_ieee_f32`, the CUDA form of the reference's Precision.HIGHEST).
+
+`linear` takes quantized weights (quantize.py) as the reference's does:
+int8 codes scale the product, packed int4 dequantises before it, and
+`set_int8_compute(True)` runs int8 linears as W8A8.
 """
 
 from __future__ import annotations
@@ -32,13 +36,105 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(_F32)
 
 
+# When True, int8-weight linears run as W8A8: a dynamic per-row absmax
+# int8 quantization of the activations and an s8×s8→s32 product (the
+# reference's set_int8_compute; not bit-parity with the weight-only path).
+_INT8_COMPUTE = False
+
+# the float32 form of a quantized weight, hoisted out of a decode loop
+# (`hoist_dequant`): int8 codes as floats, or the dequantised int4 weight
+DEQUANT_SUFFIX = "##dq"
+
+
+def set_int8_compute(enabled: bool) -> None:
+    global _INT8_COMPUTE
+    _INT8_COMPUTE = bool(enabled)
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 activations times (N, K) int8 weights transposed → the
+    exact (M, N) integer sums, as float32. On the card torch._int_mm (s32
+    accumulation), which needs more than 16 rows and K and N multiples of
+    8: rows and columns are zero-padded, which adds nothing to any sum, and
+    the result sliced. On the CPU a float64 product, exact for int8 codes
+    (every partial sum stays far below 2^53), so both give the same
+    integers."""
+    m, k = xq.shape
+    n = w.shape[0]
+    if xq.is_cuda:
+        kp = max(32, _ceil8(k))
+        a = F.pad(xq, (0, kp - k, 0, max(32, _ceil8(m)) - m))
+        b = F.pad(w, (0, kp - k, 0, _ceil8(n) - n))
+        return torch._int_mm(a, b.t())[:m, :n].to(_F32)
+    return (xq.to(torch.float64) @ w.to(torch.float64).t()).to(_F32)
+
+
+def _linear_int8(p: Params, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reference's int8 branch: the product in float32 with no bias in
+    it, then × the per-channel scale, then + bias, then one cast to x.dtype.
+    Under set_int8_compute(True): W8A8, x quantised per row (absmax / 127,
+    round half to even), the integer product, then × sx × scale."""
+    from parakeet_tpu_torch.quantize import SCALE_SUFFIX
+
+    scale = p["weight" + SCALE_SUFFIX].to(_F32)
+    if _INT8_COMPUTE and w.dtype == torch.int8:
+        xf = x.to(_F32)
+        sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 127.0
+        xq = torch.round(xf / sx).to(torch.int8)
+        y = int8_matmul(xq.reshape(-1, xq.shape[-1]), w).reshape(*x.shape[:-1], w.shape[0])
+        y = y * sx * scale
+    else:
+        wf = p.get("weight" + DEQUANT_SUFFIX)
+        y = F.linear(x.to(_F32), w.to(_F32) if wf is None else wf) * scale
+    b = p.get("bias")
+    if b is not None:
+        y = y + b.to(_F32)
+    return y.to(x.dtype)
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W.T (+ b), float32 accumulation, result in x.dtype."""
+    """y = x @ W.T (+ b), float32 accumulation, result in x.dtype.
+
+    int8 W (+ `##scale`, quantize.quantize_params): the scale multiplies
+    the product (`_linear_int8`). Packed int4 W (uint8 + `##scale4`):
+    dequantised to x.dtype first, then the float path."""
     w = p["weight"]
+    if w.dtype == torch.int8:
+        return _linear_int8(p, w, x)
+    if w.dtype == torch.uint8:
+        from parakeet_tpu_torch.quantize import SCALE4_SUFFIX, dequantize_int4_torch
+
+        wf = p.get("weight" + DEQUANT_SUFFIX)
+        w = (dequantize_int4_torch(w, p["weight" + SCALE4_SUFFIX], x.dtype) if wf is None
+             else wf.to(x.dtype))
     b = p.get("bias")
     if x.dtype == _F32 and w.dtype == _F32:
         return F.linear(x, w, b)
     return F.linear(x.to(_F32), w.to(_F32), _f32(b)).to(x.dtype)
+
+
+def hoist_dequant(params: dict, prefixes: tuple[str, ...]) -> dict:
+    """`params` with a float32 `##dq` sidecar beside each quantized weight
+    under `prefixes`, for a decode loop that runs the same linears every
+    step: int8 codes converted once (linear still scales each product),
+    int4 weights dequantised once in float32 (linear casts them to x.dtype,
+    as dequantize_int4_torch does). Results are identical to converting per
+    step. Under W8A8 the int8 codes stay int8 and are not converted."""
+    from parakeet_tpu_torch.quantize import SCALE4_SUFFIX, dequantize_int4_torch
+
+    out = dict(params)
+    for k, v in params.items():
+        if not k.startswith(prefixes) or "##" in k:
+            continue
+        if v.dtype == torch.int8 and not _INT8_COMPUTE:
+            out[k + DEQUANT_SUFFIX] = v.to(_F32)
+        elif v.dtype == torch.uint8:
+            out[k + DEQUANT_SUFFIX] = dequantize_int4_torch(v, params[k + SCALE4_SUFFIX], _F32)
+    return out
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -100,6 +196,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "require_ieee_f32",
+    "set_int8_compute",
+    "int8_matmul",
+    "hoist_dequant",
     "linear",
     "embedding",
     "layer_norm",

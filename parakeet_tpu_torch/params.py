@@ -8,7 +8,9 @@ torch layout (Linear (out, in), Conv (out, in/groups, *k)).
 
 Random init draws from a numpy RandomState in sorted key order, exactly like
 the reference, so both packages build identical weights from one seed.
-`params_from_numpy` carries a flat numpy dict onto a device.
+`params_from_numpy` carries a flat numpy dict onto a device; `device_params`
+casts, quantizes (quantize.py) and carries, in the reference's order.
+Quantized checkpoints dequantise on load.
 """
 
 from __future__ import annotations
@@ -273,21 +275,53 @@ def params_from_numpy(
     dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Carry a flat {name: array} dict onto `device`. Floating weights take
-    `dtype`, except normalization parameters, which stay float32 (the
-    reference's cast_params rule)."""
+    `dtype`, except normalization parameters and quantization sidecars
+    (`##scale`, `##scale4`), which stay float32 (the reference's
+    cast_params rule; its sidecars are made after the cast, in float32).
+    int8 and uint8 arrays (quantized codes) keep their dtype."""
     out: dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         arr = np.asarray(val)
+        if arr.dtype in (np.int8, np.uint8):
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+            continue
         if arr.dtype.kind in "iub":
-            raise NotImplementedError(
-                f"{key}: integer ({arr.dtype}) weights are quantized checkpoints, "
-                "which the port does not load yet"
-            )
-        target = torch.float32 if is_norm_param(key) else dtype
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-            device=device, dtype=target
-        )
+            raise ValueError(f"{key}: {arr.dtype} weights are neither float nor quantized codes (int8, uint8)")
+        target = torch.float32 if is_norm_param(key) or "##" in key else dtype
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=target)
     return out
+
+
+def round_to_dtype(flat: dict[str, np.ndarray], dtype: torch.dtype) -> dict[str, np.ndarray]:
+    """The float32 numpy dict whose floating weights hold the values they
+    take under the compute dtype (normalization parameters excluded): the
+    reference's cast_params, kept on the host so quantize_params sees the
+    weights it would see there."""
+    if dtype == torch.float32:
+        return flat
+    out = {}
+    for key, val in flat.items():
+        arr = np.asarray(val)
+        if arr.dtype.kind == "f" and not is_norm_param(key):
+            arr = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype).to(torch.float32).numpy()
+        out[key] = arr
+    return out
+
+
+def device_params(
+    flat: dict[str, np.ndarray],
+    device: str | torch.device = "cpu",
+    dtype: torch.dtype = torch.float32,
+    quantize: str | None = None,
+) -> dict[str, torch.Tensor]:
+    """A facade's parameters on its device, in the reference's order: cast
+    to the compute dtype, then (with `quantize` "int8" or "int4")
+    quantize_params, then onto the device."""
+    if quantize:
+        from parakeet_tpu_torch.quantize import quantize_params
+
+        flat = quantize_params(round_to_dtype(flat, dtype), mode=quantize)
+    return params_from_numpy(flat, device, dtype)
 
 
 def init_params(
@@ -322,12 +356,25 @@ def load_params_numpy(
         if w is None:
             missing.append(key)
             continue
+        w = np.asarray(w)
+        if w.dtype == np.int8:
+            # an int8 checkpoint (tools/quantize_ckpt.py) dequantises on
+            # load; Transcriber(quantize="int8") quantizes again for runtime
+            from parakeet_tpu_torch.quantize import SCALE_SUFFIX
+
+            scale = weights.get(key + SCALE_SUFFIX)
+            if scale is None:
+                raise ValueError(f"int8 tensor {key} has no '{key}{SCALE_SUFFIX}' sidecar")
+            w = w.astype(np.float32) * np.asarray(scale, np.float32)[:, None]
+        elif w.dtype == np.uint8:
+            from parakeet_tpu_torch.quantize import SCALE4_SUFFIX, dequantize_tensor_int4
+
+            scale = weights.get(key + SCALE4_SUFFIX)
+            if scale is None:
+                raise ValueError(f"int4 tensor {key} has no '{key}{SCALE4_SUFFIX}' sidecar")
+            w = dequantize_tensor_int4(w, scale)
         if tuple(w.shape) != tuple(shape):
             raise ValueError(f"shape mismatch for {key}: file {tuple(w.shape)} vs spec {shape}")
-        if w.dtype.kind in "iub":
-            raise NotImplementedError(
-                f"{key}: quantized checkpoints ({w.dtype}) are not ported yet"
-            )
         params[key] = np.asarray(w, np.float32)
     if missing:
         if warn:
@@ -355,5 +402,7 @@ __all__ = [
     "init_params",
     "is_norm_param",
     "params_from_numpy",
+    "round_to_dtype",
+    "device_params",
     "load_params_numpy",
 ]

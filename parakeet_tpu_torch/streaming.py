@@ -12,8 +12,9 @@ program; the port runs the same sequence of torch ops eagerly on the card
 (or the CPU when asked). Every entry point runs on the card unless given
 device="cpu"; with no card it raises.
 
-Not in this slice, and rejected with NotImplementedError: quantized
-weights (quantize=) and meshes (mesh=).
+quantize="int8"|"int4" quantizes the weights after the compute-dtype cast
+(quantize.py), as in the reference; the streaming encoder runs no kernel
+either way. Meshes (mesh=) are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,13 +44,6 @@ from parakeet_tpu_torch.transcribe import _DTYPES
 PartialResultCallback = Callable[[str], None]
 
 
-def _check_unported(quantize, mesh=None) -> None:
-    if quantize:
-        raise NotImplementedError(f"quantize={quantize!r}: quantized inference is not ported yet")
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-device) streaming is not ported yet")
-
-
 class _StreamingBase:
     joint_prefix = "tdt_joint_"
 
@@ -69,8 +63,8 @@ class _StreamingBase:
         device: str | torch.device = DEFAULT_DEVICE,
     ):
         """params: a flat {name: array} dict used instead of weights_path.
-        device: the card unless given; "cpu" runs on the CPU."""
-        _check_unported(quantize)
+        device: the card unless given; "cpu" runs on the CPU. quantize:
+        "int8" or "int4" weight-only quantization (quantize.py)."""
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         self.config = config
@@ -78,7 +72,7 @@ class _StreamingBase:
         if params is None:
             params = P.load_params_numpy(self._spec(), weights_path, seed=seed,
                                          warn=lambda m: print(f"[parakeet] {m}"))
-        self.params = P.params_from_numpy(params, self.device, _DTYPES[compute_dtype])
+        self.params = P.device_params(params, self.device, _DTYPES[compute_dtype], quantize)
         self.tokenizer = Tokenizer(vocab_path) if vocab_path else Tokenizer()
         self._blank_id = config.joint.vocab_size - 1
         self._audio_cfg = AudioConfig(n_mels=config.encoder.mel_bins)
@@ -242,7 +236,8 @@ class StreamingBatchTranscriber:
             raise ValueError(f"wire_dtype must be 'float32' or 'int16', got {wire_dtype!r}")
         if wire_dtype == "int16" and frontend != "fused":
             raise ValueError("wire_dtype='int16' requires frontend='fused'")
-        _check_unported(quantize, mesh)
+        if mesh is not None:
+            raise NotImplementedError("mesh (multi-device) streaming is not ported yet")
         proto_cls = StreamingTranscriber if model == "eou" else NemotronTranscriber
         self.batch = batch
         self._mel_step = mel_frames_per_step
@@ -251,7 +246,7 @@ class StreamingBatchTranscriber:
         self._joint_prefix = proto_cls.joint_prefix
 
         proto = proto_cls(weights_path, vocab_path, config, params=params, seed=seed,
-                          compute_dtype=compute_dtype, device=device)
+                          compute_dtype=compute_dtype, quantize=quantize, device=device)
         self.config = proto.config  # the preset when config was None
         self.params = proto.params
         self.device = proto.device

@@ -1,8 +1,7 @@
-"""Offline transcription API (port of parakeet_tpu/transcribe.py, greedy slice).
+"""Offline transcription API (port of parakeet_tpu/transcribe.py).
 
 Three facades share one pipeline, `_TranscriberBase`: read → mel frontend →
-encoder (+CTC head) → greedy TDT/RNNT or CTC decode → detokenize → word
-grouping.
+encoder (+CTC head) → TDT/RNNT or CTC decode → detokenize → word grouping.
   * `Transcriber`: tdt-ctc (default tdt-ctc-110m), TDT or CTC decode;
   * `TDTTranscriber`: TDT-only (default tdt-600m), joint under "joint_";
   * `RNNTTranscriber`: RNNT (default rnnt-600m), decoded as TDT with
@@ -20,9 +19,17 @@ call (`long_audio="dense"`). `align*` force-aligns a known transcript with
 the CTC head; `transcribe_vad` decodes only the speech that the energy VAD
 finds.
 
-Not in this slice, and rejected with NotImplementedError rather than
-ignored: beam search, LM fusion, phrase boosting, meshes and quantized
-weights.
+Decode options, as in the reference: `boost_phrases` (a token trie whose
+reachable tokens get `boost_score` in the greedy TDT/RNNT loop and the
+greedy CTC decode, decode/phrase_boost.py); `beam_size` > 0 (the batched
+transducer beam, decode/beam_transducer.py, or the host CTC prefix beam,
+decode/ctc_beam.py); `lm` with `lm_weight` (an n-gram or neural LM:
+shallow fusion in the CTC beam, n-best rescoring of the transducer beam;
+ignored by greedy decodes). Beam × boost raises ValueError. Beam and LM
+calls always decode densely. `quantize="int8"|"int4"` quantizes the
+weights after the compute-dtype cast (quantize.py); the sublayers with
+quantized weights then run plain, the attention through K2
+(models/encoder.py). Meshes are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +53,12 @@ from parakeet_tpu_torch.config import (
     make_rnnt_600m_config,
     make_tdt_600m_config,
 )
+from parakeet_tpu_torch.decode.phrase_boost import (
+    DEFAULT_BOOST_SCORE,
+    ContextTrie,
+    ctc_greedy_decode_boosted,
+    ctc_greedy_decode_with_timestamps_boosted,
+)
 from parakeet_tpu_torch.decode.timestamp import (
     FRAME_DURATION_S,
     TimestampedToken,
@@ -65,8 +78,6 @@ from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths, fast
 from parakeet_tpu_torch.ops.layers import require_ieee_f32
 from parakeet_tpu_torch.params import Params
 from parakeet_tpu_torch.text.tokenizer import Tokenizer
-
-DEFAULT_BOOST_SCORE = 5.0  # the reference's decode/phrase_boost.py default
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -168,11 +179,10 @@ class _TranscriberBase:
         long_audio: "window" decodes clips longer than long_threshold_s
         through windows of long_window_s overlapping by long_overlap_s,
         batched across clips (always with timestamps); "dense" decodes any
-        length in one call."""
+        length in one call. quantize: "int8" or "int4" weight-only
+        quantization (quantize.py), after the compute-dtype cast."""
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) inference is not ported yet")
-        if quantize:
-            raise NotImplementedError(f"quantize={quantize!r}: quantized inference is not ported yet")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         if long_audio not in ("window", "dense"):
@@ -195,7 +205,7 @@ class _TranscriberBase:
             params = P.load_params_numpy(
                 self._spec(), weights_path, seed=seed, warn=lambda m: print(f"[parakeet] {m}"),
             )
-        self.params = P.params_from_numpy(params, self.device, _DTYPES[compute_dtype])
+        self.params = P.device_params(params, self.device, _DTYPES[compute_dtype], quantize)
         self.tokenizer = Tokenizer(vocab_path) if vocab_path else Tokenizer()
         self._audio_cfg = AudioConfig(n_mels=config.encoder.mel_bins)
         self._blank_id = config.joint.vocab_size - 1
@@ -225,12 +235,11 @@ class _TranscriberBase:
         """Option errors, raised before any device work."""
         if opts.decoder == Decoder.CTC and not self.has_ctc:
             raise ValueError("this model has no CTC head; use Decoder.TDT")
-        if opts.beam_size > 0:
-            raise NotImplementedError("beam search (beam_size > 0) is not ported yet; use beam_size=0")
-        if opts.lm is not None:
-            raise NotImplementedError("LM fusion is not ported yet; pass lm=None")
-        if opts.boost_phrases:
-            raise NotImplementedError("phrase boosting is not ported yet; pass no boost_phrases")
+        if opts.beam_size > 0 and opts.boost_phrases:
+            raise ValueError(
+                "phrase boosting composes with greedy decode only; "
+                "use beam_size=0 with boost_phrases"
+            )
 
     # ── Input handling ───────────────────────────────────────────────────
 
@@ -270,9 +279,10 @@ class _TranscriberBase:
         """Batched inference. Under long_audio="window", clips longer than
         long_threshold_s go through `transcribe_long_batch`; the short clips
         of the batch still decode densely together, and the result order
-        is kept. Each clip is loaded once."""
+        is kept. Each clip is loaded once. Beam and LM calls always decode
+        densely, as in the reference."""
         opts = opts or TranscribeOptions()
-        if self.long_audio == "window" and sources:
+        if self.long_audio == "window" and sources and opts.beam_size == 0 and opts.lm is None:
             thr = int(self.long_threshold_s * self._audio_cfg.sample_rate)
             waves = [self._to_samples(s) for s in sources]
             long_ix = {i for i, w in enumerate(waves) if len(w) > thr}
@@ -345,27 +355,48 @@ class _TranscriberBase:
             batch = torch.nn.functional.pad(batch, (0, 0, 0, pad_t))
         enc_lens = encoded_lengths(torch.as_tensor(mel_lens)).tolist()
         enc = self.encode(batch, mel_lens)
+        trie = None
+        if opts.boost_phrases:
+            trie = ContextTrie()
+            trie.build(opts.boost_phrases, self.tokenizer)
+            if trie.empty():
+                trie = None
 
         if opts.decoder == Decoder.CTC:
             log_probs = self.ctc_log_probs(enc)
-            if opts.timestamps:
-                ts = ctc_greedy_decode_with_timestamps(log_probs, self._blank_id, enc_lens)
+            if opts.beam_size > 0:  # beam × boost raised in _check_options
+                results = self._ctc_beam_results(log_probs, enc_lens, opts)
+            elif opts.timestamps:
+                if trie is not None:
+                    ts = ctc_greedy_decode_with_timestamps_boosted(
+                        log_probs, trie, opts.boost_score, self._blank_id, enc_lens)
+                else:
+                    ts = ctc_greedy_decode_with_timestamps(log_probs, self._blank_id, enc_lens)
                 results = [self._result_from_ts(t, opts.timestamp_mode) for t in ts]
             else:
-                toks = ctc_greedy_decode(log_probs, self._blank_id, enc_lens)
+                if trie is not None:
+                    toks = ctc_greedy_decode_boosted(log_probs, trie, opts.boost_score, self._blank_id, enc_lens)
+                else:
+                    toks = ctc_greedy_decode(log_probs, self._blank_id, enc_lens)
                 results = [self._result_from_tokens(t) for t in toks]
+        elif opts.beam_size > 0:
+            results = self._transducer_beam_results(enc, enc_lens, opts)
         else:
+            boost = None
+            if trie is not None:
+                boost = trie.device_boost(self.config.joint.vocab_size, enc.shape[0], opts.boost_score, self.device)
             with torch.inference_mode():
                 res = transducer_greedy_decode(
                     self.params,
                     enc,
                     pred_hidden=self.config.prediction.pred_hidden,
                     num_lstm_layers=self.config.prediction.num_lstm_layers,
-                    durations=tuple(self.config.durations) if self.is_tdt else (0,),
+                    durations=self._durations(),
                     blank_id=self._blank_id,
                     is_tdt=self.is_tdt,
                     joint_prefix=self.joint_prefix,
                     enc_lengths=enc_lens,
+                    boost=boost,
                 )
             if opts.timestamps:
                 results = [self._result_from_ts(t, opts.timestamp_mode) for t in res.timestamped]
@@ -373,6 +404,67 @@ class _TranscriberBase:
                 results = [self._result_from_tokens(t) for t in res.tokens]
         _emit_progress(opts, "decode", 1, 1)
         return results
+
+    def _durations(self) -> tuple[int, ...]:
+        return tuple(self.config.durations) if self.is_tdt else (0,)
+
+    def _transducer_beam_results(self, enc, enc_lens, opts: TranscribeOptions) -> list[TranscribeResult]:
+        """The batched transducer beam (decode/beam_transducer.py); with an
+        LM and a nonzero weight its n-best list (beam_size long) is
+        rescored. Timestamps: each token's emission frame, its span closing
+        at the next emission."""
+        from parakeet_tpu_torch.decode.beam_transducer import transducer_beam_decode
+
+        use_lm = opts.lm is not None and opts.lm_weight != 0.0
+        hyps = transducer_beam_decode(
+            self.params,
+            enc,
+            num_lstm_layers=self.config.prediction.num_lstm_layers,
+            durations=self._durations(),
+            blank_id=self._blank_id,
+            is_tdt=self.is_tdt,
+            joint_prefix=self.joint_prefix,
+            enc_lengths=enc_lens,
+            beam_size=opts.beam_size,
+            n_best=opts.beam_size if use_lm else 1,
+        )
+        if use_lm:
+            from parakeet_tpu_torch.text.ngram_lm import rescore_nbest
+
+            hyps = [rescore_nbest(h, opts.lm, opts.lm_weight) for h in hyps]
+        out = []
+        for i, h in enumerate(hyps):
+            best = h[0]
+            if not opts.timestamps:
+                out.append(self._result_from_tokens(best.tokens))
+                continue
+            toks = []
+            for j, (tok, fr, lp) in enumerate(zip(best.tokens, best.frames, best.token_logprobs)):
+                end = (best.frames[j + 1] - 1) if j + 1 < len(best.frames) else enc_lens[i] - 1
+                toks.append(TimestampedToken(tok, fr, max(fr, end), float(np.exp(lp))))
+            out.append(self._result_from_ts(toks, opts.timestamp_mode))
+        return out
+
+    def _ctc_beam_results(self, log_probs, enc_lens, opts: TranscribeOptions) -> list[TranscribeResult]:
+        """The CTC prefix beam on the host over the fetched log-probs, with
+        the LM fused token by token; timestamps from each token's first
+        frame, its span closing at the next token's."""
+        from parakeet_tpu_torch.decode.ctc_beam import ctc_beam_search
+
+        lp_np = log_probs.float().cpu().numpy()
+        out = []
+        for i, t_i in enumerate(enc_lens):
+            hyp = ctc_beam_search(lp_np[i, :t_i], self._blank_id, beam_size=opts.beam_size, lm=opts.lm,
+                                  lm_weight=opts.lm_weight)[0]
+            if not opts.timestamps:
+                out.append(self._result_from_tokens(hyp.tokens))
+                continue
+            toks = []
+            for j, (tok, fr) in enumerate(zip(hyp.tokens, hyp.frames)):
+                end = (hyp.frames[j + 1] - 1) if j + 1 < len(hyp.frames) else t_i - 1
+                toks.append(TimestampedToken(tok, fr, max(fr, end), float(np.exp(lp_np[i, fr, tok]))))
+            out.append(self._result_from_ts(toks, opts.timestamp_mode))
+        return out
 
     # ── Long audio ───────────────────────────────────────────────────────
 

@@ -75,8 +75,14 @@ def test_params_from_numpy_dtypes_and_quantized_rejection():
     assert out["a.weight"].dtype == torch.bfloat16
     assert out["a.norm_.weight"].dtype == torch.float32  # norm params stay f32
     assert out["conv_.batch_norm_.running_var"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="quantized"):
-        TP.params_from_numpy({"w": np.ones((2, 2), np.int8)})
+    # quantized codes keep their dtype and their sidecars stay f32, as the
+    # reference's cast-then-quantize order leaves them; other integers raise
+    q = {"w": np.ones((2, 2), np.int8), "w##scale": np.ones(2, np.float32), "v": np.ones((2, 1), np.uint8),
+         "v##scale4": np.ones((2, 1), np.float32)}
+    out = TP.params_from_numpy(q, "cpu", torch.bfloat16)
+    assert [out[k].dtype for k in q] == [torch.int8, torch.float32, torch.uint8, torch.float32]
+    with pytest.raises(ValueError, match="neither float nor quantized"):
+        TP.params_from_numpy({"w": np.ones((2, 2), np.int32)})
 
 
 def test_safetensors_roundtrip_with_reference_writer(tmp_path):
@@ -163,7 +169,9 @@ def test_port_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(parakeet_tpu_torch.__path__, 'parakeet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for name in ('audio.codecs', 'decode.align', 'streaming', 'models.streaming_encoder',\n"
-        "             'models.transformer', 'models.sortformer', 'diarize'):\n"
+        "             'models.transformer', 'models.sortformer', 'diarize', 'quantize', 'tools.quantize_ckpt',\n"
+        "             'decode.phrase_boost', 'decode.beam_transducer', 'decode.ctc_beam', 'decode.keyword',\n"
+        "             'text.ngram_lm', 'text.neural_lm', 'text.subtitles', 'metrics'):\n"
         "    assert 'parakeet_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parakeet_tpu'))\n"
         "print(bad)\n"

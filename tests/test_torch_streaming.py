@@ -461,7 +461,7 @@ def test_compute_dtype_skips_sidecars_and_norms():
     (dict(frontend="bogus"), ValueError, "frontend must be"),
     (dict(wire_dtype="int8"), ValueError, "wire_dtype must be"),
     (dict(wire_dtype="int16"), ValueError, "requires frontend"),
-    (dict(quantize="int8"), NotImplementedError, "quantize"),
+    (dict(quantize="int3"), ValueError, "quantize"),  # the reference's quantize_params error
     (dict(mesh=object()), NotImplementedError, "mesh"),
     (dict(compute_dtype="float16"), ValueError, "compute_dtype"),
 ])
@@ -478,8 +478,15 @@ def test_step_errors():
         bt.step(hold=[0, 1])
     with pytest.raises(RuntimeError, match="enough buffered"):
         bt.step()
-    with pytest.raises(NotImplementedError, match="quantize"):
-        TS.StreamingTranscriber(None, None, _eou_cfg(TC), quantize="int4", device="cpu")
+    # quantize= is accepted as in the reference (tests/test_torch_quantize.py
+    # holds the quantized session to it); a bad mode raises its ValueError
+    import parakeet_tpu.streaming as RS
+
+    assert TS.StreamingTranscriber(None, None, _eou_cfg(TC), quantize="int4", device="cpu").params
+    for make in (lambda: TS.StreamingTranscriber(None, None, _eou_cfg(TC), quantize="int3", device="cpu"),
+                 lambda: RS.StreamingTranscriber(None, None, _eou_cfg(RC), quantize="int3")):
+        with pytest.raises(ValueError, match="unsupported quantize mode"):
+            make()
 
 
 @pytest.mark.parametrize("entry", ["StreamingTranscriber", "NemotronTranscriber", "StreamingBatchTranscriber",

@@ -132,12 +132,28 @@ def test_prepare_decode_split_and_progress(setup):
 
 @pytest.mark.parametrize("bad", ["beam_size", "lm", "boost_phrases", "mesh", "quantize", "long_clip"])
 def test_unsupported_options_raise(setup, bad):
+    """mesh= is still refused. The options the port once refused now run
+    as in the JAX Transcriber (its XLA path): beam search, an LM with a
+    greedy decode (ignored, and the call stays dense), phrase boosting and
+    quantize=, each with the reference's own ValueError; a long clip routes
+    through the windowed decode."""
+    from parakeet_tpu.transcribe import Decoder, Transcriber
+
     flat, waves, vocab = setup
-    if bad in ("mesh", "quantize"):
+    if bad == "mesh":
         with pytest.raises(NotImplementedError, match=bad):
-            TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", **{bad: "int8"})
+            TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", mesh="int8")
         return
-    tr = TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", long_threshold_s=1.0)
+    if bad == "quantize":
+        tr = TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", quantize="int8")
+        ref = Transcriber(None, None, _cfg(RC), params=flat, quantize="int8")
+        assert tr.transcribe(waves[1], TDecoder.TDT, True).token_ids == ref.transcribe(waves[1]).token_ids
+        for make in (lambda: TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", quantize="int3"),
+                     lambda: Transcriber(None, None, _cfg(RC), params=flat, quantize="int3")):
+            with pytest.raises(ValueError, match="unsupported quantize mode"):
+                make()
+        return
+    tr = TTranscriber(None, vocab, _cfg(TC), params=flat, device="cpu", long_threshold_s=1.0)
     if bad == "long_clip":
         # no longer refused: a clip past long_threshold_s (1.47 s > 1 s) routes
         # through the windowed decode; it fits one 10 s window, so it decodes
@@ -152,13 +168,27 @@ def test_unsupported_options_raise(setup, bad):
         assert routed == [1] and got.timestamped_tokens
         assert got.token_ids == want.token_ids and _spans(got) == _spans(want)
         return
-    with pytest.raises(NotImplementedError):
-        if bad == "beam_size":
-            tr.transcribe(waves[1], beam_size=4)
-        elif bad == "lm":
-            tr.transcribe(waves[1], lm=object())
-        else:
-            tr.transcribe(waves[1], boost_phrases=["a b"])
+    ref = Transcriber(None, vocab, _cfg(RC), params=flat, long_threshold_s=1.0)
+    if bad == "beam_size":
+        for dec in (TDecoder.TDT, TDecoder.CTC):
+            kw = dict(decoder=dec, timestamps=True, beam_size=4)
+            got, want = tr.transcribe(waves[2], **kw), ref.transcribe(waves[2], **{**kw, "decoder": Decoder[dec.name]})
+            assert got.token_ids == want.token_ids and _spans(got) == _spans(want)
+        for t in (tr, ref):
+            with pytest.raises(ValueError, match="greedy decode only"):
+                t.transcribe(waves[1], beam_size=4, boost_phrases=["a b"])
+    elif bad == "lm":
+        # a greedy decode ignores the LM, and the 1.47 s clip stays dense
+        routed = []
+        tr.transcribe_long_batch = lambda clips, *a, **k: routed.append(len(clips))
+        got = tr.transcribe(waves[2], timestamps=True, lm=object(), lm_weight=0.5)
+        want = ref.transcribe(waves[2], timestamps=True, lm=object(), lm_weight=0.5)
+        assert routed == [] and got.token_ids == want.token_ids and _spans(got) == _spans(want)
+    else:
+        for dec in (TDecoder.TDT, TDecoder.CTC):
+            kw = dict(timestamps=True, boost_phrases=["a b", "c d"], boost_score=3.0)
+            got, want = tr.transcribe(waves[1], dec, **kw), ref.transcribe(waves[1], Decoder[dec.name], **kw)
+            assert got.token_ids == want.token_ids and _spans(got) == _spans(want)
 
 
 @pytest.fixture(scope="module")
