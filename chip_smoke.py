@@ -112,11 +112,42 @@ Phases, each of which raises (exit code 1) on failure:
               tokens and frames equal to the CPU's, beam path scores within
               1e-4; eou-120m streaming with int8, B=1, 50 pushes, no kernel
               launched, and its push wall against f32 in turns
+ 11. serve    (runs after paths, with the 110m weights) tdt-ctc-110m at full
+              width behind the port's HTTP server (make_server on
+              127.0.0.1, an ephemeral port) over TranscriptionService(
+              max_batch=8, max_wait_ms=25) on the card, pipelined and not
+              (first K1 against its plain version at the served shapes:
+              the cohort of 8 padded to a multiple of 200 mel frames with
+              its clips' lengths, and B=1 at the lengths /align, the C API
+              and the CLI run, the cohort's shape timed with its bound):
+              8 concurrent clients POST the 8 clips as WAV (clip 0 as
+              44.1 kHz stereo, so downmix and the native resampler run),
+              then the same clips all as 16 kHz mono; tokens equal to the
+              CPU facade's transcribe_batch on the same decoded samples, K1
+              17 launches a cohort and no other kernel, the burst's
+              request wall median and max, cohorts, mean batch, RTFx,
+              beside the warm
+              transcribe_batch wall; /align of one clip beside a
+              /transcribe round, equal to the card facade's align;
+              StreamingService over StreamingBatchTranscriber(8, eou-120m,
+              fused frontend, int16 wire): four chunked /stream sessions
+              at once, tokens equal to direct lockstep runs on the card
+              and the CPU, no kernel, the wall of each device step; the C
+              API (build_capi, ctypes into this process) on clip 0 as f32
+              16 kHz and s16 44.1 kHz, tokens equal to the card facade's;
+              `python -m parakeet_tpu_torch.cli` with --random-weights,
+              its (token ids) line equal to the card facade's;
+              `python -m parakeet_tpu_torch.benchmark --models 110m
+              --durations 10`, its row; read_audio of a 60 s 44.1 kHz
+              stereo WAV in fresh processes, native and PARAKEET_NO_NATIVE
+              (the chunked numpy form): host seconds and peak-RSS growth,
+              outputs bit-identical
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
-"shapes" every timed shape with its bound, and launches_quantized, the
-kernel's launches in one encoder call of the int8 fused 110m path) and
+"shapes" every timed shape with its bound, launches_quantized, the
+kernel's launches in one encoder call of the int8 fused 110m path, and
+launches_serve, its launches per cohort served over HTTP) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -2076,6 +2107,547 @@ def options_phase(flat6, clips, card: str) -> dict:
     return out
 
 
+# ── serving: the HTTP server, the streaming service, the C API, the CLI, parakeet-bench ──
+
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 25.0
+
+
+def wav_bytes(samples, rate: int = 16000) -> bytes:
+    """16-bit PCM WAV of float samples, (n,) mono or (n, channels)."""
+    import io
+    import wave
+
+    x = np.asarray(samples, np.float32)
+    x = x[:, None] if x.ndim == 1 else x
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(x.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def http_post(addr, path: str, body: bytes, chunk: int | None = None, times=None):
+    """(status, JSON) of one POST; with `chunk` the body goes as chunked
+    transfer-encoding in pieces of that many bytes. The request's wall ms
+    is appended to `times` when given."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        if chunk is None:
+            conn.request("POST", path, body=body)
+        else:
+            conn.putrequest("POST", path)
+            conn.putheader("Transfer-Encoding", "chunked")
+            conn.endheaders()
+            for i in range(0, len(body), chunk):
+                piece = body[i: i + chunk]
+                conn.send(b"%x\r\n" % len(piece) + piece + b"\r\n")
+            conn.send(b"0\r\n\r\n")
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if times is not None:
+        times.append((time.perf_counter() - t0) * 1e3)
+    if resp.status != 200:
+        raise RuntimeError(f"POST {path}: HTTP {resp.status}: {data[:300]!r}")
+    return json.loads(data)
+
+
+def http_stats(addr) -> dict:
+    """GET /stats."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    try:
+        conn.request("GET", "/stats")
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"GET /stats: HTTP {resp.status}")
+    return json.loads(data)
+
+
+def serve_http_server(service, stream_service=None):
+    """The port's make_server on 127.0.0.1, an ephemeral port, in a thread."""
+    import threading
+
+    from parakeet_tpu_torch.serve_http import make_server
+
+    httpd = make_server(service, stream_service, host="127.0.0.1", port=0, quiet=True)
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="smoke-http").start()
+    return httpd
+
+
+def concurrently(fns):
+    """Run each fn on its own thread, all started together; their results
+    in order (a failure in any re-raises here)."""
+    with ThreadPoolExecutor(len(fns)) as ex:
+        futs = [ex.submit(fn) for fn in fns]
+        return [f.result() for f in futs]
+
+
+def http_round(addr, bodies, times=None) -> list[list[int]]:
+    """One concurrent POST /transcribe per body; each response's token ids."""
+    return [r["token_ids"] for r in concurrently(
+        [lambda b=b: http_post(addr, "/transcribe", b, times=times) for b in bodies])]
+
+
+def settled(read, batched, n: int, tag: str, wait_s: float = 10.0):
+    """read() once batched(read()), the requests the service has recorded in
+    cohorts since the round began, reaches the round's n. The worker
+    records a cohort just after it sets the cohort's results, so the last
+    response can arrive before its cohort is counted. Raises after wait_s."""
+    deadline = time.perf_counter() + wait_s
+    while True:
+        s = read()
+        if batched(s) >= n:
+            return s
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"{tag}: the service recorded {batched(s)} of {n} requests in cohorts after "
+                               f"{wait_s:.0f} s")
+        time.sleep(0.005)
+
+
+def serve_round(httpd, gpu, bodies, audio_s: float, tag: str, card: str) -> dict:
+    """One counted and timed round of concurrent POST /transcribe, one per
+    body: token ids, cohorts and requests from GET /stats, K1 launches
+    (once a layer a cohort, no other kernel), the burst's request wall
+    median and max (a handful of requests: no tail percentile), RTFx over
+    the round's wall."""
+    before = http_stats(httpd.server_address)
+    times = []
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens = http_round(httpd.server_address, bodies, times)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    after = settled(lambda: http_stats(httpd.server_address),
+                    lambda s: round(s["mean_batch"] * s["batches"]) - round(before["mean_batch"] * before["batches"]),
+                    len(bodies), f"serve {tag}")
+    cohorts, requests = after["batches"] - before["batches"], after["requests"] - before["requests"]
+    if requests != len(bodies) or after["errors"] != before["errors"]:
+        raise RuntimeError(f"serve {tag}: /stats counts {requests} requests, {after['errors'] - before['errors']} "
+                           f"errors")
+    layers = gpu.config.encoder.num_layers
+    expect = {k: layers * cohorts if k == "rel_attention_block" else 0 for k in launches}
+    if launches != expect:
+        raise RuntimeError(f"serve {tag}: launches {launches}, expected {expect} for {cohorts} cohorts")
+    out = {"tokens": tokens, "launches": launches, "cohorts": cohorts, "wall_s": wall,
+           "latency_ms": float(np.median(times)), "latency_max_ms": max(times),
+           "mean_batch": requests / cohorts, "rtfx": audio_s / wall}
+    log(f"  HTTP /transcribe {tag}: one burst of {len(bodies)} concurrent requests in {cohorts} cohorts (mean batch "
+        f"{out['mean_batch']:.2f}); request wall ms median {out['latency_ms']:.1f}, max {out['latency_max_ms']:.1f}; "
+        f"round {wall * 1e3:.1f} ms, {out['rtfx']:.1f} audio s per wall s; K1 {launches['rel_attention_block']} "
+        f"launches = {layers} x {cohorts} cohorts, no other kernel [{card}]")
+    return out
+
+
+def serve_offline(gpu, bodies, audio_s: float, pipeline: bool, card: str) -> dict:
+    """TranscriptionService(max_batch=8, max_wait_ms=25) under the HTTP
+    server: a warm-up round of concurrent requests, then a counted and
+    timed one (serve_round). Returns the round with the server and the
+    service, still running."""
+    from parakeet_tpu_torch.serve import TranscriptionService
+
+    svc = TranscriptionService(gpu, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS, pipeline=pipeline)
+    httpd = serve_http_server(svc)
+    try:
+        http_round(httpd.server_address, bodies)  # warm-up (cuDNN autotune, allocator)
+        out = serve_round(httpd, gpu, bodies, audio_s, f"pipeline={pipeline}", card)
+    except BaseException:
+        httpd.shutdown()
+        svc.close()
+        raise
+    return dict(out, httpd=httpd, service=svc)
+
+
+def serve_align_overlap(httpd, svc, gpu, bodies, text: str, card: str) -> None:
+    """POST /align of clip 1 on a handler thread while a second round of 8
+    /transcribe requests runs through the service: the alignment equals the
+    card facade's align on the same bytes; K1 launches once a layer for
+    each cohort and for the alignment."""
+    from urllib.parse import quote
+
+    before, batched = svc.stats.batches, svc.stats.total_batched
+    reset_counts()
+    res = concurrently([lambda: http_post(httpd.server_address, f"/align?text={quote(text)}", bodies[1]),
+                        lambda: http_round(httpd.server_address, bodies)])
+    launches = read_counts()
+    settled(lambda: svc.stats, lambda st: st.total_batched - batched, len(bodies), "serve /align overlap")
+    cohorts = svc.stats.batches - before
+    got = res[0]
+    want = gpu.align(bodies[1], text)
+    spans = [(w.word, w.start, w.end) for w in want.word_timestamps]
+    if got["token_ids"] != want.token_ids or [(w["word"], w["start"], w["end"]) for w in got["words"]] != spans:
+        raise RuntimeError("serve /align: the alignment differs from the card facade's align")
+    conf = max(abs(w["confidence"] - x.confidence) for w, x in zip(got["words"], want.word_timestamps))
+    if conf > 1e-6 or not spans:
+        raise RuntimeError(f"serve /align: {len(spans)} words, confidences differ by {conf:.3e}")
+    layers = gpu.config.encoder.num_layers
+    expect = {k: layers * (cohorts + 1) if k == "rel_attention_block" else 0 for k in launches}
+    if launches != expect:
+        raise RuntimeError(f"serve /align overlap: launches {launches}, expected {expect}")
+    log(f"  HTTP /align of clip 1 ({len(spans)} words) beside a /transcribe round of {cohorts} cohorts: equal to "
+        f"the card facade's align; K1 {launches['rel_attention_block']} launches, no other kernel [{card}]")
+
+
+def serve_streaming(card: str) -> dict:
+    """StreamingService over StreamingBatchTranscriber(8, eou-120m, fused
+    frontend, int16 wire) on the card under the HTTP server: four chunked
+    /stream sessions at once; each session's final tokens equal to a
+    direct lockstep run on the card and on the CPU, no kernel launched, and
+    the synchronised wall of every device step (a 160 ms chunk of each
+    live stream)."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.serve import StreamingService, TranscriptionService
+    from parakeet_tpu_torch.streaming import StreamingBatchTranscriber
+
+    cfg = C.make_eou_120m_config()
+    flat = P.init_params_numpy(P.eou_spec(cfg), seed=0)
+    kw = dict(config=cfg, params=flat, frontend="fused", wire_dtype="int16")
+    pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in synthetic_clips(4, seed=2300, min_s=6,
+                                                                                          max_s=6)]
+    flush = np.zeros((16 + 8) * 160, np.float32)  # what StreamingService pushes at close
+
+    def direct(device):
+        bt = StreamingBatchTranscriber(8, device=device, **kw)
+        for slot in range(len(pcm), 8):
+            bt.deactivate_slot(slot)
+        for slot, x in enumerate(pcm):
+            bt.push(slot, x)
+            bt.push(slot, flush)
+        while bt.ready_any():
+            bt.step(hold=bt.lagging_slots())
+        return [list(bt._tokens[i]) for i in range(len(pcm))]
+
+    bt = StreamingBatchTranscriber(8, device="cuda", **kw)
+    step_ms = []
+    step = bt.step
+
+    def timed_step(hold=()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(hold=hold)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    bt.step = timed_step
+    stream = StreamingService(bt, poll_ms=1.0)
+    offline = TranscriptionService(None, pipeline=False)  # /transcribe unused here
+    httpd = serve_http_server(offline, stream)
+    try:
+        bodies = [x.tobytes() for x in pcm]
+        concurrently([lambda b=b: http_post(httpd.server_address, "/stream", b, chunk=5120) for b in bodies[:1]])
+        step_ms.clear()  # the first session warmed the step up
+        reset_counts()
+        done_ms = []
+        res = concurrently([lambda b=b: http_post(httpd.server_address, "/stream", b, chunk=5120, times=done_ms)
+                            for b in bodies])
+        launches = read_counts()
+    finally:
+        httpd.shutdown()
+        stream.close()
+        offline.close()
+    _no_launches("serve /stream", launches)
+    got = [r["token_ids"] for r in res]
+    gpu, cpu = direct("cuda"), direct("cpu")
+    for i, (g, d, c) in enumerate(zip(got, gpu, cpu)):
+        if not (g == d == c) or not g:
+            raise RuntimeError(f"serve /stream session {i}: {len(g)} tokens, equal to the direct card run "
+                               f"{g == d}, to the CPU run {g == c}")
+    out = {"launches": launches, "step_ms": float(np.median(step_ms)), "step_p95_ms": _percentile(step_ms, 0.95),
+           "steps": len(step_ms), "session_ms": float(np.median(done_ms))}
+    log(f"  HTTP /stream: 4 chunked sessions at once (6 s of int16 each in 160 ms chunks), eou-120m B=8 fused "
+        f"int16; tokens per session {[len(g) for g in got]}, equal to a direct lockstep run on the card and on "
+        f"the CPU; kernel launches none; per device step (one 160 ms chunk of each live stream), synchronised "
+        f"wall ms: median {out['step_ms']:.3f}, p95 {out['step_p95_ms']:.3f} over {out['steps']} steps; a "
+        f"session's whole request {out['session_ms']:.1f} ms median [{card}]")
+    return out
+
+
+def serve_capi(gpu, clip, card: str) -> dict | None:
+    """The port's C API (build_capi) loaded into this process with ctypes:
+    create tdt-ctc-110m on the card from seed 0, transcribe_pcm on clip 0 as
+    f32 at 16 kHz and as s16 at 44.1 kHz; token ids equal to the card
+    facade's on the same samples, K1 once a layer a call."""
+    import ctypes
+
+    from parakeet_tpu_torch.audio.io import read_audio, resample
+    from parakeet_tpu_torch.ops._build import build_capi
+
+    t0 = time.perf_counter()
+    path = build_capi()
+    if path is None:
+        log("  C API: not built: this Python has no shared libpython (Py_ENABLE_SHARED != 1), so the "
+            "interpreter cannot be embedded")
+        return None
+    lib = ctypes.CDLL(str(path))
+    build_s = time.perf_counter() - t0
+    lib.parakeet_create.restype = ctypes.c_int64
+    lib.parakeet_create.argtypes = [ctypes.c_char_p] * 4
+    for name, ptr in (("parakeet_transcribe_pcm", ctypes.c_float), ("parakeet_transcribe_pcm_s16", ctypes.c_int16)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int64, ctypes.POINTER(ptr), ctypes.c_int64, ctypes.c_int32]
+    lib.parakeet_last_error.restype = ctypes.c_char_p
+    lib.parakeet_free_string.argtypes = [ctypes.c_void_p]
+    lib.parakeet_destroy.argtypes = [ctypes.c_int64]
+
+    def take(p):
+        if not p:
+            raise RuntimeError(f"C API: {lib.parakeet_last_error().decode()}")
+        try:
+            return json.loads(ctypes.string_at(p).decode())
+        finally:
+            lib.parakeet_free_string(p)
+
+    h = lib.parakeet_create(b"tdt-ctc-110m", None, None, b'{"device": "cuda", "seed": 0}')
+    if h <= 0:
+        raise RuntimeError(f"C API create: {lib.parakeet_last_error().decode()}")
+    f32 = np.ascontiguousarray(clip, np.float32)
+    s16 = np.clip(resample(clip, 16000, 44100) * 32768, -32768, 32767).astype(np.int16)
+    reset_counts()
+    try:
+        r_f = take(lib.parakeet_transcribe_pcm(h, f32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(f32),
+                                               16000))
+        r_s = take(lib.parakeet_transcribe_pcm_s16(h, s16.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                                                   len(s16), 44100))
+    finally:
+        lib.parakeet_destroy(h)
+    launches = read_counts()
+    want_f = gpu.transcribe(f32).token_ids
+    want_s = gpu.transcribe(read_audio(s16, 16000, sample_rate=44100).samples).token_ids
+    if r_f["token_ids"] != want_f or r_s["token_ids"] != want_s or not want_f:
+        raise RuntimeError("C API: token ids differ from the card facade's")
+    expect = {k: 2 * gpu.config.encoder.num_layers if k == "rel_attention_block" else 0 for k in launches}
+    if launches != expect:
+        raise RuntimeError(f"C API: launches {launches}, expected {expect}")
+    log(f"  C API (library {build_s:.1f} s to build and load): transcribe_pcm f32 16 kHz {len(want_f)} tokens and "
+        f"s16 44.1 kHz {len(want_s)} tokens, equal to the card facade's; K1 {launches['rel_attention_block']} "
+        f"launches in the two calls, no other kernel [{card}]")
+    return {"launches": launches}
+
+
+RESAMPLE_PROBE = r"""
+import hashlib, io, json, os, sys, threading, time, tracemalloc, wave
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from parakeet_tpu_torch.audio.io import read_audio
+from parakeet_tpu_torch import native
+pcm = (0.2 * np.random.RandomState(0).randn(60 * 44100, 2) * 32767).astype("<i2")
+buf = io.BytesIO()
+with wave.open(buf, "wb") as w:
+    w.setnchannels(2); w.setsampwidth(2); w.setframerate(44100); w.writeframes(pcm.tobytes())
+data = buf.getvalue()
+read_audio(np.zeros(4410, np.float32), sample_rate=44100)  # builds and loads the library
+def rss():
+    try:
+        return int(open("/proc/self/statm").read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+rss0, peak, done = rss(), [0], threading.Event()
+def sample():  # the resident set every millisecond (the native call and numpy release the GIL)
+    while not done.is_set():
+        peak[0] = max(peak[0], rss() or 0)
+        time.sleep(0.001)
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+out = read_audio(data).samples
+dt = time.perf_counter() - t0
+done.set()
+sampler.join()
+tracemalloc.start()  # a second call, traced: numpy's buffers and Python objects
+read_audio(data)
+heap = tracemalloc.get_traced_memory()[1]
+tracemalloc.stop()
+print(json.dumps({"native": native.available(), "seconds": dt, "samples": len(out),
+                  "rss_mb": None if rss0 is None else (peak[0] - rss0) / 2**20, "heap_mb": heap / 2**20,
+                  "sha256": hashlib.sha256(out.tobytes()).hexdigest()}))
+"""
+
+
+def serve_resampler() -> dict:
+    """read_audio of a synthetic 60 s 44.1 kHz stereo WAV in a fresh
+    process, native and with PARAKEET_NO_NATIVE (the chunked numpy form):
+    host seconds, the growth of the resident set (sampled each ms from
+    /proc/self/statm, where the host has it) and tracemalloc's peak of a
+    second call, outputs bit-identical."""
+    import os
+
+    out = {}
+    for name, env in (("native", {}), ("numpy", {"PARAKEET_NO_NATIVE": "1"})):
+        proc = subprocess.run([sys.executable, "-c", RESAMPLE_PROBE, str(ROOT)], capture_output=True, text=True,
+                              timeout=300, env=dict(os.environ, **env))
+        if proc.returncode != 0:
+            raise RuntimeError(f"resampler probe ({name}) failed:\n{proc.stderr[-2000:]}")
+        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["native"]["sha256"] != out["numpy"]["sha256"] or not out["native"]["native"] or out["numpy"]["native"]:
+        raise RuntimeError(f"resampler: native and numpy outputs differ, or the wrong path ran: {out}")
+    mb = lambda r: "not readable" if r["rss_mb"] is None else f"+{r['rss_mb']:.1f} MB"  # noqa: E731
+    log(f"  read_audio 60 s 44.1 kHz stereo WAV -> {out['native']['samples']} samples at 16 kHz, bit-identical; "
+        f"native {out['native']['seconds']:.3f} s, peak RSS {mb(out['native'])} (sampled each ms), traced heap "
+        f"peak {out['native']['heap_mb']:.1f} MB; chunked numpy {out['numpy']['seconds']:.3f} s, peak RSS "
+        f"{mb(out['numpy'])}, traced heap peak {out['numpy']['heap_mb']:.1f} MB (host of the card, "
+        f"{os.cpu_count()} CPUs, one process each)")
+    return out
+
+
+def served_k1_shapes(cpu, cohort, singles) -> list:
+    """(B, T', key lengths, what runs it) of the K1 launches the served
+    paths make: the cohort of `cohort` padded to a multiple of 200 mel
+    frames (TranscriptionService's pad_to_multiple), and each of `singles`
+    alone at its own length (/align, the C API, the CLI)."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import encoded_lengths
+
+    def frames(waves):
+        return preprocess_audio_batch(waves, cpu._audio_cfg, "cpu")[1]
+
+    n = frames(cohort)
+    padded = -(-max(n) // 200) * 200
+    shapes = {(len(cohort), int(encoded_lengths(torch.as_tensor([padded]))[0])):
+              [encoded_lengths(torch.as_tensor(n)).numpy(), "served cohort"]}
+    for wave, what in singles:
+        t = int(encoded_lengths(torch.as_tensor(frames([wave])))[0])
+        if (1, t) in shapes:
+            shapes[1, t][1] += f"; {what}"
+        else:
+            shapes[1, t] = [np.asarray([t]), what]
+    return [(b, t, lengths, what) for (b, t), (lengths, what) in shapes.items()]
+
+
+def served_k1_phase(shapes, card: str) -> dict:
+    """K1 against its plain version at each of the served paths' shapes
+    (seeded inputs at the 110m widths, f32, the kernels phase's
+    tolerance); the served cohort's shape timed, with its bound."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    for i, (b, t, lengths, what) in enumerate(shapes):
+        rng = np.random.RandomState(2400 + i)
+        dev = _dev(rng, torch.float32)
+        args = _attention_args(rng, dev, b, t, D, H)
+        kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+                  norm_w=dev(1 + rng.normal(0, 0.1, D)), norm_b=dev(rng.normal(0, 0.1, D)))
+        with torch.inference_mode():
+            got = RA.rel_attention_block(*args, **kw)
+            ref = RA.rel_attention_block_reference(*args, **kw)
+        shape = f"B={b} T'={t} D={D} hd={D // H} ({what})"
+        tag = f"K1 {shape} f32 lengths {lengths.min()}-{lengths.max()}"
+        out["max_abs_err"] = max(out["max_abs_err"], check_close(tag, got, ref, _valid_rows(lengths, t)))
+        if i == 0:
+            out["times"][shape] = time_pair(tag, lambda: RA.rel_attention_block(*args, **kw),
+                                            lambda: RA.rel_attention_block_reference(*args, **kw), card)
+            out["work"][shape] = (attention_flops(b, t, D, H, lengths),
+                                  tensor_bytes(*args, *kw.values(), got) + (2 * t - 1) * D * 4)
+    return out
+
+
+def serve_phase(flat, clips, card: str) -> dict:
+    """Serving at full tdt-ctc-110m width (seed-0 random weights, f32, a
+    synthetic vocab): K1 against its plain version at the shapes the served
+    paths give it; the HTTP server over TranscriptionService on the card,
+    pipelined and not, 8 concurrent clips with clip 0 as 44.1 kHz stereo;
+    /align beside a /transcribe round; /stream over the streaming service;
+    the C API; the CLI; parakeet-bench; the native resampler."""
+    from parakeet_tpu_torch.audio.io import read_audio, resample
+    from parakeet_tpu_torch.transcribe import Decoder
+
+    vocab = smoke_vocab(1025)
+    gpu = facade("tdt-ctc-110m", "cuda", params=flat, vocab_path=str(vocab))
+    cpu = facade("tdt-ctc-110m", "cpu", params=flat, vocab_path=str(vocab))
+    stereo = resample(clips[0], 16000, 44100)
+    bodies = [wav_bytes(np.stack([stereo, 0.5 * stereo], axis=1), 44100)] + [wav_bytes(c) for c in clips[1:]]
+    decoded = [read_audio(b).samples for b in bodies]
+    audio_s = sum(len(x) for x in decoded) / 16000.0
+    log(f"== serve: tdt-ctc-110m at full width, random weights (seed 0), f32, synthetic vocab; 8 WAV bodies "
+        f"({audio_s:.2f} s; clip 0 as 44.1 kHz stereo, decoded by read_audio with the native resampler)")
+    cpu_res = cpu.transcribe_batch(decoded, pad_to_multiple=200)
+    cpu_tokens = [r.token_ids for r in cpu_res]
+    bodies16 = [wav_bytes(c) for c in clips]
+    decoded16 = [read_audio(b).samples for b in bodies16]
+    audio16_s = sum(len(x) for x in decoded16) / 16000.0
+    cpu16_tokens = [r.token_ids for r in cpu.transcribe_batch(decoded16, pad_to_multiple=200)]
+    # a transcript that fits clip 1's frames: its CTC decode's first words
+    align_text = " ".join(cpu.transcribe(decoded[1], Decoder.CTC).text.split()[:10])
+    if not align_text:
+        raise RuntimeError("serve: clip 1's CTC decode is empty; nothing to align")
+    gpu.transcribe_batch(decoded, pad_to_multiple=200)  # warm-up
+    direct_ms = wall_ms(lambda: gpu.transcribe_batch(decoded, pad_to_multiple=200), 3)
+    s16 = np.clip(resample(clips[0], 16000, 44100) * 32768, -32768, 32767).astype(np.int16)
+    out = {"k1": served_k1_phase(served_k1_shapes(cpu, decoded, [
+        (decoded[1], "/align of clip 1"), (clips[0], "clip 0: C API f32, CLI"),
+        (read_audio(s16, 16000, sample_rate=44100).samples, "clip 0: C API s16 44.1 kHz")]), card)}
+    for pipeline in (True, False):
+        res = serve_offline(gpu, bodies, audio_s, pipeline, card)
+        if res["tokens"] != cpu_tokens:
+            i = next(k for k, (a, b) in enumerate(zip(res["tokens"], cpu_tokens)) if a != b)
+            raise RuntimeError(f"serve pipeline={pipeline}: clip {i} tokens differ from the CPU's transcribe_batch")
+        if pipeline:
+            serve_align_overlap(res["httpd"], res["service"], gpu, bodies, align_text, card)
+            # the same clips, all as 16 kHz mono: no resample on the request path
+            mono = serve_round(res["httpd"], gpu, bodies16, audio16_s, "all 16 kHz mono", card)
+            if mono["tokens"] != cpu16_tokens:
+                raise RuntimeError("serve all 16 kHz mono: tokens differ from the CPU's transcribe_batch")
+            out["mono16"] = mono
+        res["httpd"].shutdown()
+        res["service"].close()
+        out[f"pipeline={pipeline}"] = {k: v for k, v in res.items() if k not in ("httpd", "service")}
+    log(f"  served tokens equal to the CPU's transcribe_batch ({sum(map(len, cpu_tokens))} tokens), pipelined and "
+        f"not; the warm transcribe_batch of the same 8 clips takes {direct_ms:.1f} ms (median of 3) [{card}]")
+    out["direct_ms"] = direct_ms
+    cohorts = out["pipeline=True"]["cohorts"]
+    out["launches_per_cohort"] = {k: v // cohorts for k, v in out["pipeline=True"]["launches"].items()}
+
+    out["stream"] = serve_streaming(card)
+
+    clip_path = ROOT / "build" / "parakeet_tpu_torch" / "serve_clip.wav"
+    clip_path.write_bytes(wav_bytes(clips[0]))
+    cli = subprocess.Popen([sys.executable, "-m", "parakeet_tpu_torch.cli", str(clip_path), "--random-weights"],
+                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out["capi"] = serve_capi(gpu, clips[0], card)
+        cli_out, cli_err = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    want = gpu.transcribe(read_audio(clip_path).samples).token_ids
+    line = next((l for l in cli_out.splitlines() if l.startswith("(token ids) ")), None)
+    if cli.returncode != 0 or line is None or json.loads(line.removeprefix("(token ids) ")) != want:
+        raise RuntimeError(f"CLI: rc {cli.returncode}, token line {line!r}, expected {want[:8]}...\n{cli_err[-2000:]}")
+    log(f"  CLI `python -m parakeet_tpu_torch.cli serve_clip.wav --random-weights`: its (token ids) line "
+        f"({len(want)} tokens) equals the card facade's")
+
+    bench = subprocess.run([sys.executable, "-m", "parakeet_tpu_torch.benchmark", "--models", "110m",
+                            "--durations", "10", "--markdown"], cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+    row = [l for l in bench.stdout.splitlines() if l.startswith("| 110m ")]
+    if bench.returncode != 0 or len(row) != 1:
+        raise RuntimeError(f"parakeet-bench: rc {bench.returncode}\n{bench.stdout[-1000:]}\n{bench.stderr[-2000:]}")
+    out["bench_row"] = row[0]
+    log(f"  parakeet-bench --models 110m --durations 10 (batch 1, f32, K1 in every block): {row[0]} [{card}]")
+
+    out["resampler"] = serve_resampler()
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -2093,7 +2665,7 @@ def build_phase() -> None:
         _build.load(name)
 
 
-PHASES = ("kernels", "kernels600m", "paths110m", "paths600m", "long", "streaming", "diarize", "options")
+PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options")
 
 
 def main(argv=None) -> int:
@@ -2157,8 +2729,9 @@ def main(argv=None) -> int:
     whole_cfg = FusedLayers(attention="mega", block2=True, subsample=True)
     v1_cfg = FusedLayers(attention="v1")
     paths = {}
-    if "paths110m" in phases:
+    if "paths110m" in phases or "serve" in phases:
         flat = model_params("tdt-ctc-110m")
+    if "paths110m" in phases:
         default = paths["default"] = timed("path default", path_phase, "default", FusedLayers(), flat, clips, card)
         fused = paths["fused"] = timed("path fused", path_phase, "fused", fused_cfg, flat, clips, card)
         same = sum(a == b for a, b in zip(fused["tdt"] + fused["ctc"], default["tdt"] + default["ctc"]))
@@ -2175,6 +2748,14 @@ def main(argv=None) -> int:
                 f"{fused['enc_dev_ms']:.3f} ms device [{card}]")
         paths["frontend"] = timed("path fused frontend", fused_frontend_phase, flat, clips, card)
         timed("bf16", bf16_phase, fused_cfg, flat, clips, fused["tdt"])
+    if "serve" in phases:
+        paths["serve"] = timed("serve", serve_phase, flat, clips, card)
+        torch.cuda.empty_cache()
+        k1 = kernel.setdefault("rel_attention_block", {"max_abs_err": 0.0})
+        k1["max_abs_err"] = max(k1["max_abs_err"], paths["serve"]["k1"]["max_abs_err"])
+        for key in ("times", "work"):
+            k1.setdefault(key, {}).update(paths["serve"]["k1"][key])
+    if "paths110m" in phases or "serve" in phases:
         del flat
     if "paths600m" in phases or "long" in phases or "options" in phases:
         t0 = time.perf_counter()
@@ -2240,6 +2821,8 @@ def main(argv=None) -> int:
                "launches_streaming": sum(paths["streaming"][p]["launches"][name] for p in paths["streaming"]),
                # one encoder call of the quantized (int8) fused 110m path
                "launches_quantized": paths["options"]["int8 fused"]["per_call"][name],
+               # one cohort served by TranscriptionService over HTTP (tdt-ctc-110m default)
+               "launches_serve": paths["serve"]["launches_per_cohort"][name],
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],

@@ -1,5 +1,5 @@
 """Audio file I/O: WAV and raw PCM decode, mono downmix, resampling
-(port of parakeet_tpu/audio/io.py, numpy only).
+(port of parakeet_tpu/audio/io.py).
 
 WAV is decoded natively (RIFF parser: PCM 8/16/24/32, IEEE float, G.711
 A-law/µ-law); FLAC, MP3 and OGG through audio/codecs.py (the repository's
@@ -8,6 +8,8 @@ librosa backends, as in the reference's decode chain. Downmix is
 the mean over channels (audio_io.cpp:198-214); the resampler is the
 reference's windowed-sinc Kaiser filter (β=7.857, half-width 16 taps,
 cutoff min(1, dst/src), per-output normalization by the weight sum).
+Downmix and resampler run in the repository's native C++ library
+(native.py), with numpy forms as the fallback, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from parakeet_tpu_torch import native
+
+# output samples per pass of the numpy resampler: its (rows, 32) float64
+# temporaries stay near 8 MB each
+RESAMPLE_CHUNK = 1 << 15
+
 
 @dataclass
 class AudioData:
@@ -227,9 +236,12 @@ def _decode_with_backend(data: bytes, fmt: str):
 
 
 def downmix_to_mono(interleaved: np.ndarray, channels: int) -> np.ndarray:
-    """Mean across channels (audio_io.cpp:198-214)."""
+    """Mean across channels (audio_io.cpp:198-214). Native C++ when built."""
     if channels == 1:
         return interleaved.astype(np.float32)
+    out = native.downmix_to_mono(np.asarray(interleaved, np.float32), channels)
+    if out is not None:
+        return out
     n = len(interleaved) // channels
     return interleaved[: n * channels].reshape(n, channels).mean(axis=1).astype(np.float32)
 
@@ -244,15 +256,30 @@ def _kaiser(x: np.ndarray, n: float, beta: float) -> np.ndarray:
 def resample(samples: np.ndarray, src_rate: int, dst_rate: int) -> np.ndarray:
     """Windowed-sinc resampler, numerics per audio_io.cpp:123-195.
 
-    Vectorized numpy form of the reference's scalar loop."""
+    Uses the native C++ implementation (native.py) when available; the
+    numpy path below is the fallback, computed RESAMPLE_CHUNK output
+    samples at a time (each output's 32-tap window is independent of the
+    others, so chunking changes no value) to bound its float64
+    temporaries."""
     x = np.asarray(samples, np.float32).reshape(-1)
     if src_rate == dst_rate:
         return x.copy()
+    out = native.sinc_resample(x, src_rate, dst_rate)
+    if out is not None:
+        return out
     g = math.gcd(src_rate, dst_rate)
     up, down = dst_rate // g, src_rate // g
-    n_in = len(x)
-    n_out = (n_in * up + down - 1) // down
+    n_out = (len(x) * up + down - 1) // down
+    out = np.empty(n_out, np.float32)
+    for lo in range(0, n_out, RESAMPLE_CHUNK):
+        hi = min(lo + RESAMPLE_CHUNK, n_out)
+        out[lo:hi] = _resample_rows(x, src_rate, dst_rate, lo, hi)
+    return out
 
+
+def _resample_rows(x: np.ndarray, src_rate: int, dst_rate: int, lo: int, hi: int) -> np.ndarray:
+    """Output samples [lo, hi) of the numpy resampler."""
+    n_in = len(x)
     half_width = 16
     beta = 7.857
     ratio = src_rate / dst_rate
@@ -260,11 +287,11 @@ def resample(samples: np.ndarray, src_rate: int, dst_rate: int) -> np.ndarray:
     width_factor = max(1.0, ratio)
     sample_ratio = dst_rate / src_rate
 
-    i = np.arange(n_out, dtype=np.float64)
-    src_pos = i / sample_ratio  # (n_out,)
+    i = np.arange(lo, hi, dtype=np.float64)
+    src_pos = i / sample_ratio  # (hi - lo,)
     center = np.floor(src_pos).astype(np.int64)
     offs = np.arange(-half_width + 1, half_width + 1)  # 32 taps
-    j = center[:, None] + offs[None, :]  # (n_out, 32)
+    j = center[:, None] + offs[None, :]  # (hi - lo, 32)
     valid = (j >= 0) & (j < n_in)
     dist = src_pos[:, None] - j
     window_pos = dist / width_factor

@@ -9,7 +9,9 @@ processes never load a half-written file. `build` holds no lock: several
 libraries can build at once from separate threads.
 
 `build_host` does the same for a host C++ source of the repository's
-csrc/ (the FLAC decoder) with g++, into the same directory.
+csrc/ (the FLAC decoder, the native audio library) with g++, into the
+same directory; `build_capi` builds the port's flat C API
+(csrc/parakeet_capi.cpp) against the running interpreter's libpython.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 import re
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
 import threading
 from pathlib import Path
@@ -87,12 +91,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
 
 
-def _compile(compiler: list[str], src: Path, lib: Path) -> Path:
-    """Compile `src` into `lib` through a temporary file."""
+def _compile(compiler: list[str], src: Path, lib: Path, link: tuple[str, ...] = ()) -> Path:
+    """Compile `src` into `lib` through a temporary file; `link` follows
+    the source on the command line."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [*compiler, "-o", tmp, str(src)]
+    cmd = [*compiler, "-o", tmp, str(src), *link]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -126,10 +131,44 @@ def build_host(name: str) -> Path:
     lib = host_library_path(name)
     if lib.is_file():
         return lib
+    return _compile([_gxx(f"csrc/{name}.cpp"), *GXX_FLAGS], _HOST_CSRC / f"{name}.cpp", lib)
+
+
+def _gxx(what: str) -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError(f"g++ not found on PATH: cannot build csrc/{name}.cpp")
-    return _compile([gxx, *GXX_FLAGS], _HOST_CSRC / f"{name}.cpp", lib)
+        raise RuntimeError(f"g++ not found on PATH: cannot build {what}")
+    return gxx
+
+
+def _capi_flags() -> tuple[tuple[str, ...], tuple[str, ...]] | None:
+    """(compile flags, link flags) that embed the running interpreter, as
+    the reference's C API build takes them; None when this Python has no
+    shared libpython (Py_ENABLE_SHARED != 1)."""
+    if sysconfig.get_config_var("Py_ENABLE_SHARED") != 1:
+        return None
+    libdir = sysconfig.get_config_var("LIBDIR")
+    pylib = f"python{sysconfig.get_config_var('VERSION')}{sys.abiflags}"
+    return ((*GXX_FLAGS, f"-I{sysconfig.get_paths()['include']}", f"-I{_CSRC}"),
+            (f"-L{libdir}", f"-l{pylib}", f"-Wl,-rpath,{libdir}"))
+
+
+def build_capi() -> Path | None:
+    """Compile the port's flat C API, csrc/parakeet_capi.cpp (header
+    csrc/parakeet.h), into build/parakeet_tpu_torch/libparakeet_c-<hash>.so
+    (if not built yet), the hash over both files and the flags; None when
+    the interpreter cannot be embedded (no shared libpython)."""
+    flags = _capi_flags()
+    if flags is None:
+        return None
+    h = hashlib.sha256()
+    for path in (_CSRC / "parakeet_capi.cpp", _CSRC / "parakeet.h"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags[0] + flags[1]).encode())
+    lib = BUILD_DIR / f"libparakeet_c-{h.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    return _compile([_gxx("the C API"), *flags[0]], _CSRC / "parakeet_capi.cpp", lib, flags[1])
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -156,5 +195,5 @@ def check_rc(rc: int, name: str) -> None:
 
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources",
-           "source_digest", "library_path", "build", "host_library_path", "build_host", "load", "ptr", "stream",
-           "check_rc"]
+           "source_digest", "library_path", "build", "host_library_path", "build_host", "build_capi",
+           "load", "ptr", "stream", "check_rc"]

@@ -171,7 +171,8 @@ def test_port_import_pulls_in_no_jax():
         "for name in ('audio.codecs', 'decode.align', 'streaming', 'models.streaming_encoder',\n"
         "             'models.transformer', 'models.sortformer', 'diarize', 'quantize', 'tools.quantize_ckpt',\n"
         "             'decode.phrase_boost', 'decode.beam_transducer', 'decode.ctc_beam', 'decode.keyword',\n"
-        "             'text.ngram_lm', 'text.neural_lm', 'text.subtitles', 'metrics'):\n"
+        "             'text.ngram_lm', 'text.neural_lm', 'text.subtitles', 'metrics', 'native', 'serve',\n"
+        "             'serve_http', 'cli', 'capi', 'benchmark', 'tools.convert'):\n"
         "    assert 'parakeet_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parakeet_tpu'))\n"
         "print(bad)\n"
