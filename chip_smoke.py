@@ -142,12 +142,45 @@ Phases, each of which raises (exit code 1) on failure:
               stereo WAV in fresh processes, native and PARAKEET_NO_NATIVE
               (the chunked numpy form): host seconds and peak-RSS growth,
               outputs bit-identical
+ 12. train    (f32, IEEE) (a) tdt-ctc-110m hybrid (sigma 0.05) through
+              parakeet_tpu_torch.train_cli.main on 16 voiced WAVs of 2-12 s
+              and a synthetic vocabulary, batch 8: steps 1-3 with a
+              checkpoint, then --resume to step 6 and --export; K1 exactly
+              17 launches a step and no other kernel; the export loaded in
+              Transcriber on the card and on the CPU (tokens equal, encoder
+              within 1e-3 of scale); then on each of the loader's two
+              buckets (the 8 shortest clips, the 8 longest) the median
+              synchronised step wall, the device busy share, the peak
+              memory, each kernel's launches a step (K1 17, no other),
+              the share of the step in the TDT lattice loss's forward and
+              backward and in K1's backward, the step's top device
+              kernels; one bf16 step (loss within 2% of f32's, K1 the only
+              kernel); (b) one hybrid loss and every gradient at full width
+              on a B=2 batch of 3 s clips, card against CPU (loss 1e-4
+              relative, each key within 1e-3 of its own max |g|; keys whose
+              CPU max |g| is below 1e-6 of the largest key's are zero up to
+              rounding, left out and named); (e) tdt-600m loss tdt with
+              remat 2 steps at B=4 and rnnt-600m 1 step at B=2 (weights
+              drawn on the card), K1 24 a step (48 under remat); (f)
+              Sortformer-117m through train_diar_cli.main, 2 steps at B=4
+              on 10 s clips with synthetic RTTMs, K1 17 a step; (c) K1's
+              autograd Function, forward against the plain version on the
+              valid rows (the kernels phase's tolerance) and input
+              gradients against autograd through the plain version on the
+              same CUDA tensors (1e-4 of scale in f32, 2% in bf16), f32
+              and bf16, at B=8 T'=126 D=512 with and without the fused
+              LayerNorm + residual and at every shape (a), (e) and (f)
+              give K1, each of those timed against the plain version in
+              f32; (g) K6 on an input that requires grad raises; (d) ten
+              steps at lr 1e-3 (linear warmup over 3) on one 110m batch
+              end below the first loss
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
 "shapes" every timed shape with its bound, launches_quantized, the
-kernel's launches in one encoder call of the int8 fused 110m path, and
-launches_serve, its launches per cohort served over HTTP) and
+kernel's launches in one encoder call of the int8 fused 110m path,
+launches_serve, its launches per cohort served over HTTP, and
+launches_train, its launches per train step of each trainer) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -2648,6 +2681,571 @@ def serve_phase(flat, clips, card: str) -> dict:
     return out
 
 
+# ─── phase train: the trainers on the card ──────────────────────────────────
+
+TRAIN_DIR = ROOT / "build" / "parakeet_tpu_torch" / "train_smoke"
+GRAD_SCALE_FRAC = 1e-3  # each key's gradient, card vs CPU, within 1e-3 of that key's max |g|
+GRAD_ZERO_FRAC = 1e-6  # a key whose CPU max |g| is below 1e-6 of the largest key's is zero up to
+#   rounding (each attention's k_proj bias: softmax ignores a shift common to all keys), its
+#   values f32 rounding of sums whose terms are of the model's gradient scale; such keys are
+#   left out of the per-key check and named
+K1_GRAD_F32_FRAC = 1e-4  # K1's Function vs plain autograd, each input gradient, f32
+LOSS_RTOL = 1e-4  # the hybrid loss, card vs CPU
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def train_corpus(root: Path, n: int, seed: int, min_s: float, max_s: float, rttm: bool = False) -> Path:
+    """n voiced WAVs under root and a JSONL manifest: transcripts of random
+    smoke-vocabulary words (2 a second, so every label sequence fits its
+    12.5 encoder frames a second), or with rttm, per-clip RTTMs of 2-4
+    speakers in turns."""
+    from parakeet_tpu_torch.audio.io import write_wav
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed + 1)
+    lines = []
+    for i, clip in enumerate(synthetic_clips(n, seed, min_s=min_s, max_s=max_s)):
+        wav = root / f"clip{i}.wav"
+        write_wav(wav, clip)
+        dur = len(clip) / 16000
+        entry = {"audio_filepath": wav.name, "duration": dur}
+        if rttm:
+            spk, t0, rows = rng.randint(2, 5), 0.0, []
+            while t0 < dur - 0.5:
+                seg = min(rng.uniform(0.8, 3.0), dur - t0)
+                rows.append(f"SPEAKER clip{i} 1 {t0:.2f} {seg:.2f} <NA> <NA> s{rng.randint(spk)} <NA> <NA>")
+                t0 += seg + rng.uniform(0.0, 0.4)
+            (root / f"clip{i}.rttm").write_text("\n".join(rows) + "\n")
+            entry["rttm_filepath"] = f"clip{i}.rttm"
+        else:
+            entry["text"] = " ".join(f"w{rng.randint(0, 1024)}" for _ in range(max(1, int(dur * 2))))
+        lines.append(json.dumps(entry))
+    manifest = root / "manifest.jsonl"
+    manifest.write_text("\n".join(lines) + "\n")
+    return manifest
+
+
+def run_cli(main, argv: list[str]) -> str:
+    """Run a train CLI's main in this process; its stderr, echoed."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    text = err.getvalue()
+    for line in text.splitlines():
+        log(f"    {line}")
+    if rc != 0:
+        raise RuntimeError(f"train CLI exited {rc}")
+    return text
+
+
+def cli_losses(text: str) -> dict[int, float]:
+    """{step: loss} from the loop's `step k/n  loss x` lines."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("step "):
+            parts = line.split()
+            out[int(parts[1].split("/")[0])] = float(parts[3])
+    return out
+
+
+def launches_only(name: str, counts: dict, want: dict) -> None:
+    """Every kernel's launch count in a run is `want`'s (0 where absent)."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise RuntimeError(f"{name}: kernel launches {got}, want {want}")
+
+
+def card_params(spec: dict, seed: int) -> dict:
+    """A spec's random weights drawn on the card from a seeded generator
+    (the numpy draw of 600M weights takes tens of seconds on the host); the
+    init_params kinds and scales."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for key in sorted(spec):
+        shape, kind = spec[key]
+        if kind == "w":
+            fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
+            t = torch.randn(shape, generator=gen, device="cuda") / np.sqrt(max(fan_in, 1))
+        elif kind in ("emb", "bias_param"):
+            t = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        elif kind in ("b", "norm_b", "bn_mean"):
+            t = torch.zeros(shape, device="cuda")
+        else:
+            t = torch.ones(shape, device="cuda")
+        out[key] = t
+    return out
+
+
+def step_metrics(name: str, step, state, batch, layers: int, card: str) -> dict:
+    """Median synchronised wall of 5 steps, the device busy share
+    (profiled device time of 2 steps over that wall), peak memory of one
+    step, each kernel's launches a step (counted over the 5 steps: K1 once
+    a layer, no other kernel)."""
+    import torch
+
+    step(state.params, state.opt_state, batch)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, _, loss = step(state.params, state.opt_state, batch)
+        float(loss)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    launches_only(name, counts, {"rel_attention_block": layers * 5})
+    per_step = {k: v // 5 for k, v in counts.items()}
+    k1 = per_step["rel_attention_block"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = float(np.median(walls))
+    kernels = profile_device(lambda: step(state.params, state.opt_state, batch), 2, host_ops=False)
+    dev = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  {name}: device ms a step by kernel, the top 6: " + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top))
+    audio_s = float(batch["mel_lengths"].sum()) * 0.01  # 10 ms mel hop
+    out = {"step_ms": wall, "step_ms_all": walls, "device_ms": dev, "busy": dev / wall, "peak_gb": peak,
+           "launches": per_step, "audio_s_per_s": audio_s / (wall / 1e3)}
+    log(f"  {name}: step wall median {wall:.1f} ms of 5 ({', '.join(f'{w:.1f}' for w in walls)}), "
+        f"{audio_s:.2f} s of audio a step, {out['audio_s_per_s']:.1f} audio s per wall s; device {dev:.1f} ms a "
+        f"step, busy {out['busy']:.1%}, peak memory {peak:.3f} GB, K1 {k1} a step [{card}]")
+    return out
+
+
+def loss_share(cfg, state, batch, step_ms: float, card: str) -> dict:
+    """Wall of the TDT lattice loss's forward and backward alone on the
+    step's lattice (median of 5, synchronised), and its share of the step."""
+    import torch
+
+    from parakeet_tpu_torch import train as T
+    from parakeet_tpu_torch.ops.transducer_loss import tdt_loss
+
+    with torch.no_grad():
+        (lab, dur), enc_lens = T.transducer_forward(state.params, cfg, batch["features"], batch["mel_lengths"],
+                                                    batch["labels"], loss="tdt")
+    lab, dur = lab.detach().requires_grad_(), dur.detach().requires_grad_()
+
+    def fwd_bwd():
+        per = tdt_loss(lab, dur, batch["labels"], enc_lens, batch["label_lengths"], cfg.joint.vocab_size - 1,
+                       tuple(cfg.durations), sigma=0.05)
+        per.mean().backward()
+
+    fwd_bwd()
+    walls = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        fwd_bwd()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(walls))
+    u1 = lab.shape[2]
+    log(f"  TDT lattice loss forward + backward on the step's lattice {tuple(lab.shape)} ({lab.shape[1] + u1 - 1} "
+        f"diagonals): {ms:.1f} ms median of 5, {ms / step_ms:.1%} of the {step_ms:.1f} ms step [{card}]")
+    return {"loss_ms": ms, "share": ms / step_ms, "lattice": list(lab.shape)}
+
+
+def k1_backward_cost(b: int, t: int, step_ms: float, layers: int, card: str) -> dict:
+    """Wall of K1's backward (the plain version's recompute and autograd) at
+    a step's shape, 110m widths: the Function's forward + backward less its
+    forward alone (median of 5 each, synchronised), times the layers, and
+    its share of the step."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    rng = np.random.RandomState(31)
+    dev = _dev(rng, torch.float32)
+    args = [a.requires_grad_() for a in _attention_args(rng, dev, b, t, D, H)]
+    norm = [dev(1 + rng.normal(0, 0.1, D)).requires_grad_(), dev(rng.normal(0, 0.1, D)).requires_grad_()]
+    lengths = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    g = torch.randn(b, t, D, device="cuda")
+
+    def fwd():
+        return RA.RelAttentionBlockFunction.apply(*args, lengths, *norm, 1e-5)
+
+    def both():
+        torch.autograd.grad(fwd(), [*args, *norm], g)
+
+    def wall(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    fwd_ms, both_ms = wall(fwd), wall(both)
+    bwd = max(both_ms - fwd_ms, 0.0) * layers
+    log(f"  K1 backward (plain recompute + autograd) at B={b} T'={t} D={D}: {both_ms - fwd_ms:.2f} ms a layer "
+        f"(forward {fwd_ms:.2f}), x{layers} = {bwd:.1f} ms, {bwd / step_ms:.1%} of the {step_ms:.1f} ms step [{card}]")
+    return {"ms_per_layer": both_ms - fwd_ms, "share": bwd / step_ms}
+
+
+def train_cli_part(card: str) -> dict:
+    """(a) tdt-ctc-110m hybrid through train_cli.main: 3 steps and a
+    checkpoint, --resume to 6 and --export; the export transcribes a clip
+    on the card, tokens equal to a CPU Transcriber's on the same file. Then
+    the step's metrics on each of the loader's two buckets (the shortest
+    clips and the longest), and a bf16 step."""
+    import shutil
+
+    import torch
+
+    from parakeet_tpu_torch import train_cli
+    from parakeet_tpu_torch.config import AudioConfig, make_110m_config
+    from parakeet_tpu_torch.data import ManifestDataset, TrainDataLoader
+    from parakeet_tpu_torch.models.encoder import encoded_lengths, subsample_length
+    from parakeet_tpu_torch.text.tokenizer import Tokenizer
+    from parakeet_tpu_torch.train import make_sharded_trainer
+    from parakeet_tpu_torch.transcribe import Transcriber
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    work = TRAIN_DIR / "asr"
+    manifest = train_corpus(work, 16, seed=2024, min_s=2.0, max_s=12.0)
+    vocab = smoke_vocab(1025)
+    ck, export = work / "ck", work / "export.safetensors"
+    base = ["--manifest", str(manifest), "--vocab", str(vocab), "--model", "110m", "--batch-size", "8",
+            "--checkpoint-dir", str(ck), "--log-every", "1"]
+    log("== (a) tdt-ctc-110m hybrid (sigma 0.05) through train_cli: 16 clips of 2-12 s, batch 8, steps 1-3 "
+        "with a checkpoint, then --resume to step 6 and --export")
+    reset_counts()
+    first = run_cli(train_cli.main, base + ["--steps", "3"])
+    launches_only("train_cli steps 1-3", read_counts(), {"rel_attention_block": 17 * 3})
+    reset_counts()
+    second = run_cli(train_cli.main, base + ["--steps", "6", "--resume", "--export", str(export)])
+    main_counts = read_counts()
+    launches_only("train_cli steps 4-6", main_counts, {"rel_attention_block": 17 * 3})
+    l1, l2 = cli_losses(first), cli_losses(second)
+    if sorted(l1) != [1, 2, 3] or sorted(l2) != [4, 5, 6] or "# resumed at step 3" not in second:
+        raise RuntimeError(f"train_cli: steps {sorted(l1)} then {sorted(l2)}; the resumed run must go on from 3")
+    losses = {**l1, **l2}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"train_cli: losses {losses}")
+    log(f"  losses by step: {losses}; K1 launches 17 a step, no other kernel")
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio
+
+    clip = synthetic_clips(1, seed=2024, min_s=2.0, max_s=12.0)[0]
+    facades = {dev: Transcriber(str(export), str(vocab), device=dev) for dev in ("cuda", "cpu")}
+    got, want = (facades[dev].transcribe(clip).token_ids for dev in ("cuda", "cpu"))
+    with torch.inference_mode():
+        feats = {dev: preprocess_audio(clip, device=dev) for dev in facades}
+        enc = {dev: tr.encode(feats[dev], [feats[dev].shape[1]]).cpu() for dev, tr in facades.items()}
+    enc_diff = float((enc["cuda"] - enc["cpu"]).abs().max())
+    enc_scale = float(enc["cpu"].abs().max())
+    if got != want or enc_diff > ENC_SCALE_FRAC * enc_scale:
+        raise RuntimeError(f"exported weights: card tokens {got[:20]} vs CPU {want[:20]}, encoder max |diff| "
+                           f"{enc_diff:.3e} of scale {enc_scale:.3f}")
+    log(f"  export loads in Transcriber on the card: {len(got)} tokens on clip 0 ({len(clip) / 16000:.2f} s), "
+        f"equal to the CPU's; encoder max |diff| {enc_diff:.3e} of scale {enc_scale:.3f}")
+
+    cfg = make_110m_config()
+    loader = TrainDataLoader(ManifestDataset(manifest), Tokenizer(vocab), batch_size=8,
+                             audio_config=AudioConfig(n_mels=cfg.encoder.mel_bins), shuffle=False, device="cuda")
+    # the loader's two buckets in order, the 8 shortest clips and the 8
+    # longest: the two batches the CLI run above trains on
+    batches = iter(loader)
+    buckets = {"shortest": next(batches), "longest": next(batches)}
+    del batches
+    flat = model_params("tdt-ctc-110m")
+    _, state, step, _ = make_sharded_trainer(cfg, flat, loss="hybrid", sigma=0.05, learning_rate=1e-4,
+                                             device="cuda")
+    out = {"losses": losses, "launches": main_counts, "metrics": {}, "k1_shapes": []}
+    layers = cfg.encoder.num_layers
+    for bucket, batch in buckets.items():
+        t = subsample_length(int(batch["features"].shape[1]))
+        lengths = torch.clamp(encoded_lengths(batch["mel_lengths"]), max=t).cpu().numpy()
+        log(f"  metrics batch, the {bucket} bucket: features {tuple(batch['features'].shape)}, labels "
+            f"{tuple(batch['labels'].shape)}, T'={t}, encoded lengths {lengths.min()}-{lengths.max()}")
+        m = step_metrics(f"110m hybrid step, B=8, {bucket} bucket", step, state, batch, layers, card)
+        m["loss"] = loss_share(cfg, state, batch, m["step_ms"], card)
+        m["k1_backward"] = k1_backward_cost(8, t, m["step_ms"], layers, card)
+        out["metrics"][bucket] = m
+        out["k1_shapes"].append((8, t, D, H, lengths, f"tdt-ctc-110m step, {bucket} bucket"))
+    batch = buckets["shortest"]
+    del state, step, buckets
+    torch.cuda.empty_cache()
+
+    # bf16: the model cast inside the differentiated loss, K1 the only kernel seeing grad-requiring bf16
+    first = {}
+    for dtype in ("float32", "bfloat16"):
+        _, state, step, _ = make_sharded_trainer(cfg, flat, loss="hybrid", sigma=0.05, learning_rate=1e-4,
+                                                 compute_dtype=dtype, device="cuda")
+        reset_counts()
+        first[dtype] = float(step(state.params, state.opt_state, batch)[2])
+        launches_only(f"{dtype} step", read_counts(), {"rel_attention_block": 17})
+        del state, step
+    rel = abs(first["bfloat16"] - first["float32"]) / abs(first["float32"])
+    log(f"  bf16 step (model in bf16, f32 masters): loss {first['bfloat16']:.4f} against f32's "
+        f"{first['float32']:.4f}, {rel:.2%} apart (limit {BF16_SCALE_FRAC:.0%}); K1 17, no other kernel")
+    if not np.isfinite(first["bfloat16"]) or rel > BF16_SCALE_FRAC:
+        raise RuntimeError("bf16 train step: loss not finite or not within 2% of f32")
+    out["bf16_rel"] = rel
+    torch.cuda.empty_cache()
+
+    out["batch"], out["flat"] = batch, flat
+    return out
+
+
+def overfit_part(cfg, flat, batch) -> list[float]:
+    """(d) ten steps at lr 1e-3 (a linear warmup over the first 3) on one
+    batch: the loss must end below the first. Without the warmup the random
+    110m falls for 9 steps and jumps at the 10th, on the card and on the
+    CPU alike (PERF.md §6)."""
+    import torch
+
+    from parakeet_tpu_torch.train import make_sharded_trainer
+
+    log("== (d) fixed-batch overfit: 10 steps at lr 1e-3 (3 steps of warmup) on 110m, one batch")
+    _, state, step, _ = make_sharded_trainer(cfg, flat, loss="hybrid", sigma=0.05, learning_rate=1e-3,
+                                             warmup_steps=3, device="cuda")
+    fit = [float(step(state.params, state.opt_state, batch)[2]) for _ in range(10)]
+    log(f"  losses: {', '.join(f'{v:.4f}' for v in fit)}")
+    if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+        raise RuntimeError(f"overfit: the loss did not fall ({fit[0]} -> {fit[-1]})")
+    del state, step
+    torch.cuda.empty_cache()
+    return fit
+
+
+def train_parity_part(card: str) -> dict:
+    """(b) one hybrid loss and its gradients at full 110m width on a fixed
+    B=2 batch of 3 s clips, card against CPU."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.config import AudioConfig, make_110m_config
+    from parakeet_tpu_torch.train import hybrid_loss_fn, value_and_grad_accum
+
+    cfg = make_110m_config()
+    flat = model_params("tdt-ctc-110m")
+    feats, n_frames = preprocess_audio_batch(synthetic_clips(2, seed=77, min_s=3.0, max_s=3.0), AudioConfig(), "cpu")
+    rng = np.random.RandomState(77)
+    batch = {"features": feats, "mel_lengths": torch.tensor(n_frames, dtype=torch.int32),
+             "labels": torch.from_numpy(rng.randint(0, 1024, (2, 6)).astype(np.int32)),
+             "label_lengths": torch.tensor([6, 4], dtype=torch.int32)}
+    vag = value_and_grad_accum(lambda p, b: hybrid_loss_fn(p, cfg, b, sigma=0.05))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        loss, grads = vag({k: torch.from_numpy(v).to(dev) for k, v in flat.items()},
+                          {k: v.to(dev) for k, v in batch.items()})
+        res[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        log(f"  hybrid loss and gradient on {dev}: {res[dev][0]:.6f} ({time.perf_counter() - t0:.1f} s)")
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    scales = {k: float(g.abs().max()) for k, g in res["cpu"][1].items()}
+    zero = GRAD_ZERO_FRAC * max(scales.values())
+    left_out = sorted(k for k, s in scales.items() if s < zero)
+    fracs = sorted(((float((res["cuda"][1][k] - res["cpu"][1][k]).abs().max()) / scales[k], k)
+                    for k in scales if k not in left_out), reverse=True)
+    worst = fracs[0][0]
+    log(f"== (b) card vs CPU, 110m hybrid, B=2 3 s: loss rel diff {rel:.2e} (limit {LOSS_RTOL:g}); worst gradients "
+        f"against the key's max |g|: " + ", ".join(f"{k} {f:.2e} (scale {scales[k]:.3e})" for f, k in fracs[:3])
+        + f" (limit {GRAD_SCALE_FRAC:g}), {len(fracs)} keys")
+    log(f"  left out as zero up to rounding (CPU max |g| below {zero:.3e}, {GRAD_ZERO_FRAC:g} of the largest key's): "
+        + (", ".join(f"{k} (max |g| {scales[k]:.3e}, card - CPU "
+                     f"{float((res['cuda'][1][k] - res['cpu'][1][k]).abs().max()):.3e})" for k in left_out)
+           or "none"))
+    if rel > LOSS_RTOL or worst > GRAD_SCALE_FRAC:
+        raise RuntimeError("card vs CPU hybrid loss or gradient out of tolerance")
+    return {"loss_rel": rel, "grad_frac": worst, "left_out": left_out}
+
+
+def k1_backward_part(shapes, card: str) -> dict:
+    """(c) K1's autograd Function on the card, forward and backward: its
+    output against rel_attention_block_reference on the valid rows (the
+    kernels phase's tolerance), and its input gradients against autograd
+    through the plain version on the same CUDA tensors, f32 and bf16. At
+    B=8 T'=126 D=512 with mixed key lengths, with and without the fused
+    LayerNorm + residual, and at each shape the trainers give K1 (`shapes`:
+    (B, T', D, heads, key lengths, what), with the LayerNorm + residual, as the
+    encoder calls it); each trainer shape's f32 forward timed against the
+    plain version, with its bound."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    cases = [(B, 126, D, H, None, "mixed lengths", with_norm) for with_norm in (False, True)]
+    cases += [(*shape, True) for shape in shapes]
+    out = {"max_abs_err": 0.0, "grads": {}, "times": {}, "work": {}}
+    for i, (b, t, d, heads, lengths, what, with_norm) in enumerate(cases):
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(300 + i)
+            dev = _dev(rng, dtype)
+            args = [a.requires_grad_() for a in _attention_args(rng, dev, b, t, d, heads)]
+            lens = _mixed_lengths(rng, t) if lengths is None else np.asarray(lengths)
+            kv = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+            norm = [None, None]
+            if with_norm:
+                norm = [dev(1 + rng.normal(0, 0.1, d), torch.float32).requires_grad_(),
+                        dev(rng.normal(0, 0.1, d), torch.float32).requires_grad_()]
+            inputs = [*args, *(n for n in norm if n is not None)]
+            g = dev(rng.randn(b, t, d))
+            shape = f"B={b} T'={t} D={d} hd={d // heads} ({what})"
+            tag = f"(c) K1 Function {shape} {name} norm+residual={with_norm} lengths {lens.min()}-{lens.max()}"
+            got_out = RA.RelAttentionBlockFunction.apply(*args, kv, *norm, 1e-5)
+            want_out = RA.rel_attention_block_reference(*args, kv, *norm, 1e-5)
+            err = check_close(f"{tag}, forward", got_out.detach(), want_out.detach(), _valid_rows(lens, t))
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            got = torch.autograd.grad(got_out, inputs, g)
+            want = torch.autograd.grad(want_out, inputs, g)
+            worst = max(float((a.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+                        for a, w in zip(got, want))
+            limit = K1_GRAD_F32_FRAC if dtype == torch.float32 else BF16_SCALE_FRAC
+            log(f"  {tag}, backward: worst input gradient {worst:.2e} of its scale (limit {limit:g}), "
+                f"{len(inputs)} inputs")
+            if worst > limit:
+                raise RuntimeError(f"K1 Function backward at {shape} {name} norm={with_norm} out of tolerance")
+            out["grads"][f"{shape} {name} norm={with_norm}"] = worst
+            if lengths is not None and dtype == torch.float32:
+                plain = [a.detach() for a in args]
+                kw = dict(lengths=kv, norm_w=norm[0].detach(), norm_b=norm[1].detach())
+                out["times"][shape] = time_pair(tag, lambda: RA.rel_attention_block(*plain, **kw),
+                                                lambda: RA.rel_attention_block_reference(*plain, **kw), card)
+                out["work"][shape] = (attention_flops(b, t, d, heads, lens),
+                                      tensor_bytes(*plain, *kw.values(), got_out) + (2 * t - 1) * d * 4)
+    return out
+
+
+def big_schema_part(card: str) -> dict:
+    """(e) tdt-600m (loss tdt, remat) 2 steps at B=4 and rnnt-600m 1 step
+    at B=2, full width, weights drawn on the card, synthetic 10 s batches."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.models.encoder import encoded_lengths, subsample_length
+    from parakeet_tpu_torch.train import make_sharded_trainer, synthetic_batch
+
+    out = {}
+    for model, loss, b, steps, remat in (("tdt-600m", "tdt", 4, 2, True), ("rnnt-600m", "rnnt", 2, 1, False)):
+        cfg = getattr(C, MODELS[model][1])()
+        spec = (P.tdt_spec if loss == "tdt" else P.rnnt_spec)(cfg)
+        t0 = time.perf_counter()
+        _, state, step, place = make_sharded_trainer(cfg, card_params(spec, seed=0), loss=loss, sigma=0.05,
+                                                     remat=remat, learning_rate=1e-4, device="cuda")
+        batch = place(synthetic_batch(cfg, b, mel_frames=1000, max_labels=40, seed=5))
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(state.params, state.opt_state, batch)[2]) for _ in range(steps)]
+        counts = read_counts()
+        layers = cfg.encoder.num_layers
+        launches_only(f"{model} {loss}", counts, {"rel_attention_block": layers * (2 if remat else 1) * steps})
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{model}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v // steps for k, v in counts.items()}
+        t = subsample_length(int(batch["features"].shape[1]))
+        lengths = torch.clamp(encoded_lengths(batch["mel_lengths"]), max=t).cpu().numpy()
+        log(f"== (e) {model} loss={loss} remat={remat} B={b} T'={t} U=40: losses {losses}, K1 "
+            f"{per_step['rel_attention_block']} a step, peak memory {peak:.2f} GB, {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
+        out[model] = {"losses": losses, "launches": per_step, "peak_gb": peak,
+                      "k1_shape": (b, t, cfg.encoder.hidden_size, cfg.encoder.num_heads, lengths, f"{model} step")}
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def diar_cli_part(card: str) -> dict:
+    """(f) Sortformer-117m through train_diar_cli.main: 2 steps at B=4 on
+    10 s clips with synthetic RTTMs; the shape its encoder gives K1, from
+    a batch of the CLI's loader."""
+    import torch
+
+    from parakeet_tpu_torch import train_diar_cli
+    from parakeet_tpu_torch.config import AudioConfig
+    from parakeet_tpu_torch.data import DiarizationDataLoader, DiarizationDataset
+    from parakeet_tpu_torch.models.encoder import encoded_lengths, subsample_length
+
+    manifest = train_corpus(TRAIN_DIR / "diar", 4, seed=99, min_s=10.0, max_s=10.0, rttm=True)
+    argv = ["--manifest", str(manifest), "--batch-size", "4", "--steps", "2", "--log-every", "1",
+            "--export", str(TRAIN_DIR / "diar" / "sf.safetensors")]
+    log("== (f) Sortformer-117m through train_diar_cli: 4 clips of 10 s, B=4, 2 steps")
+    reset_counts()
+    text = run_cli(train_diar_cli.main, argv)
+    counts = read_counts()
+    args = train_diar_cli.build_argparser().parse_args(argv)
+    cfg = train_diar_cli._preset(args.model)
+    enc = cfg.nest_encoder
+    launches_only("train_diar_cli", counts, {"rel_attention_block": enc.num_layers * 2})
+    losses = cli_losses(text)
+    if sorted(losses) != [1, 2] or not all(np.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"train_diar_cli: losses {losses}")
+    loader = DiarizationDataLoader(DiarizationDataset(str(manifest)), batch_size=args.batch_size,
+                                   audio_config=AudioConfig(n_mels=enc.mel_bins, normalize=False),
+                                   max_speakers=cfg.max_speakers, frame_multiple=args.frame_multiple,
+                                   seed=args.seed, device="cuda")
+    batch = next(iter(loader))
+    t = subsample_length(int(batch["features"].shape[1]))
+    lengths = torch.clamp(encoded_lengths(batch["mel_lengths"]), max=t).cpu().numpy()
+    log(f"  the CLI's batch: features {tuple(batch['features'].shape)}, T'={t}, encoded lengths "
+        f"{lengths.min()}-{lengths.max()}; K1 {counts['rel_attention_block'] // 2} a step")
+    return {"losses": losses, "launches": {k: v // 2 for k, v in counts.items()},
+            "k1_shape": (args.batch_size, t, enc.hidden_size, enc.num_heads, lengths, "sortformer-117m step")}
+
+
+def guard_part() -> None:
+    """(g) K6 under grad mode on an input that requires grad raises before
+    it launches."""
+    import torch
+
+    from parakeet_tpu_torch.ops.feed_forward import fused_feed_forward
+
+    rng = np.random.RandomState(8)
+    dev = _dev(rng, torch.float32)
+    x = dev(rng.randn(2, 64, D)).requires_grad_()
+    before = read_counts()["fused_feed_forward"]
+    try:
+        fused_feed_forward(x, *_ffn_weights(rng, dev))
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+        log(f"== (g) K6 under grad with an input that requires grad: raised ({exc})")
+    else:
+        raise RuntimeError("K6 ran on an input that requires grad")
+    if read_counts()["fused_feed_forward"] != before:
+        raise RuntimeError("K6 launched on an input that requires grad")
+
+
+def train_phase(card: str) -> dict:
+    """Phase train: (a) and (d), (b), (c), (e), (f), (g); f32, IEEE."""
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+
+    require_ieee_f32()
+    from parakeet_tpu_torch.config import make_110m_config
+
+    out = {"cli": train_cli_part(card), "parity": train_parity_part(card), "schemas": big_schema_part(card),
+           "diar": diar_cli_part(card)}
+    shapes = [*out["cli"]["k1_shapes"], *(out["schemas"][m]["k1_shape"] for m in ("tdt-600m", "rnnt-600m")),
+              out["diar"]["k1_shape"]]
+    out["k1_backward"] = k1_backward_part(shapes, card)
+    guard_part()
+    out["overfit"] = overfit_part(make_110m_config(), out["cli"].pop("flat"), out["cli"].pop("batch"))
+    # each kernel's launches a step of each trainer, as counted in its run
+    out["launches_train"] = {"tdt-ctc-110m hybrid step": out["cli"]["metrics"]["shortest"]["launches"],
+                             "tdt-600m tdt step, remat": out["schemas"]["tdt-600m"]["launches"],
+                             "rnnt-600m rnnt step": out["schemas"]["rnnt-600m"]["launches"],
+                             "sortformer-117m step": out["diar"]["launches"]}
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -2665,7 +3263,8 @@ def build_phase() -> None:
         _build.load(name)
 
 
-PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options")
+PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options",
+          "train")
 
 
 def main(argv=None) -> int:
@@ -2788,6 +3387,13 @@ def main(argv=None) -> int:
         k1["max_abs_err"] = max(k1["max_abs_err"], paths["diarize"]["k1"]["max_abs_err"])
         for key in ("times", "work"):
             k1.setdefault(key, {}).update(paths["diarize"]["k1"][key])
+    if "train" in phases:
+        paths["train"] = timed("train", train_phase, card)
+        torch.cuda.empty_cache()
+        k1 = kernel.setdefault("rel_attention_block", {"max_abs_err": 0.0})
+        k1["max_abs_err"] = max(k1["max_abs_err"], paths["train"]["k1_backward"]["max_abs_err"])
+        for key in ("times", "work"):
+            k1.setdefault(key, {}).update(paths["train"]["k1_backward"][key])
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if phases != list(PHASES):
@@ -2823,6 +3429,9 @@ def main(argv=None) -> int:
                "launches_quantized": paths["options"]["int8 fused"]["per_call"][name],
                # one cohort served by TranscriptionService over HTTP (tdt-ctc-110m default)
                "launches_serve": paths["serve"]["launches_per_cohort"][name],
+               # launches a step of each trainer (remat launches K1's forward again in backward)
+               "launches_train": {trainer: per_step[name]
+                                  for trainer, per_step in paths["train"]["launches_train"].items()},
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],

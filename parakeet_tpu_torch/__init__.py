@@ -19,6 +19,10 @@ score transcripts. Serving: `TranscriptionService` (dynamic batching) and
 (`python -m parakeet_tpu_torch.cli`), the flat C API (capi.py,
 csrc/parakeet_capi.cpp), `parakeet-bench` (`python -m
 parakeet_tpu_torch.benchmark`) and the NeMo converter (tools/convert.py).
+Training (train.py): the CTC, RNNT, TDT, hybrid and Sortformer losses
+(`rnnt_loss`, `tdt_loss`), the data pipeline (`ManifestDataset`,
+`TrainDataLoader`), checkpoints and the train CLIs (`python -m
+parakeet_tpu_torch.train_cli`, `python -m parakeet_tpu_torch.train_diar_cli`).
 Entry points run on the card unless given device="cpu". Module paths
 mirror the JAX reference package parakeet_tpu, which this package never
 imports; `NOT_PORTED` lists the reference's public names it does not
@@ -57,6 +61,7 @@ from parakeet_tpu_torch.audio.io import (
     write_wav,
 )
 from parakeet_tpu_torch.audio.vad import VadConfig, vad_segments
+from parakeet_tpu_torch.data import ManifestDataset, TrainDataLoader
 from parakeet_tpu_torch.decode.align import ctc_forced_align
 from parakeet_tpu_torch.decode.keyword import HotwordDetector, keyword_log_odds
 from parakeet_tpu_torch.decode.phrase_boost import ContextTrie
@@ -72,6 +77,7 @@ from parakeet_tpu_torch.diarize import DiarizedResult, DiarizedTranscriber, Diar
 from parakeet_tpu_torch.metrics import corpus_wer, word_error_rate
 from parakeet_tpu_torch.models.encoder import FusedLayers
 from parakeet_tpu_torch.models.sortformer import AOSCCache, DiarizationSegment, Sortformer
+from parakeet_tpu_torch.ops.transducer_loss import rnnt_loss, tdt_loss
 from parakeet_tpu_torch.quantize import quantize_params, quantized_fraction
 from parakeet_tpu_torch.serve import StreamingService, TranscriptionService
 from parakeet_tpu_torch.streaming import NemotronTranscriber, StreamingBatchTranscriber, StreamingTranscriber
@@ -89,24 +95,23 @@ from parakeet_tpu_torch.transcribe import (
 
 __version__ = "0.1.0"
 
-# the reference's public names that the port does not export: training
-# (not ported yet) and the encoder's process globals, which FusedLayers
-# replaces as an explicit argument
-NOT_PORTED = ("ManifestDataset", "TrainDataLoader", "rnnt_loss", "tdt_loss",
-              "set_fused_attention", "set_conv_layout", "set_fused_ffn", "set_fused_block2")
+# the reference's public names that the port does not export: the
+# encoder's process globals, which FusedLayers replaces as an explicit
+# argument
+NOT_PORTED = ("set_fused_attention", "set_conv_layout", "set_fused_ffn", "set_fused_block2")
 
 __all__ = [
     "AOSCCache", "AudioConfig", "AudioData", "CTCConfig", "ContextTrie", "Decoder", "DiarizationSegment",
     "DiarizedResult", "DiarizedTranscriber", "DiarizedWord", "EOUConfig", "EncoderConfig", "FRAME_DURATION_S",
-    "FusedLayers", "HotwordDetector", "JointConfig", "NemotronConfig", "NemotronTranscriber", "NeuralLM",
+    "FusedLayers", "HotwordDetector", "JointConfig", "ManifestDataset", "NemotronConfig", "NemotronTranscriber", "NeuralLM",
     "NeuralLMConfig", "NgramLM", "PredictionConfig", "RNNTConfig", "RNNTTranscriber", "Sortformer",
     "SortformerConfig", "StreamingAudioPreprocessor", "StreamingBatchTranscriber", "StreamingEncoderConfig",
     "StreamingService", "StreamingTranscriber", "TDTCTCConfig", "TDTConfig", "TDTTranscriber", "TimestampMode",
-    "TimestampedToken", "Tokenizer", "TranscribeOptions", "TranscribeResult", "Transcriber",
+    "TimestampedToken", "Tokenizer", "TrainDataLoader", "TranscribeOptions", "TranscribeResult", "Transcriber",
     "TranscriptionService", "TransformerConfig", "VadConfig", "WordTimestamp", "corpus_wer", "ctc_forced_align",
     "detect_format_by_extension", "detect_format_by_magic", "diarize_transcription", "frame_to_seconds",
     "get_audio_duration", "group_timestamps", "keyword_log_odds", "make_110m_config", "make_eou_120m_config",
     "make_nemotron_600m_config", "make_rnnt_600m_config", "make_sortformer_117m_config", "make_tdt_600m_config",
     "preprocess_audio", "quantize_params", "quantized_fraction", "read_audio", "resample", "rescore_nbest",
-    "train_neural_lm", "vad_segments", "word_error_rate", "write_wav",
+    "rnnt_loss", "tdt_loss", "train_neural_lm", "vad_segments", "word_error_rate", "write_wav",
 ]

@@ -24,6 +24,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from parakeet_tpu_torch.config import EncoderConfig
 from parakeet_tpu_torch.ops.layers import (
@@ -432,16 +433,25 @@ def fastconformer_encode(
     features: torch.Tensor,
     lengths: torch.Tensor | None = None,
     fused: FusedLayers = FusedLayers(),
+    remat: bool = False,
 ) -> torch.Tensor:
     """(B, T, mel) → (B, T', d_model) (encoder.cpp:245-271). `p` is the
     view at the encoder prefix; `lengths` optional per-item mel frames;
-    `fused` picks the sublayers that run their fused kernels."""
+    `fused` picks the sublayers that run their fused kernels. `remat`, a
+    training-memory lever: each conformer block runs under
+    torch.utils.checkpoint, so backward keeps only the block inputs and
+    recomputes the rest (K1 launches again); the blocks then run
+    `FusedLayers()`, as the reference's remat forces its XLA layers."""
     if features.is_cuda:
         require_ieee_f32()
     x, pad_mask, enc_lengths = encode_prologue(p, cfg, features, lengths, fused)
     layers = p.sub("layers_")
     for i in range(cfg.num_layers):
-        x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(conformer_block, layers.sub(str(i)), x, cfg, pad_mask,
+                                                  enc_lengths, FusedLayers(), use_reentrant=False)
+        else:
+            x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused)
     return x
 
 

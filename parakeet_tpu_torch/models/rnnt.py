@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from parakeet_tpu_torch.ops.layers import embedding, linear
-from parakeet_tpu_torch.ops.lstm import lstm_step, lstm_zero_state
+from parakeet_tpu_torch.ops.lstm import lstm_forward, lstm_step, lstm_zero_state
 from parakeet_tpu_torch.params import Params
 
 _F32 = torch.float32
@@ -25,6 +25,14 @@ def prediction_step(
     return lstm_step(p.sub("lstm_"), x, lstm_state, num_lstm_layers)
 
 
+def prediction_forward(
+    p: Params, labels: torch.Tensor, lstm_state: torch.Tensor, num_lstm_layers: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequence forward: labels (B, U) → ((B, U, pred_hidden), state)."""
+    x = embedding(p.sub("embed_"), labels)
+    return lstm_forward(p.sub("lstm_"), x, lstm_state, num_lstm_layers)
+
+
 def prediction_zero_state(
     num_lstm_layers: int, batch: int, pred_hidden: int, dtype=_F32, device="cpu"
 ) -> torch.Tensor:
@@ -35,6 +43,16 @@ def joint_encoder_projection(p: Params, enc: torch.Tensor) -> torch.Tensor:
     """enc_proj over all frames, hoisted out of the decode loop:
     (B, T, enc_h) → (B, T, joint_h). Row-wise, so identical to per-step."""
     return linear(p.sub("enc_proj_"), enc)
+
+
+def rnnt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """(…, enc_h) × (…, pred_h) → (…, V) log-probs (rnnt.cpp:38-44)."""
+    return rnnt_joint_precomputed(p, joint_encoder_projection(p, enc), pred)
+
+
+def tdt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, enc_h) × (…, pred_h) → ((…, V), (…, n_dur)) log-probs (tdt.cpp:15-24)."""
+    return tdt_joint_precomputed(p, joint_encoder_projection(p, enc), pred)
 
 
 def rnnt_joint_precomputed(p: Params, enc_pre: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
@@ -55,8 +73,11 @@ def tdt_joint_precomputed(
 
 __all__ = [
     "prediction_step",
+    "prediction_forward",
     "prediction_zero_state",
     "joint_encoder_projection",
+    "rnnt_joint",
+    "tdt_joint",
     "rnnt_joint_precomputed",
     "tdt_joint_precomputed",
 ]

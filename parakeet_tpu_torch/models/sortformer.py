@@ -13,7 +13,7 @@ streaming encoder session instead (models/streaming_encoder.py).
 
 On the host: probabilities → segments (sortformer.cpp:70-113), the AOSC
 arrival-order cache (:9-38), streaming diarize_chunk (:125-150).
-Training (`sortformer_logits`) is not ported and raises.
+`sortformer_logits` is the training forward (train.py's Sortformer loss).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from parakeet_tpu_torch import params as P
 from parakeet_tpu_torch.config import SortformerConfig, make_sortformer_117m_config
 from parakeet_tpu_torch.decode.timestamp import frame_to_seconds
 from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from parakeet_tpu_torch.models.encoder import FusedLayers, fastconformer_encode
+from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths, fastconformer_encode, length_mask
 from parakeet_tpu_torch.models.streaming_encoder import StreamingEncoderSession
 from parakeet_tpu_torch.models.transformer import transformer_encode
 from parakeet_tpu_torch.ops.layers import linear
@@ -65,15 +65,40 @@ class AOSCCache:
         self._order: list[int] = []
 
 
-def _speaker_head(root: Params, trans_out: torch.Tensor) -> torch.Tensor:
+def _speaker_logits(root: Params, trans_out: torch.Tensor) -> torch.Tensor:
     h = torch.relu(linear(root.sub("first_hidden_"), torch.relu(trans_out)))
-    return torch.sigmoid(linear(root.sub("output_proj_"), h).to(torch.float32))
+    return linear(root.sub("output_proj_"), h)
 
 
-def sortformer_logits(*args, **kwargs):
-    """The reference's training-side forward (pre-sigmoid logits for the
-    BCE losses); training is not ported."""
-    raise NotImplementedError("sortformer_logits (Sortformer training) is not ported")
+def _speaker_head(root: Params, trans_out: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(_speaker_logits(root, trans_out).to(torch.float32))
+
+
+def sortformer_logits(
+    params: dict,
+    features: torch.Tensor,
+    *,
+    cfg: SortformerConfig,
+    mel_lengths: torch.Tensor | None = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """(B, mel_len, 128) → (B, T, max_speakers) pre-sigmoid activity
+    logits, f32: the training-side twin of `sortformer_forward` (the BCE
+    losses in train.py take logits). `mel_lengths` masks padding in the
+    NEST encoder and in the transformer, so pad frames never reach a valid
+    frame's logits; `remat` rematerializes the encoder blocks in backward.
+    Runs under whatever grad mode the caller has."""
+    root = Params(params)
+    enc = fastconformer_encode(root.sub("nest_encoder_"), cfg.nest_encoder, features, mel_lengths,
+                               fused=FusedLayers(), remat=remat)
+    mask = None
+    if mel_lengths is not None:
+        t = enc.shape[1]
+        enc_lens = torch.clamp(encoded_lengths(torch.as_tensor(mel_lengths, device=enc.device)), max=t)
+        mask = length_mask(enc_lens, t)
+    proj = linear(root.sub("projection_"), enc)
+    trans = transformer_encode(root.sub("transformer_"), cfg.transformer, proj, mask)
+    return _speaker_logits(root, trans).to(torch.float32)
 
 
 @torch.inference_mode()

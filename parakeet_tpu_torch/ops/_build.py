@@ -194,6 +194,17 @@ def check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and a float tensor among `tensors`
+    requires grad: a kernel writes a fresh buffer with no backward, so its
+    output would cut the autograd graph without a word. K1 differentiates
+    through its autograd Function (ops/rel_attention.py), whose forward
+    launches with grad mode off."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; it cannot run on inputs that require grad "
+                           "(train with FusedLayers(), whose attention kernel K1 differentiates)")
+
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources",
            "source_digest", "library_path", "build", "host_library_path", "build_host", "build_capi",
-           "load", "ptr", "stream", "check_rc"]
+           "load", "ptr", "stream", "check_rc", "refuse_grad"]

@@ -26,7 +26,7 @@ import torch
 
 from parakeet_tpu_torch.ops import conv_module as CM
 from parakeet_tpu_torch.ops import feed_forward as FF
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
 
 _F32 = torch.float32
 
@@ -70,6 +70,7 @@ def build() -> None:
 def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2,
             ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, final_norm_w, final_norm_b,
             lengths, eps):
+    refuse_grad("fused_conv_ffn_final", x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, final_norm_w, final_norm_b)
     name = "fused_conv_ffn_final"
     x, w1, b1, wd, bd, w2, b2, cvecs, valid = CM.checked_args(
         x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, name)

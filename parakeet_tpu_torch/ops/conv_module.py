@@ -27,7 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
 from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
 from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_norm
 
@@ -124,6 +124,7 @@ def checked_args(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var,
 
 
 def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):
+    refuse_grad("fused_conv_module", x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2)
     x, w1, b1, wd, bd, w2, b2, vecs, valid = checked_args(
         x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths)
     b, t, d = x.shape

@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
 from parakeet_tpu_torch.ops.gemm_plan import GEMM_K_STEP, MAX_SPLITS, gemm_plan
 from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
 
@@ -112,6 +112,7 @@ def checked_args(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w=None, final_nor
 
 
 def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
+    refuse_grad("fused_feed_forward", x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b)
     x, w1, b1, w2, b2, norms = checked_args(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b)
     b, t, d = x.shape
     f = w1.shape[0]

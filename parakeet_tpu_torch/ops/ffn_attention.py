@@ -29,7 +29,7 @@ import torch
 
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops import rel_attention as RA
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
 
 
 def fused_ffn_attention_reference(
@@ -68,6 +68,7 @@ def build() -> None:
 
 def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, attn_norm_b,
             wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, eps):
+    refuse_grad("fused_ffn_attention", x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, attn_norm_b, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo)
     name = "fused_ffn_attention"
     x, fc1_w, fc1_b, fc2_w, fc2_b, fvecs = FF.checked_args(
         x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, name=name)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from parakeet_tpu_torch.audio.frontend import LOG_GUARD, _hann_symmetric, mel_filterbank
-from parakeet_tpu_torch.ops._build import check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import check_rc, load, ptr, refuse_grad, stream
 from parakeet_tpu_torch.ops.gemm_plan import GEMM_COLS, dft_cols, dft_plan
 
 _F32 = torch.float32
@@ -147,6 +147,7 @@ def build() -> None:
 
 
 def _launch(x, n_fft, hop, win_length, n_mels, sample_rate, f_min, f_max):
+    refuse_grad("fused_log_mel", x)
     if x.dtype != _F32 or x.dim() != 1:
         raise TypeError(f"fused_log_mel kernel takes (N,) float32 samples, got {tuple(x.shape)} {x.dtype}")
     if x.shape[0] < n_fft:

@@ -43,4 +43,16 @@ def lstm_step(
     return x, torch.stack(new_layers)
 
 
-__all__ = ["lstm_zero_state", "lstm_step"]
+def lstm_forward(
+    p: Params, xs: torch.Tensor, state: torch.Tensor, num_layers: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequence forward: xs (B, T, in) → ((B, T, H), final state), one
+    lstm_step per timestep (the reference's lax.scan)."""
+    outs = []
+    for t in range(xs.shape[1]):
+        out, state = lstm_step(p, xs[:, t], state, num_layers)
+        outs.append(out)
+    return torch.stack(outs, dim=1), state
+
+
+__all__ = ["lstm_zero_state", "lstm_step", "lstm_forward"]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, SHARED_MEMORY_LIMIT, check_rc, load, ptr, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, SHARED_MEMORY_LIMIT, check_rc, load, ptr, refuse_grad, stream
 from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
 
 _F32 = torch.float32
@@ -56,8 +56,11 @@ def position_table_np(seq_len: int, d_model: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def position_table(seq_len: int, d_model: int, device: torch.device, dtype: torch.dtype):
-    """position_table_np on `device` in `dtype`, cached per (T, d, device, dtype)."""
-    return torch.from_numpy(position_table_np(seq_len, d_model)).to(device=device, dtype=dtype)
+    """position_table_np on `device` in `dtype`, cached per (T, d, device, dtype).
+    Made outside inference mode even when first asked for inside it, so
+    the cached table also serves autograd (a trainer after a facade)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(position_table_np(seq_len, d_model)).to(device=device, dtype=dtype)
 
 
 def _check_score_storage(score_bf16: bool) -> None:
@@ -210,6 +213,7 @@ def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengt
 
 
 def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
+    refuse_grad("rel_attention_block", x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, norm_w, norm_b)
     a = checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b)
     x = x.contiguous()
     b, t, d = x.shape
@@ -237,6 +241,32 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, n
     return out
 
 
+class RelAttentionBlockFunction(torch.autograd.Function):
+    """K1 with a gradient: the forward launches the kernel (grad mode is
+    off inside it, and `rel_attention_block.launches` counts the launch);
+    the backward recomputes `rel_attention_block_reference` on the saved
+    inputs under grad mode and returns its input gradients. The reference
+    package has no backward kernel to port: its trainers differentiate the
+    plain layers."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
+        ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b)
+        ctx.eps = eps
+        return _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        wants = ctx.needs_input_grad[:len(saved)]
+        inputs = [t.detach().requires_grad_(w) if t is not None else None for t, w in zip(saved, wants)]
+        with torch.enable_grad():
+            out = rel_attention_block_reference(*inputs, ctx.eps)  # x … bo, lengths, norm_w, norm_b
+        diff = [t for t, w in zip(inputs, wants) if w]
+        grads = iter(torch.autograd.grad(out, diff, grad_out, allow_unused=True))
+        return (*(next(grads) if w else None for w in wants), None)
+
+
 def rel_attention_block(
     x: torch.Tensor,
     wq, bq, wk, bk, wv, bv,
@@ -253,10 +283,15 @@ def rel_attention_block(
 
     On a CUDA tensor this launches the hand-written kernel or raises; on a
     CPU tensor it runs `rel_attention_block_reference`. Each kernel launch
-    adds one to `rel_attention_block.launches`."""
+    adds one to `rel_attention_block.launches`. Under grad mode, with an
+    input that requires grad, the kernel runs inside
+    `RelAttentionBlockFunction`, whose backward is the plain version's."""
     _check_score_storage(score_bf16)
     args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo)
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (*args, norm_w, norm_b)):
+            kv = _key_lengths(lengths, x.shape[0], x.shape[1], x.device)
+            return RelAttentionBlockFunction.apply(*args, kv, norm_w, norm_b, eps)
         return _launch(*args, lengths, norm_w, norm_b, eps)
     if x.device.type == "cpu":
         return rel_attention_block_reference(*args, lengths, norm_w, norm_b, eps)
@@ -347,6 +382,7 @@ def _lib_v1() -> ctypes.CDLL:
 
 
 def _launch_v1(q_u, q_v, k, v, p, lengths):
+    refuse_grad("fused_rel_attention", q_u, q_v, k, v, p)
     b, heads, t, hd = q_u.shape
     dt = q_u.dtype
     if dt not in DTYPE_CODE:
@@ -401,6 +437,7 @@ __all__ = [
     "position_table",
     "rel_attention_block",
     "rel_attention_block_reference",
+    "RelAttentionBlockFunction",
     "fused_rel_attention",
     "fused_rel_attention_reference",
     "V1Plan",

@@ -32,7 +32,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, stream
+from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, refuse_grad, stream
 from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan
 
 _F32 = torch.float32
@@ -101,6 +101,7 @@ def build() -> None:
 
 
 def _launch(x, w1, b1, wd, bd, w2, b2, activation):
+    refuse_grad("fused_subsample_block1", x, w1, b1, wd, bd, w2, b2)
     b, t, f = x.shape
     c = w1.shape[0]
     dt = x.dtype

@@ -292,6 +292,13 @@ def params_from_numpy(
     return out
 
 
+def cast_params(params: dict[str, torch.Tensor], dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Floating weights cast to a compute dtype, normalization parameters
+    kept float32 (the reference's cast_params). The cast is differentiable,
+    so a trainer that casts inside its loss gets float32 gradients."""
+    return {k: v.to(dtype) if v.is_floating_point() and not is_norm_param(k) else v for k, v in params.items()}
+
+
 def round_to_dtype(flat: dict[str, np.ndarray], dtype: torch.dtype) -> dict[str, np.ndarray]:
     """The float32 numpy dict whose floating weights hold the values they
     take under the compute dtype (normalization parameters excluded): the
@@ -402,6 +409,7 @@ __all__ = [
     "init_params",
     "is_norm_param",
     "params_from_numpy",
+    "cast_params",
     "round_to_dtype",
     "device_params",
     "load_params_numpy",

@@ -12,8 +12,8 @@ Vocab convention: ids 0..vocab_size-1 are the tokenizer's (the blank row
 exists but never appears in a hypothesis); BOS = vocab_size and EOS =
 vocab_size + 1 are appended to the embedding and output tables.
 
-Training (the reference's train_neural_lm) is not ported: the port runs
-inference only, and `train_neural_lm` raises NotImplementedError.
+`train_neural_lm` trains one with the port's Adam (train.py), on the card
+unless given device="cpu".
 """
 
 from __future__ import annotations
@@ -178,11 +178,54 @@ class NeuralLM:
         return tuple(state) + (tok,), float(lp[tok])
 
 
-def train_neural_lm(sequences, cfg: NeuralLMConfig, **kw) -> NeuralLM:
-    """Training is not ported: the port runs inference only. Train with the
-    JAX package and load the saved file with NeuralLM.load."""
-    raise NotImplementedError("train_neural_lm is training, which the port does not run; train with the "
-                              "JAX package and load the saved LM with NeuralLM.load")
+def train_neural_lm(
+    sequences,
+    cfg: NeuralLMConfig,
+    *,
+    steps: int = 200,
+    learning_rate: float = 3e-3,
+    batch_size: int = 32,
+    seed: int = 0,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> NeuralLM:
+    """Train a NeuralLM on token-id sequences: next-token cross-entropy
+    (EOS included) under optax.adam's update (train.adam), the reference's
+    initial weights and batch draws. Returns the trained facade on
+    `device`, `final_loss` set; `.save()` persists it."""
+    from parakeet_tpu_torch.train import adam, value_and_grad_accum
+
+    dev = resolve_device(device)
+    params = params_from_numpy(init_params_numpy(neural_lm_spec(cfg), seed=seed), dev)
+    u = min(cfg.max_len, max(max((len(s) for s in sequences), default=1) + 1, 2))
+    ids = np.full((len(sequences), u), cfg.eos, np.int64)
+    tgt = np.full((len(sequences), u), -1, np.int64)
+    for i, seq in enumerate(sequences):
+        seq = [min(int(t), cfg.vocab_size - 1) for t in seq][: u - 1]
+        ids[i, 0] = cfg.bos
+        ids[i, 1: 1 + len(seq)] = seq
+        tgt[i, : len(seq)] = seq
+        tgt[i, len(seq)] = cfg.eos
+
+    def loss_fn(p, batch):
+        lp = lm_log_probs(p, cfg, batch["ids"])
+        bt = batch["targets"]
+        mask = (bt >= 0).to(_F32)
+        picked = lp.gather(-1, bt.clamp(min=0)[..., None])[..., 0]
+        return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    opt = adam(learning_rate)
+    opt_state = opt.init(params)
+    vag = value_and_grad_accum(loss_fn)
+    rng = np.random.RandomState(seed)
+    loss = torch.tensor(float("inf"))
+    for _ in range(steps):
+        pick = rng.randint(0, len(sequences), size=min(batch_size, len(sequences)))
+        loss, grads = vag(params, {"ids": torch.from_numpy(ids[pick]).to(dev),
+                                   "targets": torch.from_numpy(tgt[pick]).to(dev)})
+        opt.update(params, grads, opt_state)
+    lm = NeuralLM({k: v.cpu().numpy() for k, v in params.items()}, cfg, dev)
+    lm.final_loss = float(loss)
+    return lm
 
 
 __all__ = ["NeuralLM", "NeuralLMConfig", "neural_lm_spec", "lm_log_probs", "train_neural_lm"]

@@ -297,8 +297,12 @@ def test_neural_lm_matches_reference(tmp_path):
     assert back.cfg == port.cfg
     np.testing.assert_allclose(back.score_batch(seqs), ref.score_batch(seqs), rtol=SCORE_RTOL)
     assert (tmp_path / "port.safetensors").read_bytes() == (tmp_path / "ref.safetensors").read_bytes()
-    with pytest.raises(NotImplementedError, match="training"):
-        TNL.train_neural_lm([[1, 2]], port.cfg)
+    # training runs on the card unless given the CPU (held to the reference
+    # in tests/test_torch_train.py)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TNL.train_neural_lm([[1, 2]], port.cfg, steps=1)
+    assert np.isfinite(TNL.train_neural_lm([[1, 2]], port.cfg, steps=1, device="cpu").final_loss)
 
 
 # ─── keyword spotting ────────────────────────────────────────────────────────

@@ -241,8 +241,12 @@ def test_diarize_transcription_rule():
 
 
 def test_no_card_raises_and_unported_paths(monkeypatch, sf_flat):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TSF.sortformer_logits(None, None, cfg=None)
+    # the training forward: pre-sigmoid logits of the inference probabilities
+    feats = torch.from_numpy(np.random.RandomState(23).randn(1, 96, 128).astype(np.float32))
+    params = {k: torch.from_numpy(v) for k, v in sf_flat.items()}
+    logits = TSF.sortformer_logits(params, feats, cfg=_sf_cfg(TC))
+    probs = TSF.sortformer_forward(params, feats, cfg=_sf_cfg(TC))
+    torch.testing.assert_close(torch.sigmoid(logits), probs, rtol=1e-6, atol=1e-6)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda **kw: TSF.Sortformer(None, _sf_cfg(TC), params=sf_flat, **kw),
                  lambda **kw: TD.DiarizedTranscriber(None, None, None, _asr_cfg(TC), _sf_cfg(TC),

@@ -172,9 +172,10 @@ def test_port_import_pulls_in_no_jax():
         "             'models.transformer', 'models.sortformer', 'diarize', 'quantize', 'tools.quantize_ckpt',\n"
         "             'decode.phrase_boost', 'decode.beam_transducer', 'decode.ctc_beam', 'decode.keyword',\n"
         "             'text.ngram_lm', 'text.neural_lm', 'text.subtitles', 'metrics', 'native', 'serve',\n"
-        "             'serve_http', 'cli', 'capi', 'benchmark', 'tools.convert'):\n"
+        "             'serve_http', 'cli', 'capi', 'benchmark', 'tools.convert', 'ops.transducer_loss',\n"
+        "             'train', 'train_loop', 'train_cli', 'train_diar_cli', 'data', 'checkpoint', 'augment'):\n"
         "    assert 'parakeet_tpu_torch.' + name in sys.modules, name\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'parakeet_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'parakeet_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

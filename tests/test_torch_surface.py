@@ -12,7 +12,7 @@ def test_every_reference_name_is_exported_or_listed():
     missing = sorted(set(R.__all__) - set(T.__all__))
     assert missing == sorted(T.NOT_PORTED)
     assert not set(T.NOT_PORTED) & set(T.__all__)
-    assert len(set(T.NOT_PORTED)) == len(T.NOT_PORTED) == 8
+    assert len(set(T.NOT_PORTED)) == len(T.NOT_PORTED) == 4
 
 
 @pytest.mark.parametrize("name", sorted(set(R.__all__) - set(T.NOT_PORTED)))
