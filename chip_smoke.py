@@ -174,13 +174,34 @@ Phases, each of which raises (exit code 1) on failure:
               f32; (g) K6 on an input that requires grad raises; (d) ten
               steps at lr 1e-3 (linear warmup over 3) on one 110m batch
               end below the first loss
+ 13. mesh     (last) inference over torch.distributed on the one card:
+              K1's head-sharded mode (one 'model' rank's 4 of 8 heads,
+              B=8, T'=126, mixed lengths, D=512 and D=1024 hd=128, and
+              the shape dp1×tp2 gives it on the 8 clips, with their key
+              lengths) against its plain version in f32 (timed, with its
+              bound) and bf16;
+              make_mesh with two NCCL ranks on one card raising; then two
+              ranks spawned on the card over gloo (named explicitly; its
+              CUDA collectives stage through host memory): (i) dp2
+              tdt-ctc-110m default on the 8 clips, TDT and CTC, (ii)
+              dp1×tp2 (K1 head-sharded, 17 launches a batch a rank, no
+              other kernel), (iii) dp1×sp2 with kernels=False (no kernel),
+              (iv) eou-120m StreamingBatchTranscriber B=8 dp2, fused
+              frontend, int16 wire, a deactivated, a late (held) and a
+              reset slot; and (v) one NCCL rank on a dp1 mesh; every
+              rank's tokens and frames identical to the single-device
+              card run; in (i)-(iii) one more batch a decoder with each
+              rank's time inside the collectives. Coverage on one card,
+              not a scaling figure
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
 "shapes" every timed shape with its bound, launches_quantized, the
 kernel's launches in one encoder call of the int8 fused 110m path,
 launches_serve, its launches per cohort served over HTTP, and
-launches_train, its launches per train step of each trainer) and
+launches_train, its launches per train step of each trainer; beside the
+eight, K1's head-sharded entry with its launches a batch per rank on each
+mesh run) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -1072,6 +1093,7 @@ def counters():
         conv_ffn_final, conv_module, feed_forward, ffn_attention, log_mel, rel_attention, subsample)
 
     return {"rel_attention_block": rel_attention.rel_attention_block,
+            "rel_attention_block_heads": rel_attention.rel_attention_block_heads,
             "fused_feed_forward": feed_forward.fused_feed_forward,
             "fused_conv_module": conv_module.fused_conv_module,
             "fused_subsample_block1": subsample.fused_subsample_block1,
@@ -1110,6 +1132,7 @@ def launches_per_encoder_call(fused, layers: int, mel_frames: int, mel_bins: int
     ffn, block2 = fused.ffn and long_enough, fused.block2 and long_enough
     mega = fused.attention == "mega" and long_enough
     return {"rel_attention_block": layers if fused.attention != "v1" and not mega else 0,
+            "rel_attention_block_heads": 0,  # a 'model' mesh's (phase mesh)
             "fused_feed_forward": layers * ((ffn and not mega) + (ffn and not block2)),
             "fused_conv_module": layers if fused.conv and not block2 else 0,
             "fused_subsample_block1": 1 if sub else 0,
@@ -3246,6 +3269,327 @@ def train_phase(card: str) -> dict:
     return out
 
 
+# ── mesh: inference over torch.distributed on the one card ──
+
+MESH_STREAM_S = 4.0  # seconds of audio a slot in (iv)
+
+
+def heads_flops(b: int, t: int, d: int, local: int, hd: int, key_lens) -> float:
+    """K1 head-sharded, one rank's work: QKV 2·M·D·3DL, position
+    2·(2T−1)·D·DL, out 2·M·DL·D (DL = local·hd) and the core of its heads."""
+    m, dl = b * t, local * hd
+    return 2 * m * d * 3 * dl + 2 * (2 * t - 1) * d * dl + core_flops(t, hd, local, key_lens) + 2 * m * dl * d
+
+
+def k1_heads_part(card: str, served) -> dict:
+    """K1's head-sharded mode against its plain version on the same CUDA
+    tensors, one 'model' rank's 4 heads of an 8-head layer with the fused
+    LayerNorm: B=8, T'=126, mixed lengths, at D=512 (hd 64) and D=1024
+    (hd 128); and at `served`, (B, T', key lengths) of the launches of the
+    dp1×tp2 run on the clips (D=512). Each f32 timed with its bound, each
+    bf16 checked."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    local = 4
+    b_s, t_s, lens_s = served
+    cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024),
+             (b_s, t_s, D, lens_s, f"B={b_s} T'={t_s} D={D} hd={D // H} (dp1×tp2 on the clips)", 2490)]
+    for b, t, d, given, key, seed in cases:
+        hd = d // H
+        dl = local * hd
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(seed)
+            dev = _dev(rng, dtype)
+            x = dev(rng.randn(b, t, d))
+            w = [dev(rng.normal(0, 1 / np.sqrt(d), shape)) for shape in ((dl, d), (dl,), (dl, d), (dl,), (dl, d),
+                                                                          (dl,))]
+            w = [a if a.ndim == 2 else a * 0.02 * np.sqrt(d) for a in w]
+            bu, bv = dev(rng.normal(0, 0.02, (local, hd))), dev(rng.normal(0, 0.02, (local, hd)))
+            pos_w, wo = dev(rng.normal(0, 1 / np.sqrt(d), (dl, d))), dev(rng.normal(0, 1 / np.sqrt(dl), (d, dl)))
+            args = [x, *w, bu, bv, pos_w, wo]
+            lengths = _mixed_lengths(rng, t) if given is None else np.asarray(given)
+            kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+                      norm_w=dev(1 + rng.normal(0, 0.1, d), torch.float32),
+                      norm_b=dev(rng.normal(0, 0.1, d), torch.float32))
+            with torch.inference_mode():
+                got = RA.rel_attention_block_heads(*args, **kw)
+                ref = RA.rel_attention_block_reference(*args[:11], None, heads_partial=True, **kw)
+            tag = (f"K1 head-sharded B={b} T'={t} D={d} hd={hd} local heads {local} {name} lengths "
+                   f"{lengths.min()}-{lengths.max()}")
+            if got.dtype != torch.float32 or tuple(got.shape) != (b, t, d):
+                raise RuntimeError(f"{tag}: partial is {got.dtype} {tuple(got.shape)}, want f32 {(b, t, d)}")
+            rows = _valid_rows(lengths, t)
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], check_close(tag, got, ref, rows))
+                out["times"][key] = time_pair(tag, lambda: RA.rel_attention_block_heads(*args, **kw),
+                                              lambda: RA.rel_attention_block_reference(*args[:11], None,
+                                                                                       heads_partial=True, **kw),
+                                              card)
+                pe_bytes = (2 * t - 1) * d * x.element_size()
+                out["work"][key] = (heads_flops(b, t, d, local, hd, lengths),
+                                    tensor_bytes(*args, *kw.values(), got) + pe_bytes)
+                bd = bound(*out["work"][key])
+                log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
+                    f"{bd['bound_by']}; kernel / plain device {out['times'][key]['dev_ms']:.4f} / "
+                    f"{out['times'][key]['plain_dev_ms']:.4f} ms [{card}]")
+            else:  # the partial is f32 from bf16 operands: held as bf16 outputs are
+                g, r = got[rows], ref[rows]
+                err, scale = float((g - r).abs().max()), float(r.abs().max())
+                log(f"  {tag}: max|diff| {err:.3e} = {err / scale:.3%} of output scale {scale:.3f}")
+                if not torch.isfinite(g).all() or err > BF16_SCALE_FRAC * scale:
+                    raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
+    return out
+
+
+class CollectiveClock:
+    """Host time inside the mesh's collectives on one rank, while `on`: each
+    gloo call (torch.distributed all_reduce, all_gather, all_gather_object,
+    waiting for the peer included) and each staging copy of a CUDA tensor
+    to the host (parallel/collectives.py `_staged`). Each is timed after a
+    device synchronize, so that the device work queued before it is not
+    counted; the copies back to the card are not counted."""
+
+    def __init__(self):
+        import torch
+        import torch.distributed as dist
+
+        from parakeet_tpu_torch.parallel import collectives as CO
+
+        self.on, self.calls, self.gloo_s, self.staging_s = False, 0, 0.0, 0.0
+
+        def wrap(mod, name, kind):
+            fn = getattr(mod, name)
+
+            def timed(*a, **kw):
+                if not self.on:
+                    return fn(*a, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t0
+                    if kind == "gloo":
+                        self.calls += 1
+                        self.gloo_s += dt
+                    else:
+                        self.staging_s += dt
+
+            setattr(mod, name, timed)
+
+        for name in ("all_reduce", "all_gather", "all_gather_object"):
+            wrap(dist, name, "gloo")
+        wrap(CO, "_staged", "staging")
+
+
+def _token_summary(results) -> list:
+    return [(r.token_ids, _spans(r)) for r in results]
+
+
+def mesh_stream_scenario(bt, pcm) -> list:
+    """B=8 int16 PCM in 160 ms pushes: slot 6 deactivated, slot 3's push 5
+    one push late (its lag held), slot 5 reset at push 12 and replayed from
+    the start. Returns each slot's (token, start, end) spans."""
+    bt.reset()
+    bt.deactivate_slot(6)
+    pushes = [_stream_pushes(p) for p in pcm]
+    for k in range(len(pushes[0])):
+        for i in range(bt.batch):
+            if i == 6 or (i, k) == (3, 5):
+                continue
+            if (i, k) == (3, 6):
+                bt.push(i, pushes[i][5])
+            bt.push(i, pushes[i][k])
+        if k == 12:
+            bt.reset_slot(5)
+            for x in pushes[5][: k + 1]:
+                bt.push(5, x)
+        while bt.ready_any():
+            bt.step(hold=bt.lagging_slots())
+    return [[(t.token_id, t.start_frame, t.end_frame) for t in bt.get_timestamped_tokens(i)]
+            for i in range(bt.batch)]
+
+
+def _mesh_decode(tr, clips, clock=None) -> dict:
+    """TDT (timestamps) and CTC on the clips, each call's kernel launches
+    and synchronised wall ms (after a warm-up call of each); with a
+    CollectiveClock, one more call of each with the clock on: its wall, and
+    its time inside the collectives."""
+    import torch
+
+    from parakeet_tpu_torch.transcribe import Decoder, TranscribeOptions
+
+    out, launches, wall, coll = {}, {}, {}, {}
+    for dec, opts in (("TDT", TranscribeOptions(Decoder.TDT, timestamps=True)), ("CTC", TranscribeOptions(Decoder.CTC))):
+        tr.transcribe_batch(clips, opts)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out[dec] = _token_summary(tr.transcribe_batch(clips, opts))
+        torch.cuda.synchronize()
+        wall[dec] = (time.perf_counter() - t0) * 1e3
+        launches[dec] = read_counts()
+        if clock is not None:
+            clock.on, clock.calls, clock.gloo_s, clock.staging_s = True, 0, 0.0, 0.0
+            t0 = time.perf_counter()
+            tr.transcribe_batch(clips, opts)
+            torch.cuda.synchronize()
+            clock.on = False
+            coll[dec] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "calls": clock.calls,
+                         "gloo_ms": clock.gloo_s * 1e3, "staging_ms": clock.staging_s * 1e3}
+    out["launches"], out["wall_ms"], out["collectives"] = launches, wall, coll
+    return out
+
+
+def mesh_rank(rank: int, flat, eou_flat, clips, pcm) -> dict:
+    """One of two ranks on the card over gloo: (i) dp2 tdt-ctc-110m default,
+    (ii) dp1×tp2 (K1 head-sharded), (iii) dp1×sp2 with kernels=False, (iv)
+    eou-120m StreamingBatchTranscriber B=8 dp2; each scenario's tokens,
+    launches and seconds, and in (i)-(iii) the time a batch spends inside
+    the collectives (CollectiveClock)."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+    from parakeet_tpu_torch.parallel.mesh import make_mesh
+    from parakeet_tpu_torch.streaming import StreamingBatchTranscriber
+    from parakeet_tpu_torch.transcribe import Transcriber
+
+    require_ieee_f32()
+    clock = CollectiveClock()
+    out = {}
+    for name, mesh_kw, kw in (("dp2", {}, {}), ("dp1xtp2", dict(model_parallel=2), {}),
+                              ("dp1xsp2", dict(seq_parallel=2), dict(kernels=False))):
+        t0 = time.perf_counter()
+        mesh = make_mesh(backend="gloo", **mesh_kw)
+        tr = Transcriber(config=C.make_110m_config(), params=flat, mesh=mesh, **kw)
+        out[name] = dict(_mesh_decode(tr, clips, clock), device=str(mesh.device), shape=dict(mesh.shape))
+        out[name]["seconds"] = time.perf_counter() - t0
+        del tr
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_mesh(backend="gloo")
+    bt = StreamingBatchTranscriber(8, config=C.make_eou_120m_config(), params=eou_flat, frontend="fused",
+                                   wire_dtype="int16", mesh=mesh)
+    reset_counts()
+    out["stream dp2"] = {"spans": mesh_stream_scenario(bt, pcm), "launches": read_counts(),
+                         "slots": (bt._slots.start, bt._slots.stop), "seconds": time.perf_counter() - t0}
+    return out
+
+
+def nccl_rank(rank: int, flat, clips) -> dict:
+    """(v) one rank over NCCL (world 1): a dp1 mesh, tdt-ctc-110m default."""
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+    from parakeet_tpu_torch.parallel.mesh import make_mesh
+    from parakeet_tpu_torch.transcribe import Transcriber
+
+    require_ieee_f32()
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    tr = Transcriber(config=C.make_110m_config(), params=flat, mesh=mesh)
+    return dict(_mesh_decode(tr, clips), backend=mesh.backend, shape=dict(mesh.shape), seconds=time.perf_counter() - t0)
+
+
+def mesh_phase(clips, card: str) -> dict:
+    """Inference on a mesh, on the one card: K1 head-sharded against its
+    plain version; two spawned ranks sharing the card over gloo run (i)-(iv)
+    (mesh_rank); one NCCL rank runs (v); tokens and frames of every rank
+    identical to the single-device card run; launches per rank. Two ranks
+    on one card over NCCL must raise. Coverage, not scaling: both ranks
+    share one card, and gloo stages each collective through host memory."""
+    import os
+
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import encoded_lengths
+    from parakeet_tpu_torch.parallel.launch import spawn_ranks
+    from parakeet_tpu_torch.parallel.mesh import make_mesh
+    from parakeet_tpu_torch.streaming import StreamingBatchTranscriber
+
+    t0 = time.perf_counter()
+    flat = model_params("tdt-ctc-110m")
+    single = facade("tdt-ctc-110m", "cuda", params=flat)
+    # dp1×tp2 launches K1 head-sharded on the whole batch of clips, unpadded
+    enc_lens = encoded_lengths(torch.as_tensor(preprocess_audio_batch(clips, single._audio_cfg, "cpu")[1])).numpy()
+    out = {"k1": k1_heads_part(card, (len(clips), int(enc_lens.max()), enc_lens))}
+    log(f"  (K1 head-sharded: {time.perf_counter() - t0:.1f} s into the phase)")
+
+    os.environ["WORLD_SIZE"] = "2"
+    try:
+        make_mesh()
+    except ValueError as e:
+        log(f"  two NCCL ranks on one card raise as they should: {e}")
+    else:
+        raise RuntimeError("make_mesh() with two NCCL ranks on one card did not raise")
+    finally:
+        del os.environ["WORLD_SIZE"]
+
+    eou_flat = P.init_params_numpy(P.eou_spec(C.make_eou_120m_config()), seed=0)
+    stream_clips = synthetic_clips(8, seed=1900, min_s=MESH_STREAM_S, max_s=MESH_STREAM_S)
+    pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in stream_clips]
+    ref = _mesh_decode(single, clips)
+    del single
+    bt = StreamingBatchTranscriber(8, config=C.make_eou_120m_config(), params=eou_flat, frontend="fused",
+                                   wire_dtype="int16", device="cuda")
+    ref_stream = mesh_stream_scenario(bt, pcm)
+    del bt
+    torch.cuda.empty_cache()
+    log(f"== mesh: single-device card runs: tdt-ctc-110m default TDT {sum(len(t) for t, _ in ref['TDT'])} tokens, "
+        f"CTC {sum(len(t) for t, _ in ref['CTC'])}; eou-120m B=8 {[len(s) for s in ref_stream]} tokens per slot "
+        f"({time.perf_counter() - t0:.1f} s into the phase)")
+
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, 2, flat, eou_flat, clips, pcm, backend="gloo", timeout=600, threads=0)
+    log(f"  two gloo ranks on the card: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    (nccl,) = spawn_ranks(nccl_rank, 1, flat, clips, backend="nccl", timeout=300, threads=0)
+    log(f"  one NCCL rank: {time.perf_counter() - t1:.1f} s")
+
+    layers = C.make_110m_config().encoder.num_layers
+    want = {"dp2": {"rel_attention_block": layers}, "dp1xtp2": {"rel_attention_block_heads": layers},
+            "dp1xsp2": {}, "nccl dp1": {"rel_attention_block": layers}}
+    runs = [(f"rank {r} {name}", name, res[name]) for r, res in enumerate(ranks) for name in ("dp2", "dp1xtp2", "dp1xsp2")]
+    runs.append(("NCCL rank dp1", "nccl dp1", nccl))
+    for tag, name, res in runs:
+        for dec in ("TDT", "CTC"):
+            if res[dec] != ref[dec]:
+                i = next(i for i, (a, b) in enumerate(zip(res[dec], ref[dec])) if a != b)
+                raise RuntimeError(f"mesh {tag} {dec}: item {i} differs from the single-device card run")
+            counts = {k: v for k, v in res["launches"][dec].items() if v}
+            if counts != want[name]:
+                raise RuntimeError(f"mesh {tag} {dec}: launches {counts}, want {want[name]} a batch")
+        log(f"  {tag} ({res.get('shape')}, {res.get('device', res.get('backend'))}): TDT and CTC tokens and frames "
+            f"identical to the single-device card run; launches a batch per rank {want[name] or 'none'}; warm "
+            f"batch wall TDT {res['wall_ms']['TDT']:.1f} ms, CTC {res['wall_ms']['CTC']:.1f} ms (single device "
+            f"{ref['wall_ms']['TDT']:.1f}, {ref['wall_ms']['CTC']:.1f}) [{card}] ({res['seconds']:.1f} s)")
+        for dec, c in res["collectives"].items():
+            inside = c["gloo_ms"] + c["staging_ms"]
+            log(f"    {dec} batch with the collective clock on: wall {c['wall_ms']:.1f} ms, {c['calls']} gloo calls "
+                f"{c['gloo_ms']:.1f} ms + staging to the host {c['staging_ms']:.1f} ms = {inside:.1f} ms, "
+                f"{inside / c['wall_ms']:.1%} of the wall [{card}]")
+    for r, res in enumerate(ranks):
+        s = res["stream dp2"]
+        if s["spans"] != ref_stream or any(s["launches"].values()):
+            raise RuntimeError(f"mesh rank {r} streaming dp2: spans differ from the single-device run or a kernel "
+                               f"launched ({s['launches']})")
+        log(f"  rank {r} eou-120m B=8 dp2 (slots {s['slots'][0]}-{s['slots'][1] - 1}): every slot's tokens and "
+            f"frames identical to the single-device card run, no kernel ({s['seconds']:.1f} s)")
+    out["wall_ms"] = {"single": ref["wall_ms"], "nccl dp1": nccl["wall_ms"],
+                      **{name: [res[name]["wall_ms"] for res in ranks] for name in ("dp2", "dp1xtp2", "dp1xsp2")}}
+    out["collectives"] = {name: [res[name]["collectives"] for res in ranks] for name in ("dp2", "dp1xtp2", "dp1xsp2")}
+    out["launches_heads"] = ranks[0]["dp1xtp2"]["launches"]["TDT"]
+    out["launches"] = {name: ranks[0][name]["launches"]["TDT"] for name in ("dp2", "dp1xtp2", "dp1xsp2")}
+    out["launches"]["nccl dp1"] = nccl["launches"]["TDT"]
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -3264,7 +3608,7 @@ def build_phase() -> None:
 
 
 PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options",
-          "train")
+          "train", "mesh")
 
 
 def main(argv=None) -> int:
@@ -3394,6 +3738,9 @@ def main(argv=None) -> int:
         k1["max_abs_err"] = max(k1["max_abs_err"], paths["train"]["k1_backward"]["max_abs_err"])
         for key in ("times", "work"):
             k1.setdefault(key, {}).update(paths["train"]["k1_backward"][key])
+    if "mesh" in phases:
+        paths["mesh"] = timed("mesh", mesh_phase, clips, card)
+        torch.cuda.empty_cache()
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if phases != list(PHASES):
@@ -3459,6 +3806,26 @@ def main(argv=None) -> int:
                     f"{ms['plain_ms']:.4f}; bound {bd['bound_ms'] / ms['dev_ms']:.1%} of the kernel's "
                     f"device time [{card}]")
         rows.append(row)
+    # K1's head-sharded mode (tensor parallelism over heads, phase mesh):
+    # one rank's 4 of 8 heads at B=8, T'=126 (and under "shapes" D=1024 and
+    # dp1×tp2's shape on the clips); launches a TDT batch per rank on
+    # dp1×tp2 (two ranks sharing the card over gloo)
+    kh, mesh = paths["mesh"]["k1"], paths["mesh"]
+    hb = bound(*kh["work"][D])
+    rows.append({"name": "rel_attention_block_heads", "route": "cuda",
+                 "source": "parakeet_tpu_torch/csrc/rel_attention.cu",
+                 "replaces": "parakeet_tpu/ops/pallas_attention.py:510",
+                 "launches": mesh["launches_heads"]["rel_attention_block_heads"],
+                 "launches_mesh": {run: c["rel_attention_block_heads"] for run, c in mesh["launches"].items()},
+                 "max_abs_err": kh["max_abs_err"], "ms": kh["times"][D]["ms"], "plain_ms": kh["times"][D]["plain_ms"],
+                 "dev_ms": kh["times"][D]["dev_ms"], "plain_dev_ms": kh["times"][D]["plain_dev_ms"],
+                 "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"],
+                 "bound_share": hb["bound_ms"] / kh["times"][D]["ms"], "gflop": hb["gflop"], "mbyte": hb["mbyte"],
+                 "library_ms": None,
+                 "shapes": [dict(shape=shape, dtype="f32", ms=ms["ms"], plain_ms=ms["plain_ms"], dev_ms=ms["dev_ms"],
+                                 plain_dev_ms=ms["plain_dev_ms"], bound_ms=bound(*kh["work"][shape])["bound_ms"],
+                                 bound_by=bound(*kh["work"][shape])["bound_by"])
+                            for shape, ms in kh["times"].items()]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

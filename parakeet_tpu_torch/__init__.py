@@ -23,7 +23,10 @@ Training (train.py): the CTC, RNNT, TDT, hybrid and Sortformer losses
 (`rnnt_loss`, `tdt_loss`), the data pipeline (`ManifestDataset`,
 `TrainDataLoader`), checkpoints and the train CLIs (`python -m
 parakeet_tpu_torch.train_cli`, `python -m parakeet_tpu_torch.train_diar_cli`).
-Entry points run on the card unless given device="cpu". Module paths
+Meshes: the offline facades take mesh= (data, tensor and sequence
+parallel) and the lockstep StreamingBatchTranscriber a data-parallel one,
+over torch.distributed (`parakeet_tpu_torch.parallel`: make_mesh,
+shard_params). Entry points run on the card unless given device="cpu". Module paths
 mirror the JAX reference package parakeet_tpu, which this package never
 imports; `NOT_PORTED` lists the reference's public names it does not
 export.

@@ -261,19 +261,29 @@ cudaError_t launch_attn(const void* qu, const void* qv, const void* kh, const vo
   return cudaGetLastError();
 }
 
-// The launch plan (ops/rel_attention.py block_plan): qkv_rows, the QKV
-// GEMM's block rows (64, 96 or 128); pos_splits and out_splits, the k slices
-// of the position GEMM and the out-projection. part holds max(pos_splits *
-// (2T-1), out_splits * B*T) x D f32 partials. With the LayerNorm, its
-// output borrows ctx until the core writes it.
+// The launch plan (ops/rel_attention.py block_plan, heads_plan): qkv_rows,
+// the QKV GEMM's block rows (64, 96 or 128); pos_splits and out_splits, the
+// k slices of the position GEMM and the out-projection. D is the model
+// width (x's rows); the weights hold H heads of HD (HD = 0: D / H), DL =
+// H * HD wide. part holds max(pos_splits * (2T-1) * DL, out_splits * B*T *
+// D) f32 partials. With the LayerNorm, its output borrows ctx ((B*T, D))
+// until the core writes ctx ((B*T, DL)).
+//
+// Head-sharded (partial != null): the weights are one 'model' rank's H
+// heads of a wider layer (wq, wk, wv, pos_w (DL, D); wo (D, DL)), and the
+// out-projection over them, with no bias and no residual, goes to partial
+// ((B*T, D) f32, its k slices summed in order, not rounded): the caller sums
+// the ranks' partials, then adds the bias and the residual once.
 template <typename T>
 int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, const void* wq,
               const void* bq, const void* wk, const void* bk, const void* wv, const void* bv,
               const void* bias_u, const void* bias_v, const void* pe, const void* pos_w,
               const void* wo, const void* bo, const int* lengths, float* part, void* qu,
               void* qv, void* kh, void* vh, void* pos, void* ctx, void* out, int B, int Tn,
-              int D, int H, int qkv_rows, int pos_splits, int out_splits, cudaStream_t stream) {
-  const int M = B * Tn, HD = D / H;
+              int D, int H, int qkv_rows, int pos_splits, int out_splits, cudaStream_t stream,
+              int HD = 0, float* partial = nullptr) {
+  if (HD == 0) HD = D / H;
+  const int M = B * Tn, DL = H * HD;
   if (M == 0) return 0;
   cudaError_t err;
   const void* a = x;
@@ -289,13 +299,13 @@ int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, co
   g.bias[0] = bq; g.bias[1] = bk; g.bias[2] = bv;
   g.out[0] = qu; g.out[1] = qv; g.out[2] = kh; g.out[3] = vh;
   g.bias_u = bias_u; g.bias_v = bias_v;
-  g.M = M; g.N = 3 * D; g.K = D; g.nseg = D;
+  g.M = M; g.N = 3 * DL; g.K = D; g.nseg = DL;
   g.T = Tn; g.H = H; g.HD = HD;
   g.scale = 1.f / sqrtf((float)HD);
   // D = H * hd with hd in {32, 64, 128}: rows are 16-byte aligned
   if ((err = launch_tiled_gemm_rows<T, FE_QKV, false>(g, qkv_rows, stream)) != cudaSuccess) return (int)err;
 
-  if ((err = launch_linear<T, false>(pe, pos_w, nullptr, nullptr, pos, part, 2 * Tn - 1, D, D,
+  if ((err = launch_linear<T, false>(pe, pos_w, nullptr, nullptr, pos, part, 2 * Tn - 1, DL, D,
                                      pos_splits, stream)) != cudaSuccess)
     return (int)err;
 
@@ -307,8 +317,18 @@ int run_block(const void* x, const float* ln_w, const float* ln_b, float eps, co
   }
   if (err != cudaSuccess) return (int)err;
 
-  return (int)launch_linear<T, false>(ctx, wo, bo, ln_w != nullptr ? x : nullptr, out, part, M, D, D,
-                                      out_splits, stream);
+  if (partial == nullptr)
+    return (int)launch_linear<T, false>(ctx, wo, bo, ln_w != nullptr ? x : nullptr, out, part, M, D, D,
+                                        out_splits, stream);
+  FfnGemmArgs o = {};
+  o.a = ctx;
+  o.w[0] = wo;
+  o.out[0] = part;
+  o.M = M; o.N = D; o.K = DL;
+  if ((err = launch_tiled_gemm<T, FE_PARTIAL, 128, false>(o, out_splits, stream)) != cudaSuccess) return (int)err;
+  // the f32 closing pass: the slices summed in order, nothing added, no rounding
+  return (int)launch_gemm_reduce<float>(part, out_splits, nullptr, 1.f, nullptr, nullptr, nullptr, 0.f, partial,
+                                        M, D, stream);
 }
 
 }  // namespace

@@ -80,6 +80,7 @@ def _beam_loop(
     joint_prefix: str,
     beam_size: int,
     expand_k: int,
+    model=None,
 ):
     b, t_max, _ = enc.shape
     k, m = beam_size, expand_k
@@ -115,17 +116,17 @@ def _beam_loop(
         active = live()
         enc_pre_t = enc_pre[bix, t.clamp(0, t_max - 1)]  # (B, K, J)
         lstm_flat = lstm.permute(2, 3, 0, 1, 4).reshape(n_l, 2, b * k, pred_hidden)
-        pred_flat, new_flat = prediction_step(pred_p, token.reshape(b * k), lstm_flat, n_l)
+        pred_flat, new_flat = prediction_step(pred_p, token.reshape(b * k), lstm_flat, n_l, model)
         pred = pred_flat.reshape(b, k, -1)
         new_lstm = new_flat.reshape(n_l, 2, b, k, pred_hidden).permute(2, 3, 0, 1, 4)
 
         if is_tdt:
-            label_lp, dur_lp = tdt_joint_precomputed(joint_p, enc_pre_t, pred)
+            label_lp, dur_lp = tdt_joint_precomputed(joint_p, enc_pre_t, pred, model)
             dur_idx = torch.argmax(dur_lp, dim=-1)
             skip = dur_arr[dur_idx.clamp(0, len(durations) - 1)]  # (B, K)
             dur_bonus = dur_lp.gather(-1, dur_idx[..., None])[..., 0]
         else:
-            label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred)
+            label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred, model)
             skip = torch.zeros_like(t)
             dur_bonus = torch.zeros((b, k), dtype=_F32, device=dev)
 
@@ -184,9 +185,11 @@ def transducer_beam_decode(
     expand_k: int | None = None,
     n_best: int = 1,
     max_out: int | None = None,
+    model=None,
 ) -> list[list[BeamHypothesis]]:
     """Beam-decode a batch; per item its n-best hypotheses, best first
-    (scores are joint path log-probabilities)."""
+    (scores are joint path log-probabilities). model: the mesh's 'model'
+    axis when the vocab heads are split (models/rnnt.py)."""
     b, t_max, _ = enc.shape
     if enc_lengths is None:
         enc_len = torch.full((b,), t_max, dtype=torch.int64, device=enc.device)
@@ -200,7 +203,7 @@ def transducer_beam_decode(
         out = _beam_loop(
             params, enc, enc_len, num_lstm_layers=num_lstm_layers, durations=tuple(durations),
             blank_id=blank_id, max_symbols=max_symbols, max_out=max_out, is_tdt=is_tdt,
-            joint_prefix=joint_prefix, beam_size=beam_size, expand_k=expand_k)
+            joint_prefix=joint_prefix, beam_size=beam_size, expand_k=expand_k, model=model)
     out_tok, out_frame, out_lp, n_out, score = (x.cpu().tolist() for x in out)
 
     results: list[list[BeamHypothesis]] = []

@@ -20,6 +20,13 @@ Quantized prediction and joint weights are converted once per call, before
 the loop (ops/layers.py hoist_dequant), which is identical to converting
 them at every step.
 
+Under tensor parallelism (`model`) the joint's vocab-split logits are
+gathered every step (models/rnnt.py), so every rank of a 'model' group
+sees the same log-probs, takes the same argmax and stop decisions, and so
+reaches every collective of the loop the same number of times. Padded
+vocab lanes (parallel/mesh.py pad_vocab_dim) carry −1e9 logits; the boost
+mask is padded with unboosted lanes to their width, as in the reference.
+
 The whole batch steps in lockstep on the device, each item running its own
 state machine; an item whose t has reached its length takes exact no-op
 steps. Python drives the loop and asks the device whether any item is
@@ -79,6 +86,7 @@ def transducer_greedy_decode(
     frame_offset: int = 0,
     max_out: int | None = None,
     clamp_end: bool = True,
+    model=None,
 ) -> TransducerResult:
     """Greedy decode of (B, T, H) encoder frames. A streaming caller carries
     the decode state across chunks: `init_token` (B,) and `init_lstm`
@@ -87,7 +95,8 @@ def transducer_greedy_decode(
     start and end frame, and `max_out` emission slots per item (default
     max(8, T · max_symbols); past it the last slot is overwritten, as in
     the reference). `boost`: (transitions (N, V), initial active (B, N)
-    bool, score), as ContextTrie.device_boost gives it."""
+    bool, score), as ContextTrie.device_boost gives it. `model`: the
+    mesh's 'model' axis when the vocab heads are split."""
     b, t_max, _ = enc.shape
     dev = enc.device
     root = Params(hoist_dequant(params, ("prediction_", joint_prefix)))
@@ -129,17 +138,19 @@ def transducer_greedy_decode(
     while steps % CHECK_EVERY or bool((t < enc_len).any()):
         active = t < enc_len
         enc_pre_t = enc_pre[batch_ix, t.clamp(0, t_max - 1)]  # (B, joint_h)
-        pred, new_lstm = prediction_step(pred_p, token, lstm, num_lstm_layers)
+        pred, new_lstm = prediction_step(pred_p, token, lstm, num_lstm_layers, model)
         if is_tdt:
-            label_lp, dur_lp = tdt_joint_precomputed(joint_p, enc_pre_t, pred)
+            label_lp, dur_lp = tdt_joint_precomputed(joint_p, enc_pre_t, pred, model)
             skip = dur_arr[torch.argmax(dur_lp, dim=-1).clamp(0, len(durations) - 1)]
         else:
-            label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred)
+            label_lp = rnnt_joint_precomputed(joint_p, enc_pre_t, pred, model)
             skip = torch.zeros_like(t)
 
         select_lp = label_lp
         if boost is not None:
             mask = (boost_active.to(torch.float32) @ reach) > 0  # (B, V): children of active nodes
+            if mask.shape[-1] < label_lp.shape[-1]:  # padded vocab lanes: never boosted
+                mask = torch.nn.functional.pad(mask, (0, label_lp.shape[-1] - mask.shape[-1]))
             select_lp = label_lp + boost_score * mask.to(torch.float32)
         tok_id = torch.argmax(select_lp, dim=-1)
         raw_lp = label_lp[batch_ix, tok_id]  # unboosted: the confidence

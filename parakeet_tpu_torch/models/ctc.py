@@ -16,10 +16,18 @@ from parakeet_tpu_torch.ops.layers import conv1d
 from parakeet_tpu_torch.params import Params
 
 
-def ctc_log_probs(p: Params, encoder_out: torch.Tensor) -> torch.Tensor:
-    """(B, T, H) → (B, T, V) f32 log-probs; `p` at the ctc head prefix."""
-    x = conv1d(p.sub("proj_"), encoder_out.transpose(1, 2))  # (B, V, T)
-    return torch.log_softmax(x.transpose(1, 2).to(torch.float32), dim=-1)
+def ctc_log_probs(p: Params, encoder_out: torch.Tensor, model=None, vocab: int | None = None) -> torch.Tensor:
+    """(B, T, H) → (B, T, V) f32 log-probs; `p` at the ctc head prefix.
+    model: the mesh's 'model' axis when the head's vocab rows are split
+    (this rank's block of logits, gathered); vocab: the schema vocabulary,
+    to which padded log-probs are cut after the softmax."""
+    x = conv1d(p.sub("proj_"), encoder_out.transpose(1, 2)).transpose(1, 2)  # (B, T, V)
+    if model is not None and model.split:
+        from parakeet_tpu_torch.parallel.collectives import gather_last
+
+        x = gather_last(x.contiguous(), model)
+    lp = torch.log_softmax(x.to(torch.float32), dim=-1)
+    return lp if vocab is None else lp[..., :vocab]
 
 
 def _argmax_and_max(log_probs) -> tuple[np.ndarray, np.ndarray]:

@@ -16,6 +16,24 @@ the final LayerNorm in one kernel (--fused-block2: ops/conv_ffn_final.py).
 
 Padded batches carry per-item mel lengths; pad frames are masked out of
 attention by key length and zeroed before the depthwise conv.
+
+On a mesh (`EncoderSplit`, the reference's act_sharding seam with its
+tensor-parallel rules) each collective is explicit
+(parallel/collectives.py). Tensor parallelism ('model'): the FFN's fc1
+rows and fc2 columns (fc2 row-parallel: the partial products summed, then
+the bias); the attention heads through K1's head-sharded mode (its f32
+partial out-projection summed, then the bias and the residual once); the
+conv module's pointwise_conv1 channels, gathered before the GLU (the
+contiguous row split puts the GLU's value and gate halves on different
+ranks), the depthwise conv, BatchNorm and pointwise_conv2 whole on every
+rank. The other kernels take the whole weights (`EncoderSplit.full`) and
+compute their sublayer replicated over 'model', as XLA's partitioner does
+around a kernel it has no rule for. Sequence parallelism ('seq'): after
+the subsampling, T' is padded to a multiple of the axis and each rank
+keeps its block of frames; the attention (plain, as the reference
+requires) gathers the normed frames for its keys and values and shifts the
+relative positions by its block's offset, the depthwise conv takes 4-frame
+halos from its neighbours, and the blocks' output is gathered at the end.
 """
 
 from __future__ import annotations
@@ -46,8 +64,12 @@ from parakeet_tpu_torch.ops.rel_attention import (
     position_table,
     position_table_np,
     rel_attention_block,
+    rel_attention_block_heads,
+    rel_attention_block_reference,
 )
 from parakeet_tpu_torch.ops.subsample import fused_subsample_block1
+from parakeet_tpu_torch.parallel.collectives import all_reduce_sum, gather_dim, halo_exchange
+from parakeet_tpu_torch.parallel.mesh import AxisGroup
 from parakeet_tpu_torch.params import Params
 
 
@@ -97,6 +119,21 @@ class FusedLayers:
     def __post_init__(self):
         if self.attention not in ATTENTION_MODES:
             raise ValueError(f"FusedLayers.attention must be one of {ATTENTION_MODES}, got {self.attention!r}")
+
+
+@dataclass(frozen=True)
+class EncoderSplit:
+    """How one encoder call is split over a mesh: `model`, the 'model' axis
+    (its group, size and this rank's index; parallel/mesh.py AxisGroup),
+    over which the weights the encoder is given are split by
+    parallel/mesh.py's rules; `seq`, the 'seq' axis, over which time is
+    split; `full`, the whole weights (a view at the encoder prefix) for the
+    sublayers that run a kernel other than K1 on a 'model' axis > 1, None
+    when the configuration runs none."""
+
+    model: AxisGroup
+    seq: AxisGroup
+    full: Params | None = None
 
 
 def sinusoidal_position_embedding(seq_len: int, d_model: int) -> torch.Tensor:
@@ -206,12 +243,14 @@ def conv_subsampling(
 
 
 def feed_forward(
-    p: Params, x: torch.Tensor, eps: float, fused: bool = False, final_norm: Params | None = None
+    p: Params, x: torch.Tensor, eps: float, fused: bool = False, final_norm: Params | None = None,
+    model=None,
 ) -> torch.Tensor:
     """Macaron FFN with 0.5 half-step residual (encoder.cpp:39-46), then
     `final_norm` (the block's final LayerNorm) when given. With `fused` and
     T' ≥ _FFN_MIN_FRAMES it runs the fused FFN kernel, the final LayerNorm
-    included."""
+    included. model: the 'model' axis over which fc1's rows and fc2's
+    columns are split (plain path only; fc2 row-parallel)."""
     if fused and _ffn_fusable(p, x):
         kw = {}
         if final_norm is not None:
@@ -225,7 +264,7 @@ def feed_forward(
         )
     h = layer_norm(p.sub("norm_"), x, eps)
     h = silu(linear(p.sub("fc1_"), h))
-    h = linear(p.sub("fc2_"), h)
+    h = linear(p.sub("fc2_"), h, row_group=model)
     x = x + 0.5 * h
     return x if final_norm is None else layer_norm(final_norm, x, eps)
 
@@ -238,12 +277,18 @@ def conv_module(
     pad_mask: torch.Tensor | None = None,
     fused: bool = False,
     lengths: torch.Tensor | None = None,
+    model=None,
+    seq=None,
 ) -> torch.Tensor:
     """Pointwise→GLU→depthwise→BN(inference)→SiLU→pointwise, residual
     (encoder.cpp:59-75). pad_mask (B, T) bool, True = padding: those rows
     are zeroed before the depthwise conv so pad garbage cannot reach valid
     frames. With `fused` the conv-module kernel runs instead and masks by
-    `lengths` (valid rows per item), taken from pad_mask when not given."""
+    `lengths` (valid rows per item), taken from pad_mask when not given.
+    Plain path on a mesh: model, the axis over which pointwise_conv1's
+    channels are split (gathered before the GLU); seq, the axis over which
+    the frames are split (x and pad_mask this rank's block; the depthwise
+    conv reads (k−1)/2 frames of each neighbour's)."""
     if fused:
         if lengths is None and pad_mask is not None:
             lengths = (~pad_mask).sum(dim=1).to(torch.int32)
@@ -260,10 +305,16 @@ def conv_module(
     d = x.shape[-1]
     h = layer_norm(p.sub("norm_"), x, eps).transpose(1, 2)  # (B, d, T)
     h = conv1d(p.sub("pointwise_conv1_"), h)
+    if model is not None and model.split:
+        h = gather_dim(h.contiguous(), model, 1)
     h = glu(h, dim=1)
     if pad_mask is not None:
         h = h.masked_fill(pad_mask[:, None, :], 0.0)
-    h = conv1d(p.sub("depthwise_conv_"), h, padding=(kernel_size - 1) // 2, groups=d)
+    if seq is not None and seq.split:
+        h = halo_exchange(h, seq, (kernel_size - 1) // 2, dim=2)
+        h = conv1d(p.sub("depthwise_conv_"), h, groups=d)
+    else:
+        h = conv1d(p.sub("depthwise_conv_"), h, padding=(kernel_size - 1) // 2, groups=d)
     h = batch_norm_1d(p.sub("batch_norm_"), h)
     h = silu(h)
     h = conv1d(p.sub("pointwise_conv2_"), h)
@@ -293,6 +344,56 @@ def _attention(p: Params, x, lengths, norm: Params | None = None, eps: float = 1
         lengths=lengths,
         **kw,
     )
+
+
+def _attention_heads(p: Params, x, lengths, norm: Params, eps: float, model) -> torch.Tensor:
+    """The attention block under tensor parallelism over heads: K1's
+    head-sharded mode on this rank's heads (its slice of pos_bias_u/v,
+    which the rules keep whole), the f32 partials summed over 'model', then
+    the out-projection's bias and the residual, rounded once."""
+    mha = p.sub("mha_")
+    heads, hd = p["pos_bias_u_"].shape
+    local = mha["q_proj.weight"].shape[0] // hd
+    h0 = model.index * local
+    partial = rel_attention_block_heads(
+        x,
+        mha["q_proj.weight"], mha["q_proj.bias"],
+        mha["k_proj.weight"], mha["k_proj.bias"],
+        mha["v_proj.weight"], mha["v_proj.bias"],
+        p["pos_bias_u_"][h0:h0 + local].to(x.dtype), p["pos_bias_v_"][h0:h0 + local].to(x.dtype),
+        p["pos_proj_.weight"],
+        mha["out_proj.weight"],
+        lengths=lengths, norm_w=norm["weight"], norm_b=norm["bias"], eps=eps,
+    )
+    y = all_reduce_sum(partial, model) + mha["out_proj.bias"].to(torch.float32)
+    return (x.to(torch.float32) + y).to(x.dtype)
+
+
+def _attention_seq(p: Params, x, lengths, norm: Params, eps: float, model, seq) -> torch.Tensor:
+    """The attention block under sequence parallelism, plain (as the
+    reference requires): x is this rank's block of Ts frames; every rank's
+    frames are gathered for the keys and values, the queries sit at offset
+    index·Ts in the relative shift, and `lengths` (global) mask the keys.
+    K1's plain version in its head-sharded mode on this rank's heads (all
+    of them without a 'model' axis), the partials summed over 'model', then
+    the bias and the residual, as in `_attention_heads`."""
+    mha = p.sub("mha_")
+    heads, hd = p["pos_bias_u_"].shape
+    local = mha["q_proj.weight"].shape[0] // hd
+    h0 = model.index * local if model.split else 0
+    partial = rel_attention_block_reference(
+        x,
+        mha["q_proj.weight"], mha["q_proj.bias"],
+        mha["k_proj.weight"], mha["k_proj.bias"],
+        mha["v_proj.weight"], mha["v_proj.bias"],
+        p["pos_bias_u_"][h0:h0 + local].to(x.dtype), p["pos_bias_v_"][h0:h0 + local].to(x.dtype),
+        p["pos_proj_.weight"],
+        mha["out_proj.weight"], None,
+        lengths, norm["weight"], norm["bias"], eps,
+        heads_partial=True, x_kv=gather_dim(x.contiguous(), seq, 1), q_offset=seq.index * x.shape[1],
+    )
+    y = all_reduce_sum(partial, model) + mha["out_proj.bias"].to(torch.float32)
+    return (x.to(torch.float32) + y).to(x.dtype)
 
 
 def rel_position_attention(
@@ -337,6 +438,8 @@ def conformer_block(
     pad_mask: torch.Tensor | None = None,
     lengths: torch.Tensor | None = None,
     fused: FusedLayers = FusedLayers(),
+    split: EncoderSplit | None = None,
+    whole: Params | None = None,
 ) -> torch.Tensor:
     """ffn1 → attn → conv → ffn2 → final LayerNorm (encoder.cpp:196-204),
     the kernels chosen by `fused` with the reference's precedence
@@ -348,11 +451,19 @@ def conformer_block(
     fused.conv and ffn2 fused.ffn, the final LayerNorm inside ffn2's
     kernel when it is fused, as in the reference. Below the FFN guard
     (T' < _FFN_MIN_FRAMES) "mega" and block2 give way as there: ffn1 and
-    ffn2 plain, the attention as K1, the conv module as fused.conv says."""
+    ffn2 plain, the attention as K1, the conv module as fused.conv says.
+
+    On a mesh (`split`; p this rank's shards, `whole` the layer's whole
+    weights): the plain sublayers and K1 run split as the module note
+    says, the other kernels on `whole`, replicated over 'model'."""
     eps = cfg.layer_norm_eps
     a = p.sub("attn_")
+    model = seq = None
+    if split is not None:
+        model, seq = split.model, split.seq
+    w = p if whole is None else whole  # the kernels other than K1 take whole weights
     if fused.attention == "mega" and _ffn_fusable(p.sub("ffn1_"), x) and _attention_fusable(a):
-        f, mha = p.sub("ffn1_"), a.sub("mha_")
+        f, a, mha = w.sub("ffn1_"), w.sub("attn_"), w.sub("attn_").sub("mha_")
         x = fused_ffn_attention(
             x,
             f["norm_.weight"], f["norm_.bias"],
@@ -368,13 +479,17 @@ def conformer_block(
             lengths=lengths, eps=eps,
         )
     else:
-        x = feed_forward(p.sub("ffn1_"), x, eps, fused=fused.ffn)
+        x = _feed_forward_on(p, w, "ffn1_", x, eps, fused.ffn, None, model)
         if fused.attention == "v1":
-            x = x + rel_position_attention_v1(a, layer_norm(a.sub("norm_"), x, eps), lengths)
+            x = x + rel_position_attention_v1(w.sub("attn_"), layer_norm(a.sub("norm_"), x, eps), lengths)
+        elif seq is not None and seq.split:
+            x = _attention_seq(a, x, lengths, a.sub("norm_"), eps, model, seq)
+        elif model is not None and model.split and _attention_fusable(a):
+            x = _attention_heads(a, x, lengths, a.sub("norm_"), eps, model)
         else:
-            x = _attention(a, x, lengths, norm=a.sub("norm_"), eps=eps)
+            x = _attention(w.sub("attn_"), x, lengths, norm=a.sub("norm_"), eps=eps)
     if fused.block2 and _ffn_fusable(p.sub("ffn2_"), x):
-        c, f = p.sub("conv_"), p.sub("ffn2_")
+        c, f = w.sub("conv_"), w.sub("ffn2_")
         if lengths is None and pad_mask is not None:
             lengths = (~pad_mask).sum(dim=1).to(torch.int32)
         return fused_conv_ffn_final(
@@ -391,9 +506,20 @@ def conformer_block(
             p["final_norm_.weight"], p["final_norm_.bias"],
             lengths=lengths, eps=eps,
         )
-    x = conv_module(p.sub("conv_"), x, cfg.conv_kernel_size, eps, pad_mask,
-                    fused=fused.conv, lengths=lengths)
-    return feed_forward(p.sub("ffn2_"), x, eps, fused=fused.ffn, final_norm=p.sub("final_norm_"))
+    if fused.conv:
+        x = conv_module(w.sub("conv_"), x, cfg.conv_kernel_size, eps, pad_mask, fused=True, lengths=lengths)
+    else:
+        x = conv_module(p.sub("conv_"), x, cfg.conv_kernel_size, eps, pad_mask, model=model, seq=seq)
+    return _feed_forward_on(p, w, "ffn2_", x, eps, fused.ffn, p.sub("final_norm_"), model)
+
+
+def _feed_forward_on(p: Params, whole: Params, name: str, x, eps: float, fused: bool, final_norm, model):
+    """An FFN of the block: its kernel on the whole weights when `fused` and
+    the reference's guard take it, else the plain path on this rank's
+    shards (fc2 row-parallel over `model`)."""
+    if fused and _ffn_fusable(whole.sub(name), x):
+        return feed_forward(whole.sub(name), x, eps, fused=True, final_norm=final_norm)
+    return feed_forward(p.sub(name), x, eps, final_norm=final_norm, model=model)
 
 
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -434,6 +560,7 @@ def fastconformer_encode(
     lengths: torch.Tensor | None = None,
     fused: FusedLayers = FusedLayers(),
     remat: bool = False,
+    split: EncoderSplit | None = None,
 ) -> torch.Tensor:
     """(B, T, mel) → (B, T', d_model) (encoder.cpp:245-271). `p` is the
     view at the encoder prefix; `lengths` optional per-item mel frames;
@@ -441,22 +568,45 @@ def fastconformer_encode(
     training-memory lever: each conformer block runs under
     torch.utils.checkpoint, so backward keeps only the block inputs and
     recomputes the rest (K1 launches again); the blocks then run
-    `FusedLayers()`, as the reference's remat forces its XLA layers."""
+    `FusedLayers()`, as the reference's remat forces its XLA layers.
+
+    `split`: the call's split over a mesh (`EncoderSplit`; `p` then holds
+    this rank's shards). With a 'seq' axis the subsampled frames are
+    padded to a multiple of the axis, each rank runs the blocks on its
+    block of them, and the output is gathered: every rank returns the
+    whole (B, T', d_model)."""
     if features.is_cuda:
         require_ieee_f32()
+    if remat and split is not None:
+        raise ValueError("remat is a training lever; the encoder on a mesh runs inference only")
     x, pad_mask, enc_lengths = encode_prologue(p, cfg, features, lengths, fused)
     layers = p.sub("layers_")
+    t = x.shape[1]
+    seq = None if split is None else split.seq
+    if seq is not None and seq.split:
+        if enc_lengths is None:
+            enc_lengths = torch.full((x.shape[0],), t, dtype=torch.int32, device=x.device)
+        ts = -(-t // seq.size)
+        x = torch.nn.functional.pad(x, (0, 0, 0, ts * seq.size - t))
+        lo = seq.index * ts
+        x = x[:, lo:lo + ts]
+        pad_mask = torch.arange(lo, lo + ts, device=x.device)[None, :] >= enc_lengths[:, None]
+    whole = None if split is None or split.full is None else split.full.sub("layers_")
     for i in range(cfg.num_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(conformer_block, layers.sub(str(i)), x, cfg, pad_mask,
                                                   enc_lengths, FusedLayers(), use_reentrant=False)
         else:
-            x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused)
+            x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused, split,
+                                None if whole is None else whole.sub(str(i)))
+    if seq is not None and seq.split:
+        x = gather_dim(x.contiguous(), seq, 1)[:, :t]
     return x
 
 
 __all__ = [
     "ATTENTION_MODES",
+    "EncoderSplit",
     "FusedLayers",
     "sinusoidal_position_embedding",
     "subsample_length",

@@ -18,10 +18,10 @@ _F32 = torch.float32
 
 
 def prediction_step(
-    p: Params, token: torch.Tensor, lstm_state: torch.Tensor, num_lstm_layers: int
+    p: Params, token: torch.Tensor, lstm_state: torch.Tensor, num_lstm_layers: int, model=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step: token (B,) → ((B, pred_hidden), new_state)."""
-    x = embedding(p.sub("embed_"), token)
+    x = embedding(p.sub("embed_"), token, vocab_group=model)
     return lstm_step(p.sub("lstm_"), x, lstm_state, num_lstm_layers)
 
 
@@ -55,18 +55,28 @@ def tdt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor) -> tuple[torch.T
     return tdt_joint_precomputed(p, joint_encoder_projection(p, enc), pred)
 
 
-def rnnt_joint_precomputed(p: Params, enc_pre: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def _vocab_logits(p: Params, hidden: torch.Tensor, model) -> torch.Tensor:
+    """A vocab head's logits; under a split, this rank's block gathered."""
+    logits = linear(p, hidden)
+    if model is not None and model.split:
+        from parakeet_tpu_torch.parallel.collectives import gather_last
+
+        logits = gather_last(logits, model)
+    return logits
+
+
+def rnnt_joint_precomputed(p: Params, enc_pre: torch.Tensor, pred: torch.Tensor, model=None) -> torch.Tensor:
     """RNNT joint with enc_proj already applied → (…, V) log-probs."""
     hidden = torch.relu(enc_pre + linear(p.sub("pred_proj_"), pred))
-    return torch.log_softmax(linear(p.sub("out_proj_"), hidden).to(_F32), dim=-1)
+    return torch.log_softmax(_vocab_logits(p.sub("out_proj_"), hidden, model).to(_F32), dim=-1)
 
 
 def tdt_joint_precomputed(
-    p: Params, enc_pre: torch.Tensor, pred: torch.Tensor
+    p: Params, enc_pre: torch.Tensor, pred: torch.Tensor, model=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """TDT joint with enc_proj already applied → ((…, V), (…, n_dur)) log-probs."""
     hidden = torch.relu(enc_pre + linear(p.sub("pred_proj_"), pred))
-    label_lp = torch.log_softmax(linear(p.sub("label_proj_"), hidden).to(_F32), dim=-1)
+    label_lp = torch.log_softmax(_vocab_logits(p.sub("label_proj_"), hidden, model).to(_F32), dim=-1)
     dur_lp = torch.log_softmax(linear(p.sub("duration_proj_"), hidden).to(_F32), dim=-1)
     return label_lp, dur_lp
 

@@ -16,6 +16,11 @@ tensors run the hand-written kernel in csrc/conv_ffn_final.cu (the launch
 sequences of K5 and K6 in one C call, see its note) or raise, CPU tensors
 run the plain version. What it drops from the TPU kernel: T padded to 128
 lanes, the SMEM length block and whole-array VMEM weight blocks.
+
+On a mesh with a 'model' axis > 1 (parallel/mesh.py) K4 takes the whole
+weights, gathered once when the facade is built, and computes its
+sublayers replicated over 'model', as XLA's partitioner does around a
+kernel it has no rule for (models/encoder.py).
 """
 
 from __future__ import annotations

@@ -18,6 +18,12 @@ the kernel on the card and how its design answers that is at the top of the
 .cu source. What it drops from the TPU kernel: T padded to 128 lanes, the
 SMEM length block, the tap-major depthwise weight padded to 8 sublanes and
 whole-array VMEM weight blocks; it takes any T, any width and any odd k.
+
+On a mesh with a 'model' axis > 1 (parallel/mesh.py) K5 takes the whole
+conv-module weights, gathered once when the facade is built, and computes
+its sublayer replicated over 'model', as XLA's partitioner does around a
+kernel it has no rule for (models/encoder.py); only the plain conv module
+is split.
 """
 
 from __future__ import annotations

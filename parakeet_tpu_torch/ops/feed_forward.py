@@ -16,6 +16,11 @@ the kernel on the card and how its design answers that is at the top of
 the .cu source. What it drops from the TPU kernel: T padded to 128 lanes,
 whole-array VMEM weight blocks and the caller's guards (T ≥ 64, 8 MiB of
 weights); it takes any T and any width.
+
+On a mesh with a 'model' axis > 1 (parallel/mesh.py) K6 takes the whole FFN
+weights, gathered once when the facade is built, and computes its
+sublayer replicated over 'model', as XLA's partitioner does around a
+kernel it has no rule for (models/encoder.py); only the plain FFN is split.
 """
 
 from __future__ import annotations

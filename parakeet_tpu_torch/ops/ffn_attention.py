@@ -19,6 +19,12 @@ reference's core scores the position term by the angle-addition
 factorisation of the sinusoidal table; the port gathers projected table
 rows (K1). The two agree to f32 rounding; in bf16 they round the table at
 different points.
+
+On a mesh with a 'model' axis > 1 (parallel/mesh.py) K7 takes the whole
+weights, gathered once when the facade is built, and computes ffn1 and
+the attention replicated over 'model', as XLA's partitioner does around a
+kernel it has no rule for (models/encoder.py); K1 alone has a
+head-sharded mode.
 """
 
 from __future__ import annotations

@@ -96,12 +96,27 @@ def _linear_int8(p: Params, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, *, row_group=None) -> torch.Tensor:
     """y = x @ W.T (+ b), float32 accumulation, result in x.dtype.
 
     int8 W (+ `##scale`, quantize.quantize_params): the scale multiplies
     the product (`_linear_int8`). Packed int4 W (uint8 + `##scale4`):
-    dequantised to x.dtype first, then the float path."""
+    dequantised to x.dtype first, then the float path.
+
+    row_group: a row-parallel linear under tensor parallelism (the mesh
+    axis, parallel/mesh.py AxisGroup): x holds this rank's input columns
+    and W the matching weight columns; the f32 products are summed over
+    the axis (parallel/collectives.py), then the bias is added once and
+    the sum rounded once. A column-parallel linear (W's output rows split)
+    is the plain call on the local rows."""
+    if row_group is not None and row_group.split:
+        from parakeet_tpu_torch.parallel.collectives import all_reduce_sum
+
+        if not p["weight"].is_floating_point():
+            raise ValueError("a row-parallel linear takes float weights")
+        y = all_reduce_sum(F.linear(x.to(_F32), p["weight"].to(_F32)), row_group)
+        b = p.get("bias")
+        return (y if b is None else y + b.to(_F32)).to(x.dtype)
     w = p["weight"]
     if w.dtype == torch.int8:
         return _linear_int8(p, w, x)
@@ -137,8 +152,15 @@ def hoist_dequant(params: dict, prefixes: tuple[str, ...]) -> dict:
     return out
 
 
-def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    """ids (...,) integer → (..., dim)."""
+def embedding(p: Params, ids: torch.Tensor, *, vocab_group=None) -> torch.Tensor:
+    """ids (...,) integer → (..., dim). vocab_group: the mesh axis over
+    which the weight's vocab rows are split (tensor parallelism): this
+    rank's rows looked up, zero elsewhere, summed over the axis
+    (parallel/collectives.py parallel_embedding)."""
+    if vocab_group is not None and vocab_group.split:
+        from parakeet_tpu_torch.parallel.collectives import parallel_embedding
+
+        return parallel_embedding(p["weight"], ids, vocab_group)
     return p["weight"][ids]
 
 

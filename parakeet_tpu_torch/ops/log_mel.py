@@ -21,6 +21,9 @@ Nyquist bin), the mel product over each filter's band of nonzero weights
 TPU kernel: the 128-frame tiles built from overlapping hop rows and the
 four shifted hop-block matmuls; it reads the frames straight from the
 waveform. Like the reference's, it takes one clip per call.
+
+On a mesh K3 runs per clip on each rank (`preprocess_audio_fused`); the
+frontend is not split.
 """
 
 from __future__ import annotations

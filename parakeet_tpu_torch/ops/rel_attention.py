@@ -88,49 +88,70 @@ def rel_attention_block_reference(
     norm_b=None,
     eps: float = 1e-5,
     score_bf16: bool = False,
+    heads_partial: bool = False,
+    x_kv: torch.Tensor | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Plain torch version of the kernel: same signature, same rounding
     points (products accumulate in f32; q/k/v, P and the AV result round to
-    x.dtype). Pad query rows (t ≥ length) hold garbage, as in the kernel."""
+    x.dtype). Pad query rows (t ≥ length) hold garbage, as in the kernel.
+
+    heads_partial: the head-sharded mode (`rel_attention_block_heads`): the
+    weights hold H of the layer's heads (wq, wk, wv, pos_w (H·hd, D), wo (D,
+    H·hd), bias_u, bias_v (H, hd)), bo is unused, and the result is the
+    f32 out-projection of those heads with no bias and no residual.
+
+    x_kv, q_offset: the keys and values from x_kv (B, Tk, D), normed as x
+    is, and query row t at position q_offset + t of those Tk frames (a
+    'seq' rank's block of queries against every rank's frames,
+    models/encoder.py); by default x itself at offset 0."""
     _check_score_storage(score_bf16)
     b, t, d = x.shape
     heads, hd = bias_u.shape
+    dl = heads * hd
     scale = 1.0 / math.sqrt(hd)
     dt = x.dtype
 
     def f(a):
         return a.to(_F32)
 
-    xin = x
-    if norm_w is not None:
-        xin = F.layer_norm(f(x), (d,), f(norm_w), f(norm_b), eps).to(dt)
+    def normed(y):
+        return y if norm_w is None else F.layer_norm(f(y), (d,), f(norm_w), f(norm_b), eps).to(dt)
 
-    def proj(w, bias):
-        return f(xin) @ f(w).T + f(bias)  # (B, T, D) f32
+    xin = normed(x)
+    xkv = xin if x_kv is None else normed(x_kv)
+    tk = xkv.shape[1]
+
+    def proj(y, w, bias):
+        return f(y) @ f(w).T + f(bias)  # (B, T, DL) f32
 
     def split(y):
-        return f(y).view(b, t, heads, hd).transpose(1, 2)  # (B, H, T, hd)
+        return f(y).view(b, -1, heads, hd).transpose(1, 2)  # (B, H, T, hd)
 
-    q_s = (proj(wq, bq) * scale).to(dt)
-    k = proj(wk, bk).to(dt)
-    v = proj(wv, bv).to(dt)
-    qu = (f(q_s) + f((f(bias_u).reshape(d) * scale).to(dt))).to(dt)
-    qv = (f(q_s) + f((f(bias_v).reshape(d) * scale).to(dt))).to(dt)
+    q_s = (proj(xin, wq, bq) * scale).to(dt)
+    k = proj(xkv, wk, bk).to(dt)
+    v = proj(xkv, wv, bv).to(dt)
+    qu = (f(q_s) + f((f(bias_u).reshape(dl) * scale).to(dt))).to(dt)
+    qv = (f(q_s) + f((f(bias_v).reshape(dl) * scale).to(dt))).to(dt)
 
-    pe = position_table(t, d, x.device, dt)
-    pos = (f(pe) @ f(pos_w).T).to(dt)  # (2T−1, D)
-    content = split(qu) @ split(k).transpose(-1, -2)  # (B, H, T, T)
-    raw = split(qv) @ f(pos).view(2 * t - 1, heads, hd).permute(1, 2, 0)  # (B, H, T, 2T−1)
-    ar = torch.arange(t, device=x.device)
-    idx = (t - 1 - ar[:, None] + ar[None, :]).expand(b, heads, t, t)  # r = T−1−t+s
+    pe = position_table(tk, d, x.device, dt)
+    pos = (f(pe) @ f(pos_w).T).to(dt)  # (2Tk−1, DL)
+    content = split(qu) @ split(k).transpose(-1, -2)  # (B, H, T, Tk)
+    raw = split(qv) @ f(pos).view(2 * tk - 1, heads, hd).permute(1, 2, 0)  # (B, H, T, 2Tk−1)
+    rows = torch.arange(t, device=x.device) + q_offset
+    keys = torch.arange(tk, device=x.device)
+    idx = (tk - 1 - rows[:, None] + keys[None, :]).expand(b, heads, t, tk)  # r = Tk−1−t+s
     scores = content + raw.gather(-1, idx)
 
-    kv = _key_lengths(lengths, b, t, x.device)
-    key_pad = ar[None, :] >= kv[:, None]  # (B, T)
+    kv = _key_lengths(lengths, b, tk, x.device)
+    key_pad = keys[None, :] >= kv[:, None]  # (B, Tk)
     scores = scores.masked_fill(key_pad[:, None, None, :], _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    ctx = (probs @ split(v)).transpose(1, 2).reshape(b, t, d).to(dt)
-    out = f(ctx) @ f(wo).T + f(bo)
+    ctx = (probs @ split(v)).transpose(1, 2).reshape(b, t, dl).to(dt)
+    out = f(ctx) @ f(wo).T
+    if heads_partial:
+        return out
+    out = out + f(bo)
     if norm_w is not None:
         out = f(x) + out
     return out.to(dt)
@@ -155,11 +176,20 @@ class BlockPlan:
 
 
 def block_plan(b: int, t: int, d: int, itemsize: int = 4) -> BlockPlan:
+    """K1's plan for (B, T, D): every head (`heads_plan` with DL = D)."""
+    return heads_plan(b, t, d, d, itemsize)
+
+
+def heads_plan(b: int, t: int, d: int, dl: int, itemsize: int = 4) -> BlockPlan:
+    """The plan over heads DL = H·hd wide of a layer D wide: the QKV GEMM
+    (N = 3·DL, K = D), the position GEMM (N = DL, K = D) and the
+    out-projection (N = D, K = DL). DL = D is `block_plan`; DL < D, one
+    'model' rank's heads (`rel_attention_block_heads`)."""
     m, p_rows = b * t, 2 * t - 1
-    qkv = gemm_plan(m, 3 * d, d, itemsize, split_k=False)
-    pos = gemm_plan(p_rows, d, d, itemsize)
-    out = gemm_plan(m, d, d, itemsize)
-    return BlockPlan(qkv, pos, out, max(partial_elems(p_rows, d, pos), partial_elems(m, d, out)))
+    qkv = gemm_plan(m, 3 * dl, d, itemsize, split_k=False)
+    pos = gemm_plan(p_rows, dl, d, itemsize)
+    out = gemm_plan(m, d, dl, itemsize)
+    return BlockPlan(qkv, pos, out, max(partial_elems(p_rows, dl, pos), partial_elems(m, d, out)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -168,6 +198,11 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 7 + [p]
+        fn.restype = i
+    fn = lib.pk_rel_attention_block_heads
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 11 + [p] + [p] * 8 + [i] * 8 + [p]
         fn.restype = i
     return lib
 
@@ -179,30 +214,35 @@ def build() -> None:
 
 
 def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b,
-                 name: str = "rel_attention_block") -> dict:
+                 name: str = "rel_attention_block", heads_partial: bool = False) -> dict:
     """The block kernel's operands, checked against x and made contiguous:
     the weights in x's dtype, the norm vectors in f32 (None without the
     fused pre-LN), the (B,) int32 key lengths and the position table pe.
     Raises on what the kernel does not take. Shared with K7, which runs the
-    block's launch sequence after the FFN's."""
+    block's launch sequence after the FFN's. heads_partial: the
+    head-sharded mode's operands (H·hd rows of the layer's D; no bo)."""
     b, t, d = x.shape
     heads, hd = bias_u.shape
+    dl = heads * hd
     dt = x.dtype
     if dt not in DTYPE_CODE:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
-    if heads * hd != d or hd not in _HEAD_DIMS:
+    if hd not in _HEAD_DIMS or (dl > d if heads_partial else dl != d):
         raise ValueError(f"{name} kernel: D={d}, H={heads} gives head dim {hd}; supported {_HEAD_DIMS}")
     mats = dict(wq=wq, wk=wk, wv=wv, pos_w=pos_w, wo=wo)
-    vecs = dict(bq=bq, bk=bk, bv=bv, bo=bo, bias_u=bias_u, bias_v=bias_v)
+    vecs = dict(bq=bq, bk=bk, bv=bv, bias_u=bias_u, bias_v=bias_v)
+    if not heads_partial:
+        vecs["bo"] = bo
     for key, w in {**mats, **vecs}.items():
         if w.device != x.device or w.dtype != dt:
             raise ValueError(f"{name}: {key} is {w.dtype} on {w.device}, x is {dt} on {x.device}")
     for key, w in mats.items():
-        if tuple(w.shape) != (d, d):
-            raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {(d, d)}")
+        want = (d, dl) if key == "wo" else (dl, d)
+        if tuple(w.shape) != want:
+            raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {want}")
     for key in ("bq", "bk", "bv", "bo"):
-        if vecs[key].numel() != d:
-            raise ValueError(f"{name}: {key} has {vecs[key].numel()} elements, want {d}")
+        if key in vecs and vecs[key].numel() != (d if key == "bo" else dl):
+            raise ValueError(f"{name}: {key} has {vecs[key].numel()} elements, want {d if key == 'bo' else dl}")
     out = {k: w.contiguous() for k, w in {**mats, **vecs}.items()}
     if norm_w is not None:
         norm_w = norm_w.to(device=x.device, dtype=_F32).contiguous()
@@ -212,32 +252,47 @@ def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengt
     return out
 
 
-def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps):
-    refuse_grad("rel_attention_block", x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, norm_w, norm_b)
-    a = checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b)
+def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps,
+            heads_partial: bool = False):
+    """Launch K1 (or, heads_partial, its head-sharded mode: no bo, the f32
+    partial out-projection back) on the current stream."""
+    name = "rel_attention_block_heads" if heads_partial else "rel_attention_block"
+    refuse_grad(name, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, norm_w, norm_b)
+    a = checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b,
+                     name=name, heads_partial=heads_partial)
     x = x.contiguous()
     b, t, d = x.shape
     heads, hd = bias_u.shape
     dt = x.dtype
 
-    out = torch.empty_like(x)
-    plan = block_plan(b, t, d, x.element_size())
+    plan = heads_plan(b, t, d, heads * hd, x.element_size()) if heads_partial else block_plan(b, t, d, x.element_size())
     part = torch.empty(plan.partials, dtype=_F32, device=x.device)
     qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
-    pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
-    ctx = torch.empty_like(x)  # also holds the LayerNorm output until the core writes it
+    pos = torch.empty((2 * t - 1, heads * hd), dtype=dt, device=x.device)
+    ctx = torch.empty_like(x)  # the LayerNorm output (B, T, D) until the core writes its (B, T, H·hd)
     lib = _lib()
+    common = (ptr(x), ptr(a["norm_w"]), ptr(a["norm_b"]), float(eps),
+              ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]),
+              ptr(a["wv"]), ptr(a["bv"]), ptr(a["bias_u"]), ptr(a["bias_v"]),
+              ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]))
     with torch.cuda.device(x.device):
-        rc = lib.pk_rel_attention_block(
-            DTYPE_CODE[dt], ptr(x), ptr(a["norm_w"]), ptr(a["norm_b"]), float(eps),
-            ptr(a["wq"]), ptr(a["bq"]), ptr(a["wk"]), ptr(a["bk"]),
-            ptr(a["wv"]), ptr(a["bv"]), ptr(a["bias_u"]), ptr(a["bias_v"]),
-            ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]), ptr(a["bo"]), ptr(a["kv"]),
-            ptr(part), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-            b, t, d, heads, *plan.ints(), stream(x.device),
-        )
-    check_rc(rc, "rel_attention_block")
-    rel_attention_block.launches += 1
+        if heads_partial:
+            out = torch.empty((b, t, d), dtype=_F32, device=x.device)
+            rc = lib.pk_rel_attention_block_heads(
+                DTYPE_CODE[dt], *common, ptr(a["kv"]),
+                ptr(part), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
+                b, t, d, heads, hd, *plan.ints(), stream(x.device))
+        else:
+            out = torch.empty_like(x)
+            rc = lib.pk_rel_attention_block(
+                DTYPE_CODE[dt], *common, ptr(a["bo"]), ptr(a["kv"]),
+                ptr(part), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
+                b, t, d, heads, *plan.ints(), stream(x.device))
+    check_rc(rc, name)
+    if heads_partial:
+        rel_attention_block_heads.launches += 1
+    else:
+        rel_attention_block.launches += 1
     return out
 
 
@@ -299,6 +354,44 @@ def rel_attention_block(
 
 
 rel_attention_block.launches = 0
+
+
+def rel_attention_block_heads(
+    x: torch.Tensor,
+    wq, bq, wk, bk, wv, bv,
+    bias_u, bias_v,
+    pos_w,
+    wo,
+    lengths=None,
+    norm_w=None,
+    norm_b=None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """K1 head-sharded: one 'model' rank's share of the attention block
+    under tensor parallelism over heads. x (B, T, D) and the LayerNorm are
+    the whole layer's; the weights hold this rank's H heads (wq, wk, wv,
+    pos_w (H·hd, D); wo (D, H·hd); bias_u, bias_v (H, hd)). Returns the f32
+    (B, T, D) out-projection of those heads with no bias and no residual:
+    summed over the ranks, plus bo (and x with the LayerNorm), rounded,
+    it is the block's output (models/encoder.py).
+
+    On a CUDA tensor this launches the hand-written kernel
+    (csrc/rel_attention.cu pk_rel_attention_block_heads: K1's launch
+    sequence with N = H·hd for the QKV and position GEMMs and K = H·hd for
+    the out-projection) or raises; on a CPU tensor it runs
+    `rel_attention_block_reference(..., heads_partial=True)`. Each kernel
+    launch adds one to `rel_attention_block_heads.launches`. Inference
+    only: an input that requires grad under grad mode raises."""
+    if x.device.type == "cuda":
+        return _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths, norm_w, norm_b, eps,
+                       heads_partial=True)
+    if x.device.type == "cpu":
+        return rel_attention_block_reference(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths,
+                                             norm_w, norm_b, eps, heads_partial=True)
+    raise ValueError(f"rel_attention_block_heads: no implementation for device {x.device}")
+
+
+rel_attention_block_heads.launches = 0
 
 
 # ─── K2: the attention core with the projections outside ("v1") ────────────
@@ -422,7 +515,9 @@ def fused_rel_attention(q_u, q_v, k, v, p, lengths=None) -> torch.Tensor:
     rows fit in shared memory, two passes past that, as `v1_plan` says) or
     raises; on a CPU tensor it runs `fused_rel_attention_reference`. Each
     kernel launch adds one to `fused_rel_attention.launches`. Unlike the
-    reference (T ≤ 768 there), any T runs."""
+    reference (T ≤ 768 there), any T runs. On a mesh with a 'model' axis
+    > 1 the v1 route runs on the whole weights, gathered once when the
+    facade is built, replicated over 'model' (models/encoder.py)."""
     if q_u.device.type == "cuda":
         return _launch_v1(q_u, q_v, k, v, p, lengths)
     if q_u.device.type == "cpu":
@@ -436,6 +531,7 @@ __all__ = [
     "position_table_np",
     "position_table",
     "rel_attention_block",
+    "rel_attention_block_heads",
     "rel_attention_block_reference",
     "RelAttentionBlockFunction",
     "fused_rel_attention",
@@ -444,6 +540,7 @@ __all__ = [
     "v1_plan",
     "BlockPlan",
     "block_plan",
+    "heads_plan",
     "checked_args",
     "build",
 ]

@@ -23,6 +23,10 @@ What it drops from the TPU kernel: the blocked, parity-ordered im2col with
 its validity-gate column and the T4 tiles; it takes any T and any F. The
 caller's guards (T4 ≥ 32, even F2) are the encoder's, as in the reference
 (models/encoder.py).
+
+On a mesh K8 runs on each rank before any split: the tensor-parallel
+rules leave the subsampling whole, and a 'seq' axis splits the frames only
+after it (models/encoder.py).
 """
 
 from __future__ import annotations

@@ -138,7 +138,14 @@ def quantize_params(
     divisor). Already-quantized int8 and uint8 arrays are never quantized
     again, and under int4 an odd in-dim stays float. as_numpy is the
     reference's switch between host and device arrays; here the result is
-    numpy either way, and the facades carry it onto their device."""
+    numpy either way, and the facades carry it onto their device.
+
+    On a mesh (parallel/mesh.py), as the reference notes: shard_params
+    splits a quantized weight by the tensor-parallel rules but replicates
+    its scale sidecar (the rules match `.weight` only), so a split weight
+    has no matching scale. The facades therefore take quantize= on data
+    and seq meshes, where nothing is split, and refuse it with a 'model'
+    axis > 1."""
     if mode not in MODES:
         raise ValueError(f"unsupported quantize mode {mode!r} (want 'int8' or 'int4')")
     out: dict = {}

@@ -14,7 +14,12 @@ device="cpu"; with no card it raises.
 
 quantize="int8"|"int4" quantizes the weights after the compute-dtype cast
 (quantize.py), as in the reference; the streaming encoder runs no kernel
-either way. Meshes (mesh=) are not ported and raise NotImplementedError.
+either way. `StreamingBatchTranscriber(mesh=)` shards the lockstep cohort
+over the mesh's 'data' axis (parallel/mesh.py make_mesh), SPMD over
+torch.distributed: every rank makes the same calls, keeps every slot's
+host queues and holds the caches, LSTM state and last tokens of its own
+slots; each step uploads and runs only its slots, and the step's tokens
+are gathered so every rank returns (and keeps) the whole cohort's.
 """
 
 from __future__ import annotations
@@ -225,7 +230,12 @@ class StreamingBatchTranscriber:
         upload stay int16, converted on the device as x/32768 (exact);
         float pushes are quantised to int16 on push.
 
-        device: the card unless given; "cpu" runs on the CPU."""
+        device: the card unless given; "cpu" runs on the CPU.
+
+        mesh: a parallel.mesh.Mesh with a 'data' axis that divides batch
+        (its 'model' and 'seq' axes one rank wide): this rank runs slots
+        batch_sharding(mesh, batch) on the mesh's device (module note).
+        Tokens equal the unsharded run's."""
         if mel_frames_per_step % 8:
             raise ValueError("mel_frames_per_step must be a multiple of 8")
         if model not in ("eou", "nemotron"):
@@ -236,8 +246,18 @@ class StreamingBatchTranscriber:
             raise ValueError(f"wire_dtype must be 'float32' or 'int16', got {wire_dtype!r}")
         if wire_dtype == "int16" and frontend != "fused":
             raise ValueError("wire_dtype='int16' requires frontend='fused'")
+        self._slots = range(batch)  # the slots whose device state this rank holds
         if mesh is not None:
-            raise NotImplementedError("mesh (multi-device) streaming is not ported yet")
+            from parakeet_tpu_torch.parallel.mesh import batch_sharding, mesh_device
+
+            device = mesh_device(mesh, device)
+            if any(mesh.shape.get(a, 1) > 1 for a in ("model", "seq", "pipe")):
+                raise ValueError(f"the streaming cohort shards over 'data' only; mesh {mesh.shape}")
+            if batch % mesh.shape["data"]:
+                raise ValueError(f"batch {batch} must divide by the mesh's data axis ({mesh.shape['data']})")
+            rows = batch_sharding(mesh, batch)
+            self._slots = range(rows.start, rows.stop)
+        self._mesh = mesh
         proto_cls = StreamingTranscriber if model == "eou" else NemotronTranscriber
         self.batch = batch
         self._mel_step = mel_frames_per_step
@@ -260,9 +280,9 @@ class StreamingBatchTranscriber:
 
     def reset(self) -> None:
         cfg = self.config
+        local = len(self._slots)
         # the caches follow the compute dtype (streaming_encoder_chunk casts the f32 mel)
-        self._cache = init_encoder_cache(cfg.encoder, self.batch, encoder_compute_dtype(self.params),
-                                         self.device)
+        self._cache = init_encoder_cache(cfg.encoder, local, encoder_compute_dtype(self.params), self.device)
         if self._frontend == "fused":
             self._pre = []  # the preemphasis carry lives in _preemph_prev
             self._queues = [np.zeros((0,), self._wire_dtype) for _ in range(self.batch)]
@@ -270,8 +290,8 @@ class StreamingBatchTranscriber:
         else:
             self._pre = [StreamingAudioPreprocessor(self._audio_cfg, self.device) for _ in range(self.batch)]
             self._queues = [np.zeros((0, cfg.encoder.mel_bins), np.float32) for _ in range(self.batch)]
-        self._last_token = torch.full((self.batch,), self._blank_id, dtype=torch.int64, device=self.device)
-        self._lstm = prediction_zero_state(cfg.prediction.num_lstm_layers, self.batch,
+        self._last_token = torch.full((local,), self._blank_id, dtype=torch.int64, device=self.device)
+        self._lstm = prediction_zero_state(cfg.prediction.num_lstm_layers, local,
                                            cfg.prediction.pred_hidden, device=self.device)
         self._tokens: list[list[int]] = [[] for _ in range(self.batch)]
         self._timestamped: list[list[TimestampedToken]] = [[] for _ in range(self.batch)]
@@ -293,15 +313,17 @@ class StreamingBatchTranscriber:
         else:
             self._pre[slot].reset()
             self._queues[slot] = np.zeros((0, self.config.encoder.mel_bins), np.float32)
-        cache = {k: v.clone() for k, v in self._cache.items()}
-        for k in ("conv", "key", "value"):
-            cache[k][:, slot] = 0
-        cache["valid"][slot] = 0
-        self._cache = cache
-        last, lstm = self._last_token.clone(), self._lstm.clone()
-        last[slot] = self._blank_id
-        lstm[:, :, slot] = 0
-        self._last_token, self._lstm = last, lstm
+        if slot in self._slots:  # the device state lives on the slot's rank
+            row = slot - self._slots.start
+            cache = {k: v.clone() for k, v in self._cache.items()}
+            for k in ("conv", "key", "value"):
+                cache[k][:, row] = 0
+            cache["valid"][row] = 0
+            self._cache = cache
+            last, lstm = self._last_token.clone(), self._lstm.clone()
+            last[row] = self._blank_id
+            lstm[:, :, row] = 0
+            self._last_token, self._lstm = last, lstm
         self._tokens[slot] = []
         self._timestamped[slot] = []
         self._frame_offset[slot] = 0
@@ -373,19 +395,20 @@ class StreamingBatchTranscriber:
                 "check ready()/lagging_slots()"
             )
         cfg = self.config
+        mine = self._slots
         if self._frontend == "fused":
             cs = self._chunk_samples
             zeros = np.zeros((cs,), self._wire_dtype)
-            raw = np.stack([q[:cs] if r else zeros for q, r in zip(self._queues, runnable)])
+            raw = np.stack([self._queues[i][:cs] if runnable[i] else zeros for i in mine])
             raw_t = torch.from_numpy(raw).to(self.device)
             if raw_t.dtype == torch.int16:
                 raw_t = raw_t.to(torch.float32) / 32768.0
-            prev = torch.from_numpy(self._preemph_prev.copy()).to(self.device)
+            prev = torch.from_numpy(self._preemph_prev[mine.start:mine.stop].copy()).to(self.device)
             mel = streaming_log_mel_batch(raw_t, prev, self._audio_cfg, self._mel_step)
         else:
             zeros = np.zeros((self._mel_step, cfg.encoder.mel_bins), np.float32)
             mel = torch.from_numpy(np.stack([
-                q[: self._mel_step] if r else zeros for q, r in zip(self._queues, runnable)
+                self._queues[i][: self._mel_step] if runnable[i] else zeros for i in mine
             ])).to(self.device)
 
         enc, new_cache = streaming_encoder_chunk(self.params, mel, self._cache, cfg=cfg.encoder)
@@ -405,7 +428,7 @@ class StreamingBatchTranscriber:
             clamp_end=False,  # the streaming decode does not clamp (eou.cpp:81-84)
         )
         new_last, new_lstm = res.last_token, res.lstm_state
-        held = sorted(i for i in hold if self._active[i])
+        held = sorted(i - mine.start for i in hold if self._active[i] and i in mine)
         if held:
             # un-step the held slots: restore every piece of their state
             idx = torch.as_tensor(held, device=self.device)
@@ -416,13 +439,20 @@ class StreamingBatchTranscriber:
             new_last = new_last.index_copy(0, idx, self._last_token.index_select(0, idx))
             new_lstm = new_lstm.index_copy(2, idx, self._lstm.index_select(2, idx))
 
+        tokens, timestamped = res.tokens, res.timestamped
+        if self._mesh is not None:  # every rank's slots, in slot order
+            from parakeet_tpu_torch.parallel.collectives import gather_results
+
+            every = gather_results(list(zip(tokens, timestamped)), self._mesh.axis("data"), self.device)
+            tokens, timestamped = [t for t, _ in every], [ts for _, ts in every]
+
         # the decode's results are on the host: commit the step
         self._cache, self._last_token, self._lstm = new_cache, new_last, new_lstm
         if self._frontend == "fused":
             for i, r in enumerate(runnable):
                 if r:  # held and inactive slots keep their preemphasis carry
-                    last = raw[i, -1]
-                    self._preemph_prev[i] = last / 32768.0 if raw.dtype == np.int16 else last
+                    last = self._queues[i][self._chunk_samples - 1]
+                    self._preemph_prev[i] = last / 32768.0 if self._wire_dtype == np.int16 else last
         self._queues = [q[self._step_units:] if r else q for q, r in zip(self._queues, runnable)]
         chunk_len = self._mel_step // 8
         out: list[list[int]] = []
@@ -430,12 +460,12 @@ class StreamingBatchTranscriber:
             if not self._active[i] or i in hold:
                 out.append([])
                 continue
-            toks = res.tokens[i]
+            toks = tokens[i]
             self._tokens[i].extend(toks)
             off = self._frame_offset[i]
             self._timestamped[i].extend(
                 TimestampedToken(t.token_id, t.start_frame + off, t.end_frame + off, t.confidence)
-                for t in res.timestamped[i]
+                for t in timestamped[i]
             )
             self._frame_offset[i] += chunk_len
             out.append(toks)

@@ -24,8 +24,9 @@ reference trains by gradient like any other key), the learning rate read
 at the count before its increment, and optional global-norm clipping
 without an epsilon.
 
-A mesh, tensor or sequence parallelism raise NotImplementedError: they
-are ROADMAP Queue 1 item 6.
+A mesh, tensor or sequence parallelism raise NotImplementedError: training
+on a mesh is ROADMAP Queue 1 item 6b (inference meshes are ported:
+parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from parakeet_tpu_torch.ops.transducer_loss import rnnt_loss, tdt_loss
 from parakeet_tpu_torch.params import Params, cast_params
 
 _F32 = torch.float32
-PARALLELISM_NOT_PORTED = "parallelism is not ported yet (ROADMAP Queue 1 item 6); the port trains on one device"
+PARALLELISM_NOT_PORTED = ("training on a mesh is not ported yet (ROADMAP Queue 1 item 6b; inference meshes are "
+                          "ported, item 6a: parallel/mesh.py); the port trains on one device")
 
 
 # ─── Optimizer: optax's adam / adamw, leaf for leaf ─────────────────────────

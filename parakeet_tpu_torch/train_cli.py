@@ -7,7 +7,7 @@ the train step of train.py (CTC / RNNT / TDT lattice / hybrid TDT+CTC),
 with periodic checkpoint and resume (checkpoint.py, the reference's
 layout) and a final safetensors export in the converter's schema, which
 both packages' Transcriber load. It runs on the card unless given
---device cpu. The parallelism flags above 1 exit: ROADMAP Queue 1 item 6.
+--device cpu. The parallelism flags above 1 exit: ROADMAP Queue 1 item 6b.
 
 Example:
     python -m parakeet_tpu_torch.train_cli --manifest train.jsonl --vocab vocab.txt \\
@@ -89,7 +89,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_single_device(args) -> None:
-    """SystemExit for a parallelism flag above 1 (ROADMAP Queue 1 item 6)."""
+    """SystemExit for a parallelism flag above 1 (ROADMAP Queue 1 item 6b)."""
     for flag in ("model_parallel", "seq_parallel", "pipeline_parallel", "data_parallel"):
         ways = getattr(args, flag, None)
         if ways is not None and ways > 1:

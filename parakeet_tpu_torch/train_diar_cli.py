@@ -8,7 +8,7 @@ unnormalized frontend on the trainer's device, arrival-ordered frame
 targets) → the Sort Loss + PIL train step (train.make_sortformer_train_step),
 with checkpoint and resume and a safetensors export that both packages'
 Sortformer load. It runs on the card unless given --device cpu; the
-data-parallel flag above 1 exits (ROADMAP Queue 1 item 6).
+data-parallel flag above 1 exits (ROADMAP Queue 1 item 6b).
 
 Example:
     python -m parakeet_tpu_torch.train_diar_cli --manifest diar.jsonl --steps 500 \\

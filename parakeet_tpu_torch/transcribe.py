@@ -29,7 +29,17 @@ ignored by greedy decodes). Beam × boost raises ValueError. Beam and LM
 calls always decode densely. `quantize="int8"|"int4"` quantizes the
 weights after the compute-dtype cast (quantize.py); the sublayers with
 quantized weights then run plain, the attention through K2
-(models/encoder.py). Meshes are not ported and raise NotImplementedError.
+(models/encoder.py).
+
+`mesh=` (parallel/mesh.py make_mesh) runs the facade SPMD over
+torch.distributed: every rank makes the same facade and the same calls on
+the same inputs, and gets the whole result list. The batch is padded to a
+multiple of the 'data' axis with one-frame empty items and split over it;
+a 'model' axis splits the weights by the reference's tensor-parallel rules
+(the attention through K1's head-sharded mode; the other kernels on the
+whole weights, gathered once here); a 'seq' axis splits the encoder's
+frames and needs the plain attention path (kernels=False, accepted on
+such a mesh only). The results are gathered over 'data'.
 """
 
 from __future__ import annotations
@@ -74,7 +84,7 @@ from parakeet_tpu_torch.models.ctc import (
     ctc_greedy_decode_with_timestamps,
     ctc_log_probs,
 )
-from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths, fastconformer_encode
+from parakeet_tpu_torch.models.encoder import EncoderSplit, FusedLayers, encoded_lengths, fastconformer_encode
 from parakeet_tpu_torch.ops.layers import require_ieee_f32
 from parakeet_tpu_torch.params import Params
 from parakeet_tpu_torch.text.tokenizer import Tokenizer
@@ -180,9 +190,14 @@ class _TranscriberBase:
         through windows of long_window_s overlapping by long_overlap_s,
         batched across clips (always with timestamps); "dense" decodes any
         length in one call. quantize: "int8" or "int4" weight-only
-        quantization (quantize.py), after the compute-dtype cast."""
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device) inference is not ported yet")
+        quantization (quantize.py), after the compute-dtype cast.
+
+        mesh: a parallel.mesh.Mesh; the facade then runs on this rank's
+        device of it (device= must name the same kind of device), SPMD
+        (module note). A mesh with a 'seq' axis takes only kernels=False,
+        the plain path; quantize takes a data mesh only (the scales
+        replicate under the 'model' rules, quantize.py, and the 'seq'
+        attention takes float weights)."""
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         if long_audio not in ("window", "dense"):
@@ -191,7 +206,27 @@ class _TranscriberBase:
             raise ValueError(
                 f"long_overlap_s ({long_overlap_s}) must be >= 0 and < long_window_s ({long_window_s})"
             )
-        self.fused = fused_layers_for(kernels, fused)
+        self.mesh = mesh
+        seq_mesh = False
+        if mesh is not None:
+            from parakeet_tpu_torch.parallel.mesh import activation_sharding, mesh_device
+
+            device = mesh_device(mesh, device)
+            if mesh.shape.get("pipe", 1) > 1:
+                raise ValueError("a ('data', 'pipe') mesh is the pipeline trainer's; inference takes data, seq and model")
+            seq_mesh = activation_sharding(mesh) is not None
+            if seq_mesh and (kernels is not False or fused is not None):
+                raise ValueError(
+                    "sequence-parallel mesh requires the plain attention path (the reference's XLA attention "
+                    "path); pass kernels=False (the kernels are per-device programs)"
+                )
+            if quantize and mesh.shape.get("model", 1) > 1:
+                raise ValueError("quantize with a 'model' axis > 1: the scales replicate under the tensor-parallel "
+                                 "rules (quantize.py); quantize on a data mesh")
+            if quantize and seq_mesh:
+                raise ValueError("quantize with a 'seq' axis: the sequence-parallel attention is K1's plain version, "
+                                 "which takes float weights; quantize on a data mesh")
+        self.fused = FusedLayers() if seq_mesh else fused_layers_for(kernels, fused)
         self.config = config
         self.compute_dtype = compute_dtype
         self.long_audio = long_audio
@@ -205,7 +240,28 @@ class _TranscriberBase:
             params = P.load_params_numpy(
                 self._spec(), weights_path, seed=seed, warn=lambda m: print(f"[parakeet] {m}"),
             )
+        self._split = self._model = None
+        if mesh is not None:
+            from parakeet_tpu_torch.parallel.mesh import param_sharding_rules, shard_params
+
+            tp = mesh.shape.get("model", 1)
+            whole = [k for k in params if k.startswith("encoder_") and (dim := param_sharding_rules(k, mesh)) is not None
+                     and np.shape(params[k])[dim] % tp]
+            if whole:  # the split encoder sublayers need every rule to split
+                raise ValueError(f"model_parallel={tp} does not divide {whole[0]} {tuple(np.shape(params[whole[0]]))}")
+            params = shard_params(params, mesh)
         self.params = P.device_params(params, self.device, _DTYPES[compute_dtype], quantize)
+        if mesh is not None and (mesh.shape.get("model", 1) > 1 or seq_mesh):
+            model = mesh.axis("model")
+            full = None
+            if model.split and self.fused != FusedLayers():
+                from parakeet_tpu_torch.parallel.collectives import gather_params
+
+                # the kernels other than K1 take whole weights: gathered once
+                enc = [k for k in self.params if k.startswith("encoder_")]
+                full = Params(gather_params(self.params, mesh, enc)).sub("encoder_")
+            self._split = EncoderSplit(model, mesh.axis("seq"), full)
+            self._model = model if model.split else None
         self.tokenizer = Tokenizer(vocab_path) if vocab_path else Tokenizer()
         self._audio_cfg = AudioConfig(n_mels=config.encoder.mel_bins)
         self._blank_id = config.joint.vocab_size - 1
@@ -225,11 +281,14 @@ class _TranscriberBase:
         x = feats.to(device=self.device, dtype=_DTYPES[self.compute_dtype])
         lengths = torch.as_tensor(lengths, dtype=torch.int64, device=self.device)
         return fastconformer_encode(
-            Params(self.params).sub("encoder_"), self.config.encoder, x, lengths, self.fused)
+            Params(self.params).sub("encoder_"), self.config.encoder, x, lengths, self.fused, split=self._split)
 
     @torch.inference_mode()
     def ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
-        return ctc_log_probs(Params(self.params).sub("ctc_decoder_"), enc)
+        """(B, T', V) f32 CTC log-probs; on a 'model' axis the vocab-split
+        logits gathered, the padded lanes cut after the softmax."""
+        vocab = getattr(self.config, "ctc_vocab_size", None) if self._model is not None else None
+        return ctc_log_probs(Params(self.params).sub("ctc_decoder_"), enc, model=self._model, vocab=vocab)
 
     def _check_options(self, opts: TranscribeOptions) -> None:
         """Option errors, raised before any device work."""
@@ -348,11 +407,33 @@ class _TranscriberBase:
 
     def _decode_padded(self, batch, mel_lens: list[int], opts: TranscribeOptions, pad_to_multiple):
         """Encoder + decode + result assembly; emits the "decode" stage once
-        the results are on the host."""
+        the results are on the host. On a mesh: the batch padded to a
+        multiple of the 'data' axis with empty one-frame items, this rank's
+        rows decoded, every rank's results gathered and the padding
+        dropped."""
         t_max = batch.shape[1]
         if pad_to_multiple:
             pad_t = -(-t_max // pad_to_multiple) * pad_to_multiple - t_max
             batch = torch.nn.functional.pad(batch, (0, 0, 0, pad_t))
+        n = batch.shape[0]
+        if self.mesh is not None:
+            from parakeet_tpu_torch.parallel.mesh import batch_sharding
+
+            pad_items = (-n) % self.mesh.shape["data"]
+            batch = torch.nn.functional.pad(batch, (0, 0, 0, 0, 0, pad_items))
+            mel_lens = list(mel_lens) + [1] * pad_items
+            rows = batch_sharding(self.mesh, n + pad_items)
+            batch, mel_lens = batch[rows], mel_lens[rows]
+        results = self._decode_rows(batch, mel_lens, opts)
+        if self.mesh is not None:
+            from parakeet_tpu_torch.parallel.collectives import gather_results
+
+            results = gather_results(results, self.mesh.axis("data"), self.device)[:n]
+        _emit_progress(opts, "decode", 1, 1)
+        return results
+
+    def _decode_rows(self, batch, mel_lens: list[int], opts: TranscribeOptions) -> list[TranscribeResult]:
+        """Encoder + decode + result assembly of a padded batch."""
         enc_lens = encoded_lengths(torch.as_tensor(mel_lens)).tolist()
         enc = self.encode(batch, mel_lens)
         trie = None
@@ -397,12 +478,12 @@ class _TranscriberBase:
                     joint_prefix=self.joint_prefix,
                     enc_lengths=enc_lens,
                     boost=boost,
+                    model=self._model,
                 )
             if opts.timestamps:
                 results = [self._result_from_ts(t, opts.timestamp_mode) for t in res.timestamped]
             else:
                 results = [self._result_from_tokens(t) for t in res.tokens]
-        _emit_progress(opts, "decode", 1, 1)
         return results
 
     def _durations(self) -> tuple[int, ...]:
@@ -427,6 +508,7 @@ class _TranscriberBase:
             enc_lengths=enc_lens,
             beam_size=opts.beam_size,
             n_best=opts.beam_size if use_lm else 1,
+            model=self._model,
         )
         if use_lm:
             from parakeet_tpu_torch.text.ngram_lm import rescore_nbest

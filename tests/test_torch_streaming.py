@@ -462,7 +462,7 @@ def test_compute_dtype_skips_sidecars_and_norms():
     (dict(wire_dtype="int8"), ValueError, "wire_dtype must be"),
     (dict(wire_dtype="int16"), ValueError, "requires frontend"),
     (dict(quantize="int3"), ValueError, "quantize"),  # the reference's quantize_params error
-    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(mesh=object()), TypeError, "mesh"),  # a parallel.Mesh runs (tests/test_torch_parallel_streaming.py)
     (dict(compute_dtype="float16"), ValueError, "compute_dtype"),
 ])
 def test_batch_transcriber_rejects_options(kw, exc, match):

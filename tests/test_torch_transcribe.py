@@ -132,8 +132,9 @@ def test_prepare_decode_split_and_progress(setup):
 
 @pytest.mark.parametrize("bad", ["beam_size", "lm", "boost_phrases", "mesh", "quantize", "long_clip"])
 def test_unsupported_options_raise(setup, bad):
-    """mesh= is still refused. The options the port once refused now run
-    as in the JAX Transcriber (its XLA path): beam search, an LM with a
+    """mesh= takes a parallel.Mesh now (tests/test_torch_parallel.py runs
+    it); anything else raises TypeError. The options the port once refused
+    now run as in the JAX Transcriber (its XLA path): beam search, an LM with a
     greedy decode (ignored, and the call stays dense), phrase boosting and
     quantize=, each with the reference's own ValueError; a long clip routes
     through the windowed decode."""
@@ -141,7 +142,7 @@ def test_unsupported_options_raise(setup, bad):
 
     flat, waves, vocab = setup
     if bad == "mesh":
-        with pytest.raises(NotImplementedError, match=bad):
+        with pytest.raises(TypeError, match=bad):
             TTranscriber(None, None, _cfg(TC), params=flat, device="cpu", mesh="int8")
         return
     if bad == "quantize":
