@@ -64,20 +64,23 @@ Phases, each of which raises (exit code 1) on failure:
               128 mel, vocab 8193, two LSTM layers) in the default, fused,
               whole-block and v1 configurations, and RNNTTranscriber at
               full rnnt-600m width (80 mel, vocab 1025) in the default and
-              fused ones; seeded random weights, f32, the 8 clips; exact
-              launch counts, tokens and frames equal to a CPU facade's,
+              fused ones; seeded random weights (the 600m models' drawn on
+              the card), f32, the 8 clips (rnnt-600m: the 4 under 6 s); exact
+              launch counts; tokens and frames equal to a CPU facade's on
+              the 4 clips under 6 s,
               Decoder.CTC raising ValueError
   7. long     tdt-600m, default configuration, clips of 95, 62 and 7 s
               through transcribe_batch: long_audio="window" (20 windows of
               10 s overlapping by 2 s in one call at B=20, the 7 s clip
               densely) and long_audio="dense" (the 95 s clip alone at
               T'=1188); tokens and frames equal to the CPU's
-  8. streaming  eou-120m (StreamingTranscriber) at full width, B=1, 8 s in
+  8. streaming  eou-120m (StreamingTranscriber) at full width, B=1, 5 s in
               160 ms pushes, f32 (and bf16: edit distance against f32);
               StreamingBatchTranscriber eou-120m at B=8, fused frontend,
               int16 wire, with held steps and a reset_slot; nemotron-600m
-              (NemotronTranscriber) in latency modes 0, 1, 6 and 13, 4 s
-              each; tokens and frames equal to a CPU facade fed the same
+              (NemotronTranscriber, weights drawn on the card) in latency
+              modes 0, 1, 6 and 13, 2 s each; tokens and frames equal to
+              a CPU facade fed the same
               pushes, no kernel launched (the streaming encoder is plain in
               the reference too), per-push wall ms (median, p95) and the
               device busy share
@@ -92,8 +95,9 @@ Phases, each of which raises (exit code 1) on failure:
               quantized weights and the decode options at full width,
               seeded random weights, f32, against CPU facades with the same
               options: tdt-ctc-110m with quantize="int8" and "int4" in the
-              default and fused configurations, tdt-600m int8 default,
-              each a path as in 4 with exact launch counts under
+              default and fused configurations, tdt-600m int8 default
+              (on the 4 clips under 6 s), each a path as in 4 with exact
+              launch counts under
               the reference's weight guards (K2 17 or 24, K8 1 and K5 17
               fused, never K1, K6, K7, K4); W8A8 (set_int8_compute(True),
               int8, default): every integer product of an encoder call
@@ -110,7 +114,7 @@ Phases, each of which raises (exit code 1) on failure:
               beam 1 (must equal greedy), CTC beam 8 with a bigram ARPA LM
               written under build/, TDT beam 4 rescored by NeuralLM.random,
               tokens and frames equal to the CPU's, beam path scores within
-              1e-4; eou-120m streaming with int8, B=1, 50 pushes, no kernel
+              1e-4; eou-120m streaming with int8, B=1, 25 pushes, no kernel
               launched, and its push wall against f32 in turns
  11. serve    (runs after paths, with the 110m weights) tdt-ctc-110m at full
               width behind the port's HTTP server (make_server on
@@ -193,15 +197,46 @@ Phases, each of which raises (exit code 1) on failure:
               card run; in (i)-(iii) one more batch a decoder with each
               rank's time inside the collectives. Coverage on one card,
               not a scaling figure
+ 14. train_mesh  (last; f32, IEEE) training over torch.distributed on the
+              one card: the single-device card steps saved (tdt-ctc-110m
+              hybrid on the loader's batch of 8 synthetic clips, B=8;
+              Sortformer-117m, B=4 on 10 s; tdt-600m tdt with remat, B=4),
+              with each key's spread (its change under a seeded 1e-6
+              change of the features); K1 at each case's own (B, T', key
+              lengths), head-sharded (dp1×tp2) and whole (each dp2 rank's
+              rows, each pipe2 microbatch, B=8), forward and input
+              gradients through its autograd Function against the plain
+              version, f32 and bf16, f32 timed; two gloo ranks on the
+              card: (i) dp2, dp1×tp2 (K1 head-sharded) and dp1×sp2 110m
+              steps, (iii) Sortformer dp2 and dp1×tp2, (ii) dp1×pipe2
+              tdt-600m at full depth (12 layers a stage, 2 microbatches);
+              (iv) one NCCL rank (world 1, in the script's process), a dp1
+              110m step; each case's loss (1e-5 relative) and every
+              gradient key, gathered and unpadded (each within the larger
+              of 1e-4 of the key's max |g| and 4 times the key's spread;
+              keys zero up to rounding left out and named), against the
+              single-device step's; on dp2 and dp1×sp2 a rank's
+              unreduced gradients (a missing 'data' mean or 'seq' sum)
+              must fail that check; K1's launches a step a
+              rank (whole heads and head-sharded) exactly as predicted,
+              the step wall, the share of a step inside the collectives
+              and the peak memory a rank; (v) train_cli under python -m
+              torch.distributed.run (two gloo ranks each) with
+              --data-parallel 2 and with --model-parallel 2 (110m): 2
+              steps and a checkpoint, --resume to 3 and --export (vocab
+              rows 1025 in the export, 1026 in the tp checkpoint), and
+              train_diar_cli --data-parallel 2; the launches of a round
+              at once. Coverage on one card, not a scaling figure
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
 "shapes" every timed shape with its bound, launches_quantized, the
 kernel's launches in one encoder call of the int8 fused 110m path,
-launches_serve, its launches per cohort served over HTTP, and
-launches_train, its launches per train step of each trainer; beside the
-eight, K1's head-sharded entry with its launches a batch per rank on each
-mesh run) and
+launches_serve, its launches per cohort served over HTTP,
+launches_train, its launches per train step of each trainer, and
+launches_train_mesh, its launches a step a rank of each mesh trainer;
+beside the eight, K1's head-sharded entry with its launches a batch per
+rank on each mesh run) and
 {"ok": true, "device": {...}} are the last three lines of output.
 """
 
@@ -1150,13 +1185,28 @@ MODELS = {
 }
 
 
+def short_clips(clips) -> list:
+    """The clips under 6 s (4 of the 8): the 600m paths whose CPU decode
+    sets their time run on these."""
+    return [c for c in clips if len(c) < 6 * 16000]
+
+
 def model_params(model: str) -> dict:
-    """Seeded random weights (seed 0) of a model at full width, as numpy."""
+    """Seeded random weights (seed 0) of a model at full width, as numpy:
+    the 110m's from numpy's generator, the 600m models' drawn on the card
+    (`host_params`)."""
     from parakeet_tpu_torch import config as C
     from parakeet_tpu_torch import params as P
 
     spec = {"tdt-ctc-110m": P.tdt_ctc_spec, "tdt-600m": P.tdt_spec, "rnnt-600m": P.rnnt_spec}[model]
-    return P.init_params_numpy(spec(getattr(C, MODELS[model][1])()), seed=0)
+    spec = spec(getattr(C, MODELS[model][1])())
+    return P.init_params_numpy(spec, seed=0) if model == "tdt-ctc-110m" else host_params(spec, seed=0)
+
+
+def host_params(spec: dict, seed: int) -> dict:
+    """`card_params` copied to the host as numpy: numpy's draw of a 600m
+    model's weights took ~20 s, this one ~2 s."""
+    return {k: v.cpu().numpy() for k, v in card_params(spec, seed).items()}
 
 
 def facade(model: str, device: str, **kw):
@@ -1194,12 +1244,15 @@ def resident(make):
     return obj, torch.cuda.memory_allocated() - before
 
 
-def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m", quantize=None) -> dict:
+def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m", quantize=None,
+               compare_clips=None) -> dict:
     """One model and encoder configuration end to end on the card against
     the CPU: each of the model's decoders (TDT and CTC for tdt-ctc, the
     transducer alone for TDT-only and RNNT, where CTC must raise). With
     `quantize` ("int8" or "int4") both facades quantize the weights and the
-    launch counts follow the reference's weight guards."""
+    launch counts follow the reference's weight guards. `compare_clips`:
+    the clips on which card and CPU are held to each other (all of them
+    unless given; the card's launches and times are on all)."""
     import torch
 
     from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
@@ -1255,15 +1308,20 @@ def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-1
                         and 0.0 < tok.confidence <= 1.0):
                     raise RuntimeError(f"{name}: malformed timestamped token {tok}")
 
-    cpu_res = {dec: cpu.transcribe_batch(clips, opts[dec]) for dec in decoders}
-    enc_cpu = cpu.encode(feats, n_frames)
-    enc_gpu = gpu.encode(feats, n_frames).cpu()
-    enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+    cmp_clips, gpu_cmp, cfeats, cframes = clips, gpu_res, feats, n_frames
+    if compare_clips is not None:
+        cmp_clips = compare_clips
+        gpu_cmp = {dec: gpu.transcribe_batch(cmp_clips, opts[dec]) for dec in decoders}
+        cfeats, cframes = preprocess_audio_batch(cmp_clips, cpu._audio_cfg, "cpu")
+    cpu_res = {dec: cpu.transcribe_batch(cmp_clips, opts[dec]) for dec in decoders}
+    enc_cpu = cpu.encode(cfeats, cframes)
+    enc_gpu = gpu.encode(cfeats, cframes).cpu()
+    enc_lens = encoded_lengths(torch.as_tensor(cframes)).tolist()
     enc_diff = max(float((enc_gpu[i, :n] - enc_cpu[i, :n]).abs().max()) for i, n in enumerate(enc_lens))
     enc_scale = max(float(enc_cpu[i, :n].abs().max()) for i, n in enumerate(enc_lens))
     if not torch.isfinite(enc_gpu).all():
         raise RuntimeError(f"{name}: encoder output on the card is not finite")
-    if tuple(enc_gpu.shape) != (len(clips), max(enc_lens), cfg.encoder.hidden_size):
+    if tuple(enc_gpu.shape) != (len(cmp_clips), max(enc_lens), cfg.encoder.hidden_size):
         raise RuntimeError(f"{name}: encoder output shape {tuple(enc_gpu.shape)}")
     log(f"  encoder card vs CPU: max|diff| {enc_diff:.3e} over valid frames (scale {enc_scale:.3f})")
 
@@ -1281,10 +1339,10 @@ def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-1
         return float(top2[0] - top2[1])
 
     for dec in decoders:
-        compare_tokens(f"{name} {dec}", gpu_res[dec], cpu_res[dec],
+        compare_tokens(f"{name} {dec}", gpu_cmp[dec], cpu_res[dec],
                        ctc_margin_at if dec == "CTC" else transducer_margin_at)
-    log("  tokens identical on card and CPU: " + ", ".join(
-        f"{dec} {sum(len(r.token_ids) for r in gpu_res[dec])} tokens" for dec in decoders))
+    log(f"  tokens identical on card and CPU ({len(cmp_clips)} clips): " + ", ".join(
+        f"{dec} {sum(len(r.token_ids) for r in gpu_cmp[dec])} tokens" for dec in decoders))
     if enc_diff > ENC_SCALE_FRAC * enc_scale:
         raise RuntimeError(f"{name}: encoder on the card differs from the CPU by more than "
                            f"{ENC_SCALE_FRAC:.0e} of scale")
@@ -1573,7 +1631,7 @@ def batch_stream_scenario(bt, pcm, times=None) -> tuple[list, int]:
 def streaming_phase(card: str) -> dict:
     """Streaming ASR at full width: eou-120m (StreamingTranscriber, B=1, 8 s
     in 160 ms pushes, f32 and bf16), nemotron-600m (NemotronTranscriber) in
-    latency modes 0, 1, 6 and 13 (4 s each), and StreamingBatchTranscriber
+    latency modes 0, 1, 6 and 13 (2 s each), and StreamingBatchTranscriber
     eou-120m at B=8 with the fused frontend and the int16 wire (a held step
     and a reset_slot); each against a CPU facade fed the same pushes."""
     import torch
@@ -1585,11 +1643,11 @@ def streaming_phase(card: str) -> dict:
     out = {}
     eou_cfg = C.make_eou_120m_config()
     flat = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
-    audio = synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0]
+    audio = synthetic_clips(1, seed=1700, min_s=5, max_s=5)[0]
     pushes = _stream_pushes(audio)
     log(f"== streaming eou-120m: {eou_cfg.encoder.num_layers} layers, d={eou_cfg.encoder.hidden_size}, "
         f"left {eou_cfg.encoder.att_context_left}, right {eou_cfg.encoder.att_context_right}, random weights "
-        f"(seed 0), f32, B=1, 8 s in {len(pushes)} pushes")
+        f"(seed 0), f32, B=1, 5 s in {len(pushes)} pushes")
     gpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cuda")
     cpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cpu")
     out["eou"] = streaming_facade_check("eou-120m B=1", gpu, cpu, pushes, card)
@@ -1602,8 +1660,8 @@ def streaming_phase(card: str) -> dict:
     del gpu, cpu, b16
 
     t0 = time.perf_counter()
-    log("== streaming StreamingBatchTranscriber eou-120m: B=8, fused frontend, int16 wire, 8 s per slot")
-    clips = synthetic_clips(8, seed=1800, min_s=8, max_s=8)
+    log("== streaming StreamingBatchTranscriber eou-120m: B=8, fused frontend, int16 wire, 5 s per slot")
+    clips = synthetic_clips(8, seed=1800, min_s=5, max_s=5)
     pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in clips]
     kw = dict(config=eou_cfg, params=flat, frontend="fused", wire_dtype="int16")
     gpu = StreamingBatchTranscriber(8, device="cuda", **kw)
@@ -1632,10 +1690,10 @@ def streaming_phase(card: str) -> dict:
     del gpu, cpu, flat
 
     t0 = time.perf_counter()
-    nemo_flat = P.init_params_numpy(P.nemotron_spec(C.make_nemotron_600m_config()), seed=0)
-    nemo_audio = synthetic_clips(1, seed=1750, min_s=4, max_s=4)[0]
+    nemo_flat = host_params(P.nemotron_spec(C.make_nemotron_600m_config()), seed=0)
+    nemo_audio = synthetic_clips(1, seed=1750, min_s=2, max_s=2)[0]
     log(f"== streaming nemotron-600m: {sum(a.size for a in nemo_flat.values()) / 1e6:.1f} M parameters "
-        f"({time.perf_counter() - t0:.1f} s to draw), f32, B=1, 4 s in {len(_stream_pushes(nemo_audio))} pushes "
+        f"({time.perf_counter() - t0:.1f} s to draw), f32, B=1, 2 s in {len(_stream_pushes(nemo_audio))} pushes "
         f"per latency mode")
     for mode in (0, 1, 6, 13):
         cfg = C.make_nemotron_600m_config(mode)
@@ -2123,7 +2181,7 @@ def options_phase(flat6, clips, card: str) -> dict:
     del flat
     part("110m encoder times")
 
-    out["600m int8 default"] = path_phase("tdt-600m int8 default", FusedLayers(), flat6, clips, card,
+    out["600m int8 default"] = path_phase("tdt-600m int8 default", FusedLayers(), flat6, short_clips(clips), card,
                                           model="tdt-600m", quantize="int8")
     feats, n_frames = preprocess_audio_batch(clips, C.AudioConfig(n_mels=128), "cpu")
     facades, held = {}, {}
@@ -2141,21 +2199,21 @@ def options_phase(flat6, clips, card: str) -> dict:
 
     eou_cfg = C.make_eou_120m_config()
     flat_e = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
-    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:50]
+    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:25]
     log(f"== options streaming: eou-120m quantize='int8', f32, B=1, {len(pushes)} pushes of 160 ms")
     gpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda", quantize="int8")
     cpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cpu", quantize="int8")
     out["streaming int8"] = streaming_facade_check("eou-120m int8 B=1", gpu, cpu, pushes, card)
-    # int8 against f32 on this host: wall per push over the first 20 pushes
+    # int8 against f32 on this host: wall per push over the first 10 pushes
     # in turns (f32, int8, int8, f32), the lesser of each; device ms over 6
     trs = {"f32": StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda"), "int8": gpu}
     push_ms, dev_ms = {}, {}
     for name in [*trs, *reversed(trs)]:
-        t = wall_ms(lambda: _run_stream(trs[name], pushes[:20]), 1) / 20
+        t = wall_ms(lambda: _run_stream(trs[name], pushes[:10]), 1) / 10
         push_ms[name] = min(push_ms.get(name, float("inf")), t)
     for name, tr in trs.items():
         dev_ms[name] = device_ms(lambda: _run_stream(tr, pushes[:6]), calls=1, profiles=1) / 6
-    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 20 pushes, best of 2 turns) "
+    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 10 pushes, best of 2 turns) "
         + ", ".join(f"{k} {v:.3f}" for k, v in push_ms.items()) + "; device ms (first 6 pushes) "
         + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()) + f" [{card}]")
     out["streaming int8"].update(push_ms=push_ms, push_dev_ms=dev_ms)
@@ -3089,21 +3147,21 @@ def train_parity_part(card: str) -> dict:
     return {"loss_rel": rel, "grad_frac": worst, "left_out": left_out}
 
 
-def k1_backward_part(shapes, card: str) -> dict:
+def k1_backward_part(shapes, card: str, base: bool = True) -> dict:
     """(c) K1's autograd Function on the card, forward and backward: its
     output against rel_attention_block_reference on the valid rows (the
     kernels phase's tolerance), and its input gradients against autograd
     through the plain version on the same CUDA tensors, f32 and bf16. At
     B=8 T'=126 D=512 with mixed key lengths, with and without the fused
-    LayerNorm + residual, and at each shape the trainers give K1 (`shapes`:
-    (B, T', D, heads, key lengths, what), with the LayerNorm + residual, as the
-    encoder calls it); each trainer shape's f32 forward timed against the
-    plain version, with its bound."""
+    LayerNorm + residual (with `base`), and at each shape the trainers give
+    K1 (`shapes`: (B, T', D, heads, key lengths, what), with the LayerNorm
+    + residual, as the encoder calls it); each trainer shape's f32 forward
+    timed against the plain version, with its bound."""
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
-    cases = [(B, 126, D, H, None, "mixed lengths", with_norm) for with_norm in (False, True)]
+    cases = [(B, 126, D, H, None, "mixed lengths", with_norm) for with_norm in (False, True)] if base else []
     cases += [(*shape, True) for shape in shapes]
     out = {"max_abs_err": 0.0, "grads": {}, "times": {}, "work": {}}
     for i, (b, t, d, heads, lengths, what, with_norm) in enumerate(cases):
@@ -3281,22 +3339,25 @@ def heads_flops(b: int, t: int, d: int, local: int, hd: int, key_lens) -> float:
     return 2 * m * d * 3 * dl + 2 * (2 * t - 1) * d * dl + core_flops(t, hd, local, key_lens) + 2 * m * dl * d
 
 
-def k1_heads_part(card: str, served) -> dict:
+def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
     """K1's head-sharded mode against its plain version on the same CUDA
     tensors, one 'model' rank's 4 heads of an 8-head layer with the fused
-    LayerNorm: B=8, T'=126, mixed lengths, at D=512 (hd 64) and D=1024
-    (hd 128); and at `served`, (B, T', key lengths) of the launches of the
-    dp1×tp2 run on the clips (D=512). Each f32 timed with its bound, each
-    bf16 checked."""
+    LayerNorm: with `base`, B=8, T'=126, mixed lengths, at D=512 (hd 64)
+    and D=1024 (hd 128); and at each of `shapes`, (B, T', key lengths,
+    what) of a mesh run's launches (D=512). Each f32 by check_close and
+    timed with its bound, each bf16 checked; and each through
+    RelAttentionBlockHeadsFunction under grad (one launch counted), its
+    output against the plain version's and its input gradients against
+    autograd through the plain version."""
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}, "grads": {}}
     local = 4
-    b_s, t_s, lens_s = served
-    cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024),
-             (b_s, t_s, D, lens_s, f"B={b_s} T'={t_s} D={D} hd={D // H} (dp1×tp2 on the clips)", 2490)]
+    cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024)] if base else []
+    cases += [(b, t, D, lens, f"B={b} T'={t} D={D} hd={D // H} ({what})", 2490 + i)
+              for i, (b, t, lens, what) in enumerate(shapes)]
     for b, t, d, given, key, seed in cases:
         hd = d // H
         dl = local * hd
@@ -3322,8 +3383,39 @@ def k1_heads_part(card: str, served) -> dict:
             if got.dtype != torch.float32 or tuple(got.shape) != (b, t, d):
                 raise RuntimeError(f"{tag}: partial is {got.dtype} {tuple(got.shape)}, want f32 {(b, t, d)}")
             rows = _valid_rows(lengths, t)
+
+            def agree(what, g, r):
+                """f32 by check_close; bf16 operands give an f32 partial, held as bf16 outputs are."""
+                if dtype == torch.float32:
+                    out["max_abs_err"] = max(out["max_abs_err"], check_close(f"{tag}{what}", g, r, rows))
+                    return
+                err, scale = float((g[rows] - r[rows]).abs().max()), float(r[rows].abs().max())
+                log(f"  {tag}{what}: max|diff| {err:.3e} = {err / scale:.3%} of output scale {scale:.3f}")
+                if not torch.isfinite(g[rows]).all() or err > BF16_SCALE_FRAC * scale:
+                    raise RuntimeError(f"kernel disagrees with its plain version at {tag}{what}")
+
+            agree("", got, ref)
+            # the same inputs through the autograd Function, as a 'model' rank's trainer calls it
+            leaves = [a.detach().requires_grad_() for a in (*args, kw["norm_w"], kw["norm_b"])]
+            gkw = dict(lengths=kw["lengths"], norm_w=leaves[-2], norm_b=leaves[-1])
+            before = RA.rel_attention_block_heads.launches
+            got_g = RA.rel_attention_block_heads(*leaves[:11], **gkw)
+            if RA.rel_attention_block_heads.launches != before + 1:
+                raise RuntimeError(f"{tag}: under grad the Function launched the kernel "
+                                   f"{RA.rel_attention_block_heads.launches - before} times, want 1")
+            want_g = RA.rel_attention_block_reference(*leaves[:11], None, heads_partial=True, **gkw)
+            agree(", Function forward under grad", got_g.detach(), want_g.detach())
+            g_out = dev(rng.randn(b, t, d), torch.float32)
+            ga, gw = torch.autograd.grad(got_g, leaves, g_out), torch.autograd.grad(want_g, leaves, g_out)
+            worst = max(float((a.float() - v.float()).abs().max()) / max(float(v.float().abs().max()), 1e-30)
+                        for a, v in zip(ga, gw))
+            limit = K1_GRAD_F32_FRAC if dtype == torch.float32 else BF16_SCALE_FRAC
+            log(f"  {tag}, Function backward: worst input gradient {worst:.2e} of its scale (limit {limit:g}), "
+                f"{len(leaves)} inputs")
+            if worst > limit:
+                raise RuntimeError(f"{tag}: the Function's input gradients differ from the plain version's")
+            out["grads"][f"{key} {name}"] = worst
             if dtype == torch.float32:
-                out["max_abs_err"] = max(out["max_abs_err"], check_close(tag, got, ref, rows))
                 out["times"][key] = time_pair(tag, lambda: RA.rel_attention_block_heads(*args, **kw),
                                               lambda: RA.rel_attention_block_reference(*args[:11], None,
                                                                                        heads_partial=True, **kw),
@@ -3335,53 +3427,56 @@ def k1_heads_part(card: str, served) -> dict:
                 log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
                     f"{bd['bound_by']}; kernel / plain device {out['times'][key]['dev_ms']:.4f} / "
                     f"{out['times'][key]['plain_dev_ms']:.4f} ms [{card}]")
-            else:  # the partial is f32 from bf16 operands: held as bf16 outputs are
-                g, r = got[rows], ref[rows]
-                err, scale = float((g - r).abs().max()), float(r.abs().max())
-                log(f"  {tag}: max|diff| {err:.3e} = {err / scale:.3%} of output scale {scale:.3f}")
-                if not torch.isfinite(g).all() or err > BF16_SCALE_FRAC * scale:
-                    raise RuntimeError(f"kernel disagrees with its plain version at {tag}")
     return out
 
 
 class CollectiveClock:
     """Host time inside the mesh's collectives on one rank, while `on`: each
-    gloo call (torch.distributed all_reduce, all_gather, all_gather_object,
-    waiting for the peer included) and each staging copy of a CUDA tensor
-    to the host (parallel/collectives.py `_staged`). Each is timed after a
-    device synchronize, so that the device work queued before it is not
-    counted; the copies back to the card are not counted."""
+    call of torch.distributed's all_reduce, all_gather, all_gather_object,
+    reduce_scatter and broadcast and each pipeline hand-over
+    (parallel/pipeline.py, its send and receive posted together), waiting
+    for the peer included, and each staging copy of a CUDA tensor to the
+    host (parallel/collectives.py `_staged`). Each is timed after a device
+    synchronize, so that the device work queued before it is not counted;
+    a call inside a timed one (the staging of a hand-over) counts once, in
+    the outer; the copies back to the card are not counted."""
 
     def __init__(self):
         import torch
         import torch.distributed as dist
 
         from parakeet_tpu_torch.parallel import collectives as CO
+        from parakeet_tpu_torch.parallel import pipeline as PP
 
         self.on, self.calls, self.gloo_s, self.staging_s = False, 0, 0.0, 0.0
+        self._depth = 0
 
-        def wrap(mod, name, kind):
-            fn = getattr(mod, name)
+        def wrap(owner, name, kind):
+            fn = getattr(owner, name)
 
             def timed(*a, **kw):
-                if not self.on:
+                if not self.on or self._depth:
                     return fn(*a, **kw)
                 torch.cuda.synchronize()
+                self._depth += 1
                 t0 = time.perf_counter()
                 try:
                     return fn(*a, **kw)
                 finally:
                     dt = time.perf_counter() - t0
+                    self._depth -= 1
                     if kind == "gloo":
                         self.calls += 1
                         self.gloo_s += dt
                     else:
                         self.staging_s += dt
 
-            setattr(mod, name, timed)
+            setattr(owner, name, timed)
 
-        for name in ("all_reduce", "all_gather", "all_gather_object"):
+        for name in ("all_reduce", "all_gather", "all_gather_object", "reduce_scatter", "broadcast"):
             wrap(dist, name, "gloo")
+        for name in ("hand_over", "broadcast"):
+            wrap(PP._Schedule, name, "gloo")
         wrap(CO, "_staged", "staging")
 
 
@@ -3518,7 +3613,7 @@ def mesh_phase(clips, card: str) -> dict:
     single = facade("tdt-ctc-110m", "cuda", params=flat)
     # dp1×tp2 launches K1 head-sharded on the whole batch of clips, unpadded
     enc_lens = encoded_lengths(torch.as_tensor(preprocess_audio_batch(clips, single._audio_cfg, "cpu")[1])).numpy()
-    out = {"k1": k1_heads_part(card, (len(clips), int(enc_lens.max()), enc_lens))}
+    out = {"k1": k1_heads_part(card, [(len(clips), int(enc_lens.max()), enc_lens, "dp1×tp2 on the clips")])}
     log(f"  (K1 head-sharded: {time.perf_counter() - t0:.1f} s into the phase)")
 
     os.environ["WORLD_SIZE"] = "2"
@@ -3590,6 +3685,499 @@ def mesh_phase(clips, card: str) -> dict:
     return out
 
 
+# ── train_mesh: training over torch.distributed on the one card ──
+
+MESH_DIR = ROOT / "build" / "parakeet_tpu_torch" / "train_mesh_smoke"
+MESH_GRAD_FRAC = 1e-4  # each key's gradient, mesh vs the single-device card step, within 1e-4 of the key's
+#   max |g|, or within MESH_SPREAD_K times that key's own spread if that is wider: K1's kernel (whole
+#   or head-sharded, its split-K plan set by the batch) and its plain version (under 'seq') round
+#   differently, so the CPU tests' 1e-5 (both sides the plain version) is not the card's bound
+MESH_SPREAD_REL = 1e-6  # a key's spread: its single-device gradient again on features × (1 + 1e-6·noise)
+#   (seeded noise), the change over the key's max |g|; a key whose gradient moves more than that
+#   under a 1e-6 change of the input cannot be held closer through f32 rounding of the same sums
+MESH_SPREAD_K = 4.0  # the margin on a key's spread
+MESH_LOSS_RTOL = 1e-5  # the step's loss, mesh vs the single-device card step
+MESH_600M_B, MESH_600M_MICRO = 4, 2
+
+
+def mesh_train_launches(case: str, layers: int, pipe: int = 1, n_micro: int = 1) -> dict:
+    """K1's launches a step a rank on a mesh trainer: whole heads once a
+    block on a 'data' mesh, head-sharded once a block on a 'model' one,
+    none under 'seq' (its attention is K1's plain version, as the
+    reference requires); a 'pipe' stage's blocks twice a microbatch (the
+    forward, and the recompute in backward)."""
+    if "sp2" in case:
+        return {}
+    if "tp2" in case:
+        return {"rel_attention_block_heads": layers}
+    if "pipe" in case:
+        return {"rel_attention_block": 2 * layers // pipe * n_micro}
+    return {"rel_attention_block": layers}
+
+
+def grad_fractions(got: dict, ref: dict) -> tuple[list, list]:
+    """Each key's max |got − ref| over the key's max |ref|, worst first, and
+    the keys zero up to rounding (ref max |g| below GRAD_ZERO_FRAC of the
+    largest key's), left out."""
+    scales = {k: float(v.abs().max()) for k, v in ref.items()}
+    zero = GRAD_ZERO_FRAC * max(scales.values())
+    left_out = sorted(k for k, s in scales.items() if s < zero)
+    fracs = sorted(((float((got[k].to(ref[k].device) - ref[k]).abs().max()) / scales[k], k)
+                    for k in got if k not in left_out), reverse=True)
+    return fracs, left_out
+
+
+def key_limits(ref: dict) -> dict:
+    """Each key's limit: the larger of MESH_GRAD_FRAC and MESH_SPREAD_K
+    times the key's spread in the single-device card step (`ref`)."""
+    return {k: max(MESH_GRAD_FRAC, MESH_SPREAD_K * s) for k, s in ref["spreads"].items()}
+
+
+def grad_agreement(name: str, got: dict, ref: dict) -> dict:
+    """`grad_fractions` of a mesh case against the single-device card step
+    (`ref`, with each key's spread), each key against its `key_limits`:
+    the worst three over their limits, the keys left out, and the keys
+    whose limit is their spread's. Raises past any key's limit."""
+    fracs, left_out = grad_fractions(got, ref["grads"])
+    limits = key_limits(ref)
+    over = sorted(((f / limits[k], f, limits[k], k) for f, k in fracs), reverse=True)
+    wide = sorted((limits[k], k) for _, k in fracs if limits[k] > MESH_GRAD_FRAC)
+    if not over or over[0][0] > 1.0:
+        raise RuntimeError(f"{name}: gradients differ from the single-device card step beyond their keys' limits "
+                           f"(over limit, |diff| / max |g|, limit, key): {over[:5]}")
+    return {"worst": fracs[0][0], "worst_key": fracs[0][1], "over": over[:3], "keys": len(fracs),
+            "left_out": left_out, "wide": wide}
+
+
+def fault_reading(name: str, got: dict, ref: dict) -> dict:
+    """A rank's unreduced gradients (`step.local_value_and_grad`: what a
+    step missing its 'data' mean or 'seq' sum would apply) against the
+    single-device card step, by `grad_agreement`'s limits: the keys past
+    their limit and the median |diff| / max |g|. Raises unless the gate
+    would catch the fault."""
+    fracs, _ = grad_fractions(got, ref["grads"])
+    limits = key_limits(ref)
+    caught = sum(f > limits[k] for f, k in fracs)
+    if not caught:
+        raise RuntimeError(f"{name}: the gradient gate does not see a missing reduction")
+    return {"caught": caught, "keys": len(fracs), "median": fracs[len(fracs) // 2][0], "worst": fracs[0][0]}
+
+
+def key_patterns(keys) -> str:
+    """Keys with their layer indices folded: 'encoder_.layers_.*.attn_… ×17'."""
+    import collections
+    import re
+
+    count = collections.Counter(re.sub(r"layers_\.\d+\.", "layers_.*.", k) for k in keys)
+    return ", ".join(f"{k} ×{n}" if n > 1 else k for k, n in sorted(count.items())) or "none"
+
+
+def _timed_step(step, state, batch, clock) -> dict:
+    """One synchronised step (its wall, launches and peak memory), then one
+    more with the collective clock on (its wall and time inside the
+    collectives)."""
+    import torch
+
+    sync()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, loss = step(state.params, state.opt_state, batch)
+    float(loss)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    clock.on, clock.calls, clock.gloo_s, clock.staging_s = True, 0, 0.0, 0.0
+    t0 = time.perf_counter()
+    float(step(state.params, state.opt_state, batch)[2])
+    sync()
+    clock.on = False
+    coll = {"wall_ms": (time.perf_counter() - t0) * 1e3, "calls": clock.calls, "gloo_ms": clock.gloo_s * 1e3,
+            "staging_ms": clock.staging_s * 1e3}
+    return {"step_ms": wall, "launches": launches, "peak_gb": peak, "collectives": coll}
+
+
+def _mesh_case(name: str, trainer, batch, ref: dict, clock, unpad) -> dict:
+    """One mesh trainer's step: its reduced loss and whole gradients
+    (gathered over 'model', cut to the schema's shapes) against the
+    single-device card step's; on a 'data' or 'seq' axis of 2, the rank's
+    unreduced gradients too (`fault_reading`); then `_timed_step`."""
+    _, state, step, place = trainer
+    b = place(batch)
+    loss, grads = step.value_and_grad(state.params, b)
+    whole = unpad(state.opt_state.layout.gather(grads))
+    rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    if rel > MESH_LOSS_RTOL:
+        raise RuntimeError(f"{name}: loss {float(loss)} vs single-device {ref['loss']} ({rel:.2e})")
+    out = {"loss": float(loss), "loss_rel": rel, "grads": grad_agreement(name, whole, ref)}
+    del whole, grads
+    if "dp2" in name or "sp2" in name:
+        local = unpad(state.opt_state.layout.gather(step.local_value_and_grad(state.params, b)[1]))
+        out["fault"] = fault_reading(name, local, ref)
+        del local
+    out.update(_timed_step(step, state, b, clock))
+    return out
+
+
+def _load_ref(path: Path) -> dict:
+    import torch
+
+    return torch.load(path, mmap=True)
+
+
+def train_mesh_rank(rank: int, files: dict) -> dict:
+    """One of two ranks on the card over gloo: (i) dp2, dp1×tp2, dp1×sp2
+    tdt-ctc-110m hybrid steps on the loader's batch; (iii) Sortformer-117m
+    on dp2 and dp1×tp2; (ii) dp1×pipe2 tdt-600m (tdt, B=4, 2 microbatches):
+    each against the single-device card step's loss and gradients, then
+    a timed step and one with the collective clock on."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+    from parakeet_tpu_torch.parallel.mesh import make_mesh
+    from parakeet_tpu_torch.parallel.pipeline import LAYER_PREFIX, make_pp_trainer
+    from parakeet_tpu_torch.train import make_sharded_trainer, synthetic_sortformer_batch
+
+    require_ieee_f32()
+    clock = CollectiveClock()
+    out = {}
+    for model, spec_fn, loss, batch, cases in (
+            ("tdt-ctc-110m", P.tdt_ctc_spec, "hybrid", torch.load(files["batch"]),
+             (("dp2", {}), ("dp1xtp2", dict(model_parallel=2)), ("dp1xsp2", dict(seq_parallel=2)))),
+            ("sortformer-117m", P.sortformer_spec, "sortformer", None,
+             (("sortformer dp2", {}), ("sortformer dp1xtp2", dict(model_parallel=2))))):
+        cfg = C.make_110m_config() if loss == "hybrid" else C.make_sortformer_117m_config()
+        if batch is None:
+            batch = synthetic_sortformer_batch(cfg, 4, 1000, seed=5)
+        params = card_params(spec_fn(cfg), seed=0)
+        ref = _load_ref(files[model])
+        shapes = {k: tuple(v.shape) for k, v in params.items()}
+        unpad = lambda g: {k: v[tuple(slice(0, n) for n in shapes[k])] for k, v in g.items()}  # noqa: E731
+        for name, kw in cases:
+            t0 = time.perf_counter()
+            mesh = make_mesh(backend="gloo", **kw)
+            trainer = make_sharded_trainer(cfg, params, mesh, loss=loss, sigma=0.05, device="cuda")
+            out[name] = _mesh_case(name, trainer, batch, ref, clock, unpad)
+            out[name].update(shape=dict(mesh.shape), seconds=time.perf_counter() - t0)
+            del trainer
+            torch.cuda.empty_cache()
+        del params, ref
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = C.make_tdt_600m_config()
+    params = card_params(P.tdt_spec(cfg), seed=0)
+    mesh = make_mesh(backend="gloo", pipeline_parallel=2)
+    state, step, place, _ = make_pp_trainer(cfg, params, mesh, n_micro=MESH_600M_MICRO, loss="tdt", sigma=0.05)
+    del params
+    ref = _load_ref(files["tdt-600m"])
+    b = place(torch.load(files["batch600m"]))
+    loss, grads = step.value_and_grad(state.params, b)
+    rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    if rel > MESH_LOSS_RTOL:
+        raise RuntimeError(f"dp1xpipe2: loss {float(loss)} vs single-device {ref['loss']} ({rel:.2e})")
+    # this stage's rows of each stacked layer key against the single-device gradients of those layers
+    axis = mesh.axis("pipe")
+    n_local = cfg.encoder.num_layers // axis.size
+    mine = {}
+    for (outer, key), g in grads.items():
+        if outer == "rest":
+            mine[key] = g
+        else:
+            for j in range(n_local):
+                mine[f"{LAYER_PREFIX}{axis.index * n_local + j}.{key}"] = g[j]
+    agree = grad_agreement("dp1xpipe2", mine, {"grads": {k: ref["grads"][k] for k in mine},
+                                               "spreads": {k: v for k, v in ref["spreads"].items() if k in mine}})
+    del mine, grads, ref
+    out["dp1xpipe2"] = {"loss": float(loss), "loss_rel": rel, "grads": agree, "shape": dict(mesh.shape),
+                        **_timed_step(step, state, b, clock), "seconds": time.perf_counter() - t0}
+    return out
+
+
+def nccl_train_rank(rank: int, files: dict) -> dict:
+    """(iv) one rank over NCCL (world 1): a dp1 mesh, a tdt-ctc-110m hybrid
+    step against the single-device card step."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+    from parakeet_tpu_torch.parallel.mesh import make_mesh
+    from parakeet_tpu_torch.train import make_sharded_trainer
+
+    require_ieee_f32()
+    t0 = time.perf_counter()
+    cfg = C.make_110m_config()
+    params = card_params(P.tdt_ctc_spec(cfg), seed=0)
+    mesh = make_mesh()
+    trainer = make_sharded_trainer(cfg, params, mesh, loss="hybrid", sigma=0.05, device="cuda")
+    out = _mesh_case("nccl dp1", trainer, torch.load(files["batch"]), _load_ref(files["tdt-ctc-110m"]),
+                     CollectiveClock(), lambda g: g)
+    return dict(out, backend=mesh.backend, shape=dict(mesh.shape), seconds=time.perf_counter() - t0)
+
+
+def single_train_reference(model: str, batch: dict, path: Path, card: str, remat: bool = False) -> dict:
+    """The single-device card step's loss and gradients (the trainer's
+    loss through value_and_grad_accum), saved for the ranks; and that
+    step's synchronised wall, launches and peak memory."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch import train as T
+
+    cfg, spec, loss = {"tdt-ctc-110m": (C.make_110m_config(), P.tdt_ctc_spec, "hybrid"),
+                       "sortformer-117m": (C.make_sortformer_117m_config(), P.sortformer_spec, "sortformer"),
+                       "tdt-600m": (C.make_tdt_600m_config(), P.tdt_spec, "tdt")}[model]
+    fn = T.objective(cfg, loss, sigma=0.05, remat=remat)
+    _, state, step, place = T.make_sharded_trainer(cfg, card_params(spec(cfg), seed=0), loss=loss, sigma=0.05,
+                                                   remat=remat, device="cuda")
+    b = place(batch)
+    vag = T.value_and_grad_accum(fn)
+    lval, grads = vag(state.params, b)
+    grads = {k: g.cpu() for k, g in grads.items()}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    noise = torch.randn(b["features"].shape, generator=gen, device="cuda")
+    moved = vag(state.params, dict(b, features=b["features"] * (1 + MESH_SPREAD_REL * noise)))[1]
+    moved = {k: g.cpu() for k, g in moved.items()}
+    fracs, _ = grad_fractions(moved, grads)
+    spreads = {k: f for f, k in fracs}
+    torch.save({"loss": float(lval), "grads": grads, "spreads": spreads}, path)
+    del grads, moved
+    sync()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    float(step(state.params, state.opt_state, b)[2])
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {"loss": float(lval), "step_ms": wall, "launches": {k: v for k, v in read_counts().items() if v},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "spread": fracs[0][0],
+           "spread_median": fracs[len(fracs) // 2][0]}
+    log(f"  single-device card step, {model} {loss}{' remat' if remat else ''}: loss {out['loss']:.6f}, step wall "
+        f"{wall:.1f} ms, K1 {out['launches']}, peak {out['peak_gb']:.2f} GB; its gradients on features × (1 + "
+        f"{MESH_SPREAD_REL:g}·noise) move by up to {fracs[0][0]:.2e} of a key's max |g| ({fracs[0][1]}), median key "
+        f"{out['spread_median']:.2e} [{card}]")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def torchrun_all(jobs: dict) -> dict:
+    """Each job {tag: (module, argv)} as `python -m torch.distributed.run
+    --standalone --nproc-per-node 2 -m module argv` from the repo root
+    (rendezvous on localhost, a free port each), all at once so that the
+    ranks' start-up overlaps; each job's stderr (rank 0 logs), echoed. A
+    failing rank fails the run."""
+    procs = {}
+    for tag, (module, argv) in jobs.items():
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2", "-m", module,
+               *argv]
+        procs[tag] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    for tag, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        for line in err.splitlines():
+            if line.startswith(("step ", "# ")):
+                log(f"    [{tag}] {line}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag} under python -m torch.distributed.run exited {proc.returncode}:\n{err[-3000:]}")
+        out[tag] = err
+    return out
+
+
+def train_mesh_cli_part(card: str) -> dict:
+    """(v) train_cli under python -m torch.distributed.run, two gloo ranks
+    on the card, tdt-ctc-110m: --data-parallel 2, and --model-parallel 2
+    (the 1025 vocabulary padded to 1026): 2 steps and a checkpoint, then
+    --resume to 3 and --export, the export's vocab rows unpadded (1025);
+    and train_diar_cli --data-parallel 2 (Sortformer-117m), 2 steps. The
+    launches of a round run at once (their start-up dominates: ~40 s a
+    110m launch alone, PR 14's first card runs)."""
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.io.safetensors import load_safetensors, save_safetensors
+
+    t0 = time.perf_counter()
+    manifest = train_corpus(MESH_DIR / "cli", 4, seed=31, min_s=2.0, max_s=4.0)
+    diar = train_corpus(MESH_DIR / "diar", 4, seed=99, min_s=4.0, max_s=4.0, rttm=True)
+    vocab = smoke_vocab(1025)
+    # the runs start from weights drawn here on the card: each rank's numpy draw cost seconds
+    init, init_sf = MESH_DIR / "init110m.safetensors", MESH_DIR / "init_sortformer.safetensors"
+    save_safetensors(host_params(P.tdt_ctc_spec(C.make_110m_config()), seed=0), init)
+    save_safetensors(host_params(P.sortformer_spec(C.make_sortformer_117m_config()), seed=0), init_sf)
+    flags = {"--data-parallel 2": ["--data-parallel", "2"], "--model-parallel 2": ["--model-parallel", "2"]}
+    base = {tag: ["--manifest", str(manifest), "--vocab", str(vocab), "--init-weights", str(init), "--batch-size", "4",
+                  "--log-every", "1", "--dist-backend", "gloo", "--checkpoint-dir", str(MESH_DIR / f"ck{f[0]}"), *f]
+            for tag, f in flags.items()}
+    export = {tag: MESH_DIR / f"export{f[0]}.safetensors" for tag, f in flags.items()}
+    log("== (v) train_cli --data-parallel 2 and --model-parallel 2 (2 steps and a checkpoint) and train_diar_cli "
+        "--data-parallel 2 (2 steps) under python -m torch.distributed.run, two gloo ranks on the card each, at once")
+    jobs = {tag: ("parakeet_tpu_torch.train_cli", argv + ["--steps", "2"]) for tag, argv in base.items()}
+    jobs["diar"] = ("parakeet_tpu_torch.train_diar_cli", ["--manifest", str(diar), "--init-weights", str(init_sf),
+                                                          "--batch-size", "4", "--steps", "2", "--log-every", "1",
+                                                          "--data-parallel", "2", "--dist-backend", "gloo"])
+    first = torchrun_all(jobs)
+    log("== (v) the two train_cli runs again: --resume to step 3 and --export, at once")
+    second = torchrun_all({tag: ("parakeet_tpu_torch.train_cli",
+                                 argv + ["--steps", "3", "--resume", "--export", str(export[tag])])
+                           for tag, argv in base.items()})
+    out = {}
+    for tag in flags:
+        l1, l2 = cli_losses(first[tag]), cli_losses(second[tag])
+        if sorted(l1) != [1, 2] or sorted(l2) != [3] or "# resumed at step 2" not in second[tag]:
+            raise RuntimeError(f"train_cli {tag}: steps {sorted(l1)} then {sorted(l2)}")
+        state = load_safetensors(MESH_DIR / f"ck{flags[tag][0]}" / "state.safetensors")
+        exported = load_safetensors(export[tag])
+        rows = (state["tdt_joint_.label_proj_.weight"].shape[0], exported["tdt_joint_.label_proj_.weight"].shape[0],
+                exported["ctc_decoder_.proj_.weight"].shape[0])
+        want = (1026 if "model" in tag else 1025, 1025, 1025)
+        if rows != want or not all(np.isfinite(v) for v in {**l1, **l2}.values()):
+            raise RuntimeError(f"train_cli {tag}: vocab rows (checkpoint, export label, export ctc) {rows}, want "
+                               f"{want}; losses {l1} {l2}")
+        out[tag] = {"losses": {**l1, **l2}, "rows": rows}
+        log(f"  train_cli {tag}: losses {out[tag]['losses']}; checkpoint vocab rows {rows[0]} (whole, padded as the "
+            f"reference writes them under 'model'), export {rows[1]} / {rows[2]}")
+    losses = cli_losses(first["diar"])
+    if sorted(losses) != [1, 2] or not all(np.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"train_diar_cli --data-parallel 2: losses {losses}")
+    out["diar"] = {"losses": losses}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  train_diar_cli --data-parallel 2: losses {losses}; the CLIs {out['seconds']:.1f} s")
+    return out
+
+
+def train_mesh_k1_part(batches: dict, card: str) -> dict:
+    """K1 against its plain version at the shapes the train_mesh cases give
+    it, (B, T', key lengths) from each case's own batch: head-sharded, as
+    dp1×tp2 runs it (110m B=8, Sortformer B=4), by `k1_heads_part`; whole
+    heads through RelAttentionBlockFunction, as each dp2 rank (110m B=4,
+    Sortformer B=2), the NCCL dp1 and single-device 110m steps (B=8) and
+    each pipe2 microbatch (600m B=2) run it, by `k1_backward_part`."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch.models.encoder import encoded_lengths, subsample_length
+
+    def geometry(batch, rows=slice(None)):
+        t = subsample_length(int(batch["features"].shape[1]))
+        lens = torch.clamp(encoded_lengths(torch.as_tensor(np.asarray(batch["mel_lengths"]))), max=t).numpy()
+        return t, lens[rows]
+
+    t110, l110 = geometry(batches["110m"])
+    tsf, lsf = geometry(batches["sortformer"])
+    t600, l600 = geometry(batches["600m"])
+    half = MESH_600M_B // MESH_600M_MICRO
+    enc6 = C.make_tdt_600m_config().encoder
+    heads = [(8, t110, l110, "train_mesh 110m dp1×tp2"), (4, tsf, lsf, "train_mesh Sortformer dp1×tp2")]
+    whole = [(8, t110, D, H, l110, "train_mesh 110m NCCL dp1 and one card"),
+             *((4, t110, D, H, l110[r * 4:(r + 1) * 4], f"train_mesh 110m dp2 rank {r}") for r in range(2)),
+             *((2, tsf, D, H, lsf[r * 2:(r + 1) * 2], f"train_mesh Sortformer dp2 rank {r}") for r in range(2)),
+             *((half, t600, enc6.hidden_size, enc6.num_heads, l600[m * half:(m + 1) * half],
+                f"train_mesh 600m pipe2 microbatch {m}") for m in range(MESH_600M_MICRO))]
+    log(f"== train_mesh: K1 at its mesh shapes: head-sharded B=8 T'={t110} (lengths {l110.min()}-{l110.max()}) and "
+        f"B=4 T'={tsf}; whole heads at {len(whole)} shapes")
+    return {"k1_heads": k1_heads_part(card, heads, base=False), "k1": k1_backward_part(whole, card, base=False)}
+
+
+def train_mesh_phase(card: str) -> dict:
+    """Training on a mesh, on the one card: the single-device card steps
+    (tdt-ctc-110m hybrid on the loader's batch of 8 clips, Sortformer-117m
+    B=4 on 10 s, tdt-600m tdt with remat B=4) saved; two spawned gloo
+    ranks run (i) dp2, dp1×tp2, dp1×sp2 (110m), (iii) Sortformer dp2 and
+    dp1×tp2, (ii) dp1×pipe2 (600m, 2 microbatches); one NCCL rank (iv) a
+    dp1 110m step; each case's loss and every gradient against the
+    single-device step's, K1's launches a step a rank against
+    `mesh_train_launches`, the step wall, the share inside the
+    collectives and the peak memory a rank; then (v) both train CLIs under
+    the launcher. Coverage on one card, not a scaling figure: both ranks
+    share the card, and gloo stages every collective through host memory."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch.config import AudioConfig
+    from parakeet_tpu_torch.data import ManifestDataset, TrainDataLoader
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+    from parakeet_tpu_torch.parallel.launch import spawn_ranks
+    from parakeet_tpu_torch.text.tokenizer import Tokenizer
+    from parakeet_tpu_torch.train import synthetic_batch, synthetic_sortformer_batch
+
+    require_ieee_f32()
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    manifest = train_corpus(MESH_DIR / "asr", 8, seed=2024, min_s=2.0, max_s=12.0)
+    loader = TrainDataLoader(ManifestDataset(manifest), Tokenizer(smoke_vocab(1025)), batch_size=8,
+                             audio_config=AudioConfig(n_mels=80), shuffle=False, device="cpu")
+    batch = next(iter(loader))
+    del loader
+    log(f"== train_mesh: the loader's batch of 8 clips: features {tuple(batch['features'].shape)}, labels "
+        f"{tuple(batch['labels'].shape)}")
+    files = {"batch": MESH_DIR / "batch110m.pt", "batch600m": MESH_DIR / "batch600m.pt",
+             **{m: MESH_DIR / f"ref_{m}.pt" for m in ("tdt-ctc-110m", "sortformer-117m", "tdt-600m")}}
+    torch.save(batch, files["batch"])
+    b600 = {k: torch.from_numpy(v) for k, v in synthetic_batch(C.make_tdt_600m_config(), MESH_600M_B, mel_frames=1000,
+                                                                 max_labels=40, seed=5).items()}
+    torch.save(b600, files["batch600m"])
+    sf_batch = synthetic_sortformer_batch(C.make_sortformer_117m_config(), 4, 1000, seed=5)
+    single = {"tdt-ctc-110m": single_train_reference("tdt-ctc-110m", batch, files["tdt-ctc-110m"], card),
+              "sortformer-117m": single_train_reference("sortformer-117m", sf_batch, files["sortformer-117m"], card),
+              "tdt-600m": single_train_reference("tdt-600m", b600, files["tdt-600m"], card, remat=True)}
+    log(f"  (references saved, {time.perf_counter() - t0:.1f} s into the phase)")
+    out = {"single": single, **train_mesh_k1_part({"110m": batch, "sortformer": sf_batch, "600m": b600}, card)}
+
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(train_mesh_rank, 2, {k: str(v) for k, v in files.items()}, backend="gloo", timeout=900,
+                        threads=0)
+    log(f"  two gloo ranks on the card: {time.perf_counter() - t1:.1f} s")
+    # (iv) in this process: a world of one needs no second process, and a spawned rank's start-up cost ~20 s
+    t1 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR / 'nccl_rdzv'}", world_size=1, rank=0)
+    try:
+        nccl = nccl_train_rank(0, {k: str(v) for k, v in files.items()})
+    finally:
+        dist.destroy_process_group()
+    log(f"  one NCCL rank (this process): {time.perf_counter() - t1:.1f} s")
+
+    layers = {"tdt-ctc-110m": 17, "sortformer-117m": 17, "tdt-600m": 24}
+    runs = [(f"rank {r} {name}", name, res[name]) for r, res in enumerate(ranks) for name in res]
+    runs.append(("NCCL rank dp1", "nccl dp1", nccl))
+    out["cases"] = {}
+    for tag, name, res in runs:
+        model = "sortformer-117m" if "sortformer" in name else "tdt-600m" if "pipe" in name else "tdt-ctc-110m"
+        want = mesh_train_launches(name, layers[model], 2 if "pipe" in name else 1, MESH_600M_MICRO)
+        if res["launches"] != want:
+            raise RuntimeError(f"train_mesh {tag}: launches a step {res['launches']}, want {want}")
+        c, g = res["collectives"], res["grads"]
+        inside = c["gloo_ms"] + c["staging_ms"]
+        fault = res.get("fault")
+        log(f"  {tag} ({res['shape']}): loss {res['loss']:.6f} ({res['loss_rel']:.1e} from the single-device card "
+            f"step's), gradients of {g['keys']} keys within {g['worst']:.2e} of each key's max |g| ({g['worst_key']}); "
+            f"against each key's limit (the larger of {MESH_GRAD_FRAC:g} and {MESH_SPREAD_K:g}× its spread) at most "
+            + ", ".join(f"{o:.2f} ({k}: {f:.2e} of limit {lim:.2e})" for o, f, lim, k in g["over"])
+            + f"; {len(g['wide'])} keys' limits above {MESH_GRAD_FRAC:g}, the widest "
+            + (f"{g['wide'][-1][0]:.2e} ({g['wide'][-1][1]})" if g["wide"] else "none")
+            + f"; zero up to rounding, left out: {key_patterns(g['left_out'])}"
+            + (f"; the rank's unreduced gradients (a missing reduction) past their limit in {fault['caught']} of "
+               f"{fault['keys']} keys, median {fault['median']:.2e}, worst {fault['worst']:.2e}" if fault else "")
+            + f"); K1 a step {want or 'none'}; step wall {res['step_ms']:.1f} ms "
+            f"(single device {single[model]['step_ms']:.1f}), peak {res['peak_gb']:.2f} GB; with the collective "
+            f"clock on: wall {c['wall_ms']:.1f} ms, {c['calls']} calls {c['gloo_ms']:.1f} ms + staging "
+            f"{c['staging_ms']:.1f} ms = {inside / c['wall_ms']:.1%} of the wall [{card}] ({res['seconds']:.1f} s)")
+        out["cases"].setdefault(name, []).append({k: v for k, v in res.items() if k != "grads"}
+                                                 | {"worst": g["worst"], "over": g["over"][0][0]})
+    out["cli"] = train_mesh_cli_part(card)
+    # K1's launches a step a rank on each mesh trainer, as counted in the runs above
+    out["launches"] = {name: cases[0]["launches"] for name, cases in out["cases"].items()}
+    return out
+
+
 def build_phase() -> None:
     from parakeet_tpu_torch.ops import _build
 
@@ -3608,7 +4196,7 @@ def build_phase() -> None:
 
 
 PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options",
-          "train", "mesh")
+          "train", "mesh", "train_mesh")
 
 
 def main(argv=None) -> int:
@@ -3706,10 +4294,12 @@ def main(argv=None) -> int:
         log(f"== tdt-600m weights: {sum(a.size for a in flat6.values()) / 1e6:.1f} M parameters, "
             f"{time.perf_counter() - t0:.1f} s to draw")
         if "paths600m" in phases:
+            # held to the CPU on the 4 clips under 6 s (the CPU's 600m runs set the phase's time)
             for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg), ("whole-block", whole_cfg),
                                ("v1", v1_cfg)):
                 paths[f"tdt-600m {label}"] = timed(f"path tdt-600m {label}", path_phase, f"tdt-600m {label}", cfg,
-                                                   flat6, clips, card, model="tdt-600m")
+                                                   flat6, clips, card, model="tdt-600m",
+                                                   compare_clips=short_clips(clips))
         if "long" in phases:
             paths["long"] = timed("long audio tdt-600m", long_audio_phase, flat6, card)
         if "options" in phases:
@@ -3718,9 +4308,11 @@ def main(argv=None) -> int:
         del flat6
         if "paths600m" in phases:
             flat6 = model_params("rnnt-600m")
+            # the 4 clips under 6 s: random weights emit ~10 symbols a frame, so the decode loop runs as
+            # long as the longest clip, and the CPU facade's RNNT decode of all 8 took 30-50 s a configuration
             for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
                 paths[f"rnnt-600m {label}"] = timed(f"path rnnt-600m {label}", path_phase, f"rnnt-600m {label}",
-                                                    cfg, flat6, clips, card, model="rnnt-600m")
+                                                    cfg, flat6, short_clips(clips), card, model="rnnt-600m")
             del flat6
     if "streaming" in phases:
         paths["streaming"] = timed("streaming", streaming_phase, card)
@@ -3741,6 +4333,13 @@ def main(argv=None) -> int:
     if "mesh" in phases:
         paths["mesh"] = timed("mesh", mesh_phase, clips, card)
         torch.cuda.empty_cache()
+    if "train_mesh" in phases:
+        paths["train_mesh"] = timed("train_mesh", train_mesh_phase, card)
+        torch.cuda.empty_cache()
+        k1 = kernel.setdefault("rel_attention_block", {"max_abs_err": 0.0})
+        k1["max_abs_err"] = max(k1["max_abs_err"], paths["train_mesh"]["k1"]["max_abs_err"])
+        for key in ("times", "work"):
+            k1.setdefault(key, {}).update(paths["train_mesh"]["k1"][key])
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if phases != list(PHASES):
@@ -3779,6 +4378,8 @@ def main(argv=None) -> int:
                # launches a step of each trainer (remat launches K1's forward again in backward)
                "launches_train": {trainer: per_step[name]
                                   for trainer, per_step in paths["train"]["launches_train"].items()},
+               # launches a step a rank of each mesh trainer (phase train_mesh)
+               "launches_train_mesh": {case: c.get(name, 0) for case, c in paths["train_mesh"]["launches"].items()},
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],
@@ -3808,15 +4409,21 @@ def main(argv=None) -> int:
         rows.append(row)
     # K1's head-sharded mode (tensor parallelism over heads, phase mesh):
     # one rank's 4 of 8 heads at B=8, T'=126 (and under "shapes" D=1024 and
-    # dp1×tp2's shape on the clips); launches a TDT batch per rank on
-    # dp1×tp2 (two ranks sharing the card over gloo)
-    kh, mesh = paths["mesh"]["k1"], paths["mesh"]
+    # dp1×tp2's shape on the clips, and the train_mesh dp1×tp2 shapes);
+    # launches a TDT batch per rank on dp1×tp2 (two ranks sharing the card
+    # over gloo)
+    kh, mesh, tm = paths["mesh"]["k1"], paths["mesh"], paths["train_mesh"]["k1_heads"]
+    kh["max_abs_err"] = max(kh["max_abs_err"], tm["max_abs_err"])
+    for key in ("times", "work"):
+        kh[key].update(tm[key])
     hb = bound(*kh["work"][D])
     rows.append({"name": "rel_attention_block_heads", "route": "cuda",
                  "source": "parakeet_tpu_torch/csrc/rel_attention.cu",
                  "replaces": "parakeet_tpu/ops/pallas_attention.py:510",
                  "launches": mesh["launches_heads"]["rel_attention_block_heads"],
                  "launches_mesh": {run: c["rel_attention_block_heads"] for run, c in mesh["launches"].items()},
+                 "launches_train_mesh": {case: c.get("rel_attention_block_heads", 0)
+                                         for case, c in paths["train_mesh"]["launches"].items()},
                  "max_abs_err": kh["max_abs_err"], "ms": kh["times"][D]["ms"], "plain_ms": kh["times"][D]["plain_ms"],
                  "dev_ms": kh["times"][D]["dev_ms"], "plain_dev_ms": kh["times"][D]["plain_dev_ms"],
                  "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"],

@@ -21,11 +21,13 @@ def ctc_log_probs(p: Params, encoder_out: torch.Tensor, model=None, vocab: int |
     model: the mesh's 'model' axis when the head's vocab rows are split
     (this rank's block of logits, gathered); vocab: the schema vocabulary,
     to which padded log-probs are cut after the softmax."""
-    x = conv1d(p.sub("proj_"), encoder_out.transpose(1, 2)).transpose(1, 2)  # (B, T, V)
-    if model is not None and model.split:
-        from parakeet_tpu_torch.parallel.collectives import gather_last
+    if model is not None and model.split:  # column-parallel over the vocab: the input's gradient summed
+        from parakeet_tpu_torch.parallel.collectives import copy_to_model, gather_last
 
+        x = conv1d(p.sub("proj_"), copy_to_model(encoder_out, model).transpose(1, 2)).transpose(1, 2)
         x = gather_last(x.contiguous(), model)
+    else:
+        x = conv1d(p.sub("proj_"), encoder_out.transpose(1, 2)).transpose(1, 2)  # (B, T, V)
     lp = torch.log_softmax(x.to(torch.float32), dim=-1)
     return lp if vocab is None else lp[..., :vocab]
 

@@ -34,6 +34,14 @@ keeps its block of frames; the attention (plain, as the reference
 requires) gathers the normed frames for its keys and values and shifts the
 relative positions by its block's offset, the depthwise conv takes 4-frame
 halos from its neighbours, and the blocks' output is gathered at the end.
+Every split trains: each collective carries its backward
+(parallel/collectives.py: the inputs of the column-parallel linears, of
+pw1 and of K1 head-sharded, and the replicated weights inside a head
+share, through `copy_to_model`; the partial sums through
+`reduce_from_model`; the K/V gather's gradient reduce-scattered, the
+halos' sent back, the output gather's sliced), and K1 head-sharded runs
+under grad through its autograd Function. The whole-weight kernels
+(`EncoderSplit.full`) are inference only; a trainer never builds them.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ from parakeet_tpu_torch.ops.rel_attention import (
     rel_attention_block_reference,
 )
 from parakeet_tpu_torch.ops.subsample import fused_subsample_block1
-from parakeet_tpu_torch.parallel.collectives import all_reduce_sum, gather_dim, halo_exchange
+from parakeet_tpu_torch.parallel.collectives import copy_to_model, gather_dim, halo_exchange, reduce_from_model
 from parakeet_tpu_torch.parallel.mesh import AxisGroup
 from parakeet_tpu_torch.params import Params
 
@@ -263,7 +271,7 @@ def feed_forward(
             eps=eps, **kw,
         )
     h = layer_norm(p.sub("norm_"), x, eps)
-    h = silu(linear(p.sub("fc1_"), h))
+    h = silu(linear(p.sub("fc1_"), h, col_group=model))
     h = linear(p.sub("fc2_"), h, row_group=model)
     x = x + 0.5 * h
     return x if final_norm is None else layer_norm(final_norm, x, eps)
@@ -304,9 +312,10 @@ def conv_module(
         )
     d = x.shape[-1]
     h = layer_norm(p.sub("norm_"), x, eps).transpose(1, 2)  # (B, d, T)
-    h = conv1d(p.sub("pointwise_conv1_"), h)
-    if model is not None and model.split:
-        h = gather_dim(h.contiguous(), model, 1)
+    if model is not None and model.split:  # column-parallel pw1, its channels gathered before the GLU
+        h = gather_dim(conv1d(p.sub("pointwise_conv1_"), copy_to_model(h, model)).contiguous(), model, 1)
+    else:
+        h = conv1d(p.sub("pointwise_conv1_"), h)
     h = glu(h, dim=1)
     if pad_mask is not None:
         h = h.masked_fill(pad_mask[:, None, :], 0.0)
@@ -346,53 +355,63 @@ def _attention(p: Params, x, lengths, norm: Params | None = None, eps: float = 1
     )
 
 
+def _head_share(p: Params, x, norm: Params, model):
+    """This 'model' rank's share of the attention's replicated inputs: x,
+    the LayerNorm and its heads' rows of pos_bias_u/v (which the rules
+    keep whole), each through `copy_to_model`, so that their gradients sum
+    every rank's heads."""
+    hd = p["pos_bias_u_"].shape[1]
+    local = p.sub("mha_")["q_proj.weight"].shape[0] // hd
+    h0 = model.index * local
+    u, v = (copy_to_model(p[k], model)[h0:h0 + local].to(x.dtype) for k in ("pos_bias_u_", "pos_bias_v_"))
+    return copy_to_model(x, model), copy_to_model(norm["weight"], model), copy_to_model(norm["bias"], model), u, v
+
+
 def _attention_heads(p: Params, x, lengths, norm: Params, eps: float, model) -> torch.Tensor:
     """The attention block under tensor parallelism over heads: K1's
-    head-sharded mode on this rank's heads (its slice of pos_bias_u/v,
-    which the rules keep whole), the f32 partials summed over 'model', then
-    the out-projection's bias and the residual, rounded once."""
+    head-sharded mode on this rank's heads, the f32 partials summed over
+    'model', then the out-projection's bias and the residual, rounded
+    once."""
     mha = p.sub("mha_")
-    heads, hd = p["pos_bias_u_"].shape
-    local = mha["q_proj.weight"].shape[0] // hd
-    h0 = model.index * local
+    xs, nw, nb, u, v = _head_share(p, x, norm, model)
     partial = rel_attention_block_heads(
-        x,
+        xs,
         mha["q_proj.weight"], mha["q_proj.bias"],
         mha["k_proj.weight"], mha["k_proj.bias"],
         mha["v_proj.weight"], mha["v_proj.bias"],
-        p["pos_bias_u_"][h0:h0 + local].to(x.dtype), p["pos_bias_v_"][h0:h0 + local].to(x.dtype),
+        u, v,
         p["pos_proj_.weight"],
         mha["out_proj.weight"],
-        lengths=lengths, norm_w=norm["weight"], norm_b=norm["bias"], eps=eps,
+        lengths=lengths, norm_w=nw, norm_b=nb, eps=eps,
     )
-    y = all_reduce_sum(partial, model) + mha["out_proj.bias"].to(torch.float32)
+    y = reduce_from_model(partial, model) + mha["out_proj.bias"].to(torch.float32)
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
 def _attention_seq(p: Params, x, lengths, norm: Params, eps: float, model, seq) -> torch.Tensor:
     """The attention block under sequence parallelism, plain (as the
     reference requires): x is this rank's block of Ts frames; every rank's
-    frames are gathered for the keys and values, the queries sit at offset
-    index·Ts in the relative shift, and `lengths` (global) mask the keys.
-    K1's plain version in its head-sharded mode on this rank's heads (all
-    of them without a 'model' axis), the partials summed over 'model', then
-    the bias and the residual, as in `_attention_heads`."""
+    frames are gathered for the keys and values (their gradient
+    reduce-scattered back), the queries sit at offset index·Ts in the
+    relative shift, and `lengths` (global) mask the keys. K1's plain
+    version in its head-sharded mode on this rank's heads (all of them
+    without a 'model' axis), the partials summed over 'model', then the
+    bias and the residual, as in `_attention_heads`."""
     mha = p.sub("mha_")
-    heads, hd = p["pos_bias_u_"].shape
-    local = mha["q_proj.weight"].shape[0] // hd
-    h0 = model.index * local if model.split else 0
+    xs, nw, nb, u, v = _head_share(p, x, norm, model)
     partial = rel_attention_block_reference(
-        x,
+        xs,
         mha["q_proj.weight"], mha["q_proj.bias"],
         mha["k_proj.weight"], mha["k_proj.bias"],
         mha["v_proj.weight"], mha["v_proj.bias"],
-        p["pos_bias_u_"][h0:h0 + local].to(x.dtype), p["pos_bias_v_"][h0:h0 + local].to(x.dtype),
+        u, v,
         p["pos_proj_.weight"],
         mha["out_proj.weight"], None,
-        lengths, norm["weight"], norm["bias"], eps,
-        heads_partial=True, x_kv=gather_dim(x.contiguous(), seq, 1), q_offset=seq.index * x.shape[1],
+        lengths, nw, nb, eps,
+        heads_partial=True, x_kv=gather_dim(xs.contiguous(), seq, 1, backward="reduce_scatter"),
+        q_offset=seq.index * x.shape[1],
     )
-    y = all_reduce_sum(partial, model) + mha["out_proj.bias"].to(torch.float32)
+    y = reduce_from_model(partial, model) + mha["out_proj.bias"].to(torch.float32)
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
@@ -574,11 +593,10 @@ def fastconformer_encode(
     this rank's shards). With a 'seq' axis the subsampled frames are
     padded to a multiple of the axis, each rank runs the blocks on its
     block of them, and the output is gathered: every rank returns the
-    whole (B, T', d_model)."""
+    whole (B, T', d_model). `remat` on a split checkpoints each block with
+    the split, whose collectives run again in the recompute."""
     if features.is_cuda:
         require_ieee_f32()
-    if remat and split is not None:
-        raise ValueError("remat is a training lever; the encoder on a mesh runs inference only")
     x, pad_mask, enc_lengths = encode_prologue(p, cfg, features, lengths, fused)
     layers = p.sub("layers_")
     t = x.shape[1]
@@ -595,7 +613,7 @@ def fastconformer_encode(
     for i in range(cfg.num_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(conformer_block, layers.sub(str(i)), x, cfg, pad_mask,
-                                                  enc_lengths, FusedLayers(), use_reentrant=False)
+                                                  enc_lengths, FusedLayers(), split, use_reentrant=False)
         else:
             x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused, split,
                                 None if whole is None else whole.sub(str(i)))

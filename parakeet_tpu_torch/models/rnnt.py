@@ -26,10 +26,12 @@ def prediction_step(
 
 
 def prediction_forward(
-    p: Params, labels: torch.Tensor, lstm_state: torch.Tensor, num_lstm_layers: int
+    p: Params, labels: torch.Tensor, lstm_state: torch.Tensor, num_lstm_layers: int, model=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sequence forward: labels (B, U) → ((B, U, pred_hidden), state)."""
-    x = embedding(p.sub("embed_"), labels)
+    """Sequence forward: labels (B, U) → ((B, U, pred_hidden), state).
+    model: the 'model' axis over which the embedding's vocab rows are
+    split (parallel/collectives.py parallel_embedding)."""
+    x = embedding(p.sub("embed_"), labels, vocab_group=model)
     return lstm_forward(p.sub("lstm_"), x, lstm_state, num_lstm_layers)
 
 
@@ -45,19 +47,20 @@ def joint_encoder_projection(p: Params, enc: torch.Tensor) -> torch.Tensor:
     return linear(p.sub("enc_proj_"), enc)
 
 
-def rnnt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def rnnt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor, model=None) -> torch.Tensor:
     """(…, enc_h) × (…, pred_h) → (…, V) log-probs (rnnt.cpp:38-44)."""
-    return rnnt_joint_precomputed(p, joint_encoder_projection(p, enc), pred)
+    return rnnt_joint_precomputed(p, joint_encoder_projection(p, enc), pred, model)
 
 
-def tdt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def tdt_joint(p: Params, enc: torch.Tensor, pred: torch.Tensor, model=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(…, enc_h) × (…, pred_h) → ((…, V), (…, n_dur)) log-probs (tdt.cpp:15-24)."""
-    return tdt_joint_precomputed(p, joint_encoder_projection(p, enc), pred)
+    return tdt_joint_precomputed(p, joint_encoder_projection(p, enc), pred, model)
 
 
 def _vocab_logits(p: Params, hidden: torch.Tensor, model) -> torch.Tensor:
-    """A vocab head's logits; under a split, this rank's block gathered."""
-    logits = linear(p, hidden)
+    """A vocab head's logits; under a split (column-parallel over the
+    vocab), this rank's block gathered."""
+    logits = linear(p, hidden, col_group=model)
     if model is not None and model.split:
         from parakeet_tpu_torch.parallel.collectives import gather_last
 

@@ -27,7 +27,13 @@ from parakeet_tpu_torch import params as P
 from parakeet_tpu_torch.config import SortformerConfig, make_sortformer_117m_config
 from parakeet_tpu_torch.decode.timestamp import frame_to_seconds
 from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from parakeet_tpu_torch.models.encoder import FusedLayers, encoded_lengths, fastconformer_encode, length_mask
+from parakeet_tpu_torch.models.encoder import (
+    EncoderSplit,
+    FusedLayers,
+    encoded_lengths,
+    fastconformer_encode,
+    length_mask,
+)
 from parakeet_tpu_torch.models.streaming_encoder import StreamingEncoderSession
 from parakeet_tpu_torch.models.transformer import transformer_encode
 from parakeet_tpu_torch.ops.layers import linear
@@ -81,23 +87,27 @@ def sortformer_logits(
     cfg: SortformerConfig,
     mel_lengths: torch.Tensor | None = None,
     remat: bool = False,
+    split: EncoderSplit | None = None,
 ) -> torch.Tensor:
     """(B, mel_len, 128) → (B, T, max_speakers) pre-sigmoid activity
     logits, f32: the training-side twin of `sortformer_forward` (the BCE
     losses in train.py take logits). `mel_lengths` masks padding in the
     NEST encoder and in the transformer, so pad frames never reach a valid
     frame's logits; `remat` rematerializes the encoder blocks in backward.
-    Runs under whatever grad mode the caller has."""
+    split: a 'model' split of the NEST encoder and the transformer (this
+    rank's shards in `params`; no 'seq' axis, as in the reference). Runs
+    under whatever grad mode the caller has."""
     root = Params(params)
     enc = fastconformer_encode(root.sub("nest_encoder_"), cfg.nest_encoder, features, mel_lengths,
-                               fused=FusedLayers(), remat=remat)
+                               fused=FusedLayers(), remat=remat, split=split)
     mask = None
     if mel_lengths is not None:
         t = enc.shape[1]
         enc_lens = torch.clamp(encoded_lengths(torch.as_tensor(mel_lengths, device=enc.device)), max=t)
         mask = length_mask(enc_lens, t)
     proj = linear(root.sub("projection_"), enc)
-    trans = transformer_encode(root.sub("transformer_"), cfg.transformer, proj, mask)
+    trans = transformer_encode(root.sub("transformer_"), cfg.transformer, proj, mask,
+                               None if split is None else split.model)
     return _speaker_logits(root, trans).to(torch.float32)
 
 

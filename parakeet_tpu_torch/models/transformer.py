@@ -21,20 +21,26 @@ _NEG_INF = -1e9
 
 
 def transformer_block(
-    p: Params, x: torch.Tensor, cfg: TransformerConfig, mask: torch.Tensor | None = None
+    p: Params, x: torch.Tensor, cfg: TransformerConfig, mask: torch.Tensor | None = None, model=None
 ) -> torch.Tensor:
-    """One block on (B, T, d); mask (B, 1, T, T) bool, True = masked."""
+    """One block on (B, T, d); mask (B, 1, T, T) bool, True = masked.
+    model: the 'model' axis over which parallel/mesh.py's rules split the
+    heads (q/k/v rows, out_proj columns: row-parallel) and the FFN (fc1
+    rows, fc2 columns: row-parallel); this rank's shards in `p`."""
     eps = cfg.layer_norm_eps
     b, t, d = x.shape
-    heads = cfg.num_heads
-    hd = d // heads
+    hd = d // cfg.num_heads
     scale = 1.0 / math.sqrt(hd)
 
     mha_in = layer_norm(p.sub("norm1_"), x, eps) if cfg.pre_ln else x
     mha = p.sub("mha_")
+    if model is not None and model.split:  # column-parallel q, k, v: one copy for the three
+        from parakeet_tpu_torch.parallel.collectives import copy_to_model
+
+        mha_in = copy_to_model(mha_in, model)
 
     def split(v):
-        return v.reshape(b, t, heads, hd).transpose(1, 2)
+        return v.reshape(b, t, -1, hd).transpose(1, 2)
 
     q = split(linear(mha.sub("q_proj"), mha_in))
     k = split(linear(mha.sub("k_proj"), mha_in))
@@ -44,20 +50,20 @@ def transformer_block(
         scores = scores.masked_fill(mask, _NEG_INF)
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.matmul(attn.to(_F32), v.to(_F32)).to(x.dtype)
-    out = linear(mha.sub("out_proj"), out.transpose(1, 2).reshape(b, t, d))
+    out = linear(mha.sub("out_proj"), out.transpose(1, 2).reshape(b, t, -1), row_group=model)
 
     x = (x + out) if cfg.pre_ln else layer_norm(p.sub("norm1_"), x + out, eps)
     ffn_in = layer_norm(p.sub("norm2_"), x, eps) if cfg.pre_ln else x
-    h = linear(p.sub("fc2_"), torch.relu(linear(p.sub("fc1_"), ffn_in)))
+    h = linear(p.sub("fc2_"), torch.relu(linear(p.sub("fc1_"), ffn_in, col_group=model)), row_group=model)
     return (x + h) if cfg.pre_ln else layer_norm(p.sub("norm2_"), x + h, eps)
 
 
 def transformer_encode(
-    p: Params, cfg: TransformerConfig, x: torch.Tensor, mask: torch.Tensor | None = None
+    p: Params, cfg: TransformerConfig, x: torch.Tensor, mask: torch.Tensor | None = None, model=None
 ) -> torch.Tensor:
     layers = p.sub("layers_")
     for i in range(cfg.num_layers):
-        x = transformer_block(layers.sub(str(i)), x, cfg, mask)
+        x = transformer_block(layers.sub(str(i)), x, cfg, mask, model)
     if cfg.has_final_norm:
         x = layer_norm(p.sub("final_norm_"), x, cfg.layer_norm_eps)
     return x

@@ -96,27 +96,33 @@ def _linear_int8(p: Params, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def linear(p: Params, x: torch.Tensor, *, row_group=None) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, *, row_group=None, col_group=None) -> torch.Tensor:
     """y = x @ W.T (+ b), float32 accumulation, result in x.dtype.
 
     int8 W (+ `##scale`, quantize.quantize_params): the scale multiplies
     the product (`_linear_int8`). Packed int4 W (uint8 + `##scale4`):
     dequantised to x.dtype first, then the float path.
 
-    row_group: a row-parallel linear under tensor parallelism (the mesh
-    axis, parallel/mesh.py AxisGroup): x holds this rank's input columns
+    Under tensor parallelism (the mesh axis, parallel/mesh.py AxisGroup;
+    the gradients through parallel/collectives.py):
+    row_group: a row-parallel linear: x holds this rank's input columns
     and W the matching weight columns; the f32 products are summed over
-    the axis (parallel/collectives.py), then the bias is added once and
-    the sum rounded once. A column-parallel linear (W's output rows split)
-    is the plain call on the local rows."""
+    the axis (`reduce_from_model`), then the bias is added once and the
+    sum rounded once. col_group: a column-parallel linear: W holds this
+    rank's output rows and x is replicated over the axis; x passes
+    through `copy_to_model`, so its gradient is summed over the axis."""
     if row_group is not None and row_group.split:
-        from parakeet_tpu_torch.parallel.collectives import all_reduce_sum
+        from parakeet_tpu_torch.parallel.collectives import reduce_from_model
 
         if not p["weight"].is_floating_point():
             raise ValueError("a row-parallel linear takes float weights")
-        y = all_reduce_sum(F.linear(x.to(_F32), p["weight"].to(_F32)), row_group)
+        y = reduce_from_model(F.linear(x.to(_F32), p["weight"].to(_F32)), row_group)
         b = p.get("bias")
         return (y if b is None else y + b.to(_F32)).to(x.dtype)
+    if col_group is not None and col_group.split:
+        from parakeet_tpu_torch.parallel.collectives import copy_to_model
+
+        x = copy_to_model(x, col_group)
     w = p["weight"]
     if w.dtype == torch.int8:
         return _linear_int8(p, w, x)

@@ -356,6 +356,39 @@ def rel_attention_block(
 rel_attention_block.launches = 0
 
 
+class RelAttentionBlockHeadsFunction(torch.autograd.Function):
+    """K1 head-sharded with a gradient, as `RelAttentionBlockFunction` is
+    for the whole block: the forward launches
+    pk_rel_attention_block_heads (counted in
+    `rel_attention_block_heads.launches`); the backward recomputes
+    `rel_attention_block_reference(..., heads_partial=True)` on the saved
+    inputs under grad mode and returns its input gradients. The caller
+    sums the partial over 'model' (`reduce_from_model`) and passes x, the
+    LayerNorm and the position biases through `copy_to_model`
+    (models/encoder.py), so this rank's gradients here are its heads'
+    shares."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, lengths, norm_w, norm_b, eps):
+        ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, lengths, norm_w, norm_b)
+        ctx.eps = eps
+        return _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths, norm_w, norm_b, eps,
+                       heads_partial=True)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        wants = ctx.needs_input_grad[:len(saved)]
+        inputs = [t.detach().requires_grad_(w) if t is not None else None for t, w in zip(saved, wants)]
+        x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, lengths, norm_w, norm_b = inputs
+        with torch.enable_grad():
+            out = rel_attention_block_reference(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths,
+                                                norm_w, norm_b, ctx.eps, heads_partial=True)
+        diff = [t for t, w in zip(inputs, wants) if w]
+        grads = iter(torch.autograd.grad(out, diff, grad_out, allow_unused=True))
+        return (*(next(grads) if w else None for w in wants), None)
+
+
 def rel_attention_block_heads(
     x: torch.Tensor,
     wq, bq, wk, bk, wv, bv,
@@ -380,14 +413,18 @@ def rel_attention_block_heads(
     sequence with N = H·hd for the QKV and position GEMMs and K = H·hd for
     the out-projection) or raises; on a CPU tensor it runs
     `rel_attention_block_reference(..., heads_partial=True)`. Each kernel
-    launch adds one to `rel_attention_block_heads.launches`. Inference
-    only: an input that requires grad under grad mode raises."""
+    launch adds one to `rel_attention_block_heads.launches`. Under grad
+    mode, with an input that requires grad, the kernel runs inside
+    `RelAttentionBlockHeadsFunction`, whose backward is the plain
+    version's."""
+    args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo)
     if x.device.type == "cuda":
-        return _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths, norm_w, norm_b, eps,
-                       heads_partial=True)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (*args, norm_w, norm_b)):
+            kv = _key_lengths(lengths, x.shape[0], x.shape[1], x.device)
+            return RelAttentionBlockHeadsFunction.apply(*args, kv, norm_w, norm_b, eps)
+        return _launch(*args, None, lengths, norm_w, norm_b, eps, heads_partial=True)
     if x.device.type == "cpu":
-        return rel_attention_block_reference(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, None, lengths,
-                                             norm_w, norm_b, eps, heads_partial=True)
+        return rel_attention_block_reference(*args, None, lengths, norm_w, norm_b, eps, heads_partial=True)
     raise ValueError(f"rel_attention_block_heads: no implementation for device {x.device}")
 
 
@@ -534,6 +571,7 @@ __all__ = [
     "rel_attention_block_heads",
     "rel_attention_block_reference",
     "RelAttentionBlockFunction",
+    "RelAttentionBlockHeadsFunction",
     "fused_rel_attention",
     "fused_rel_attention_reference",
     "V1Plan",

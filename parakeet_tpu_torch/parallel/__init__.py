@@ -1,9 +1,9 @@
-"""Device mesh, sharding and the explicit collectives of the port
-(parallel/mesh.py, parallel/collectives.py).
+"""Device mesh, sharding, the explicit collectives of the port and the
+GPipe pipeline trainer (parallel/mesh.py, parallel/collectives.py,
+parallel/pipeline.py).
 
-The reference's pipeline names (parallel/pipeline.py: the GPipe trainer)
-stay lazy as there; they are not ported yet (ROADMAP Queue 1 item 6b) and
-raise NotImplementedError when asked for.
+The pipeline names load lazily, as in the reference: parallel/pipeline.py
+imports the encoder, which imports parallel/collectives.py.
 """
 
 from parakeet_tpu_torch.parallel.mesh import (
@@ -23,9 +23,9 @@ _PIPELINE_NAMES = (
 
 def __getattr__(name):
     if name in _PIPELINE_NAMES:
-        raise NotImplementedError(
-            f"parakeet_tpu_torch.parallel.{name}: pipeline parallelism is not ported yet (ROADMAP Queue 1 item 6b)"
-        )
+        from parakeet_tpu_torch.parallel import pipeline
+
+        return getattr(pipeline, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

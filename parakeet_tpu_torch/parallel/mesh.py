@@ -92,6 +92,11 @@ def mesh_device(mesh, device) -> torch.device:
     return mesh.device
 
 
+def global_rank() -> int:
+    """This process's rank in the default process group, 0 without one."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _local_world(world: int) -> int:
     return int(os.environ.get("LOCAL_WORLD_SIZE", world))
 
@@ -319,6 +324,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "mesh_device",
+    "global_rank",
     "pad_vocab_dim",
     "unpad_vocab_params",
     "param_sharding_rules",

@@ -24,14 +24,23 @@ reference trains by gradient like any other key), the learning rate read
 at the count before its increment, and optional global-norm clipping
 without an epsilon.
 
-A mesh, tensor or sequence parallelism raise NotImplementedError: training
-on a mesh is ROADMAP Queue 1 item 6b (inference meshes are ported:
-parallel/mesh.py).
+On a mesh (`make_sharded_trainer(mesh=...)`, parallel/mesh.py) every rank
+runs the same step on its shards (SPMD over torch.distributed): this
+rank's rows of the batch over 'data', its shards of the weights over
+'model' (the reference's rules, vocabularies padded), its block of frames
+over 'seq'. The collectives the reference's partitioner inserts are
+written out with their backward (parallel/collectives.py), so each rank's
+gradient of a key split over 'model' is its shard of the whole gradient
+and of a replicated key the whole gradient; the step then averages every
+gradient over 'data' and sums over 'seq' the encoder's, whose rank saw
+only its own frames. `MeshLayout` says how the state lies over the mesh:
+it gathers it whole for a checkpoint and shards a loaded one.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import warnings
 from dataclasses import dataclass
 
@@ -42,14 +51,31 @@ import torch.utils.checkpoint
 
 from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from parakeet_tpu_torch.models.ctc import ctc_log_probs
-from parakeet_tpu_torch.models.encoder import encoded_lengths, fastconformer_encode, subsample_length
+from parakeet_tpu_torch.models.encoder import EncoderSplit, encoded_lengths, fastconformer_encode, subsample_length
 from parakeet_tpu_torch.models.rnnt import prediction_forward, prediction_zero_state, rnnt_joint, tdt_joint
 from parakeet_tpu_torch.ops.transducer_loss import rnnt_loss, tdt_loss
 from parakeet_tpu_torch.params import Params, cast_params
 
 _F32 = torch.float32
-PARALLELISM_NOT_PORTED = ("training on a mesh is not ported yet (ROADMAP Queue 1 item 6b; inference meshes are "
-                          "ported, item 6a: parallel/mesh.py); the port trains on one device")
+
+
+def flatten_params(params: dict) -> dict:
+    """A flat {key: tensor} dict as it is; the pipeline trainer's nested
+    {"layers": {...}, "rest": {...}} as {(outer, inner): tensor}, in
+    optax's flatten order once sorted."""
+    if any(isinstance(v, dict) for v in params.values()):
+        return {(o, k): v for o, sub in params.items() for k, v in sub.items()}
+    return params
+
+
+def unflatten_params(flat: dict) -> dict:
+    """The inverse of `flatten_params`."""
+    if flat and isinstance(next(iter(flat)), tuple):
+        out: dict = {}
+        for (o, k), v in flat.items():
+            out.setdefault(o, {})[k] = v
+        return out
+    return flat
 
 
 # ─── Optimizer: optax's adam / adamw, leaf for leaf ─────────────────────────
@@ -64,15 +90,23 @@ class OptState:
     card; `treedef` is the note optax's checkpoints carry for this state."""
 
     count: torch.Tensor
-    mu: dict[str, torch.Tensor]
-    nu: dict[str, torch.Tensor]
+    mu: dict
+    nu: dict
     schedule_count: torch.Tensor | None
     steps: int
     treedef: str
+    layout: "MeshLayout | None" = None
 
     def leaves(self) -> list[torch.Tensor]:
         out = [self.count, *(self.mu[k] for k in sorted(self.mu)), *(self.nu[k] for k in sorted(self.nu))]
         return out if self.schedule_count is None else [*out, self.schedule_count]
+
+    def whole_shapes(self) -> list[tuple[int, ...]]:
+        """The leaves' shapes as a checkpoint holds them: on a mesh, the
+        whole (vocab-padded) arrays of which this rank holds shards."""
+        whole = (lambda k, t: tuple(t.shape)) if self.layout is None else self.layout.whole_shape
+        out = [(), *(whole(k, self.mu[k]) for k in sorted(self.mu)), *(whole(k, self.nu[k]) for k in sorted(self.nu))]
+        return out if self.schedule_count is None else [*out, ()]
 
     def with_leaves(self, leaves) -> "OptState":
         """This structure over other leaves (arrays or tensors), on the CPU."""
@@ -82,12 +116,14 @@ class OptState:
         keys = sorted(self.mu)
         n = len(keys)
         return OptState(leaves[0], dict(zip(keys, leaves[1:1 + n])), dict(zip(keys, leaves[1 + n:1 + 2 * n])),
-                        leaves[-1] if self.schedule_count is not None else None, int(leaves[0]), self.treedef)
+                        leaves[-1] if self.schedule_count is not None else None, int(leaves[0]), self.treedef,
+                        self.layout)
 
     def to(self, device) -> "OptState":
         move = lambda d: {k: v.to(device) for k, v in d.items()}  # noqa: E731
         sc = None if self.schedule_count is None else self.schedule_count.to(device)
-        return OptState(self.count.to(device), move(self.mu), move(self.nu), sc, self.steps, self.treedef)
+        return OptState(self.count.to(device), move(self.mu), move(self.nu), sc, self.steps, self.treedef,
+                        self.layout)
 
 
 def _f32(x: float) -> float:
@@ -111,9 +147,16 @@ class Adam:
         self.clip_norm = clip_norm
 
     def treedef(self, keys) -> str:
-        """str(treedef) of the optax state of this optimizer over a flat
-        param dict with `keys` (optax 0.2 under jax 0.9)."""
-        leaves = "{" + ", ".join(f"{k!r}: *" for k in sorted(keys)) + "}"
+        """str(treedef) of the optax state of this optimizer over a param
+        dict with `keys` (optax 0.2 under jax 0.9): flat string keys, or
+        (outer, inner) pairs for the pipeline trainer's nested dict."""
+        keys = sorted(keys)
+        if keys and isinstance(keys[0], tuple):
+            outer = sorted({o for o, _ in keys})
+            leaves = "{" + ", ".join(
+                f"{o!r}: " + "{" + ", ".join(f"{k!r}: *" for oo, k in keys if oo == o) + "}" for o in outer) + "}"
+        else:
+            leaves = "{" + ", ".join(f"{k!r}: *" for k in keys) + "}"
         empty = "CustomNode(namedtuple[EmptyState], [])"
         parts = [f"CustomNode(namedtuple[ScaleByAdamState], [*, {leaves}, {leaves}])"]
         if self.weight_decay is not None:
@@ -124,7 +167,8 @@ class Adam:
             tree = f"({empty}, {tree})"
         return f"PyTreeDef({tree})"
 
-    def init(self, params: dict[str, torch.Tensor]) -> OptState:
+    def init(self, params: dict) -> OptState:
+        params = flatten_params(params)
         keys = sorted(params)
         dev = next(iter(params.values())).device
         zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
@@ -133,18 +177,23 @@ class Adam:
                         zero() if callable(self.learning_rate) else None, 0, self.treedef(keys))
 
     @torch.no_grad()
-    def update(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], state: OptState) -> None:
+    def update(self, params: dict, grads: dict, state: OptState) -> None:
         """One step, in place on `params` and `state`, with optax's order of
         operations: clip (t / ‖g‖ · max_norm when ‖g‖ ≥ max_norm), the
         moments (1 − b)·g + b·m, the bias corrections at the incremented
-        count, m̂ / (√v̂ + eps), + weight_decay · p, × −lr(count), p + u."""
+        count, m̂ / (√v̂ + eps), + weight_decay · p, × −lr(count), p + u.
+        On a mesh (`state.layout`) ‖g‖ is the whole gradient's norm."""
+        params, grads = flatten_params(params), flatten_params(grads)
         keys = sorted(state.mu)
         g = [grads[k] for k in keys]
         p = [params[k] for k in keys]
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            if state.layout is not None:
+                norm = state.layout.global_norm(keys, g)
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
             g = torch._foreach_mul(g, factor)
         torch._foreach_mul_(mu, B1)
@@ -192,16 +241,23 @@ def _long(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).long()
 
 
-def _encode(params: dict, cfg, feats, mel_lengths, remat: bool):
-    enc = fastconformer_encode(Params(params).sub("encoder_"), cfg.encoder, feats, mel_lengths, remat=remat)
+def _model(split: EncoderSplit | None):
+    return None if split is None else split.model
+
+
+def _encode(params: dict, cfg, feats, mel_lengths, remat: bool, split: EncoderSplit | None = None):
+    enc = fastconformer_encode(Params(params).sub("encoder_"), cfg.encoder, feats, mel_lengths, remat=remat,
+                               split=split)
     enc_lens = torch.clamp(encoded_lengths(_long(mel_lengths, enc.device)), max=enc.shape[1])
     return enc, enc_lens
 
 
-def ctc_forward(params: dict, cfg, feats, mel_lengths, remat: bool = False):
-    """(B, T, mel) → (B, T', V) log-probs + (B,) encoder lengths."""
-    enc, enc_lens = _encode(params, cfg, feats, mel_lengths, remat)
-    return ctc_log_probs(Params(params).sub("ctc_decoder_"), enc), enc_lens
+def ctc_forward(params: dict, cfg, feats, mel_lengths, remat: bool = False, split: EncoderSplit | None = None):
+    """(B, T, mel) → (B, T', V) log-probs + (B,) encoder lengths. split:
+    this rank's split over a mesh (`params` its shards; the reference's
+    act_sharding and tensor-parallel rules)."""
+    enc, enc_lens = _encode(params, cfg, feats, mel_lengths, remat, split)
+    return ctc_log_probs(Params(params).sub("ctc_decoder_"), enc, _model(split)), enc_lens
 
 
 def ctc_loss_from_log_probs(log_probs, enc_lens, labels, label_lengths, blank_id: int):
@@ -214,17 +270,19 @@ def ctc_loss_from_log_probs(log_probs, enc_lens, labels, label_lengths, blank_id
     return per_seq.mean()
 
 
-def ctc_loss_fn(params, cfg, batch, blank_id: int, remat: bool = False):
-    log_probs, enc_lens = ctc_forward(params, cfg, batch["features"], batch["mel_lengths"], remat=remat)
+def ctc_loss_fn(params, cfg, batch, blank_id: int, remat: bool = False, split: EncoderSplit | None = None):
+    log_probs, enc_lens = ctc_forward(params, cfg, batch["features"], batch["mel_lengths"], remat=remat, split=split)
     return ctc_loss_from_log_probs(log_probs, enc_lens, batch["labels"], batch["label_lengths"], blank_id)
 
 
-def transducer_lattice(params: dict, cfg, enc, labels, *, loss: str = "tdt", joint_prefix: str | None = None):
+def transducer_lattice(params: dict, cfg, enc, labels, *, loss: str = "tdt", joint_prefix: str | None = None,
+                       model=None):
     """Prediction net + joint over a (B, T', H) encoding: TDT → ((B, T',
     U+1, V), (B, T', U+1, D)) log-probs, RNNT → (B, T', U+1, V). The
     prediction net reads [SOS = blank; labels]; without `joint_prefix` the
     joint is found from the weight schema (tdt-ctc keys it "tdt_joint_",
-    the 600m presets "joint_")."""
+    the 600m presets "joint_"). model: the 'model' axis over which the
+    embedding's and the vocab heads' rows are split."""
     if joint_prefix is None:
         head = "label_proj_" if loss == "tdt" else "out_proj_"
         prefs = ("tdt_joint_", "joint_") if loss == "tdt" else ("joint_", "tdt_joint_")
@@ -236,17 +294,17 @@ def transducer_lattice(params: dict, cfg, enc, labels, *, loss: str = "tdt", joi
     pred_in = torch.cat([torch.full((b, 1), blank, dtype=torch.long, device=enc.device), labels], dim=1)
     state0 = prediction_zero_state(cfg.prediction.num_lstm_layers, b, cfg.prediction.pred_hidden, enc.dtype,
                                    enc.device)
-    pred, _ = prediction_forward(root.sub("prediction_"), pred_in, state0, cfg.prediction.num_lstm_layers)
+    pred, _ = prediction_forward(root.sub("prediction_"), pred_in, state0, cfg.prediction.num_lstm_layers, model)
     joint_fn = tdt_joint if loss == "tdt" else rnnt_joint
     # enc_proj and pred_proj run before the (T' × U+1) broadcast; only the
     # joint hidden and the heads live on the full lattice
     return torch.utils.checkpoint.checkpoint(joint_fn, root.sub(joint_prefix), enc[:, :, None, :],
-                                             pred[:, None, :, :], use_reentrant=False)
+                                             pred[:, None, :, :], model, use_reentrant=False)
 
 
-def _transducer_nll(params, cfg, enc, enc_lens, batch, kind: str, sigma: float, joint_prefix=None):
+def _transducer_nll(params, cfg, enc, enc_lens, batch, kind: str, sigma: float, joint_prefix=None, model=None):
     labels, label_lengths = batch["labels"], batch["label_lengths"]
-    out = transducer_lattice(params, cfg, enc, labels, loss=kind, joint_prefix=joint_prefix)
+    out = transducer_lattice(params, cfg, enc, labels, loss=kind, joint_prefix=joint_prefix, model=model)
     blank = cfg.joint.vocab_size - 1
     if kind == "tdt":
         lab_lp, dur_lp = out
@@ -258,44 +316,47 @@ def _transducer_nll(params, cfg, enc, enc_lens, batch, kind: str, sigma: float, 
 
 
 def encoded_loss_fn(params: dict, cfg, enc, enc_lens, batch, *, loss: str = "hybrid", sigma: float = 0.0,
-                    ctc_weight: float = 0.3):
+                    ctc_weight: float = 0.3, model=None):
     """Training loss from a computed encoding, loss ∈ {'ctc', 'rnnt',
-    'tdt', 'hybrid'}."""
+    'tdt', 'hybrid'}; model: the 'model' axis of the heads' split."""
 
     def _ctc():
-        lp = ctc_log_probs(Params(params).sub("ctc_decoder_"), enc)
+        lp = ctc_log_probs(Params(params).sub("ctc_decoder_"), enc, model)
         return ctc_loss_from_log_probs(lp, enc_lens, batch["labels"], batch["label_lengths"],
                                        cfg.ctc_vocab_size - 1)
 
     if loss == "ctc":
         return _ctc()
     if loss in ("rnnt", "tdt"):
-        return _transducer_nll(params, cfg, enc, enc_lens, batch, loss, sigma)
+        return _transducer_nll(params, cfg, enc, enc_lens, batch, loss, sigma, model=model)
     if loss == "hybrid":
-        return (1.0 - ctc_weight) * _transducer_nll(params, cfg, enc, enc_lens, batch, "tdt", sigma) \
+        return (1.0 - ctc_weight) * _transducer_nll(params, cfg, enc, enc_lens, batch, "tdt", sigma, model=model) \
             + ctc_weight * _ctc()
     raise ValueError(f"unknown loss {loss!r}")
 
 
 def transducer_forward(params: dict, cfg, feats, mel_lengths, labels, *, loss: str = "tdt",
-                       joint_prefix: str | None = None, remat: bool = False):
+                       joint_prefix: str | None = None, remat: bool = False, split: EncoderSplit | None = None):
     """Full-lattice transducer forward: the lattice of `transducer_lattice`
     and the (B,) encoder lengths."""
-    enc, enc_lens = _encode(params, cfg, feats, mel_lengths, remat)
-    return transducer_lattice(params, cfg, enc, labels, loss=loss, joint_prefix=joint_prefix), enc_lens
+    enc, enc_lens = _encode(params, cfg, feats, mel_lengths, remat, split)
+    return transducer_lattice(params, cfg, enc, labels, loss=loss, joint_prefix=joint_prefix,
+                              model=_model(split)), enc_lens
 
 
 def transducer_loss_fn(params, cfg, batch, *, loss: str = "tdt", sigma: float = 0.0,
-                       joint_prefix: str | None = None, remat: bool = False):
+                       joint_prefix: str | None = None, remat: bool = False, split: EncoderSplit | None = None):
     """Mean RNNT/TDT negative log-likelihood over a padded batch."""
-    enc, enc_lens = _encode(params, cfg, batch["features"], batch["mel_lengths"], remat)
-    return _transducer_nll(params, cfg, enc, enc_lens, batch, loss, sigma, joint_prefix)
+    enc, enc_lens = _encode(params, cfg, batch["features"], batch["mel_lengths"], remat, split)
+    return _transducer_nll(params, cfg, enc, enc_lens, batch, loss, sigma, joint_prefix, _model(split))
 
 
-def hybrid_loss_fn(params, cfg, batch, *, ctc_weight: float = 0.3, sigma: float = 0.0, remat: bool = False):
+def hybrid_loss_fn(params, cfg, batch, *, ctc_weight: float = 0.3, sigma: float = 0.0, remat: bool = False,
+                   split: EncoderSplit | None = None):
     """(1 − w)·TDT + w·CTC over the shared encoder (the flagship objective)."""
-    enc, enc_lens = _encode(params, cfg, batch["features"], batch["mel_lengths"], remat)
-    return encoded_loss_fn(params, cfg, enc, enc_lens, batch, loss="hybrid", sigma=sigma, ctc_weight=ctc_weight)
+    enc, enc_lens = _encode(params, cfg, batch["features"], batch["mel_lengths"], remat, split)
+    return encoded_loss_fn(params, cfg, enc, enc_lens, batch, loss="hybrid", sigma=sigma, ctc_weight=ctc_weight,
+                           model=_model(split))
 
 
 # ─── Schedules, dtype, gradients ────────────────────────────────────────────
@@ -373,9 +434,10 @@ def with_compute_dtype(loss_fn, compute_dtype):
 
 
 def _value_and_grad(loss_fn, params: dict, batch: dict):
-    leaves = {k: v.detach().requires_grad_() for k, v in params.items() if v.is_floating_point()}
+    flat = flatten_params(params)
+    leaves = {k: v.detach().requires_grad_() for k, v in flat.items() if v.is_floating_point()}
     with torch.enable_grad():
-        loss = loss_fn({**params, **leaves}, batch)
+        loss = loss_fn(unflatten_params({**flat, **leaves}), batch)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -420,6 +482,29 @@ def _step_fn(vag, optimizer: Adam):
     return step
 
 
+def objective(cfg, loss: str, *, sigma: float = 0.0, ctc_weight: float = 0.3, sort_weight: float = 0.5,
+              blank_id=None, joint_prefix: str | None = None, remat: bool = False,
+              split: EncoderSplit | None = None):
+    """(params, batch) → the loss of `loss` ∈ {'ctc', 'rnnt', 'tdt',
+    'hybrid', 'sortformer'}: the one place each trainer's objective is
+    written, on one device or on a mesh's `split`."""
+    if loss == "ctc":
+        blank = cfg.ctc_vocab_size - 1 if blank_id is None else blank_id
+        return lambda p, b: ctc_loss_fn(p, cfg, b, blank, remat=remat, split=split)
+    if loss == "hybrid":
+        return lambda p, b: hybrid_loss_fn(p, cfg, b, ctc_weight=ctc_weight, sigma=sigma, remat=remat, split=split)
+    if loss == "sortformer":
+        return lambda p, b: sortformer_loss_fn(p, cfg, b, sort_weight=sort_weight, remat=remat, split=split)
+    if loss in ("rnnt", "tdt"):
+        return lambda p, b: transducer_loss_fn(p, cfg, b, loss=loss, sigma=sigma, joint_prefix=joint_prefix,
+                                               remat=remat, split=split)
+    raise ValueError(f"loss must be 'ctc', 'rnnt', 'tdt', 'hybrid' or 'sortformer', got {loss!r}")
+
+
+def _train_step(fn, optimizer: Adam, accum_steps: int, compute_dtype: str):
+    return _step_fn(value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps), optimizer)
+
+
 def make_transducer_train_step(cfg, optimizer: Adam, *, loss: str = "tdt", sigma: float = 0.0,
                                joint_prefix: str | None = None, remat: bool = False, accum_steps: int = 1,
                                compute_dtype: str = "float32"):
@@ -428,25 +513,102 @@ def make_transducer_train_step(cfg, optimizer: Adam, *, loss: str = "tdt", sigma
     place."""
     if loss not in ("rnnt", "tdt"):
         raise ValueError(f"loss must be 'rnnt' or 'tdt', got {loss!r}")
-    fn = lambda p, b: transducer_loss_fn(p, cfg, b, loss=loss, sigma=sigma, joint_prefix=joint_prefix,  # noqa: E731
-                                         remat=remat)
-    return _step_fn(value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps), optimizer)
+    fn = objective(cfg, loss, sigma=sigma, joint_prefix=joint_prefix, remat=remat)
+    return _train_step(fn, optimizer, accum_steps, compute_dtype)
 
 
 def make_hybrid_train_step(cfg, optimizer: Adam, *, ctc_weight: float = 0.3, sigma: float = 0.0,
                            remat: bool = False, accum_steps: int = 1, compute_dtype: str = "float32"):
     """The hybrid TDT + CTC train step (the flagship objective)."""
-    fn = lambda p, b: hybrid_loss_fn(p, cfg, b, ctc_weight=ctc_weight, sigma=sigma, remat=remat)  # noqa: E731
-    return _step_fn(value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps), optimizer)
+    fn = objective(cfg, "hybrid", ctc_weight=ctc_weight, sigma=sigma, remat=remat)
+    return _train_step(fn, optimizer, accum_steps, compute_dtype)
 
 
 def make_train_step(cfg, optimizer: Adam, blank_id=None, remat: bool = False, accum_steps: int = 1,
                     compute_dtype: str = "float32"):
     """The CTC train step."""
-    if blank_id is None:
-        blank_id = cfg.ctc_vocab_size - 1
-    fn = lambda p, b: ctc_loss_fn(p, cfg, b, blank_id, remat=remat)  # noqa: E731
-    return _step_fn(value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps), optimizer)
+    return _train_step(objective(cfg, "ctc", blank_id=blank_id, remat=remat), optimizer, accum_steps, compute_dtype)
+
+
+class MeshLayout:
+    """How a trainer's state lies over a mesh: `dims` maps each key that is
+    split to (axis name, dim): 'model' for parallel/mesh.py's rules (the
+    vocab dims padded first), 'pipe' for the pipeline trainer's stacked
+    layers. Every other key is whole on every rank."""
+
+    def __init__(self, mesh, dims: dict):
+        self.mesh, self.dims = mesh, dims
+
+    def whole_shape(self, key, local) -> tuple[int, ...]:
+        shape = list(local.shape)
+        if key in self.dims:
+            name, dim = self.dims[key]
+            shape[dim] *= self.mesh.axis(name).size
+        return tuple(shape)
+
+    def shard(self, key, whole):
+        """This rank's shard of a whole array or tensor of `key`."""
+        if key not in self.dims:
+            return whole
+        name, dim = self.dims[key]
+        axis = self.mesh.axis(name)
+        n = whole.shape[dim] // axis.size
+        return whole[(slice(None),) * dim + (slice(axis.index * n, (axis.index + 1) * n),)]
+
+    def gather(self, flat: dict) -> dict:
+        """The whole tensors of a flat {key: shard} dict, on every rank (a
+        collective: every rank calls it with the same keys)."""
+        from parakeet_tpu_torch.parallel.collectives import gather_dim
+
+        out = {}
+        for k in sorted(flat):
+            v = flat[k].detach()
+            if k in self.dims:
+                name, dim = self.dims[k]
+                v = gather_dim(v, self.mesh.axis(name), dim)
+            out[k] = v
+        return out
+
+    def global_norm(self, keys, grads) -> torch.Tensor:
+        """‖g‖ of the whole gradient: each split key's squares summed over
+        its axis, each whole key counted once."""
+        from parakeet_tpu_torch.parallel.collectives import all_reduce_sum
+
+        sq = {}
+        for k, g in zip(keys, grads):
+            name = self.dims[k][0] if k in self.dims else None
+            sq[name] = sq.get(name, 0.0) + g.to(_F32).square().sum()
+        total = sq.pop(None, torch.zeros((), dtype=_F32, device=grads[0].device))
+        for name in sorted(sq):
+            total = total + all_reduce_sum(sq[name], self.mesh.axis(name))
+        return torch.sqrt(total)
+
+
+def mesh_step(vag, optimizer: Adam, mesh, seq_keys=()):
+    """The step on a mesh from `vag`, this rank's (loss, gradients): the
+    gradients of `seq_keys` (the encoder's, whose rank saw only its own
+    frames) summed over 'seq', then the loss and every gradient averaged
+    over 'data' (one all-reduce: the global mean, since the ranks' batch
+    shards are equal), then the optimizer on this rank's shards.
+    `step.value_and_grad(params, batch)` gives the reduced loss and
+    gradients without the update, `step.local_value_and_grad` this rank's
+    own before any reduction."""
+    from parakeet_tpu_torch.parallel.collectives import mean_over, sum_over
+
+    data, seq = mesh.axis("data"), mesh.axis("seq")
+
+    def value_and_grad(params, batch):
+        lval, grads = vag(params, batch)
+        grads = mean_over({**sum_over(grads, seq_keys, seq), "##loss": lval.reshape(1)}, data)
+        return grads.pop("##loss")[0], grads
+
+    def step(params, opt_state, batch):
+        lval, grads = value_and_grad(params, batch)
+        optimizer.update(params, grads, opt_state)
+        return params, opt_state, lval
+
+    step.value_and_grad, step.local_value_and_grad = value_and_grad, vag
+    return step
 
 
 def make_sharded_trainer(
@@ -469,36 +631,85 @@ def make_sharded_trainer(
     clip_norm: float | None = None,
     device: str | torch.device = DEFAULT_DEVICE,
 ):
-    """Set up a trainer on `device` (the card unless given): float32
-    params copied there, adamw (after clip_by_global_norm when clip_norm),
-    the step of `loss` ∈ {'ctc', 'rnnt', 'tdt', 'hybrid', 'sortformer'}.
-    remat / accum_steps: the memory levers (numerically the plain step);
-    compute_dtype 'bfloat16' runs the model in bf16 with float32 masters;
-    schedule / warmup_steps / decay_steps: make_lr_schedule. A mesh,
-    model_parallel or seq_parallel > 1 raise NotImplementedError.
-    Returns (device, state, step_fn, place_batch)."""
-    if mesh is not None or model_parallel > 1 or seq_parallel > 1:
-        raise NotImplementedError(f"mesh, model_parallel and seq_parallel: {PARALLELISM_NOT_PORTED}")
-    dev = resolve_device(device)
-    lr = make_lr_schedule(learning_rate, schedule=schedule, warmup_steps=warmup_steps, decay_steps=decay_steps)
-    optimizer = adamw(lr, clip_norm=clip_norm)
-    mem = dict(remat=remat, accum_steps=accum_steps, compute_dtype=compute_dtype)
-    placed = {k: (v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
-              .to(device=dev, dtype=_F32, copy=True) for k, v in params.items()}
-    if loss == "ctc":
-        step = make_train_step(cfg, optimizer, **mem)
-    elif loss == "hybrid":
-        step = make_hybrid_train_step(cfg, optimizer, sigma=sigma, **mem)
-    elif loss == "sortformer":
-        step = make_sortformer_train_step(cfg, optimizer, sort_weight=sort_weight, **mem)
+    """Set up a trainer: float32 params copied to the device, adamw (after
+    clip_by_global_norm when clip_norm), the step of `loss` ∈ {'ctc',
+    'rnnt', 'tdt', 'hybrid', 'sortformer'}. remat / accum_steps: the
+    memory levers (numerically the plain step); compute_dtype 'bfloat16'
+    runs the model in bf16 with float32 masters; schedule / warmup_steps /
+    decay_steps: make_lr_schedule.
+
+    mesh (parallel/mesh.py make_mesh; built with model_parallel and
+    seq_parallel when not given and this process runs in a process group
+    or asks for either): the step runs SPMD on this rank's shards of the
+    params (`shard_params`, vocabularies padded) and its rows of each
+    batch over 'data' (`place_batch`), over 'seq' its block of the
+    encoder's frames (ASR objectives only, as in the reference); the loss
+    it returns is the global mean and each gradient the single-device
+    one's shard. Without a mesh or a process group it trains on `device`
+    (the card unless given). Returns (mesh, state, step_fn, place_batch),
+    the device in place of the mesh when there is none; on a mesh
+    `step_fn.value_and_grad(params, batch)` gives the step's reduced loss
+    and gradients without updating."""
+    import torch.distributed as dist
+
+    from parakeet_tpu_torch.parallel.mesh import (
+        activation_sharding,
+        batch_sharding,
+        make_mesh,
+        mesh_device,
+        pad_vocab_dim,
+        shard_params,
+    )
+
+    if loss not in ("ctc", "hybrid", "sortformer", "rnnt", "tdt"):
+        raise ValueError(f"loss must be 'ctc', 'rnnt', 'tdt', 'hybrid' or 'sortformer', got {loss!r}")
+    if mesh is None and (model_parallel > 1 or seq_parallel > 1 or dist.is_initialized()):
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            raise ValueError(
+                f"model_parallel={model_parallel} × seq_parallel={seq_parallel} needs that many ranks; this "
+                "process is one rank with no process group: start the ranks with python -m "
+                "torch.distributed.run (or parallel/launch.py spawn_ranks), or pass a mesh")
+        mesh = make_mesh(model_parallel=model_parallel, seq_parallel=seq_parallel,
+                         devices="cpu" if torch.device(device).type == "cpu" else None)
+    host = {k: (v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+            for k, v in params.items()}
+    split, local, dims = None, host, {}
+    if mesh is None:
+        dev = resolve_device(device)
     else:
-        step = make_transducer_train_step(cfg, optimizer, loss=loss, sigma=sigma, **mem)
+        dev = mesh_device(mesh, device)
+        if mesh.shape.get("pipe", 1) > 1:
+            raise ValueError("a ('data', 'pipe') mesh trains with parallel/pipeline.py make_pp_trainer")
+        if loss == "sortformer" and activation_sharding(mesh) is not None:
+            raise ValueError("sequence parallelism is not supported for the sortformer objective")
+        split = EncoderSplit(mesh.axis("model"), mesh.axis("seq"))
+        local = shard_params(host, mesh)
+        tp = mesh.axis("model").size
+        for k, v in local.items():  # the keys shard_params split: their (vocab-padded) whole shape differs
+            whole = pad_vocab_dim(k, host[k], tp)
+            diff = [i for i, (a, b) in enumerate(zip(v.shape, (host[k] if whole is None else whole).shape)) if a != b]
+            if diff:
+                dims[k] = ("model", diff[0])
+    placed = {k: v.to(device=dev, dtype=_F32, copy=True) for k, v in local.items()}
+    fn = objective(cfg, loss, sigma=sigma, sort_weight=sort_weight, remat=remat, split=split)
+    vag = value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps)
+    optimizer = adamw(make_lr_schedule(learning_rate, schedule=schedule, warmup_steps=warmup_steps,
+                                       decay_steps=decay_steps), clip_norm=clip_norm)
+    opt_state = optimizer.init(placed)
+    if mesh is None:
+        step = _step_fn(vag, optimizer)
+    else:
+        step = mesh_step(vag, optimizer, mesh, [k for k in placed if k.startswith("encoder_.")])
+        opt_state.layout = MeshLayout(mesh, dims)
 
     def place_batch(batch: dict) -> dict:
-        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(dev)
-                for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+            out[k] = (v if mesh is None else v[batch_sharding(mesh, v.shape[0])]).to(dev)
+        return out
 
-    return dev, TrainState(placed, optimizer.init(placed)), step, place_batch
+    return dev if mesh is None else mesh, TrainState(placed, opt_state), step, place_batch
 
 
 # ─── Sortformer (diarization) training ──────────────────────────────────────
@@ -526,14 +737,16 @@ def sortformer_bce(logits: torch.Tensor, targets: torch.Tensor, frame_mask: torc
     return per.sum(dim=(1, 2)) / denom
 
 
-def sortformer_loss_fn(params: dict, cfg, batch, *, sort_weight: float = 0.5, remat: bool = False):
+def sortformer_loss_fn(params: dict, cfg, batch, *, sort_weight: float = 0.5, remat: bool = False,
+                       split: EncoderSplit | None = None):
     """sort_weight·SortLoss + (1 − sort_weight)·PIL over a padded batch:
     features (B, mel_len, mel_bins), mel_lengths (B,), targets (B, T', S)
     at the encoder frame rate."""
     from parakeet_tpu_torch.models.sortformer import sortformer_logits
 
     mel_lengths = batch["mel_lengths"]
-    logits = sortformer_logits(params, batch["features"], cfg=cfg, mel_lengths=mel_lengths, remat=remat)
+    logits = sortformer_logits(params, batch["features"], cfg=cfg, mel_lengths=mel_lengths, remat=remat,
+                               split=split)
     t = logits.shape[1]
     enc_lens = torch.clamp(encoded_lengths(_long(mel_lengths, logits.device)), max=t)
     mask = (torch.arange(t, device=logits.device)[None, :] < enc_lens[:, None]).to(_F32)
@@ -552,8 +765,8 @@ def sortformer_loss_fn(params: dict, cfg, batch, *, sort_weight: float = 0.5, re
 def make_sortformer_train_step(cfg, optimizer: Adam, *, sort_weight: float = 0.5, remat: bool = False,
                                accum_steps: int = 1, compute_dtype: str = "float32"):
     """The Sortformer diarization train step."""
-    fn = lambda p, b: sortformer_loss_fn(p, cfg, b, sort_weight=sort_weight, remat=remat)  # noqa: E731
-    return _step_fn(value_and_grad_accum(with_compute_dtype(fn, compute_dtype), accum_steps), optimizer)
+    return _train_step(objective(cfg, "sortformer", sort_weight=sort_weight, remat=remat), optimizer, accum_steps,
+                       compute_dtype)
 
 
 def synthetic_sortformer_batch(cfg, batch: int, mel_frames: int, seed=0):
@@ -588,8 +801,9 @@ def synthetic_batch(cfg, batch: int, mel_frames: int, max_labels: int, seed=0):
 
 
 __all__ = [
-    "PARALLELISM_NOT_PORTED",
     "Adam",
+    "MeshLayout",
+    "mesh_step",
     "OptState",
     "TrainState",
     "adam",
@@ -598,6 +812,7 @@ __all__ = [
     "ctc_loss_fn",
     "ctc_loss_from_log_probs",
     "encoded_loss_fn",
+    "objective",
     "transducer_lattice",
     "hybrid_loss_fn",
     "make_hybrid_train_step",
@@ -609,6 +824,8 @@ __all__ = [
     "sortformer_bce",
     "sortformer_loss_fn",
     "make_lr_schedule",
+    "flatten_params",
+    "unflatten_params",
     "synthetic_batch",
     "synthetic_sortformer_batch",
     "transducer_forward",

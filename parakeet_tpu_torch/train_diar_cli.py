@@ -7,8 +7,10 @@ rttm_filepath) → DiarizationDataLoader (duration bucketing, the 128-mel
 unnormalized frontend on the trainer's device, arrival-ordered frame
 targets) → the Sort Loss + PIL train step (train.make_sortformer_train_step),
 with checkpoint and resume and a safetensors export that both packages'
-Sortformer load. It runs on the card unless given --device cpu; the
-data-parallel flag above 1 exits (ROADMAP Queue 1 item 6b).
+Sortformer load. It runs on the card unless given --device cpu; with
+--data-parallel each rank is a process that python -m
+torch.distributed.run starts (train_cli.py's mesh rules and
+--dist-backend).
 
 Example:
     python -m parakeet_tpu_torch.train_diar_cli --manifest diar.jsonl --steps 500 \\
@@ -20,13 +22,13 @@ from __future__ import annotations
 import argparse
 import sys
 
-from parakeet_tpu_torch.train_cli import check_single_device, finish, resume_state
+from parakeet_tpu_torch.train_cli import add_device_flags, finish, open_mesh, resume_state, say, world_size
 
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="parakeet-train-diar",
-        description="Fine-tune Sortformer diarization on one CUDA card.",
+        description="Fine-tune Sortformer diarization on CUDA cards.",
     )
     ap.add_argument("--manifest", required=True,
                     help="JSONL manifest (audio_filepath/rttm_filepath)")
@@ -49,7 +51,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--sort-weight", type=float, default=0.5,
                     help="Sort Loss weight; (1-w) goes to PIL")
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="data-parallel ways (not ported: 1 only)")
+                    help="data-parallel ways (default: all ranks); must divide "
+                         "--batch-size")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize encoder blocks in backward")
     ap.add_argument("--accum-steps", type=int, default=1,
@@ -62,8 +65,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--export", default=None,
                     help="write final weights as safetensors (converter schema)")
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the model trains (default: the CUDA card)")
+    add_device_flags(ap)
     return ap
 
 
@@ -91,7 +93,6 @@ def _preset(name: str):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    check_single_device(args)
 
     from parakeet_tpu_torch import params as P
     from parakeet_tpu_torch.config import AudioConfig
@@ -102,9 +103,20 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = _preset(args.model)
+    dp = args.data_parallel or world_size()
+    if args.batch_size % dp:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the data-parallel "
+            f"ways ({dp}); pass --data-parallel explicitly to shrink the mesh"
+        )
+    if args.batch_size % max(args.accum_steps, 1):
+        raise SystemExit(f"--accum-steps {args.accum_steps} must divide --batch-size")
+    mesh = open_mesh(args, dp, device, "parakeet_tpu_torch.train_diar_cli")
+    if mesh is not None:
+        device = mesh.device
     spec = P.sortformer_spec(cfg)
     params = (
-        P.load_params_numpy(spec, args.init_weights, warn=lambda m: print(f"# {m}", file=sys.stderr))
+        P.load_params_numpy(spec, args.init_weights, warn=lambda m: say(f"# {m}"))
         if args.init_weights
         else P.init_params_numpy(spec, seed=args.seed)
     )
@@ -120,24 +132,22 @@ def main(argv=None) -> int:
         seed=args.seed,
         device=device,
     )
-    print(f"# {len(dataset)} clips, {len(loader)} batches/epoch", file=sys.stderr)
-    if args.batch_size % max(args.accum_steps, 1):
-        raise SystemExit(f"--accum-steps {args.accum_steps} must divide --batch-size")
-    device, state, step_fn, place_batch = make_sharded_trainer(
-        cfg, params, learning_rate=args.lr, loss="sortformer",
+    say(f"# {len(dataset)} clips, {len(loader)} batches/epoch")
+    mesh, state, step_fn, place_batch = make_sharded_trainer(
+        cfg, params, mesh, learning_rate=args.lr, loss="sortformer",
         sort_weight=args.sort_weight, remat=args.remat, accum_steps=args.accum_steps,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         schedule=args.schedule, warmup_steps=args.warmup_steps, decay_steps=args.steps,
         clip_norm=args.clip_norm, device=device,
     )
     if args.resume:
-        state = resume_state(args, device, state)
+        state = resume_state(args, mesh, state)
     params, opt_state, step = run_training(
-        loader, state, step_fn, place_batch,
+        mesh, loader, state, step_fn, place_batch,
         steps=args.steps, log_every=args.log_every,
         checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
     )
-    finish(args, params, opt_state, step)
+    finish(args, cfg, params, opt_state, step)
     return 0
 
 

@@ -174,7 +174,8 @@ def test_port_import_pulls_in_no_jax():
         "             'text.ngram_lm', 'text.neural_lm', 'text.subtitles', 'metrics', 'native', 'serve',\n"
         "             'serve_http', 'cli', 'capi', 'benchmark', 'tools.convert', 'ops.transducer_loss',\n"
         "             'train', 'train_loop', 'train_cli', 'train_diar_cli', 'data', 'checkpoint', 'augment',\n"
-        "             'parallel', 'parallel.mesh', 'parallel.collectives', 'parallel.launch'):\n"
+        "             'parallel', 'parallel.mesh', 'parallel.collectives', 'parallel.launch',\n"
+        "             'parallel.pipeline'):\n"
         "    assert 'parakeet_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'parakeet_tpu'))\n"
         "print(bad)\n"

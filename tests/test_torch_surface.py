@@ -30,3 +30,35 @@ def test_all_is_exact():
     for name in T.__all__:
         assert hasattr(T, name), name
     assert T.__version__ == R.__version__
+
+
+def test_mesh_training_surface_matches_reference():
+    """The mesh-training names (parallel/, train.make_sharded_trainer,
+    train_loop, checkpoint): the reference's exports, each with the
+    reference's parameters in its order (the port adds only `device`)."""
+    import inspect
+
+    import parakeet_tpu.parallel as RPAR
+    import parakeet_tpu_torch.parallel as TPAR
+    from parakeet_tpu import checkpoint as RCK
+    from parakeet_tpu import train as RT
+    from parakeet_tpu import train_loop as RL
+    from parakeet_tpu.parallel import pipeline as RPP
+    from parakeet_tpu_torch import checkpoint as TCK
+    from parakeet_tpu_torch import train as TT
+    from parakeet_tpu_torch import train_loop as TL
+    from parakeet_tpu_torch.parallel import pipeline as TPP
+
+    assert TPAR.__all__ == RPAR.__all__
+    for name in RPAR.__all__:
+        assert getattr(TPAR, name).__name__ == getattr(RPAR, name).__name__
+    assert set(RPP.__all__) <= set(TPP.__all__)
+    assert set(RL.__all__) <= set(TL.__all__) and set(RCK.__all__) <= set(TCK.__all__)
+    for ref, port, name in ((RT, TT, "make_sharded_trainer"), (RPP, TPP, "make_pp_trainer"),
+                            (RPP, TPP, "pipeline_encode"), (RPP, TPP, "split_layer_params"),
+                            (RPP, TPP, "merge_layer_params"), (RL, TL, "run_training"),
+                            (RL, TL, "place_train_state"), (RCK, TCK, "save_train_state"),
+                            (RCK, TCK, "load_train_state")):
+        want = list(inspect.signature(getattr(ref, name)).parameters)
+        got = list(inspect.signature(getattr(port, name)).parameters)
+        assert got[:len(want)] == want and set(got[len(want):]) <= {"device"}, name

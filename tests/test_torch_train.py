@@ -376,9 +376,14 @@ def test_legacy_three_file_checkpoint_resumes_and_exports_as_in_the_reference(tm
 
 
 def test_trainer_refuses_parallelism_and_defaults_to_the_card():
+    """A mesh that is not one raises; tensor or sequence parallelism in a
+    process that is not a rank of a process group says how to start the
+    ranks (tests/test_torch_parallel_train.py trains on meshes)."""
     _, cfg, flat, _, _, _ = setup("ctc")
-    for kw in (dict(mesh=object()), dict(model_parallel=2), dict(seq_parallel=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="mesh must be a parakeet_tpu_torch.parallel.Mesh"):
+        T.make_sharded_trainer(cfg, flat, mesh=object(), device="cpu")
+    for kw in (dict(model_parallel=2), dict(seq_parallel=2)):
+        with pytest.raises(ValueError, match="python -m torch.distributed.run"):
             T.make_sharded_trainer(cfg, flat, device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
