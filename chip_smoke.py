@@ -96,8 +96,8 @@ Phases, each of which raises (exit code 1) on failure:
               seeded random weights, f32, against CPU facades with the same
               options: tdt-ctc-110m with quantize="int8" and "int4" in the
               default and fused configurations, tdt-600m int8 default
-              (on the 4 clips under 6 s), each a path as in 4 with exact
-              launch counts under
+              (each held to the CPU on the 4 clips under 6 s), each a path
+              as in 4 with exact launch counts under
               the reference's weight guards (K2 17 or 24, K8 1 and K5 17
               fused, never K1, K6, K7, K4); W8A8 (set_int8_compute(True),
               int8, default): every integer product of an encoder call
@@ -194,7 +194,9 @@ Phases, each of which raises (exit code 1) on failure:
               frontend, int16 wire, a deactivated, a late (held) and a
               reset slot; and (v) one NCCL rank on a dp1 mesh; every
               rank's tokens and frames identical to the single-device
-              card run; in (i)-(iii) one more batch a decoder with each
+              card run, and in (ii) a TDT decode with impl="lookahead"
+              (window 8, each window's vocab logits gathered over
+              'model') too; in (i)-(iii) one more batch a decoder with each
               rank's time inside the collectives. Coverage on one card,
               not a scaling figure
  14. train_mesh  (last; f32, IEEE) training over torch.distributed on the
@@ -222,11 +224,29 @@ Phases, each of which raises (exit code 1) on failure:
               the step wall, the share of a step inside the collectives
               and the peak memory a rank; (v) train_cli under python -m
               torch.distributed.run (two gloo ranks each) with
-              --data-parallel 2 and with --model-parallel 2 (110m): 2
-              steps and a checkpoint, --resume to 3 and --export (vocab
+              --data-parallel 2 and with --model-parallel 2 (110m): 1
+              step and a checkpoint, --resume to 2 and --export (vocab
               rows 1025 in the export, 1026 in the tp checkpoint), and
               train_diar_cli --data-parallel 2; the launches of a round
               at once. Coverage on one card, not a scaling figure
+ 15. lookahead  (tdt-ctc-110m after serve, with its weights; tdt-600m
+              and rnnt-600m beside paths600m, with theirs) the greedy
+              decode loops on one encoder output of each model (the
+              default encoder, K1 its only kernel, launches exact):
+              first the offset on the blank's label bias that brings
+              the step loop on the card to ~3.5 tokens per audio second
+              (the reference bench.py's 10 halvings of [0, 30]), printed
+              and reused for every impl; then the step loop and
+              impl="lookahead" at windows 4, 8 and 16 (tdt-ctc-110m and
+              tdt-600m on the 8 clips), window 8 (rnnt-600m on the 4
+              clips under 6 s); on tdt-ctc-110m also a boosted batch
+              and the unbiased (dense) batch at window 8, and the step
+              loop at unroll 4. Every decode's tokens and frames equal
+              the step loop's on the card (confidences within 1e-5
+              relative) and the CPU port's step loop on the same encoder
+              output and weights; each prints its iterations, decode
+              wall (median of 5 warm synchronised calls), device busy
+              share and tokens per audio second
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
@@ -797,7 +817,7 @@ def conv_ffn_final_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import conv_ffn_final as K4
 
     log(f"== K4 fused_conv_ffn_final vs fused_conv_ffn_final_reference (B={B}, D={D}, F={FFN}, k=9)")
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(400 + t)
@@ -813,9 +833,12 @@ def conv_ffn_final_phase(card: str) -> dict:
             err = check_close(tag, got, ref)
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                out["times"][t] = time_pair(tag, lambda: K4.fused_conv_ffn_final(*args, lengths=lt),
-                                            lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
-                out["work"][t] = (conv_flops(B * t, D, 9) + ffn_flops(B * t, D, FFN), tensor_bytes(*args, lt, got))
+            if dtype == torch.float32 or t == 126:  # bf16 timed at the 110m encoder's shape
+                key = "times" if dtype == torch.float32 else "bf16_times"
+                out[key][t] = time_pair(tag, lambda: K4.fused_conv_ffn_final(*args, lengths=lt),
+                                        lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
+                out[key.replace("times", "work")][t] = (conv_flops(B * t, D, 9) + ffn_flops(B * t, D, FFN),
+                                                        tensor_bytes(*args, lt, got))
     return out
 
 
@@ -825,7 +848,7 @@ def ffn_attention_phase(card: str) -> dict:
     from parakeet_tpu_torch.ops import ffn_attention as K7
 
     log(f"== K7 fused_ffn_attention vs fused_ffn_attention_reference (B={B}, D={D}, H={H}, F={FFN})")
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(500 + t)
@@ -842,11 +865,13 @@ def ffn_attention_phase(card: str) -> dict:
             err = check_close(tag, got, ref, _valid_rows(lengths, t))
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                out["times"][t] = time_pair(tag, lambda: K7.fused_ffn_attention(*args, lengths=lt),
-                                            lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
+            if dtype == torch.float32 or t == 126:  # bf16 timed at the 110m encoder's shape
+                key = "times" if dtype == torch.float32 else "bf16_times"
+                out[key][t] = time_pair(tag, lambda: K7.fused_ffn_attention(*args, lengths=lt),
+                                        lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
                 pe_bytes = (2 * t - 1) * D * got.element_size()
-                out["work"][t] = (ffn_flops(B * t, D, FFN) + attention_flops(B, t, D, H, lengths),
-                                  tensor_bytes(*args, lt, got) + pe_bytes)
+                out[key.replace("times", "work")][t] = (ffn_flops(B * t, D, FFN) + attention_flops(B, t, D, H, lengths),
+                                                        tensor_bytes(*args, lt, got) + pe_bytes)
     return out
 
 
@@ -1901,14 +1926,15 @@ def smoke_arpa(pieces: list[str], seed: int = 2100) -> Path:
 
 def encoder_turns(tag: str, facades: dict, feats, n_frames, card: str) -> dict:
     """Device ms of each facade's encoder on the same features, in turns
-    (every facade, then again in reverse order), the lesser of the two."""
+    (every facade, then again in reverse order), one profile of 3 calls a
+    turn, the lesser of the two."""
     import torch
 
     feats = feats.to(next(iter(facades.values())).device)
     ms = {}
     with torch.inference_mode():
         for name in [*facades, *reversed(facades)]:
-            t = device_ms(lambda: facades[name].encode(feats, n_frames), calls=3)
+            t = device_ms(lambda: facades[name].encode(feats, n_frames), calls=3, profiles=1)
             ms[name] = min(ms.get(name, float("inf")), t)
     log(f"  {tag} encoder device ms (torch.profiler, best of 2 turns): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
@@ -2156,9 +2182,13 @@ def options_phase(flat6, clips, card: str) -> dict:
     flat = model_params("tdt-ctc-110m")
     fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
     out = {}
+    # int8 fused (launches_quantized) is held to the CPU on the timed batch of 8 clips, the other three
+    # on the 4 clips under 6 s (the CPU's decodes set the part's time)
     for mode in ("int8", "int4"):
         for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
-            out[f"{mode} {label}"] = path_phase(f"{mode} {label}", cfg, flat, clips, card, quantize=mode)
+            out[f"{mode} {label}"] = path_phase(
+                f"{mode} {label}", cfg, flat, clips, card, quantize=mode,
+                compare_clips=None if (mode, label) == ("int8", "fused") else short_clips(clips))
     part("110m quantized paths")
     out["w8a8 default"] = w8a8_phase(flat, clips, card)
     part("W8A8")
@@ -2169,6 +2199,7 @@ def options_phase(flat6, clips, card: str) -> dict:
         for mode in ("f32", "int8", "int4"):
             facades[mode], held[mode] = resident(lambda: facade("tdt-ctc-110m", "cuda", params=flat, fused=cfg,
                                                                 quantize=None if mode == "f32" else mode))
+        part(f"110m {label} facades built")
         set_int8_compute(True)
         try:
             w8 = encoder_turns(f"110m {label} W8A8", {"w8a8": facades["int8"]}, feats, n_frames, card)
@@ -2218,6 +2249,164 @@ def options_phase(flat6, clips, card: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()) + f" [{card}]")
     out["streaming int8"].update(push_ms=push_ms, push_dev_ms=dev_ms)
     part("streaming")
+    return out
+
+
+# ── lookahead: the reference's decode-loop family (impl, window, unroll) ──
+
+LOOKAHEAD_TOKENS_PER_S = 3.5  # bench.py _e2e_setup's speech-like emission density
+LOOKAHEAD_WINDOWS = (4, 8, 16)
+LOOKAHEAD_CONF_RTOL = 1e-5  # confidences, each loop on the card against the step loop on the card
+
+
+def with_blank_bias(params: dict, key: str, blank: int, offset: float) -> dict:
+    """params with `offset` added to the blank's entry of the label bias."""
+    bias = params[key].clone()
+    bias[blank] += offset
+    return dict(params, **{key: bias})
+
+
+def blank_bias_offset(count, params: dict, key: str, blank: int, audio_s: float) -> tuple[float, dict]:
+    """The offset on the blank's label bias that brings random weights to a
+    speech-like density, bisected as the reference's bench.py (:114-140)
+    does: 10 halvings of [0, 30], toward LOOKAHEAD_TOKENS_PER_S tokens per
+    audio second over the batch; `count(params)` is the batch's token
+    count. The offset tried whose count came nearest the target (the
+    reference keeps the last one tried: on a cliff, where random RNNT
+    weights go from ~10 symbols a frame to a few within one halving, that
+    one may lie far on the other side), and every offset tried with its
+    count."""
+    target = LOOKAHEAD_TOKENS_PER_S * audio_s
+    lo, hi, tried = 0.0, 30.0, {}
+    for _ in range(10):
+        mid = (lo + hi) / 2
+        tried[mid] = count(with_blank_bias(params, key, blank, mid))
+        lo, hi = (mid, hi) if tried[mid] > target else (lo, mid)
+    return min(tried, key=lambda m: abs(np.log((tried[m] + 1) / (target + 1)))), tried
+
+
+def same_decode(name: str, got, ref, conf_rtol: float | None) -> float:
+    """Two greedy decodes' tokens and frames identical, item by item; with
+    `conf_rtol`, their confidences within it. The worst relative
+    confidence difference."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got.timestamped, ref.timestamped)):
+        gs, rs = ([(t.token_id, t.start_frame, t.end_frame) for t in x] for x in (g, r))
+        if gs != rs:
+            j = next((k for k, (a, b) in enumerate(zip(gs, rs)) if a != b), min(len(gs), len(rs)))
+            raise RuntimeError(f"{name}: item {i} differs first at token {j}: {gs[j:j + 3]} vs {rs[j:j + 3]}")
+        gc, rc = (np.array([t.confidence for t in x], np.float64) for x in (g, r))
+        if len(rc):
+            worst = max(worst, float((np.abs(gc - rc) / np.abs(rc)).max()))
+    if conf_rtol is not None and worst > conf_rtol:
+        raise RuntimeError(f"{name}: confidences differ by {worst:.3e} relative (limit {conf_rtol:.0e})")
+    return worst
+
+
+def lookahead_phase(model: str, flat, clips, card: str, windows=LOOKAHEAD_WINDOWS, extras: bool = False) -> dict:
+    """The greedy decode loops of one model on one encoder output (the
+    default encoder, K1, on the card): the step loop and impl="lookahead"
+    at each window, on the blank bias that gives ~3.5 tokens per audio
+    second (blank_bias_offset, found with the step loop on the card and
+    reused for every impl). With `extras` (tdt-ctc-110m) also a boosted
+    batch and the unbiased (dense) batch at window 8, and the step loop at
+    unroll 4. Every card decode's tokens and frames equal the card's step
+    loop (confidences within LOOKAHEAD_CONF_RTOL) and the CPU port's step
+    loop on the same encoder output and weights. Each: iterations, decode
+    wall (median of 5 warm synchronised calls, every impl of a batch timed
+    in turns, then again in reverse order, the lesser median kept), device
+    busy share (the device time of one more call under the profiler over
+    that wall), tokens per audio second."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.decode.phrase_boost import ContextTrie
+    from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+    from parakeet_tpu_torch.models.encoder import encoded_lengths
+    from parakeet_tpu_torch.transcribe import DEFAULT_BOOST_SCORE
+
+    gpu = facade(model, "cuda", params=flat)
+    cfg = gpu.config
+    layers = cfg.encoder.num_layers
+    feats, n_frames = preprocess_audio_batch(clips, gpu._audio_cfg, "cpu")
+    enc_lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+    audio_s = sum(len(c) for c in clips) / 16000.0
+    reset_counts()
+    with torch.inference_mode():
+        enc = gpu.encode(feats.to(gpu.device), n_frames)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if {k: v for k, v in launches.items() if v} != {"rel_attention_block": layers}:
+        raise RuntimeError(f"lookahead {model}: encoder launches {launches}, want K1 {layers} and nothing else")
+    if not torch.isfinite(enc).all():
+        raise RuntimeError(f"lookahead {model}: encoder output on the card is not finite")
+    enc_cpu = enc.cpu()
+    blank = gpu._blank_id
+    kw = dict(pred_hidden=cfg.prediction.pred_hidden, num_lstm_layers=cfg.prediction.num_lstm_layers,
+              durations=gpu._durations(), blank_id=blank, is_tdt=gpu.is_tdt, joint_prefix=gpu.joint_prefix,
+              enc_lengths=enc_lens)
+    key = f"{gpu.joint_prefix}.{'label_proj_' if gpu.is_tdt else 'out_proj_'}.bias"
+    decoder_keys = [k for k in gpu.params if k.startswith(("prediction_", gpu.joint_prefix))]
+
+    def run(params, e, **impl):
+        with torch.inference_mode():
+            return transducer_greedy_decode(params, e, **kw, **impl)
+
+    t0 = time.perf_counter()
+    offset, tried = blank_bias_offset(lambda p: sum(len(t) for t in run(p, enc).tokens), gpu.params, key, blank,
+                                      audio_s)
+    log(f"== lookahead {model}: {len(clips)} clips ({audio_s:.2f} s, T' up to {max(enc_lens)}), blank bias offset "
+        f"{offset:.4f} on {key}[{blank}] (10 halvings of [0, 30], {time.perf_counter() - t0:.1f} s): "
+        f"{tried[offset]} tokens, {tried[offset] / audio_s:.2f} per audio s (target {LOOKAHEAD_TOKENS_PER_S}); "
+        f"tried {', '.join(f'{m:.4f}: {n}' for m, n in tried.items())}; encoder K1 "
+        f"{launches['rel_attention_block']} launches, no other kernel")
+
+    batches = {"biased": (with_blank_bias(gpu.params, key, blank, offset), None,
+                          [dict(impl="lookahead", window=w) for w in windows])}
+    if extras:
+        step_toks = run(batches["biased"][0], enc).tokens
+        trie = ContextTrie()
+        phrases = sorted({tuple(toks[:2]) for toks in step_toks[:4] if len(toks) >= 2})  # from the biased decodes
+        for ids in phrases:
+            trie.insert(ids)
+        boost = trie.device_boost(cfg.joint.vocab_size, len(clips), DEFAULT_BOOST_SCORE, gpu.device)
+        batches["boosted"] = (batches["biased"][0], boost, [dict(impl="lookahead", window=8)])
+        batches["dense"] = (gpu.params, None, [dict(impl="lookahead", window=8)])
+        batches["biased"][2].append(dict(unroll=4))
+    out = {"offset": offset, "tokens_per_s": tried[offset] / audio_s, "launches": launches, "cases": {}}
+    for batch, (params, boost, variants) in batches.items():
+        cpu_boost = None if boost is None else (boost[0].cpu(), boost[1].cpu(), boost[2])
+        cpu_ref = run({k: params[k].cpu() for k in decoder_keys}, enc_cpu, boost=cpu_boost)
+        impls = {", ".join(f"{k} {v}" for k, v in impl.items()) or "step": impl for impl in [{}] + variants}
+        calls = {label: (lambda impl=impl: run(params, enc, boost=boost, **impl)) for label, impl in impls.items()}
+        results = {label: call() for label, call in calls.items()}
+        step = results["step"]
+        walls = {}
+        for label in [*calls, *reversed(calls)]:
+            walls[label] = min(walls.get(label, float("inf")), wall_ms(calls[label], 5))
+        for label, res in results.items():
+            name = f"lookahead {model} {batch} {label}"
+            conf = same_decode(f"{name} vs step on the card", res, step, LOOKAHEAD_CONF_RTOL)
+            cpu_conf = same_decode(f"{name} vs the CPU's step loop", res, cpu_ref, None)
+            if boost is not None and not torch.equal(res.boost_active.cpu(), cpu_ref.boost_active):
+                raise RuntimeError(f"{name}: trie states differ from the CPU's")
+            wall, dev = walls[label], device_ms(calls[label], calls=1, profiles=1)
+            n = sum(len(t) for t in res.tokens)
+            out["cases"][f"{batch} {label}"] = dict(steps=res.steps, wall_ms=wall, dev_ms=dev, busy=dev / wall,
+                                                    tokens_per_s=n / audio_s)
+            log(f"  {batch} {label}: {res.steps} iterations, decode wall {wall:.3f} ms (median of 5, best of 2 "
+                f"turns), device {dev:.3f} ms, busy {dev / wall:.1%}, {n} tokens ({n / audio_s:.2f} per audio s); "
+                f"tokens and frames = step on the card (confidences within {conf:.1e}) = the CPU's step loop "
+                f"(within {cpu_conf:.1e}) [{card}]")
+        if boost is not None:
+            plain = run(params, enc).tokens
+            log(f"  boosted: phrases {phrases} at score {DEFAULT_BOOST_SCORE}, tokens changed in "
+                f"{sum(a != b for a, b in zip(step.tokens, plain))}/{len(clips)} items against the unboosted decode")
+    base = out["cases"]["biased step"]
+    log(f"  lookahead {model} against step on the biased batch ({out['tokens_per_s']:.2f} tokens per audio s), "
+        "iterations and decode wall: " + ", ".join(f"window {w} {c['steps'] / base['steps']:.3f}x, {c['wall_ms'] / base['wall_ms']:.3f}x"
+                             for w in windows for c in [out["cases"][f"biased impl lookahead, window {w}"]])
+        + f" [{card}]")
     return out
 
 
@@ -3539,12 +3728,35 @@ def _mesh_decode(tr, clips, clock=None) -> dict:
     return out
 
 
+def _mesh_lookahead(tr, clips) -> list:
+    """The clips' TDT decode with impl="lookahead", window 8, on `tr`'s
+    encoder output and mesh (the vocab heads split over 'model', each
+    window's logits gathered): each item's token ids and spans."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+    from parakeet_tpu_torch.models.encoder import encoded_lengths
+
+    feats, n_frames = preprocess_audio_batch(clips, tr._audio_cfg, tr.device)
+    pred = tr.config.prediction
+    with torch.inference_mode():
+        res = transducer_greedy_decode(
+            tr.params, tr.encode(feats, n_frames), pred_hidden=pred.pred_hidden, num_lstm_layers=pred.num_lstm_layers,
+            durations=tr._durations(), blank_id=tr._blank_id, joint_prefix=tr.joint_prefix,
+            enc_lengths=encoded_lengths(torch.as_tensor(n_frames)).tolist(), model=tr._model, impl="lookahead",
+            window=8)
+    return [(toks, [(t.token_id, t.start_frame, t.end_frame) for t in ts])
+            for toks, ts in zip(res.tokens, res.timestamped)]
+
+
 def mesh_rank(rank: int, flat, eou_flat, clips, pcm) -> dict:
     """One of two ranks on the card over gloo: (i) dp2 tdt-ctc-110m default,
-    (ii) dp1×tp2 (K1 head-sharded), (iii) dp1×sp2 with kernels=False, (iv)
-    eou-120m StreamingBatchTranscriber B=8 dp2; each scenario's tokens,
-    launches and seconds, and in (i)-(iii) the time a batch spends inside
-    the collectives (CollectiveClock)."""
+    (ii) dp1×tp2 (K1 head-sharded; and a TDT decode with impl="lookahead"),
+    (iii) dp1×sp2 with kernels=False, (iv) eou-120m
+    StreamingBatchTranscriber B=8 dp2; each scenario's tokens, launches and
+    seconds, and in (i)-(iii) the time a batch spends inside the
+    collectives (CollectiveClock)."""
     import torch
 
     from parakeet_tpu_torch import config as C
@@ -3562,6 +3774,8 @@ def mesh_rank(rank: int, flat, eou_flat, clips, pcm) -> dict:
         mesh = make_mesh(backend="gloo", **mesh_kw)
         tr = Transcriber(config=C.make_110m_config(), params=flat, mesh=mesh, **kw)
         out[name] = dict(_mesh_decode(tr, clips, clock), device=str(mesh.device), shape=dict(mesh.shape))
+        if name == "dp1xtp2":
+            out[name]["lookahead"] = _mesh_lookahead(tr, clips)
         out[name]["seconds"] = time.perf_counter() - t0
         del tr
         torch.cuda.empty_cache()
@@ -3669,6 +3883,12 @@ def mesh_phase(clips, card: str) -> dict:
             log(f"    {dec} batch with the collective clock on: wall {c['wall_ms']:.1f} ms, {c['calls']} gloo calls "
                 f"{c['gloo_ms']:.1f} ms + staging to the host {c['staging_ms']:.1f} ms = {inside:.1f} ms, "
                 f"{inside / c['wall_ms']:.1%} of the wall [{card}]")
+    for r, res in enumerate(ranks):
+        if res["dp1xtp2"]["lookahead"] != ref["TDT"]:
+            i = next(i for i, (a, b) in enumerate(zip(res["dp1xtp2"]["lookahead"], ref["TDT"])) if a != b)
+            raise RuntimeError(f"mesh rank {r} dp1xtp2 lookahead: item {i} differs from the single-device card run")
+        log(f"  rank {r} dp1xtp2 impl='lookahead' window 8 (each window's vocab logits gathered over 'model'): "
+            "tokens and frames identical to the single-device card run's TDT")
     for r, res in enumerate(ranks):
         s = res["stream dp2"]
         if s["spans"] != ref_stream or any(s["launches"].values()):
@@ -3992,9 +4212,9 @@ def torchrun_all(jobs: dict) -> dict:
 def train_mesh_cli_part(card: str) -> dict:
     """(v) train_cli under python -m torch.distributed.run, two gloo ranks
     on the card, tdt-ctc-110m: --data-parallel 2, and --model-parallel 2
-    (the 1025 vocabulary padded to 1026): 2 steps and a checkpoint, then
-    --resume to 3 and --export, the export's vocab rows unpadded (1025);
-    and train_diar_cli --data-parallel 2 (Sortformer-117m), 2 steps. The
+    (the 1025 vocabulary padded to 1026): 1 step and a checkpoint, then
+    --resume to 2 and --export, the export's vocab rows unpadded (1025);
+    and train_diar_cli --data-parallel 2 (Sortformer-117m), 1 step. The
     launches of a round run at once (their start-up dominates: ~40 s a
     110m launch alone, PR 14's first card runs)."""
     from parakeet_tpu_torch import config as C
@@ -4014,21 +4234,21 @@ def train_mesh_cli_part(card: str) -> dict:
                   "--log-every", "1", "--dist-backend", "gloo", "--checkpoint-dir", str(MESH_DIR / f"ck{f[0]}"), *f]
             for tag, f in flags.items()}
     export = {tag: MESH_DIR / f"export{f[0]}.safetensors" for tag, f in flags.items()}
-    log("== (v) train_cli --data-parallel 2 and --model-parallel 2 (2 steps and a checkpoint) and train_diar_cli "
-        "--data-parallel 2 (2 steps) under python -m torch.distributed.run, two gloo ranks on the card each, at once")
-    jobs = {tag: ("parakeet_tpu_torch.train_cli", argv + ["--steps", "2"]) for tag, argv in base.items()}
+    log("== (v) train_cli --data-parallel 2 and --model-parallel 2 (1 step and a checkpoint) and train_diar_cli "
+        "--data-parallel 2 (1 step) under python -m torch.distributed.run, two gloo ranks on the card each, at once")
+    jobs = {tag: ("parakeet_tpu_torch.train_cli", argv + ["--steps", "1"]) for tag, argv in base.items()}
     jobs["diar"] = ("parakeet_tpu_torch.train_diar_cli", ["--manifest", str(diar), "--init-weights", str(init_sf),
-                                                          "--batch-size", "4", "--steps", "2", "--log-every", "1",
+                                                          "--batch-size", "4", "--steps", "1", "--log-every", "1",
                                                           "--data-parallel", "2", "--dist-backend", "gloo"])
     first = torchrun_all(jobs)
-    log("== (v) the two train_cli runs again: --resume to step 3 and --export, at once")
+    log("== (v) the two train_cli runs again: --resume to step 2 and --export, at once")
     second = torchrun_all({tag: ("parakeet_tpu_torch.train_cli",
-                                 argv + ["--steps", "3", "--resume", "--export", str(export[tag])])
+                                 argv + ["--steps", "2", "--resume", "--export", str(export[tag])])
                            for tag, argv in base.items()})
     out = {}
     for tag in flags:
         l1, l2 = cli_losses(first[tag]), cli_losses(second[tag])
-        if sorted(l1) != [1, 2] or sorted(l2) != [3] or "# resumed at step 2" not in second[tag]:
+        if sorted(l1) != [1] or sorted(l2) != [2] or "# resumed at step 1" not in second[tag]:
             raise RuntimeError(f"train_cli {tag}: steps {sorted(l1)} then {sorted(l2)}")
         state = load_safetensors(MESH_DIR / f"ck{flags[tag][0]}" / "state.safetensors")
         exported = load_safetensors(export[tag])
@@ -4042,7 +4262,7 @@ def train_mesh_cli_part(card: str) -> dict:
         log(f"  train_cli {tag}: losses {out[tag]['losses']}; checkpoint vocab rows {rows[0]} (whole, padded as the "
             f"reference writes them under 'model'), export {rows[1]} / {rows[2]}")
     losses = cli_losses(first["diar"])
-    if sorted(losses) != [1, 2] or not all(np.isfinite(v) for v in losses.values()):
+    if sorted(losses) != [1] or not all(np.isfinite(v) for v in losses.values()):
         raise RuntimeError(f"train_diar_cli --data-parallel 2: losses {losses}")
     out["diar"] = {"losses": losses}
     out["seconds"] = time.perf_counter() - t0
@@ -4195,8 +4415,8 @@ def build_phase() -> None:
         _build.load(name)
 
 
-PHASES = ("kernels", "kernels600m", "paths110m", "serve", "paths600m", "long", "streaming", "diarize", "options",
-          "train", "mesh", "train_mesh")
+PHASES = ("kernels", "kernels600m", "paths110m", "serve", "lookahead", "paths600m", "long", "streaming", "diarize",
+          "options", "train", "mesh", "train_mesh")
 
 
 def main(argv=None) -> int:
@@ -4260,7 +4480,7 @@ def main(argv=None) -> int:
     whole_cfg = FusedLayers(attention="mega", block2=True, subsample=True)
     v1_cfg = FusedLayers(attention="v1")
     paths = {}
-    if "paths110m" in phases or "serve" in phases:
+    if "paths110m" in phases or "serve" in phases or "lookahead" in phases:
         flat = model_params("tdt-ctc-110m")
     if "paths110m" in phases:
         default = paths["default"] = timed("path default", path_phase, "default", FusedLayers(), flat, clips, card)
@@ -4286,9 +4506,13 @@ def main(argv=None) -> int:
         k1["max_abs_err"] = max(k1["max_abs_err"], paths["serve"]["k1"]["max_abs_err"])
         for key in ("times", "work"):
             k1.setdefault(key, {}).update(paths["serve"]["k1"][key])
-    if "paths110m" in phases or "serve" in phases:
+    if "lookahead" in phases:
+        paths["lookahead"] = {"tdt-ctc-110m": timed("lookahead tdt-ctc-110m", lookahead_phase, "tdt-ctc-110m", flat,
+                                                    clips, card, extras=True)}
+        torch.cuda.empty_cache()
+    if "paths110m" in phases or "serve" in phases or "lookahead" in phases:
         del flat
-    if "paths600m" in phases or "long" in phases or "options" in phases:
+    if "paths600m" in phases or "long" in phases or "options" in phases or "lookahead" in phases:
         t0 = time.perf_counter()
         flat6 = model_params("tdt-600m")
         log(f"== tdt-600m weights: {sum(a.size for a in flat6.values()) / 1e6:.1f} M parameters, "
@@ -4300,19 +4524,27 @@ def main(argv=None) -> int:
                 paths[f"tdt-600m {label}"] = timed(f"path tdt-600m {label}", path_phase, f"tdt-600m {label}", cfg,
                                                    flat6, clips, card, model="tdt-600m",
                                                    compare_clips=short_clips(clips))
+        if "lookahead" in phases:
+            paths["lookahead"]["tdt-600m"] = timed("lookahead tdt-600m", lookahead_phase, "tdt-600m", flat6, clips,
+                                                   card)
+            torch.cuda.empty_cache()
         if "long" in phases:
             paths["long"] = timed("long audio tdt-600m", long_audio_phase, flat6, card)
         if "options" in phases:
             paths["options"] = timed("options", options_phase, flat6, clips, card)
             torch.cuda.empty_cache()
         del flat6
-        if "paths600m" in phases:
+        if "paths600m" in phases or "lookahead" in phases:
             flat6 = model_params("rnnt-600m")
             # the 4 clips under 6 s: random weights emit ~10 symbols a frame, so the decode loop runs as
             # long as the longest clip, and the CPU facade's RNNT decode of all 8 took 30-50 s a configuration
-            for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
+            for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)) if "paths600m" in phases else ():
                 paths[f"rnnt-600m {label}"] = timed(f"path rnnt-600m {label}", path_phase, f"rnnt-600m {label}",
                                                     cfg, flat6, short_clips(clips), card, model="rnnt-600m")
+            if "lookahead" in phases:
+                paths["lookahead"]["rnnt-600m"] = timed("lookahead rnnt-600m", lookahead_phase, "rnnt-600m", flat6,
+                                                        short_clips(clips), card, windows=(8,))
+                torch.cuda.empty_cache()
             del flat6
     if "streaming" in phases:
         paths["streaming"] = timed("streaming", streaming_phase, card)
@@ -4380,6 +4612,8 @@ def main(argv=None) -> int:
                                   for trainer, per_step in paths["train"]["launches_train"].items()},
                # launches a step a rank of each mesh trainer (phase train_mesh)
                "launches_train_mesh": {case: c.get(name, 0) for case, c in paths["train_mesh"]["launches"].items()},
+               # the one encoder call under each model's decode loops (phase lookahead)
+               "launches_lookahead": {m: r["launches"][name] for m, r in paths["lookahead"].items()},
                "max_abs_err": k["max_abs_err"], "ms": k["times"][t]["ms"],
                "plain_ms": k["times"][t]["plain_ms"], "dev_ms": k["times"][t]["dev_ms"],
                "plain_dev_ms": k["times"][t]["plain_dev_ms"],

@@ -86,15 +86,27 @@ def _decode_both(flat, enc, lengths, **kw):
                    pred_hidden=PRED_H, enc_lengths=lengths, **kw)
     got = t_decode(params_from_numpy(flat), torch.from_numpy(enc), pred_hidden=PRED_H,
                    enc_lengths=lengths, **kw)
+    _assert_same_decode(got, ref)
+    return got
+
+
+def _assert_same_decode(got, ref):
+    """Two greedy decodes agree (either package's result, or one carried
+    back from a rank): tokens, start and end frames identical, confidences
+    within rtol 1e-5, the last token and the boost state equal, the LSTM
+    state within rtol 1e-5, atol 1e-6."""
     assert got.tokens == ref.tokens
+    assert len(got.timestamped) == len(ref.timestamped)
     for g_item, r_item in zip(got.timestamped, ref.timestamped):
         assert [(t.token_id, t.start_frame, t.end_frame) for t in g_item] == [
             (t.token_id, t.start_frame, t.end_frame) for t in r_item]
         np.testing.assert_allclose([t.confidence for t in g_item], [t.confidence for t in r_item],
                                    rtol=1e-5)
-    np.testing.assert_array_equal(got.last_token.numpy(), np.asarray(ref.last_token))
-    np.testing.assert_allclose(got.lstm_state.numpy(), np.asarray(ref.lstm_state), rtol=1e-5, atol=1e-6)
-    return got
+    np.testing.assert_array_equal(np.asarray(got.last_token), np.asarray(ref.last_token))
+    np.testing.assert_allclose(np.asarray(got.lstm_state), np.asarray(ref.lstm_state), rtol=1e-5, atol=1e-6)
+    assert (got.boost_active is None) == (ref.boost_active is None)
+    if ref.boost_active is not None:
+        np.testing.assert_array_equal(np.asarray(got.boost_active), np.asarray(ref.boost_active))
 
 
 CASES = {

@@ -10,7 +10,9 @@ head-sharded mode summed over ranks against the unsharded block; the
 Transcriber on dp2, dp1×tp2 (default and with whole-weight kernels) and
 dp1×sp2×tp2: TDT and CTC tokens and frames identical to the JAX
 single-device Transcriber, the encoder within 1e-5 of scale of the port's
-single-device output; the seq-mesh × kernels errors.
+single-device output; the seq-mesh × kernels errors; the greedy decode
+(step and lookahead loops) with the vocab heads split over dp1×tp2
+against one process; spawn_ranks' failure, hang and start bounds.
 
 This module imports JAX only inside its tests: the spawned ranks import it
 by name to reach its worker functions, and run the port alone."""
@@ -388,6 +390,79 @@ def test_transcriber_on_mesh_matches_single_device(flat, reference, name):
     assert any(toks for toks, _ in reference["TDT"]) and any(toks for toks, _ in reference["CTC"])
 
 
+def _decode_worker(rank, flat, enc, lens, boosted):
+    """The greedy decode of one encoder output on a dp1×tp2 mesh: the
+    vocab heads split over 'model' (the vocab padded to 10 lanes), every
+    rank gathering the logits of each window."""
+    from parakeet_tpu_torch.decode.phrase_boost import ContextTrie
+    from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+    from parakeet_tpu_torch.params import params_from_numpy
+
+    mesh = TM.make_mesh(model_parallel=2, devices="cpu")
+    params = params_from_numpy(TM.shard_params(flat, mesh))
+    assert params["tdt_joint_.label_proj_.weight"].shape[0] == 5  # this rank's half of 10 lanes
+    return {impl: _decode_summary(transducer_greedy_decode(
+        params, torch.from_numpy(enc), model=mesh.axis("model"), boost=_decode_boost(ContextTrie, boosted),
+        **_decode_kw(lens, impl))) for impl in ("step", "lookahead")}
+
+
+def _decode_kw(lens, impl):
+    return dict(pred_hidden=8, num_lstm_layers=1, blank_id=8, enc_lengths=lens, impl=impl, window=4)
+
+
+def _decode_boost(trie_cls, boosted):
+    if not boosted:
+        return None
+    trie = trie_cls()
+    for ids in ([2, 5], [3, 1, 7]):
+        trie.insert(ids)
+    return trie.device_boost(9, 3, 3.0)
+
+
+def _decode_summary(res):
+    """A decode result with its arrays in numpy, to cross from a rank."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        tokens=res.tokens, timestamped=res.timestamped, last_token=np.asarray(res.last_token),
+        lstm_state=np.asarray(res.lstm_state), steps=getattr(res, "steps", None),
+        boost_active=None if res.boost_active is None else np.asarray(res.boost_active))
+
+
+@pytest.mark.parametrize("boosted", [False, True], ids=["plain", "boosted"])
+def test_lookahead_decode_on_mesh_matches_single_process(flat, boosted):
+    """impl="lookahead" with `model=` on dp1×tp2 (the boost mask padded to
+    the vocab's padded lanes) gives each rank the JAX package's
+    single-device decode (its lookahead and its step loop alike) and the
+    port's single-process one, iterations included; the step loop too
+    (tests/test_torch_decode.py _assert_same_decode's tolerances)."""
+    import jax.numpy as jnp
+
+    from parakeet_tpu.decode.phrase_boost import ContextTrie as RTrie
+    from parakeet_tpu.decode.transducer import transducer_greedy_decode as r_decode
+    from parakeet_tpu_torch.decode.phrase_boost import ContextTrie
+    from parakeet_tpu_torch.decode.transducer import transducer_greedy_decode
+    from parakeet_tpu_torch.params import params_from_numpy
+    from tests.test_torch_decode import _assert_same_decode
+
+    enc = (np.random.RandomState(31).randn(3, 20, 16) * 2).astype(np.float32)
+    lens = [20, 14, 6]
+    ref = {impl: r_decode({k: jnp.asarray(v) for k, v in flat.items()}, jnp.asarray(enc),
+                          boost=_decode_boost(RTrie, boosted), **_decode_kw(lens, impl))
+           for impl in ("step", "lookahead")}
+    _assert_same_decode(ref["lookahead"], ref["step"])
+    assert any(ref["step"].tokens)
+    single = {impl: _decode_summary(transducer_greedy_decode(
+        params_from_numpy(flat), torch.from_numpy(enc), boost=_decode_boost(ContextTrie, boosted),
+        **_decode_kw(lens, impl))) for impl in ("step", "lookahead")}
+    for impl in single:
+        _assert_same_decode(single[impl], ref[impl])
+    for rank, got in enumerate(spawn_ranks(_decode_worker, 2, flat, enc, lens, boosted, timeout=TIMEOUT_S)):
+        for impl in single:
+            _assert_same_decode(got[impl], ref[impl])
+            assert got[impl].steps == single[impl].steps, (impl, rank)
+
+
 def _seq_kernels_worker(rank, flat):
     mesh = TM.make_mesh(seq_parallel=2, devices="cpu")
     errors = []
@@ -486,16 +561,72 @@ def _sleeping_worker(rank, seconds):
     return rank
 
 
+def _killed_worker(rank):
+    import os
+    import signal
+
+    import torch.distributed as dist
+
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    dist.barrier()  # rank 0 waits in a collective rank 1 never reaches
+    return rank
+
+
+def _fail_in_start():
+    raise ValueError("this argument cannot be unpickled")
+
+
+class _NoUnpickling:
+    """An argument whose unpickling raises: a rank holding it dies in its
+    start, before it joins the process group or runs fn."""
+
+    def __reduce__(self):
+        return _fail_in_start, ()
+
+
+@pytest.mark.parametrize("how", ["killed", "start"])
+def test_spawn_ranks_fails_on_a_rank_that_ends_without_a_report(how):
+    """A rank whose process ends without a report (killed by a signal while
+    the other waits in a collective, or dead in its start) fails the call
+    within its grace, not at the timeout nor at START_TIMEOUT_S."""
+    import time
+
+    t0 = time.monotonic()
+    if how == "killed":
+        with pytest.raises(RuntimeError, match=r"rank 1:\nended with exit code -9 without a report"):
+            spawn_ranks(_killed_worker, 2, timeout=300.0)
+    else:
+        with pytest.raises(RuntimeError, match=r"rank 0:\nended with exit code 1 without a report"):
+            spawn_ranks(_sleeping_worker, 2, _NoUnpickling(), timeout=300.0)
+    assert time.monotonic() - t0 < 150.0  # as in the test below: the ranks' start, then at most 5.5 s
+
+
 def test_spawn_ranks_fails_on_a_failing_or_hanging_rank():
     """A rank's exception fails the call with its traceback while the other
     rank waits in a collective (killed, not waited for); a rank past the
-    timeout fails it too; a clean run returns every rank's value."""
+    timeout fails it too; a clean run returns every rank's value. The
+    timeouts count from the ranks' joining the process group; the clock
+    around the first call also holds the ranks' start, which a loaded host
+    stretches many times over, hence its room."""
     import time
 
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        spawn_ranks(_failing_worker, 2, timeout=90.0)
-    assert time.monotonic() - t0 < 60.0  # not the timeout: the failure ended the wait
+        spawn_ranks(_failing_worker, 2, timeout=300.0)
+    assert time.monotonic() - t0 < 150.0  # not the timeout: the failure ended the wait
+    t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=r"ranks \[0(, 1)?\] gave no result within 8 s"):
         spawn_ranks(_sleeping_worker, 2, 120.0, timeout=8.0)
+    assert time.monotonic() - t0 >= 8.0  # at the timeout, not before it
     assert spawn_ranks(_sleeping_worker, 2, 0.0, timeout=60.0) == [0, 1]
+
+
+def test_spawn_ranks_bounds_the_ranks_start(monkeypatch):
+    """Ranks that have not joined the process group by START_TIMEOUT_S fail
+    the call, named as such (no rank starts within 10 ms)."""
+    from parakeet_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(launch, "START_TIMEOUT_S", 0.01)
+    with pytest.raises(RuntimeError, match=r"ranks \[0, 1\] did not join the process group within 0.01 s"):
+        spawn_ranks(_sleeping_worker, 2, 0.0, timeout=60.0)
