@@ -6,8 +6,10 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile every CUDA library from parakeet_tpu_torch/csrc, all
-              at once, and print each build's seconds
+  2. build    compile every CUDA library (nvcc) and the host libraries
+              (g++: parakeet_native.cpp, flac_decoder.cpp) from
+              parakeet_tpu_torch/csrc, all at once, and print each build's
+              seconds
   3. kernels  each hand-written kernel against its plain torch version on
               the same CUDA tensors at the 110m widths, in f32 and bf16:
               K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
@@ -40,7 +42,11 @@ Phases, each of which raises (exit code 1) on failure:
               published f32 peak (bf16: tensor-core peak) against its
               bytes (inputs read once, outputs written once) at the
               memory rate
-  4. paths    Transcriber at full tdt-ctc-110m width (17 layers, d=512),
+  4. paths    (while the build runs: the weights, tdt-ctc-110m's written
+              with io.save_safetensors and loaded onto the card through
+              params.load_params(weights=..., strict=True, device="cuda"),
+              every tensor equal to what was written) Transcriber at full
+              tdt-ctc-110m width (17 layers, d=512),
               seeded random weights, f32, 8 synthetic clips of 2-10 s
               through transcribe_batch with TDT + timestamps and with CTC,
               in four configurations: the default (attention kernel only),
@@ -142,10 +148,11 @@ Phases, each of which raises (exit code 1) on failure:
               `python -m parakeet_tpu_torch.cli` with --random-weights,
               its (token ids) line equal to the card facade's;
               `python -m parakeet_tpu_torch.benchmark --models 110m
-              --durations 10`, its row; read_audio of a 60 s 44.1 kHz
+              --durations 10`, its row; read_audio of a 20 s 44.1 kHz
               stereo WAV in fresh processes, native and PARAKEET_NO_NATIVE
               (the chunked numpy form): host seconds and peak-RSS growth,
-              outputs bit-identical
+              outputs bit-identical; native int16_to_float, preemphasis
+              and flac_decode against their numpy forms
  12. train    (f32, IEEE) (a) tdt-ctc-110m hybrid (sigma 0.05) through
               parakeet_tpu_torch.train_cli.main on 16 voiced WAVs of 2-12 s
               and a synthetic vocabulary, batch 8: steps 1-3 with a
@@ -275,6 +282,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 LIBRARIES = ("rel_attention", "feed_forward", "conv_module", "subsample", "conv_ffn_final",
              "ffn_attention", "rel_attention_v1", "log_mel")
+HOST_LIBRARIES = ("parakeet_native", "flac_decoder")  # g++, beside the kernels
 F32_RTOL, F32_ATOL = 1e-3, 1e-5  # the reference's block-kernel tolerance
 LOG_MEL_ATOL = 2e-2  # K3: the reference frontend kernel's tolerance, in log space
 BF16_SCALE_FRAC = 0.02  # bf16: max |diff| within 2% of the output scale
@@ -292,7 +300,9 @@ F32_PEAK, BF16_PEAK, MEM_RATE = 67e12, 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of output, stamped with the host's clock (the parts of a
+    phase read their seconds from it)."""
+    print(f"{time.strftime('%H:%M:%S')} {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1228,6 +1238,48 @@ def model_params(model: str) -> dict:
     return P.init_params_numpy(spec, seed=0) if model == "tdt-ctc-110m" else host_params(spec, seed=0)
 
 
+def weights_phase(flat: dict, card: str) -> dict:
+    """tdt-ctc-110m's seeded weights written with the port's
+    io.save_safetensors, read back with load_safetensors and loaded onto
+    the card through params.load_params(spec, weights=..., strict=True,
+    device="cuda"): every tensor float32 on the card and equal to what was
+    written."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch import params as P
+    from parakeet_tpu_torch.io import load_safetensors, save_safetensors
+
+    spec = P.tdt_ctc_spec(C.make_110m_config())
+    path = ROOT / "build" / "parakeet_tpu_torch" / "smoke_110m.safetensors"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        save_safetensors(flat, path)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weights = load_safetensors(path)
+        out["read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = P.load_params(spec, weights=weights, strict=True, device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    if set(loaded) != set(spec) or set(flat) != set(spec):
+        raise RuntimeError("weights: the loaded keys are not the spec's")
+    for key, got in loaded.items():
+        if got.device.type != "cuda" or got.dtype != torch.float32 or not np.array_equal(got.cpu().numpy(), flat[key]):
+            raise RuntimeError(f"weights: {key} on the card differs from what was written")
+    nbytes = sum(a.nbytes for a in flat.values())
+    log(f"== weights: {len(spec)} tensors, {nbytes / 1e6:.1f} MB written with save_safetensors in "
+        f"{out['write_s']:.2f} s, read in {out['read_s']:.2f} s, load_params(weights=..., strict=True, "
+        f"device='cuda') in {out['load_s']:.2f} s (while the kernels build); every tensor on the card equal to "
+        f"what was written [{card}]")
+    return out
+
+
 def host_params(spec: dict, seed: int) -> dict:
     """`card_params` copied to the host as numpy: numpy's draw of a 600m
     model's weights took ~20 s, this one ~2 s."""
@@ -1270,7 +1322,7 @@ def resident(make):
 
 
 def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-110m", quantize=None,
-               compare_clips=None) -> dict:
+               compare_clips=None, profile_batch: bool = True) -> dict:
     """One model and encoder configuration end to end on the card against
     the CPU: each of the model's decoders (TDT and CTC for tdt-ctc, the
     transducer alone for TDT-only and RNNT, where CTC must raise). With
@@ -1384,11 +1436,13 @@ def path_phase(name: str, fused, flat, clips, card: str, model: str = "tdt-ctc-1
         front = wall_ms(lambda: gpu.prepare_batch(clips, tdt), 5)
         enc = wall_ms(lambda: gpu.encode(feats_gpu, n_frames), 5)
         enc_dev = device_ms(lambda: gpu.encode(feats_gpu, n_frames), calls=3)
-    batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1, profiles=1)
+    busy = "the batch not profiled"
+    if profile_batch:
+        batch_dev = device_ms(lambda: gpu.transcribe_batch(clips, tdt), calls=1, profiles=1)
+        busy = f"one profiled batch: device time {batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall"
     log(f"  stages, wall ms (median of 5): frontend {front:.3f}, encoder {enc:.3f} "
         f"(device time {enc_dev:.3f}); warm {decoders[0]} batch {wall:.1f} ms (median of 3), "
-        f"{out['rtfx']:.1f} audio s per wall s; one profiled batch: device time "
-        f"{batch_dev:.3f} ms, busy {batch_dev / wall:.1%} of the median wall [{card}]")
+        f"{out['rtfx']:.1f} audio s per wall s; {busy} [{card}]")
     return dict(out, enc_ms=enc, enc_dev_ms=enc_dev)
 
 
@@ -1653,12 +1707,18 @@ def batch_stream_scenario(bt, pcm, times=None) -> tuple[list, int]:
             for i in range(bt.batch)], held
 
 
+STREAM_EOU_S = 3  # eou-120m B=1 seconds of audio
+STREAM_BATCH_S = 4  # eou-120m B=8 seconds a slot (at least 3.4: the scenario resets slot 5 at push 20)
+NEMO_LAYERS = 8  # nemotron-600m's streaming encoder depth here, of its 24 (the CPU facade sets the time)
+
+
 def streaming_phase(card: str) -> dict:
-    """Streaming ASR at full width: eou-120m (StreamingTranscriber, B=1, 8 s
-    in 160 ms pushes, f32 and bf16), nemotron-600m (NemotronTranscriber) in
-    latency modes 0, 1, 6 and 13 (2 s each), and StreamingBatchTranscriber
-    eou-120m at B=8 with the fused frontend and the int16 wire (a held step
-    and a reset_slot); each against a CPU facade fed the same pushes."""
+    """Streaming ASR at full width: eou-120m (StreamingTranscriber, B=1, 3 s
+    in 160 ms pushes, f32 and bf16), nemotron-600m (NemotronTranscriber, 8
+    of its 24 layers) in latency modes 0, 1, 6 and 13 (2 s each), and
+    StreamingBatchTranscriber eou-120m at B=8 with the fused frontend and
+    the int16 wire (a held step and a reset_slot; 4 s a slot); each against
+    a CPU facade fed the same pushes."""
     import torch
 
     from parakeet_tpu_torch import config as C
@@ -1668,11 +1728,11 @@ def streaming_phase(card: str) -> dict:
     out = {}
     eou_cfg = C.make_eou_120m_config()
     flat = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
-    audio = synthetic_clips(1, seed=1700, min_s=5, max_s=5)[0]
+    audio = synthetic_clips(1, seed=1700, min_s=STREAM_EOU_S, max_s=STREAM_EOU_S)[0]
     pushes = _stream_pushes(audio)
     log(f"== streaming eou-120m: {eou_cfg.encoder.num_layers} layers, d={eou_cfg.encoder.hidden_size}, "
         f"left {eou_cfg.encoder.att_context_left}, right {eou_cfg.encoder.att_context_right}, random weights "
-        f"(seed 0), f32, B=1, 5 s in {len(pushes)} pushes")
+        f"(seed 0), f32, B=1, {STREAM_EOU_S} s in {len(pushes)} pushes")
     gpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cuda")
     cpu = StreamingTranscriber(config=eou_cfg, params=flat, device="cpu")
     out["eou"] = streaming_facade_check("eou-120m B=1", gpu, cpu, pushes, card)
@@ -1685,8 +1745,9 @@ def streaming_phase(card: str) -> dict:
     del gpu, cpu, b16
 
     t0 = time.perf_counter()
-    log("== streaming StreamingBatchTranscriber eou-120m: B=8, fused frontend, int16 wire, 5 s per slot")
-    clips = synthetic_clips(8, seed=1800, min_s=5, max_s=5)
+    log(f"== streaming StreamingBatchTranscriber eou-120m: B=8, fused frontend, int16 wire, {STREAM_BATCH_S} s per "
+        "slot")
+    clips = synthetic_clips(8, seed=1800, min_s=STREAM_BATCH_S, max_s=STREAM_BATCH_S)
     pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in clips]
     kw = dict(config=eou_cfg, params=flat, frontend="fused", wire_dtype="int16")
     gpu = StreamingBatchTranscriber(8, device="cuda", **kw)
@@ -1715,13 +1776,18 @@ def streaming_phase(card: str) -> dict:
     del gpu, cpu, flat
 
     t0 = time.perf_counter()
-    nemo_flat = host_params(P.nemotron_spec(C.make_nemotron_600m_config()), seed=0)
-    nemo_audio = synthetic_clips(1, seed=1750, min_s=2, max_s=2)[0]
-    log(f"== streaming nemotron-600m: {sum(a.size for a in nemo_flat.values()) / 1e6:.1f} M parameters "
-        f"({time.perf_counter() - t0:.1f} s to draw), f32, B=1, 2 s in {len(_stream_pushes(nemo_audio))} pushes "
-        f"per latency mode")
-    for mode in (0, 1, 6, 13):
+
+    def nemotron(mode):  # full width, NEMO_LAYERS of the 24 layers
         cfg = C.make_nemotron_600m_config(mode)
+        return replace(cfg, encoder=replace(cfg.encoder, num_layers=NEMO_LAYERS))
+
+    nemo_flat = host_params(P.nemotron_spec(nemotron(0)), seed=0)
+    nemo_audio = synthetic_clips(1, seed=1750, min_s=2, max_s=2)[0]
+    log(f"== streaming nemotron-600m at {NEMO_LAYERS} of its 24 layers (full width): "
+        f"{sum(a.size for a in nemo_flat.values()) / 1e6:.1f} M parameters ({time.perf_counter() - t0:.1f} s to "
+        f"draw), f32, B=1, 2 s in {len(_stream_pushes(nemo_audio))} pushes per latency mode")
+    for mode in (0, 1, 6, 13):
+        cfg = nemotron(mode)
         gpu = NemotronTranscriber(config=cfg, params=nemo_flat, device="cuda")
         cpu = NemotronTranscriber(config=cfg, params=nemo_flat, device="cpu")
         out[f"nemotron-{mode}"] = streaming_facade_check(f"nemotron-600m latency {mode} (right {mode})", gpu, cpu,
@@ -2194,7 +2260,7 @@ def options_phase(flat6, clips, card: str) -> dict:
     part("W8A8")
 
     feats, n_frames = preprocess_audio_batch(clips, C.AudioConfig(n_mels=80), "cpu")
-    for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
+    for label, cfg in (("fused", fused_cfg),):
         facades, held = {}, {}
         for mode in ("f32", "int8", "int4"):
             facades[mode], held[mode] = resident(lambda: facade("tdt-ctc-110m", "cuda", params=flat, fused=cfg,
@@ -2230,21 +2296,21 @@ def options_phase(flat6, clips, card: str) -> dict:
 
     eou_cfg = C.make_eou_120m_config()
     flat_e = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
-    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:25]
+    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:12]
     log(f"== options streaming: eou-120m quantize='int8', f32, B=1, {len(pushes)} pushes of 160 ms")
     gpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda", quantize="int8")
     cpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cpu", quantize="int8")
     out["streaming int8"] = streaming_facade_check("eou-120m int8 B=1", gpu, cpu, pushes, card)
-    # int8 against f32 on this host: wall per push over the first 10 pushes
+    # int8 against f32 on this host: wall per push over the first 6 pushes
     # in turns (f32, int8, int8, f32), the lesser of each; device ms over 6
     trs = {"f32": StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda"), "int8": gpu}
     push_ms, dev_ms = {}, {}
     for name in [*trs, *reversed(trs)]:
-        t = wall_ms(lambda: _run_stream(trs[name], pushes[:10]), 1) / 10
+        t = wall_ms(lambda: _run_stream(trs[name], pushes[:6]), 1) / 6
         push_ms[name] = min(push_ms.get(name, float("inf")), t)
     for name, tr in trs.items():
         dev_ms[name] = device_ms(lambda: _run_stream(tr, pushes[:6]), calls=1, profiles=1) / 6
-    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 10 pushes, best of 2 turns) "
+    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 6 pushes, best of 2 turns) "
         + ", ".join(f"{k} {v:.3f}" for k, v in push_ms.items()) + "; device ms (first 6 pushes) "
         + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()) + f" [{card}]")
     out["streaming int8"].update(push_ms=push_ms, push_dev_ms=dev_ms)
@@ -2601,6 +2667,9 @@ def serve_align_overlap(httpd, svc, gpu, bodies, text: str, card: str) -> None:
         f"the card facade's align; K1 {launches['rel_attention_block']} launches, no other kernel [{card}]")
 
 
+SERVE_STREAM_S = 3  # seconds of audio a /stream session
+
+
 def serve_streaming(card: str) -> dict:
     """StreamingService over StreamingBatchTranscriber(8, eou-120m, fused
     frontend, int16 wire) on the card under the HTTP server: four chunked
@@ -2618,8 +2687,8 @@ def serve_streaming(card: str) -> dict:
     cfg = C.make_eou_120m_config()
     flat = P.init_params_numpy(P.eou_spec(cfg), seed=0)
     kw = dict(config=cfg, params=flat, frontend="fused", wire_dtype="int16")
-    pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16) for c in synthetic_clips(4, seed=2300, min_s=6,
-                                                                                          max_s=6)]
+    pcm = [np.clip(c * 32768, -32768, 32767).astype(np.int16)
+           for c in synthetic_clips(4, seed=2300, min_s=SERVE_STREAM_S, max_s=SERVE_STREAM_S)]
     flush = np.zeros((16 + 8) * 160, np.float32)  # what StreamingService pushes at close
 
     def direct(device):
@@ -2671,7 +2740,8 @@ def serve_streaming(card: str) -> dict:
                                f"{g == d}, to the CPU run {g == c}")
     out = {"launches": launches, "step_ms": float(np.median(step_ms)), "step_p95_ms": _percentile(step_ms, 0.95),
            "steps": len(step_ms), "session_ms": float(np.median(done_ms))}
-    log(f"  HTTP /stream: 4 chunked sessions at once (6 s of int16 each in 160 ms chunks), eou-120m B=8 fused "
+    log(f"  HTTP /stream: 4 chunked sessions at once ({SERVE_STREAM_S} s of int16 each in 160 ms chunks), eou-120m "
+        f"B=8 fused "
         f"int16; tokens per session {[len(g) for g in got]}, equal to a direct lockstep run on the card and on "
         f"the CPU; kernel launches none; per device step (one 160 ms chunk of each live stream), synchronised "
         f"wall ms: median {out['step_ms']:.3f}, p95 {out['step_p95_ms']:.3f} over {out['steps']} steps; a "
@@ -2748,7 +2818,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 from parakeet_tpu_torch.audio.io import read_audio
 from parakeet_tpu_torch import native
-pcm = (0.2 * np.random.RandomState(0).randn(60 * 44100, 2) * 32767).astype("<i2")
+pcm = (0.2 * np.random.RandomState(0).randn(int(sys.argv[2]) * 44100, 2) * 32767).astype("<i2")
 buf = io.BytesIO()
 with wave.open(buf, "wb") as w:
     w.setnchannels(2); w.setsampwidth(2); w.setframerate(44100); w.writeframes(pcm.tobytes())
@@ -2781,8 +2851,11 @@ print(json.dumps({"native": native.available(), "seconds": dt, "samples": len(ou
 """
 
 
+RESAMPLE_PROBE_S = 20  # seconds of 44.1 kHz stereo the resampler probe reads
+
+
 def serve_resampler() -> dict:
-    """read_audio of a synthetic 60 s 44.1 kHz stereo WAV in a fresh
+    """read_audio of a synthetic 20 s 44.1 kHz stereo WAV in a fresh
     process, native and with PARAKEET_NO_NATIVE (the chunked numpy form):
     host seconds, the growth of the resident set (sampled each ms from
     /proc/self/statm, where the host has it) and tracemalloc's peak of a
@@ -2791,7 +2864,8 @@ def serve_resampler() -> dict:
 
     out = {}
     for name, env in (("native", {}), ("numpy", {"PARAKEET_NO_NATIVE": "1"})):
-        proc = subprocess.run([sys.executable, "-c", RESAMPLE_PROBE, str(ROOT)], capture_output=True, text=True,
+        proc = subprocess.run([sys.executable, "-c", RESAMPLE_PROBE, str(ROOT), str(RESAMPLE_PROBE_S)],
+                              capture_output=True, text=True,
                               timeout=300, env=dict(os.environ, **env))
         if proc.returncode != 0:
             raise RuntimeError(f"resampler probe ({name}) failed:\n{proc.stderr[-2000:]}")
@@ -2799,11 +2873,69 @@ def serve_resampler() -> dict:
     if out["native"]["sha256"] != out["numpy"]["sha256"] or not out["native"]["native"] or out["numpy"]["native"]:
         raise RuntimeError(f"resampler: native and numpy outputs differ, or the wrong path ran: {out}")
     mb = lambda r: "not readable" if r["rss_mb"] is None else f"+{r['rss_mb']:.1f} MB"  # noqa: E731
-    log(f"  read_audio 60 s 44.1 kHz stereo WAV -> {out['native']['samples']} samples at 16 kHz, bit-identical; "
+    log(f"  read_audio {RESAMPLE_PROBE_S} s 44.1 kHz stereo WAV -> {out['native']['samples']} samples at 16 kHz, bit-identical; "
         f"native {out['native']['seconds']:.3f} s, peak RSS {mb(out['native'])} (sampled each ms), traced heap "
         f"peak {out['native']['heap_mb']:.1f} MB; chunked numpy {out['numpy']['seconds']:.3f} s, peak RSS "
         f"{mb(out['numpy'])}, traced heap peak {out['numpy']['heap_mb']:.1f} MB (host of the card, "
         f"{os.cpu_count()} CPUs, one process each)")
+    return out
+
+
+def native_extras_part() -> dict:
+    """The native library's int16 conversion, preemphasis and FLAC decode
+    (native.py over csrc/parakeet_native.cpp and csrc/flac_decoder.cpp,
+    built on this host) against their numpy forms on 60 s of audio:
+    int16 / 32768 exactly; preemphasis within one f32 ulp of x − coeff·prev
+    computed in float64 and rounded once (the library rounds once, a fused
+    multiply-add), its carry the last raw sample; the decode of a 16-bit
+    stereo FLAC stream (tests/helpers/flac_writer.py) exactly its PCM /
+    32768; bytes that are no FLAC raise ValueError."""
+    import importlib.util
+
+    from parakeet_tpu_torch import native
+
+    # by path: a `tests` package installed on the machine would shadow the checkout's
+    spec = importlib.util.spec_from_file_location("flac_writer", ROOT / "tests" / "helpers" / "flac_writer.py")
+    flac_writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flac_writer)
+    encode_flac = flac_writer.encode_flac
+    rng = np.random.RandomState(1600)
+    pcm = rng.randint(-32768, 32768, 60 * 16000).astype(np.int16)
+    out = {}
+    t0 = time.perf_counter()
+    x = native.int16_to_float(pcm)
+    out["int16_ms"] = (time.perf_counter() - t0) * 1e3
+    if x is None or not np.array_equal(x, pcm.astype(np.float32) / np.float32(32768)):
+        raise RuntimeError("native int16_to_float: not pcm / 32768")
+    coeff, prev = np.float32(0.97), np.float32(0.25)
+    t0 = time.perf_counter()
+    y, last = native.preemphasis(x, float(coeff), float(prev))
+    out["preemphasis_ms"] = (time.perf_counter() - t0) * 1e3
+    want = (x.astype(np.float64) - np.float64(coeff) * np.concatenate([[prev], x[:-1]]).astype(np.float64))
+    want = want.astype(np.float32)
+    ulps = np.abs(y.astype(np.float64) - want) / np.spacing(np.abs(want))
+    out["preemphasis_max_ulp"] = float(ulps.max())
+    out["preemphasis_exact"] = float(np.mean(y == want))
+    if ulps.max() > 1.0 or last != float(x[-1]):
+        raise RuntimeError(f"native preemphasis: {ulps.max()} ulp from its numpy form, carry {last} vs {x[-1]}")
+    stereo = pcm[: 2 * 2 * 16000].astype(np.int64).reshape(-1, 2)
+    data = encode_flac(stereo, 16000, block_size=4096, subframe_mode="fixed2")
+    t0 = time.perf_counter()
+    dec = native.flac_decode(data)
+    out["flac_ms"] = (time.perf_counter() - t0) * 1e3
+    if dec is None or dec[1:] != (16000, 2) or not np.array_equal(dec[0], stereo.reshape(-1) / np.float32(32768)):
+        raise RuntimeError("native flac_decode: not the stream's PCM / 32768")
+    try:
+        native.flac_decode(b"fLaC" + bytes(64))
+    except ValueError as err:
+        if "FLAC decode failed" not in str(err):
+            raise
+    else:
+        raise RuntimeError("native flac_decode: no ValueError on bytes that are no FLAC")
+    log(f"  native extras against their numpy forms: int16_to_float of 60 s exact ({out['int16_ms']:.2f} ms), "
+        f"preemphasis within {out['preemphasis_max_ulp']:.2f} ulp ({out['preemphasis_exact']:.2%} exact, "
+        f"{out['preemphasis_ms']:.2f} ms), flac_decode of 2 s stereo exact ({out['flac_ms']:.2f} ms), garbage "
+        f"raises ValueError (host of the card)")
     return out
 
 
@@ -2948,6 +3080,7 @@ def serve_phase(flat, clips, card: str) -> dict:
     log(f"  parakeet-bench --models 110m --durations 10 (batch 1, f32, K1 in every block): {row[0]} [{card}]")
 
     out["resampler"] = serve_resampler()
+    out["native_extras"] = native_extras_part()
     return out
 
 
@@ -3813,6 +3946,7 @@ def mesh_phase(clips, card: str) -> dict:
     import os
 
     import torch
+    import torch.distributed as dist
 
     from parakeet_tpu_torch import config as C
     from parakeet_tpu_torch import params as P
@@ -3857,9 +3991,17 @@ def mesh_phase(clips, card: str) -> dict:
     t1 = time.perf_counter()
     ranks = spawn_ranks(mesh_rank, 2, flat, eou_flat, clips, pcm, backend="gloo", timeout=600, threads=0)
     log(f"  two gloo ranks on the card: {time.perf_counter() - t1:.1f} s")
+    # (v) in this process: a world of one needs no second process, and a spawned rank's start-up cost ~10 s
     t1 = time.perf_counter()
-    (nccl,) = spawn_ranks(nccl_rank, 1, flat, clips, backend="nccl", timeout=300, threads=0)
-    log(f"  one NCCL rank: {time.perf_counter() - t1:.1f} s")
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    rdzv = MESH_DIR / "nccl_rdzv_inference"
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", world_size=1, rank=0)
+    try:
+        nccl = nccl_rank(0, flat, clips)
+    finally:
+        dist.destroy_process_group()
+    log(f"  one NCCL rank (this process): {time.perf_counter() - t1:.1f} s")
 
     layers = C.make_110m_config().encoder.num_layers
     want = {"dp2": {"rel_attention_block": layers}, "dp1xtp2": {"rel_attention_block_heads": layers},
@@ -4399,20 +4541,29 @@ def train_mesh_phase(card: str) -> dict:
 
 
 def build_phase() -> None:
+    """Every CUDA library (nvcc) and the host libraries (g++), each from
+    its source under parakeet_tpu_torch/csrc/, all started together."""
+    from parakeet_tpu_torch import native
+    from parakeet_tpu_torch.audio import codecs
     from parakeet_tpu_torch.ops import _build
 
-    def timed(name):
+    def timed(job):
+        name, build, suffix = job
         t0 = time.perf_counter()
-        _build.build(name)
-        return name, time.perf_counter() - t0
+        build(name)
+        return f"{name}{suffix}", time.perf_counter() - t0
 
+    jobs = [(name, _build.build, ".cu") for name in LIBRARIES] + [(name, _build.build_host, ".cpp")
+                                                                   for name in HOST_LIBRARIES]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
-        done = list(ex.map(timed, LIBRARIES))
-    log(f"== build: {len(done)} libraries in parallel, {time.perf_counter() - t0:.1f} s wall: "
-        + ", ".join(f"{name}.cu {s:.1f} s" for name, s in done))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        done = list(ex.map(timed, jobs))
+    log(f"== build: {len(done)} libraries in parallel from {_build._CSRC.relative_to(ROOT)}, "
+        f"{time.perf_counter() - t0:.1f} s wall: " + ", ".join(f"{name} {s:.1f} s" for name, s in done))
     for name in LIBRARIES:
         _build.load(name)
+    if not (native.available() and codecs.flac_available()):
+        raise RuntimeError("build: the host libraries built but did not load")
 
 
 PHASES = ("kernels", "kernels600m", "paths110m", "serve", "lookahead", "paths600m", "long", "streaming", "diarize",
@@ -4454,7 +4605,15 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"== device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    timed("build", build_phase)
+    paths = {}
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build_phase)
+        # while nvcc runs: the 110m weights drawn, and written and loaded onto the card through load_params
+        if "paths110m" in phases or "serve" in phases or "lookahead" in phases:
+            flat = model_params("tdt-ctc-110m")
+        if "paths110m" in phases:
+            paths["weights"] = timed("weights", weights_phase, flat, card)
+        timed("build", building.result)
 
     kernel = {}
     if "kernels" in phases:
@@ -4479,9 +4638,6 @@ def main(argv=None) -> int:
     fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
     whole_cfg = FusedLayers(attention="mega", block2=True, subsample=True)
     v1_cfg = FusedLayers(attention="v1")
-    paths = {}
-    if "paths110m" in phases or "serve" in phases or "lookahead" in phases:
-        flat = model_params("tdt-ctc-110m")
     if "paths110m" in phases:
         default = paths["default"] = timed("path default", path_phase, "default", FusedLayers(), flat, clips, card)
         fused = paths["fused"] = timed("path fused", path_phase, "fused", fused_cfg, flat, clips, card)
@@ -4539,8 +4695,10 @@ def main(argv=None) -> int:
             # the 4 clips under 6 s: random weights emit ~10 symbols a frame, so the decode loop runs as
             # long as the longest clip, and the CPU facade's RNNT decode of all 8 took 30-50 s a configuration
             for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)) if "paths600m" in phases else ():
+                # no profile of the whole batch: at ~10 symbols a frame its trace takes ~12 s
                 paths[f"rnnt-600m {label}"] = timed(f"path rnnt-600m {label}", path_phase, f"rnnt-600m {label}",
-                                                    cfg, flat6, short_clips(clips), card, model="rnnt-600m")
+                                                    cfg, flat6, short_clips(clips), card, model="rnnt-600m",
+                                                    profile_batch=False)
             if "lookahead" in phases:
                 paths["lookahead"]["rnnt-600m"] = timed("lookahead rnnt-600m", lookahead_phase, "rnnt-600m", flat6,
                                                         short_clips(clips), card, windows=(8,))

@@ -116,10 +116,10 @@ def transducer_greedy_decode(
     frame_offset: int = 0,
     max_out: int | None = None,
     clamp_end: bool = True,
-    model=None,
     impl: str = "step",
     window: int = 8,
     unroll: int = 1,
+    model=None,
 ) -> TransducerResult:
     """Greedy decode of (B, T, H) encoder frames. A streaming caller carries
     the decode state across chunks: `init_token` (B,) and `init_lstm`

@@ -316,7 +316,7 @@ def conv_module(
         h = gather_dim(conv1d(p.sub("pointwise_conv1_"), copy_to_model(h, model)).contiguous(), model, 1)
     else:
         h = conv1d(p.sub("pointwise_conv1_"), h)
-    h = glu(h, dim=1)
+    h = glu(h, axis=1)
     if pad_mask is not None:
         h = h.masked_fill(pad_mask[:, None, :], 0.0)
     if seq is not None and seq.split:
@@ -415,12 +415,76 @@ def _attention_seq(p: Params, x, lengths, norm: Params, eps: float, model, seq) 
     return (x.to(torch.float32) + y).to(x.dtype)
 
 
+def _is_key_length_mask(mask: torch.Tensor, lengths, t: int) -> bool:
+    """Whether the bool attention mask (True = masked, broadcastable to
+    (B, 1, T, T)) masks exactly the keys at or past `lengths` on every
+    valid query row: what the kernels apply from `lengths` alone (the
+    reference's `length_mask` is one). Pad query rows are not read."""
+    if lengths is None:
+        return False
+    lengths = torch.as_tensor(lengths, device=mask.device).clamp(max=t)
+    pad = torch.arange(t, device=mask.device)[None, :] >= lengths[:, None]  # (B, T), True = pad
+    rows = mask.expand(lengths.shape[0], 1, t, t)[:, 0]
+    return bool(((rows == pad[:, None, :]) | pad[:, :, None]).all())
+
+
+def _masked_attention(p: Params, x: torch.Tensor, pos_emb, num_heads: int, mask) -> torch.Tensor:
+    """The reference's XLA attention (models/encoder.py rel_position_attention)
+    under any mask: content (q+u)kᵀ plus rel_shift((q+v)Pᵀ) accumulated in
+    f32, scaled after the sum, masked entries set to −1e9, an f32 softmax
+    rounded to x.dtype, AV accumulated in f32, the out-projection."""
+    b, t, d = x.shape
+    hd = d // num_heads
+    mha = p.sub("mha_")
+
+    def split(y):  # (B, T, D) → (B, H, T, hd)
+        return y.view(b, t, num_heads, hd).transpose(1, 2)
+
+    q = split(linear(mha.sub("q_proj"), x))
+    k = split(linear(mha.sub("k_proj"), x))
+    v = split(linear(mha.sub("v_proj"), x))
+    f32 = torch.float32
+    bias_u = p["pos_bias_u_"].to(x.dtype)[None, :, None, :]
+    bias_v = p["pos_bias_v_"].to(x.dtype)[None, :, None, :]
+    content = (q + bias_u).to(f32) @ k.to(f32).transpose(-1, -2)
+    if pos_emb is None:
+        pos_emb = position_table(t, d, x.device, x.dtype)
+    pos = linear(p.sub("pos_proj_"), pos_emb.to(device=x.device, dtype=x.dtype))
+    pos = pos.view(2 * t - 1, num_heads, hd).transpose(0, 1)  # (H, 2T−1, hd)
+    raw = (q + bias_v).to(f32) @ pos.to(f32).transpose(-1, -2)  # (B, H, T, 2T−1)
+    rows = torch.arange(t, device=x.device)
+    shift = (t - 1 - rows[:, None] + rows[None, :]).expand(b, num_heads, t, t)  # rel_shift as an index
+    scores = (content + raw.gather(-1, shift)) * (1.0 / math.sqrt(hd))
+    scores = scores.masked_fill(mask.to(torch.bool), -1e9)
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = (attn.to(f32) @ v.to(f32)).to(x.dtype)
+    return linear(mha.sub("out_proj"), out.transpose(1, 2).reshape(b, t, d))
+
+
 def rel_position_attention(
-    p: Params, x: torch.Tensor, lengths: torch.Tensor | None = None
+    p: Params,
+    x: torch.Tensor,
+    pos_emb: torch.Tensor | None,
+    num_heads: int,
+    mask: torch.Tensor | None = None,
+    lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """NeMo-style relative-position MHSA (encoder.cpp:112-181) on an
     already-normed input: content (q+u)kᵀ plus rel_shift((q+v)Pᵀ), scaled,
-    pad keys masked. `p` is the attention prefix (…attn_)."""
+    masked. `p` is the attention prefix (…attn_); the arguments are the
+    reference's: `pos_emb` the (2T−1, d) sinusoidal table, `mask` (B, 1,
+    T, T) bool, True = masked, `lengths` (B,) valid frames.
+
+    With no mask, or a mask that masks the keys past `lengths`
+    (`_is_key_length_mask`, as the reference's `length_mask` does), the
+    attention kernel runs (K1; K2 on quantized projections) with its own
+    position table; any other mask takes the plain route, the mask applied
+    as the reference applies it, on `pos_emb` (built when None)."""
+    heads = p["pos_bias_u_"].shape[0]
+    if num_heads != heads:
+        raise ValueError(f"num_heads={num_heads} but the weights hold {heads} heads")
+    if mask is not None and not _is_key_length_mask(mask, lengths, x.shape[1]):
+        return _masked_attention(p, x, pos_emb, num_heads, mask)
     return _attention(p, x, lengths)
 
 
@@ -453,17 +517,27 @@ def rel_position_attention_v1(
 def conformer_block(
     p: Params,
     x: torch.Tensor,
+    pos_emb: torch.Tensor | None,
     cfg: EncoderConfig,
+    mask: torch.Tensor | None = None,
     pad_mask: torch.Tensor | None = None,
     lengths: torch.Tensor | None = None,
+    *,
     fused: FusedLayers = FusedLayers(),
     split: EncoderSplit | None = None,
     whole: Params | None = None,
 ) -> torch.Tensor:
     """ffn1 → attn → conv → ffn2 → final LayerNorm (encoder.cpp:196-204),
-    the kernels chosen by `fused` with the reference's precedence
-    (models/encoder.py:663-744): attention "mega" runs ffn1 and the
-    attention as K7; otherwise ffn1 follows fused.ffn and the attention is
+    on the reference's arguments (`pos_emb`, `mask`, `pad_mask`, `lengths`:
+    see `rel_position_attention`; the encoder passes pos_emb and mask as
+    None, its kernels masking by `lengths`). A mask that is not a
+    key-length mask sends the attention to the plain route with that mask
+    (and ffn1 as fused.ffn says, as when the reference's "mega" guard
+    refuses); the rest of the block is unchanged.
+
+    The sublayers run the kernels chosen by `fused` with the reference's
+    precedence (models/encoder.py:663-744): attention "mega" runs ffn1 and
+    the attention as K7; otherwise ffn1 follows fused.ffn and the attention is
     K1 with the pre-LN and residual fused ("block") or LN, projections and
     out-projection in torch around K2 ("v1"). block2 runs the conv module,
     ffn2 and the final LayerNorm as K4; otherwise the conv module follows
@@ -480,8 +554,12 @@ def conformer_block(
     model = seq = None
     if split is not None:
         model, seq = split.model, split.seq
+    masked = mask is not None and not _is_key_length_mask(mask, lengths, x.shape[1])
+    if masked and ((model is not None and model.split) or (seq is not None and seq.split)):
+        raise ValueError("a mask other than the key-length mask runs only without a 'model' or 'seq' split")
     w = p if whole is None else whole  # the kernels other than K1 take whole weights
-    if fused.attention == "mega" and _ffn_fusable(p.sub("ffn1_"), x) and _attention_fusable(a):
+    if (fused.attention == "mega" and not masked and _ffn_fusable(p.sub("ffn1_"), x)
+            and _attention_fusable(a)):
         f, a, mha = w.sub("ffn1_"), w.sub("attn_"), w.sub("attn_").sub("mha_")
         x = fused_ffn_attention(
             x,
@@ -499,7 +577,9 @@ def conformer_block(
         )
     else:
         x = _feed_forward_on(p, w, "ffn1_", x, eps, fused.ffn, None, model)
-        if fused.attention == "v1":
+        if masked:
+            x = x + _masked_attention(a, layer_norm(a.sub("norm_"), x, eps), pos_emb, cfg.num_heads, mask)
+        elif fused.attention == "v1":
             x = x + rel_position_attention_v1(w.sub("attn_"), layer_norm(a.sub("norm_"), x, eps), lengths)
         elif seq is not None and seq.split:
             x = _attention_seq(a, x, lengths, a.sub("norm_"), eps, model, seq)
@@ -612,11 +692,12 @@ def fastconformer_encode(
     whole = None if split is None or split.full is None else split.full.sub("layers_")
     for i in range(cfg.num_layers):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(conformer_block, layers.sub(str(i)), x, cfg, pad_mask,
-                                                  enc_lengths, FusedLayers(), split, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(conformer_block, layers.sub(str(i)), x, None, cfg, None,
+                                                  pad_mask, enc_lengths, fused=FusedLayers(), split=split,
+                                                  use_reentrant=False)
         else:
-            x = conformer_block(layers.sub(str(i)), x, cfg, pad_mask, enc_lengths, fused, split,
-                                None if whole is None else whole.sub(str(i)))
+            x = conformer_block(layers.sub(str(i)), x, None, cfg, None, pad_mask, enc_lengths, fused=fused,
+                                split=split, whole=None if whole is None else whole.sub(str(i)))
     if seq is not None and seq.split:
         x = gather_dim(x.contiguous(), seq, 1)[:, :t]
     return x

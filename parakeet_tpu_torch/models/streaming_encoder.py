@@ -133,7 +133,7 @@ def _causal_conv_module(p: Params, x: torch.Tensor, conv_cache: torch.Tensor, ke
     """Causal conv module with the cache prepended (streaming_encoder.cpp:41-78)."""
     d = x.shape[-1]
     h = layer_norm(p.sub("norm_"), x, eps).transpose(1, 2)  # (B, d, chunk)
-    h = glu(conv1d(p.sub("pointwise_conv1_"), h), dim=1)
+    h = glu(conv1d(p.sub("pointwise_conv1_"), h), axis=1)
     h = torch.cat([conv_cache, h], dim=2)  # (B, d, k-1+chunk)
     new_cache = h[:, :, h.shape[2] - (kernel_size - 1):]
     h = conv1d(p.sub("depthwise_conv_"), h, groups=d)  # VALID → (B, d, chunk)

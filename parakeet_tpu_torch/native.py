@@ -1,13 +1,15 @@
-"""ctypes loader for the repository's native host audio library (port of
-parakeet_tpu/native.py, the part the port calls).
+"""ctypes loader for the port's native host audio library (port of
+parakeet_tpu/native.py).
 
-The windowed-sinc Kaiser resampler (an O(N·32) inner loop) and the channel
-downmix run in C++ (csrc/parakeet_native.cpp at the repository root, the
-reference's audio_io.cpp numerics). The library builds with g++ on first
-use through ops/_build.py `build_host` into build/parakeet_tpu_torch/,
-named by a hash of the source and the flags. Each entry point returns None
-when the library is unavailable (no g++, or PARAKEET_NO_NATIVE set), and
-audio/io.py then runs its numpy form.
+The windowed-sinc Kaiser resampler (an O(N·32) inner loop), the channel
+downmix, int16 → float conversion and preemphasis run in C++
+(parakeet_tpu_torch/csrc/parakeet_native.cpp, the reference's
+audio_io.cpp numerics); `flac_decode` goes through the FLAC decoder
+(csrc/flac_decoder.cpp) that audio/codecs.py loads. The libraries build
+with g++ on first use through ops/_build.py `build_host` into
+build/parakeet_tpu_torch/, named by a hash of the source and the flags.
+Each entry point returns None when the library is unavailable (no g++, or
+PARAKEET_NO_NATIVE set), and audio/io.py then runs its numpy form.
 """
 
 from __future__ import annotations
@@ -38,12 +40,17 @@ def _load() -> ctypes.CDLL | None:
         except (OSError, RuntimeError):
             return None
         c_float_p = ctypes.POINTER(ctypes.c_float)
+        c_int16_p = ctypes.POINTER(ctypes.c_int16)
         lib.pk_resample_out_len.restype = ctypes.c_int64
         lib.pk_resample_out_len.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
         lib.pk_sinc_resample.restype = None
         lib.pk_sinc_resample.argtypes = [c_float_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, c_float_p]
         lib.pk_downmix_to_mono.restype = None
         lib.pk_downmix_to_mono.argtypes = [c_float_p, ctypes.c_int64, ctypes.c_int, c_float_p]
+        lib.pk_int16_to_float.restype = None
+        lib.pk_int16_to_float.argtypes = [c_int16_p, ctypes.c_int64, c_float_p]
+        lib.pk_preemphasis.restype = ctypes.c_float
+        lib.pk_preemphasis.argtypes = [c_float_p, ctypes.c_int64, ctypes.c_float, ctypes.c_float, c_float_p]
         _lib = lib
         return _lib
 
@@ -78,4 +85,37 @@ def downmix_to_mono(interleaved: np.ndarray, channels: int) -> np.ndarray | None
     return out
 
 
-__all__ = ["available", "sinc_resample", "downmix_to_mono"]
+def int16_to_float(pcm: np.ndarray) -> np.ndarray | None:
+    """int16 PCM → float32 scaled by 1/32768."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(pcm, np.int16)
+    out = np.empty(len(x), np.float32)
+    lib.pk_int16_to_float(x.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), len(x), _fptr(out))
+    return out
+
+
+def preemphasis(x: np.ndarray, coeff: float = 0.97, prev: float = 0.0):
+    """y[i] = x[i] − coeff·x[i−1] with x[−1] = `prev` → (y, the last raw
+    sample, the next call's `prev`)."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.float32)
+    out = np.empty_like(x)
+    new_prev = lib.pk_preemphasis(_fptr(x), len(x), coeff, prev, _fptr(out))
+    return out, float(new_prev)
+
+
+def flac_decode(data: bytes):
+    """FLAC bytes → (interleaved float32, sample_rate, channels), or None
+    without the native libraries; ValueError on bytes that do not decode."""
+    from parakeet_tpu_torch.audio import codecs
+
+    if _load() is None or not codecs.flac_available():
+        return None
+    return codecs.flac_decode(data)
+
+
+__all__ = ["available", "sinc_resample", "downmix_to_mono", "int16_to_float", "preemphasis", "flac_decode"]

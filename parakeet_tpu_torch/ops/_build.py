@@ -8,10 +8,12 @@ the compiler flags, so an edited source or header rebuilds and concurrent
 processes never load a half-written file. `build` holds no lock: several
 libraries can build at once from separate threads.
 
-`build_host` does the same for a host C++ source of the repository's
-csrc/ (the FLAC decoder, the native audio library) with g++, into the
-same directory; `build_capi` builds the port's flat C API
-(csrc/parakeet_capi.cpp) against the running interpreter's libpython.
+`build_host` does the same with g++ for a host C++ source of the same
+csrc/ (flac_decoder.cpp, the FLAC decoder; parakeet_native.cpp, the native
+audio library), into the same directory; `build_capi` builds the port's
+flat C API (csrc/parakeet_capi.cpp) against the running interpreter's
+libpython. Every source the port compiles lies under
+parakeet_tpu_torch/csrc/.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_HOST_CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parakeet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -118,20 +119,20 @@ def build(name: str) -> Path:
 
 
 def host_library_path(name: str) -> Path:
-    """Where the library of the repository's csrc/<name>.cpp lives, named by
-    a hash of the source and the g++ flags."""
-    src = _HOST_CSRC / f"{name}.cpp"
+    """Where the library of csrc/<name>.cpp lives, named by a hash of the
+    source and the g++ flags."""
+    src = _CSRC / f"{name}.cpp"
     h = hashlib.sha256(src.name.encode() + b"\0" + src.read_bytes() + b"\0" + " ".join(GXX_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_host(name: str) -> Path:
-    """Compile the repository's standalone host source csrc/<name>.cpp with
-    g++ (if not built yet) and return the library path."""
+    """Compile the standalone host source csrc/<name>.cpp with g++ (if not
+    built yet) and return the library path."""
     lib = host_library_path(name)
     if lib.is_file():
         return lib
-    return _compile([_gxx(f"csrc/{name}.cpp"), *GXX_FLAGS], _HOST_CSRC / f"{name}.cpp", lib)
+    return _compile([_gxx(f"csrc/{name}.cpp"), *GXX_FLAGS], _CSRC / f"{name}.cpp", lib)
 
 
 def _gxx(what: str) -> str:

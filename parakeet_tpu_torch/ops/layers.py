@@ -213,8 +213,8 @@ def conv2d(
     return y.to(x.dtype)
 
 
-def glu(x: torch.Tensor, dim: int) -> torch.Tensor:
-    a, b = torch.chunk(x, 2, dim=dim)
+def glu(x: torch.Tensor, axis: int) -> torch.Tensor:
+    a, b = torch.chunk(x, 2, dim=axis)
     return a * torch.sigmoid(b)
 
 

@@ -96,7 +96,7 @@ class _Schedule:
     def stage(self, x, m: int, weights) -> torch.Tensor:
         for j in range(weights[0].shape[0]):
             p = Params({s: w[j] for s, w in zip(self.suffixes, weights)})
-            x = conformer_block(p, x, self.cfg, self.masks[m], self.lengths[m], FusedLayers())
+            x = conformer_block(p, x, None, self.cfg, None, self.masks[m], self.lengths[m], fused=FusedLayers())
         return x
 
     def hand_over(self, send: torch.Tensor | None, to, recv_like: torch.Tensor | None, frm):

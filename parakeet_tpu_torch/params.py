@@ -334,9 +334,9 @@ def device_params(
 def init_params(
     spec: Spec,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     *,
     device: str | torch.device = "cpu",
-    dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Random-init parameters on `device` (tests, benchmarks; real use loads
     safetensors). Deterministic given `seed`."""
@@ -347,16 +347,20 @@ def load_params_numpy(
     spec: Spec,
     weights_path: str | None = None,
     *,
+    weights: dict[str, np.ndarray] | None = None,
     seed: int = 0,
+    strict: bool = False,
     warn: Callable[[str], None] | None = None,
 ) -> dict[str, np.ndarray]:
-    """Load safetensors over a random-init base, as the reference does
-    (load_state_dict(strict=false): a missing CTC head stays random, with a
-    warning)."""
+    """Load safetensors (or the given `weights` dict) over a random-init
+    base, as the reference does (load_state_dict(strict=false): a missing
+    CTC head stays random, with a warning through `warn`; with `strict` a
+    missing key raises KeyError)."""
     params = init_params_numpy(spec, seed)
-    if weights_path is None:
-        return params
-    weights = load_safetensors(weights_path)
+    if weights is None:
+        if weights_path is None:
+            return params
+        weights = load_safetensors(weights_path)
     missing = []
     for key, (shape, _) in spec.items():
         w = weights.get(key)
@@ -384,9 +388,30 @@ def load_params_numpy(
             raise ValueError(f"shape mismatch for {key}: file {tuple(w.shape)} vs spec {shape}")
         params[key] = np.asarray(w, np.float32)
     if missing:
+        msg = f"{len(missing)} parameters missing from checkpoint (kept random init): {missing[:4]}..."
+        if strict:
+            raise KeyError(msg)
         if warn:
-            warn(f"{len(missing)} parameters missing from checkpoint (kept random init): {missing[:4]}...")
+            warn(msg)
     return params
+
+
+def load_params(
+    spec: Spec,
+    weights_path: str | None = None,
+    *,
+    weights: dict[str, np.ndarray] | None = None,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    strict: bool = False,
+    warn: Callable[[str], None] | None = None,
+    device: str | torch.device = "cpu",
+) -> dict[str, torch.Tensor]:
+    """`load_params_numpy` on `device` in `dtype`: safetensors (or
+    `weights`) over the random base of `seed`; `strict` raises KeyError on
+    a missing key, otherwise `warn` hears of it."""
+    flat = load_params_numpy(spec, weights_path, weights=weights, seed=seed, strict=strict, warn=warn)
+    return params_from_numpy(flat, device, dtype)
 
 
 __all__ = [
@@ -413,4 +438,5 @@ __all__ = [
     "round_to_dtype",
     "device_params",
     "load_params_numpy",
+    "load_params",
 ]

@@ -1,0 +1,3 @@
+from parakeet_tpu_torch.text.tokenizer import Tokenizer
+
+__all__ = ["Tokenizer"]

@@ -89,7 +89,9 @@ def test_reference_matches_xla_attention(layer):
     ref = np.asarray(RE.rel_position_attention(
         rp, jnp.asarray(x), RE.sinusoidal_position_embedding(T, D), H,
         mask=RE.length_mask(lengths, T), lengths=lengths, xla_only=True))
-    got = TE.rel_position_attention(tp, torch.from_numpy(x), torch.tensor(LENGTHS)).numpy()
+    t_len = torch.tensor(LENGTHS)
+    got = TE.rel_position_attention(tp, torch.from_numpy(x), TE.sinusoidal_position_embedding(T, D), H,
+                                    TE.length_mask(t_len, T), t_len).numpy()
     _assert_valid_close(got, ref)
 
     # fused pre-LN + residual == XLA layer_norm → attention → + x
@@ -109,7 +111,7 @@ def test_no_lengths_attends_everywhere(layer):
     tp = TParams(params_from_numpy(flat)).sub(prefix)
     ref = np.asarray(RE.rel_position_attention(
         rp, jnp.asarray(x), RE.sinusoidal_position_embedding(T, D), H, xla_only=True))
-    got = TE.rel_position_attention(tp, torch.from_numpy(x)).numpy()
+    got = TE.rel_position_attention(tp, torch.from_numpy(x), TE.sinusoidal_position_embedding(T, D), H).numpy()
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 

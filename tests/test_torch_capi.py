@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from parakeet_tpu_torch.ops._build import _CSRC, build_capi
+from tests.test_torch_reference_build import reference_capi
 
 pytestmark = pytest.mark.skipif(
     sysconfig.get_config_var("Py_ENABLE_SHARED") != 1,
@@ -67,12 +68,7 @@ def capi():
 
 @pytest.fixture(scope="module")
 def ref_capi():
-    from parakeet_tpu.native import build_capi as ref_build
-
-    path = ref_build()
-    if path is None:
-        pytest.skip("the JAX package's C API build failed (no toolchain)")
-    return _bind(path)
+    return _bind(reference_capi())
 
 
 def _take(lib, ptr) -> str:

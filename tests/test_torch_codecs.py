@@ -16,6 +16,7 @@ from parakeet_tpu_torch.audio import io as TIO
 from parakeet_tpu_torch.ops import _build
 from tests.helpers.flac_writer import encode_flac
 from tests.helpers.ogg_writer import encode_ogg, ogg_encoder_available
+from tests.test_torch_reference_build import reference_native
 
 SR = 16000
 
@@ -29,11 +30,7 @@ def _tone(seconds=0.7, sr=SR, channels=1, seed=0):
 
 
 def _reference_flac(data):
-    from parakeet_tpu import native
-
-    if not native.available():
-        pytest.skip("the reference's native library did not build")
-    return native.flac_decode(data)
+    return reference_native().flac_decode(data)
 
 
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="g++ not present to build the FLAC decoder")
@@ -65,6 +62,7 @@ def test_flac_library_is_built_into_the_port_build_dir():
 
 @needs_gxx
 def test_flac_read_audio_and_duration_identical(tmp_path):
+    reference_native()  # the reference decodes FLAC only through its native library
     pcm = np.round(_tone(1.3, sr=22050, channels=2) * 32767).astype(np.int64)
     path = tmp_path / "clip.flac"
     path.write_bytes(encode_flac(pcm, 22050, block_size=4096, subframe_mode="fixed2"))

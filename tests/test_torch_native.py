@@ -1,7 +1,9 @@
 """The port's native host audio library (parakeet_tpu_torch/native.py, a g++
-build of csrc/parakeet_native.cpp into build/parakeet_tpu_torch/) and its
-numpy fallback, against the JAX package's native library and numpy path:
-resampling, downmix and read_audio bit for bit."""
+build of parakeet_tpu_torch/csrc/parakeet_native.cpp into
+build/parakeet_tpu_torch/) and its numpy fallback, against the JAX
+package's native library and numpy path: resampling, downmix, read_audio,
+int16 conversion, preemphasis and FLAC decoding bit for bit. The
+reference's library loads through tests/test_torch_reference_build.py."""
 
 import wave
 
@@ -13,8 +15,16 @@ from parakeet_tpu.audio import io as RIO
 from parakeet_tpu_torch import native as TN
 from parakeet_tpu_torch.audio import io as TIO
 from parakeet_tpu_torch.ops import _build
+from tests.test_torch_reference_build import reference_native
 
-pytestmark = pytest.mark.skipif(not RN.available(), reason="native lib not built (no g++?)")
+pytestmark = pytest.mark.usefixtures("reference_library")
+
+@pytest.fixture(scope="module")
+def reference_library():
+    """The reference's native library, loaded (fails where g++ is present
+    and it does not load; skips without g++)."""
+    return reference_native()
+
 
 RATES = [(44100, 16000), (8000, 16000), (48000, 16000)]
 
@@ -88,3 +98,46 @@ def test_read_audio_stereo_44k_matches_reference(tmp_path):
     ref, port = RIO.read_audio(path), TIO.read_audio(path)
     np.testing.assert_array_equal(port.samples, ref.samples)
     assert (port.num_channels, port.original_sample_rate, port.num_samples) == (2, 44100, ref.num_samples)
+
+
+def test_int16_to_float_matches_reference():
+    pcm = np.concatenate([np.array([-32768, -1, 0, 1, 32767], np.int16),
+                          np.random.RandomState(7).randint(-32768, 32768, 4001).astype(np.int16)])
+    got = TN.int16_to_float(pcm)
+    np.testing.assert_array_equal(got, RN.int16_to_float(pcm))
+    assert got.dtype == np.float32 and got[0] == -1.0
+
+
+@pytest.mark.parametrize("coeff,prev", [(0.97, 0.0), (0.97, 0.3125), (0.5, -0.7)])
+def test_preemphasis_matches_reference(coeff, prev):
+    x = _noise(5003, 11)
+    got, want = TN.preemphasis(x, coeff, prev), RN.preemphasis(x, coeff, prev)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] == float(x[-1])
+    # carried across two calls as one
+    half = TN.preemphasis(x[:2000], coeff, prev)
+    np.testing.assert_array_equal(np.concatenate([half[0], TN.preemphasis(x[2000:], coeff, half[1])[0]]), got[0])
+
+
+def test_flac_decode_matches_reference():
+    from tests.helpers.flac_writer import encode_flac
+
+    pcm = np.round(_noise(4000, 3).reshape(2000, 2) * 32767).astype(np.int64)
+    data = encode_flac(pcm, 22050, block_size=1024, subframe_mode="fixed2")
+    got, want = TN.flac_decode(data), RN.flac_decode(data)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] == (22050, 2)
+    for decode in (TN.flac_decode, RN.flac_decode):
+        with pytest.raises(ValueError, match="FLAC decode failed"):
+            decode(b"fLaC" + bytes(64))
+
+
+def test_extras_return_none_without_the_library(monkeypatch):
+    """PARAKEET_NO_NATIVE: every extra returns None, as the reference's do."""
+    monkeypatch.setenv("PARAKEET_NO_NATIVE", "1")
+    for mod in (TN, RN):
+        monkeypatch.setattr(mod, "_tried", False)
+        monkeypatch.setattr(mod, "_lib", None)
+        assert mod.int16_to_float(np.zeros(4, np.int16)) is None
+        assert mod.preemphasis(_noise(8, 0)) is None
+        assert mod.flac_decode(b"fLaC" + bytes(64)) is None

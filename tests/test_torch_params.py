@@ -125,6 +125,62 @@ def test_load_params_numpy_over_random_base(tmp_path):
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
 
 
+def _tiny_tdt_ctc(mod):
+    return mod.TDTCTCConfig(
+        encoder=mod.EncoderConfig(mel_bins=80, subsampling_channels=8, hidden_size=32,
+                                  num_layers=1, num_heads=4, ffn_intermediate=64),
+        prediction=mod.PredictionConfig(vocab_size=9, pred_hidden=8, num_lstm_layers=1),
+        joint=mod.JointConfig(encoder_hidden=32, pred_hidden=8, joint_hidden=8, vocab_size=9),
+        ctc_vocab_size=9,
+    )
+
+
+def _assert_params_equal(port, ref):
+    assert port.keys() == ref.keys()
+    for k in ref:
+        assert port[k].dtype == torch.float32 and port[k].device.type == "cpu", k
+        np.testing.assert_array_equal(port[k].numpy(), np.asarray(ref[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("source", ["weights_path", "weights"])
+def test_load_params_matches_reference(tmp_path, source):
+    """load_params over a seed-5 random base from a file or a dict of the
+    seed-9 weights without the CTC head: the same values and the same
+    warning in both packages."""
+    rspec, tspec = RP.tdt_ctc_spec(_tiny_tdt_ctc(RC)), TP.tdt_ctc_spec(_tiny_tdt_ctc(TC))
+    weights = {k: np.asarray(v) for k, v in RP.init_params(rspec, seed=9).items() if not k.startswith("ctc_")}
+    path = tmp_path / "w.safetensors"
+    save_safetensors(weights, path)
+    arg = dict(weights_path=str(path)) if source == "weights_path" else dict(weights=weights)
+    warned = {"ref": [], "port": []}
+    ref = RP.load_params(rspec, **arg, seed=5, warn=warned["ref"].append)
+    port = TP.load_params(tspec, **arg, seed=5, warn=warned["port"].append, device="cpu")
+    _assert_params_equal(port, ref)
+    assert warned["port"] == warned["ref"] and len(warned["ref"]) == 1 and "missing" in warned["ref"][0]
+    ctc = [k for k in rspec if k.startswith("ctc_")]
+    assert ctc and all(np.array_equal(port[k].numpy(), np.asarray(RP.init_params(rspec, seed=5)[k])) for k in ctc)
+    for k, w in weights.items():
+        np.testing.assert_array_equal(port[k].numpy(), w, err_msg=k)
+
+
+def test_load_params_strict_raises_as_the_reference(tmp_path):
+    rspec, tspec = RP.tdt_ctc_spec(_tiny_tdt_ctc(RC)), TP.tdt_ctc_spec(_tiny_tdt_ctc(TC))
+    weights = {k: np.asarray(v) for k, v in RP.init_params(rspec, seed=9).items()}
+    missing = sorted(weights)[3]
+    del weights[missing]
+    messages = []
+    for load, spec in ((RP.load_params, rspec), (TP.load_params, tspec)):
+        with pytest.raises(KeyError, match="1 parameters missing") as err:
+            load(spec, weights=weights, strict=True)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1] and missing in messages[1]
+    full = {k: np.asarray(v) for k, v in RP.init_params(rspec, seed=9).items()}
+    _assert_params_equal(TP.load_params(tspec, weights=full, strict=True), RP.load_params(rspec, weights=full, strict=True))
+    # no file and no dict: the random base itself; init_params takes dtype third, as the reference's
+    _assert_params_equal(TP.load_params(tspec, seed=4), RP.init_params(rspec, 4))
+    _assert_params_equal(TP.init_params(tspec, 4, torch.float32), RP.init_params(rspec, 4, np.float32))
+
+
 def test_tokenizer_and_timestamps_match_reference(tmp_path):
     pieces = ["<unk>", "▁he", "llo", "▁wor", "ld", ".", "▁a", "b"]
     vocab = tmp_path / "vocab.txt"
