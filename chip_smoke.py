@@ -41,7 +41,10 @@ Phases, each of which raises (exit code 1) on failure:
               counted over the valid keys in the attention cores) at the
               published f32 peak (bf16: tensor-core peak) against its
               bytes (inputs read once, outputs written once) at the
-              memory rate
+              memory rate. Then K7 and K4 at edge shapes in f32 and bf16
+              with lengths below T' (odd widths that TMA cannot load; D =
+              1280, past a cluster's column tiles), and the Hopper GEMM's
+              clusters held at once beside the plans' table
   4. paths    (while the build runs: the weights, tdt-ctc-110m's written
               with io.save_safetensors and loaded onto the card through
               params.load_params(weights=..., strict=True, device="cuda"),
@@ -60,12 +63,24 @@ Phases, each of which raises (exit code 1) on failure:
               transcribe_features, tokens equal to a CPU Transcriber's on
               the same features; then a bf16 run of the fused
               configuration, its token edit distance against f32 reported
-              (not a gate)
+              (not a gate); the whole-block configuration's encoder in
+              bf16 beside f32 (device ms in turns, K7's and K4's launches
+              per call, the bf16 output's largest difference from f32 as a
+              share of scale), here and in paths600m
   5. kernels600m  the kernels at the 600m presets' shapes against their
               plain versions in f32 and bf16, timed, each with its bound:
               K8 on mel (8, 1001, 128), K7 and K4 at D=1024, F=4096, H=8,
               T'=126 with mixed lengths, K2 at hd=128 and T'=126 and 751,
-              K1 at D=1024, B=1, T'=1188 (a dense 95 s clip)
+              K1 at D=1024, B=1, T'=1188 (a dense 95 s clip). K7 and K4,
+              here and in phase 3 at T'=126 and 751 (f32 and bf16): each
+              launch's device time (torch.matmul in the same dtype beside
+              each GEMM), the launches per call against k7_plan / k4_plan
+              (bf16: the Hopper design, 5 each, no LayerNorm, closing or
+              clamp launch may appear; f32: the tiled sequences, 11 and
+              9), and the old design, the standalone kernels in sequence
+              (K6 then K1; K5 then K6 with the final LayerNorm), timed in
+              turns with it on the same inputs. The build phase prints
+              ptxas's registers and spills of K7's and K4's Hopper GEMMs
   6. paths600m  TDTTranscriber at full tdt-600m width (24 layers, d=1024,
               128 mel, vocab 8193, two LSTM layers) in the default, fused,
               whole-block and v1 configurations, and RNNTTranscriber at
@@ -489,6 +504,124 @@ def stage_times(tag: str, fn, gemms, card: str, calls: int = 10, dtype=None) -> 
     return {"stages": stages, "yardstick": yard}
 
 
+def kernel_launches(fn, calls: int = 5) -> float:
+    """Device launches per call of fn (kernels, copies and fills), from
+    torch.profiler's event counts; the device alone traced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA) / calls
+
+
+# the launches K7's and K4's Hopper design leaves out: a LayerNorm pass, a split-K closing pass, a torch clamp
+OLD_STAGES = ("layer_norm_rows_kernel", "gemm_reduce_kernel", "clamp")
+
+
+def redesign_times(tag: str, fn, old_fn, gemms, dtype, plan, card: str) -> dict:
+    """K7's or K4's stage lines (torch.matmul in the same dtype beside each
+    GEMM), its launches per call against its plan's, and its device time in
+    turns with the old design on the same inputs: the standalone kernels in
+    sequence (K6 then K1 for K7; K5 then K6 with the final LayerNorm for
+    K4), which is exactly what the old K7 and K4 launched. The Hopper design
+    (plan.hopper, bf16) may launch no LayerNorm, closing or clamp pass; the
+    tiled plan (f32) is those sequences in one C call. Best of 2 turns."""
+    st = stage_times(tag, fn, gemms, card, dtype=dtype)
+    old = [label for label in st["stages"] if any(word in label for word in OLD_STAGES)]
+    if plan.hopper and old:
+        raise RuntimeError(f"{tag}: the Hopper design still launches {old}")
+    n = kernel_launches(fn)
+    if n != plan.launches:
+        raise RuntimeError(f"{tag}: {n} launches per call, the plan says {plan.launches}")
+    import torch
+
+    turns = {"new": [], "old": []}
+    with torch.inference_mode():
+        for _ in range(2):
+            turns["new"].append(device_ms(fn))
+            turns["old"].append(device_ms(old_fn))
+    new_ms, old_ms = min(turns["new"]), min(turns["old"])
+    design = "the Hopper design" if plan.hopper else "the tiled sequences"
+    log(f"  {tag}: {n:g} launches per call ({design}); device ms in turns (best of 2): this kernel "
+        f"{new_ms:.4f}, the standalone kernels in sequence {old_ms:.4f} (old / new {old_ms / new_ms:.2f}x) [{card}]")
+    return {"ms": new_ms, "old_ms": old_ms, "launches": n, "stages": st["stages"], "hopper": plan.hopper}
+
+
+def edge_shapes_phase(card: str) -> None:
+    """K7 and K4 against their plain versions at the shapes the main path
+    does not give them, in f32 and bf16 with lengths below T': odd widths
+    (rows that TMA cannot load, filled element by element; QKV segments of
+    96 rows) and D = 1280, whose rows span more than a cluster's column
+    tiles (the tiled sequences in bf16 too). Then the Hopper GEMM's clusters
+    the card holds at once beside the plans' table."""
+    import torch
+
+    from parakeet_tpu_torch.ops import conv_ffn_final as K4
+    from parakeet_tpu_torch.ops import ffn_attention as K7
+    from parakeet_tpu_torch.ops import gemm_plan as GP
+
+    log("== K7 and K4 at edge shapes vs their plain versions")
+    f32 = torch.float32
+    for b, t, d, f, heads in ((3, 37, 96, 100, 3), (2, 64, 1280, 1280, 10)):
+        lengths = [t, *(max(1, t - 7 * i - 3) for i in range(1, b))]
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(d + f)
+            dev = _dev(rng, dtype)
+            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+            k7 = (dev(rng.randn(b, t, d)), *_ffn_weights(rng, dev, d, f), dev(1 + 0.1 * rng.randn(d), f32),
+                  dev(0.1 * rng.randn(d), f32), *_attention_weights(rng, dev, d, heads))
+            k4 = (dev(rng.randn(b, t, d)), *_conv_weights(rng, dev, d), *_ffn_weights(rng, dev, d, f),
+                  dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32))
+            hopper = K7.k7_plan(b, t, d, f, k7[0].element_size()).hopper
+            with torch.inference_mode():
+                got7, ref7 = K7.fused_ffn_attention(*k7, lengths=lt), K7.fused_ffn_attention_reference(*k7, lengths=lt)
+                got4 = K4.fused_conv_ffn_final(*k4, lengths=lt)
+                ref4 = K4.fused_conv_ffn_final_reference(*k4, lengths=lt)
+            design = "Hopper design" if hopper else "tiled sequences"
+            check_close(f"K7 B={b} T'={t} D={d} F={f} H={heads} {name} ({design})", got7, ref7,
+                        _valid_rows(lengths, t))
+            check_close(f"K4 B={b} T'={t} D={d} F={f} {name} ({design})", got4, ref4)
+    card_clusters = {n: K7.hopper_active_clusters(n) for n in range(1, GP.MAX_CLUSTER + 1)}
+    same = card_clusters == GP.HOPPER_ACTIVE_CLUSTERS
+    log(f"  Hopper GEMM clusters held at once, by size (cudaOccupancyMaxActiveClusters): {card_clusters}; "
+        f"{'the same as' if same else 'NOT the same as'} the plans' table {GP.HOPPER_ACTIVE_CLUSTERS} [{card}]")
+
+
+def k7_old(args, lt):
+    """The old K7: K6 (no final LayerNorm) then K1 with its fused pre-LN."""
+    from parakeet_tpu_torch.ops import feed_forward as K6
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    x2 = K6.fused_feed_forward(*args[:7])
+    return RA.rel_attention_block(x2, *args[9:], lengths=lt, norm_w=args[7], norm_b=args[8])
+
+
+def k4_old(args, lt):
+    """The old K4: K5 then K6 with the final LayerNorm."""
+    from parakeet_tpu_torch.ops import conv_module as K5
+    from parakeet_tpu_torch.ops import feed_forward as K6
+
+    x2 = K5.fused_conv_module(*args[:13], lengths=lt)
+    return K6.fused_feed_forward(x2, *args[13:19], args[19], args[20])
+
+
+def k7_gemms(b: int, t: int, d: int, f: int) -> list:
+    m = b * t
+    return [("fc1", m, f, d), ("fc2", m, d, f), ("QKV", m, 3 * d, d), ("P", 2 * t - 1, d, d), ("out", m, d, d)]
+
+
+def k4_gemms(b: int, t: int, d: int, f: int) -> list:
+    m = b * t
+    return [("pw1", m, 2 * d, d), ("pw2", m, d, d), ("fc1", m, f, d), ("fc2", m, d, f)]
+
+
 def tile_choice(tag: str, fn, module, plan_fn: str, field, card: str, itemsize: int = 4) -> dict:
     """Device time of `fn` with the launch plan's block rows for one
     nonlinear-epilogue GEMM (`field` of the plan that `module.plan_fn`
@@ -843,12 +976,14 @@ def conv_ffn_final_phase(card: str) -> dict:
             err = check_close(tag, got, ref)
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-            if dtype == torch.float32 or t == 126:  # bf16 timed at the 110m encoder's shape
-                key = "times" if dtype == torch.float32 else "bf16_times"
-                out[key][t] = time_pair(tag, lambda: K4.fused_conv_ffn_final(*args, lengths=lt),
-                                        lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
-                out[key.replace("times", "work")][t] = (conv_flops(B * t, D, 9) + ffn_flops(B * t, D, FFN),
-                                                        tensor_bytes(*args, lt, got))
+            key = "times" if dtype == torch.float32 else "bf16_times"
+            fn = lambda: K4.fused_conv_ffn_final(*args, lengths=lt)
+            out[key][t] = time_pair(tag, fn, lambda: K4.fused_conv_ffn_final_reference(*args, lengths=lt), card)
+            out[key.replace("times", "work")][t] = (conv_flops(B * t, D, 9) + ffn_flops(B * t, D, FFN),
+                                                    tensor_bytes(*args, lt, got))
+            out.setdefault("redesign", {})[f"T'={t} {name}"] = redesign_times(
+                tag, fn, lambda: k4_old(args, lt), k4_gemms(B, t, D, FFN), dtype,
+                K4.k4_plan(B, t, D, FFN, got.element_size()), card)
     return out
 
 
@@ -875,13 +1010,15 @@ def ffn_attention_phase(card: str) -> dict:
             err = check_close(tag, got, ref, _valid_rows(lengths, t))
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-            if dtype == torch.float32 or t == 126:  # bf16 timed at the 110m encoder's shape
-                key = "times" if dtype == torch.float32 else "bf16_times"
-                out[key][t] = time_pair(tag, lambda: K7.fused_ffn_attention(*args, lengths=lt),
-                                        lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
-                pe_bytes = (2 * t - 1) * D * got.element_size()
-                out[key.replace("times", "work")][t] = (ffn_flops(B * t, D, FFN) + attention_flops(B, t, D, H, lengths),
-                                                        tensor_bytes(*args, lt, got) + pe_bytes)
+            key = "times" if dtype == torch.float32 else "bf16_times"
+            fn = lambda: K7.fused_ffn_attention(*args, lengths=lt)
+            out[key][t] = time_pair(tag, fn, lambda: K7.fused_ffn_attention_reference(*args, lengths=lt), card)
+            pe_bytes = (2 * t - 1) * D * got.element_size()
+            out[key.replace("times", "work")][t] = (ffn_flops(B * t, D, FFN) + attention_flops(B, t, D, H, lengths),
+                                                    tensor_bytes(*args, lt, got) + pe_bytes)
+            out.setdefault("redesign", {})[f"T'={t} {name}"] = redesign_times(
+                tag, fn, lambda: k7_old(args, lt), k7_gemms(B, t, D, FFN), dtype,
+                K7.k7_plan(B, t, D, FFN, got.element_size()), card)
     return out
 
 
@@ -992,6 +1129,13 @@ def kernels_600m_phase(card: str) -> dict:
             lambda: K4.fused_conv_ffn_final(*k4, lengths=lt),
             lambda: K4.fused_conv_ffn_final_reference(*k4, lengths=lt),
             lambda got: (conv_flops(B * t, d6, 9) + ffn_flops(B * t, d6, f6), tensor_bytes(*k4, lt, got)))
+        size = 4 if dtype == torch.float32 else 2
+        out["fused_ffn_attention"].setdefault("redesign", {})[f"600m T'={t} {name}"] = redesign_times(
+            f"K7 600m T'={t} {name}", lambda: K7.fused_ffn_attention(*k7, lengths=lt), lambda: k7_old(k7, lt),
+            k7_gemms(B, t, d6, f6), dtype, K7.k7_plan(B, t, d6, f6, size), card)
+        out["fused_conv_ffn_final"].setdefault("redesign", {})[f"600m T'={t} {name}"] = redesign_times(
+            f"K4 600m T'={t} {name}", lambda: K4.fused_conv_ffn_final(*k4, lengths=lt), lambda: k4_old(k4, lt),
+            k4_gemms(B, t, d6, f6), dtype, K4.k4_plan(B, t, d6, f6, size), card)
 
         for t in (126, 751):
             rng = np.random.RandomState(1500 + t)
@@ -4540,6 +4684,42 @@ def train_mesh_phase(card: str) -> dict:
     return out
 
 
+def bf16_encoder_phase(model: str, fused, flat, clips, card: str) -> dict:
+    """The whole-block configuration's encoder in bf16 beside f32 on the
+    card: device ms of each (torch.profiler, best of 2 turns), K7's and K4's
+    launches per bf16 encoder call, and the bf16 encoder's largest
+    difference from f32 over the valid frames as a share of the f32
+    output's scale."""
+    import torch
+
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import encoded_lengths
+
+    f32 = facade(model, "cuda", params=flat, fused=fused)
+    b16 = facade(model, "cuda", params=flat, fused=fused, compute_dtype="bfloat16")
+    feats, n_frames = preprocess_audio_batch(clips, f32._audio_cfg, "cpu")
+    feats = feats.to("cuda")
+    with torch.inference_mode():
+        e32 = f32.encode(feats, n_frames).float()
+        reset_counts()
+        e16 = b16.encode(feats, n_frames).float()
+        counts = read_counts()
+        dev = {"f32": [], "bf16": []}
+        for _ in range(2):
+            dev["f32"].append(device_ms(lambda: f32.encode(feats, n_frames), calls=3))
+            dev["bf16"].append(device_ms(lambda: b16.encode(feats, n_frames), calls=3))
+    lens = encoded_lengths(torch.as_tensor(n_frames)).tolist()
+    diff = max(float((e16[i, :n] - e32[i, :n]).abs().max()) for i, n in enumerate(lens))
+    scale = max(float(e32[i, :n].abs().max()) for i, n in enumerate(lens))
+    if not torch.isfinite(e16).all():
+        raise RuntimeError(f"{model} bf16 whole-block encoder: output not finite")
+    f32_ms, b16_ms = min(dev["f32"]), min(dev["bf16"])
+    log(f"== {model} whole-block encoder, bf16 beside f32: device {b16_ms:.3f} vs {f32_ms:.3f} ms (best of 2 "
+        f"turns); K7 {counts['fused_ffn_attention']} and K4 {counts['fused_conv_ffn_final']} launches per bf16 "
+        f"encoder call; bf16 - f32 max |diff| {diff:.4f} = {diff / scale:.2%} of the f32 scale {scale:.3f} [{card}]")
+    return {"bf16_ms": b16_ms, "f32_ms": f32_ms, "launches": counts, "delta_share": diff / scale}
+
+
 def build_phase() -> None:
     """Every CUDA library (nvcc) and the host libraries (g++), each from
     its source under parakeet_tpu_torch/csrc/, all started together."""
@@ -4562,6 +4742,16 @@ def build_phase() -> None:
         f"{time.perf_counter() - t0:.1f} s wall: " + ", ".join(f"{name} {s:.1f} s" for name, s in done))
     for name in LIBRARIES:
         _build.load(name)
+    # what ptxas made of K7's and K4's Hopper GEMM (no ncu on this machine)
+    for name in ("ffn_attention", "conv_ffn_final"):
+        lines = _build.BUILD_LOG.get(name, "").splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and "hopper_gemm_kernel" in line:
+                usage = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
+                log(f"  ptxas {name}: hopper_gemm_kernel{line.split('hopper_gemm_kernel', 1)[1].split('EEEv')[0]}: "
+                    + "; ".join(usage[:2]))
+            elif "warning" in line.lower():
+                log(f"  ptxas {name}: {line.strip()}")
     if not (native.available() and codecs.flac_available()):
         raise RuntimeError("build: the host libraries built but did not load")
 
@@ -4625,12 +4815,13 @@ def main(argv=None) -> int:
                   "fused_ffn_attention": timed("K7", ffn_attention_phase, card),
                   "fused_rel_attention": timed("K2", rel_attention_v1_phase, card),
                   "fused_log_mel": timed("K3", log_mel_phase, card)}
+        timed("K7 and K4 edge shapes", edge_shapes_phase, card)
     if "kernels600m" in phases:
         for name, k6 in timed("kernels at 600m shapes", kernels_600m_phase, card).items():
             k = kernel.setdefault(name, {"max_abs_err": 0.0})
             k["max_abs_err"] = max(k["max_abs_err"], k6["max_abs_err"])
-            for key in ("times", "bf16_times", "work", "bf16_work"):
-                k.setdefault(key, {}).update(k6[key])
+            for key in ("times", "bf16_times", "work", "bf16_work", "redesign"):
+                k.setdefault(key, {}).update(k6.get(key, {}))
 
     clips = synthetic_clips(8, seed=1234)
     log(f"== clips: 8, {', '.join(f'{len(c) / 16000:.2f}' for c in clips)} s "
@@ -4653,6 +4844,8 @@ def main(argv=None) -> int:
             log(f"== {name} vs fused on the card: {same}/16 items with identical tokens; encoder stage "
                 f"{res['enc_ms']:.3f} vs {fused['enc_ms']:.3f} ms wall, {res['enc_dev_ms']:.3f} vs "
                 f"{fused['enc_dev_ms']:.3f} ms device [{card}]")
+        paths["whole_bf16"] = timed("whole-block bf16 encoder", bf16_encoder_phase, "tdt-ctc-110m", whole_cfg,
+                                    flat, clips, card)
         paths["frontend"] = timed("path fused frontend", fused_frontend_phase, flat, clips, card)
         timed("bf16", bf16_phase, fused_cfg, flat, clips, fused["tdt"])
     if "serve" in phases:
@@ -4680,6 +4873,8 @@ def main(argv=None) -> int:
                 paths[f"tdt-600m {label}"] = timed(f"path tdt-600m {label}", path_phase, f"tdt-600m {label}", cfg,
                                                    flat6, clips, card, model="tdt-600m",
                                                    compare_clips=short_clips(clips))
+            paths["tdt-600m whole_bf16"] = timed("tdt-600m whole-block bf16 encoder", bf16_encoder_phase, "tdt-600m",
+                                                 whole_cfg, flat6, clips, card)
         if "lookahead" in phases:
             paths["lookahead"]["tdt-600m"] = timed("lookahead tdt-600m", lookahead_phase, "tdt-600m", flat6, clips,
                                                    card)
@@ -4780,6 +4975,9 @@ def main(argv=None) -> int:
                "gflop": f32_bound["gflop"], "mbyte": f32_bound["mbyte"],
                # no single PyTorch call computes any of these fused functions
                "library_ms": None, "shapes": []}
+        if "redesign" in k:  # K7 and K4: in turns with the old design, launches per call
+            row["redesign"] = {shape: {"ms": r["ms"], "old_ms": r["old_ms"], "launches": r["launches"]}
+                               for shape, r in k["redesign"].items()}
         if t in k.get("bf16_times", {}):
             # bf16 bound: this run's bf16 inputs, every operation at the tensor-core rate
             b16 = bound(*k["bf16_work"][t], BF16_PEAK)

@@ -11,19 +11,39 @@
 //   x3  = x2 + 0.5 * FFN(x2)          ffn_body: LN, fc1, SiLU, fc2; rounded
 //   out = round(LN(x3))               the block's final LayerNorm
 //
-// Both bodies return T in the reference (pallas_utils.py), so K4 is K5
-// followed by K6 with the final LayerNorm, exactly: the launch sequences of
-// conv_module.cuh (run_conv) and feed_forward.cuh (run_ffn) run one after
-// the other on the caller's stream (eight to nine launches, by the plans);
-// the FFN's LayerNorm output reuses the conv half's h. Only the conv half masks rows by length.
+// Both bodies return T in the reference (pallas_utils.py); those are the
+// rounding points kept here. Only the conv half masks rows by length.
 //
 // What bounds it on the card: the four GEMMs (pw1, pw2, fc1, fc2: 2*M*D*
-// (3D + 2F) FLOPs, 5.8 GFLOP at B=8, T'=126, D=512, F=2048) in IEEE f32 FMA
-// on the CUDA cores, all on ffn_gemm.cuh's tiles, as in K5 and K6. The TPU kernel's gain was
-// one VMEM-resident program per item; on the card the saving is one Python
-// call and its argument checks per block, and the intermediate x2 stays in
-// L2 (8 x 126 x 512 x 4 = 2 MB) between the halves. Keeping x2 and the FFN
-// hidden on chip is later work.
+// (3D + 2F) FLOPs, 5.8 GFLOP at B=8, T'=126, D=512, F=2048). In bf16 they
+// take microseconds on the tensor cores, so the launches between them and
+// the passes of intermediates through device memory decide the time, and
+// the plan (ops/conv_ffn_final.py k4_plan) runs the Hopper design: five
+// launches, every GEMM on ffn_gemm.cuh's hopper_gemm_kernel (wgmma fed by
+// TMA), no LayerNorm launch, no f32 partials and no closing pass:
+//
+//   1. pw1 + GLU on LN_conv(x): the LayerNorm on the GEMM's A path (each
+//      cluster of column tiles normalises the rows once, into h2); rows at
+//      or past min(len, T) (taken in the kernel) written as 0
+//   2. K5's depthwise + folded BN + SiLU pass (conv_module.cuh)
+//   3. pw2, k split over a thread-block cluster that also spans the row's
+//      column tiles: x2 = round(x + y + b2) and, from the row statistics
+//      exchanged in the cluster, xn = round(LN_ffn(x2))
+//   4. fc1 + SiLU on xn
+//   5. fc2 over a cluster the same way: out = round(LN_final(round(x2 +
+//      0.5 (y + g2))))
+//
+// The depthwise pass stays a launch of its own: folded into pw2's A path it
+// would be computed again by every column tile of a row (four at D = 512)
+// inside the GEMM's critical path, against one launch boundary saved.
+//
+// In f32 the GEMMs are IEEE FMA on the CUDA cores, where the tiled GEMM's
+// 128-row tiles and its split-K closing pass beat a whole-row cluster, and
+// in bf16 a row wider than a cluster's 8 column tiles (D > 1024) cannot be
+// LayerNorm'd in one: there the plan runs K5's launch sequence
+// (conv_module.cuh run_conv) and then K6's with the final LayerNorm
+// (feed_forward.cuh run_ffn) on the caller's stream, nine launches; the
+// FFN's LayerNorm output reuses the conv half's h.
 //
 // Plain C interface, loaded with ctypes. Returns cudaGetLastError() (0 =
 // success).
@@ -33,23 +53,66 @@
 
 namespace {
 
+// The Hopper design, bf16. pw1_cols: the column tiles that share pw1's
+// LayerNorm; fc2_splits, pw2_splits: the k slices of fc2 and pw2.
+int run_hopper(const void* x, const float* cnw, const float* cnb, const void* w1, const void* b1, const void* wd,
+               const void* bd, const float* bn_w, const float* bn_b, const float* bn_mean, const float* bn_var,
+               const void* w2, const void* b2, const int* lengths, const float* fnw, const float* fnb,
+               const void* f1, const void* g1, const void* f2, const void* g2, const float* onw, const float* onb,
+               float eps, void* h, void* h2, void* x2, void* hf, void* out, int B, int Tn, int D, int K, int F,
+               int pw1_cols, int fc2_splits, int pw2_splits, cudaStream_t stream) {
+  const int M = B * Tn;
+  if (M == 0) return 0;
+  cudaError_t err;
+
+  HgArgs up = {};
+  up.g[0].a = x;
+  up.g[0].w[0] = w1;
+  up.g[0].bias[0] = b1;
+  up.g[0].lengths = lengths;
+  up.g[0].out[0] = h;
+  up.g[0].M = M; up.g[0].N = 2 * D; up.g[0].K = D; up.g[0].nseg = D;
+  up.g[0].T = Tn;
+  up.ln_w = cnw; up.ln_b = cnb; up.eps = eps;
+  up.cn = pw1_cols;
+  up.xn = h2;  // LN_conv(x) until the depthwise pass writes h2
+  if ((err = launch_hopper_gemm<HE_GLU, true>(up, stream)) != cudaSuccess) return (int)err;
+
+  if ((err = launch_depthwise<bf16>(h, wd, bd, bn_w, bn_b, bn_mean, bn_var, h2, B, Tn, D, K, stream)) != cudaSuccess)
+    return (int)err;
+
+  // the depthwise pass is done with h: it holds LN_ffn(x2)
+  if ((err = launch_cluster_linear(h2, w2, b2, x, 1.f, x2, fnw, fnb, eps, h, M, D, D, pw2_splits, stream)) !=
+      cudaSuccess)
+    return (int)err;
+
+  HgArgs fc1 = {};
+  fc1.g[0].a = h;
+  fc1.g[0].w[0] = f1;
+  fc1.g[0].bias[0] = g1;
+  fc1.g[0].out[0] = hf;
+  fc1.g[0].M = M; fc1.g[0].N = F; fc1.g[0].K = D;
+  if ((err = launch_hopper_gemm<HE_SILU, false>(fc1, stream)) != cudaSuccess) return (int)err;
+
+  return (int)launch_cluster_linear(hf, f2, g2, x2, 0.5f, nullptr, onw, onb, eps, out, M, D, F, fc2_splits,
+                                    stream);
+}
+
+// K5's launch sequence, then K6's with the final LayerNorm: splits (fc2's
+// k slices), pw1_rows, pw2_splits, their plans'. part serves both halves'
+// split GEMMs.
 template <typename T>
-int run_conv_ffn_final(const void* x, const float* cnw, const float* cnb, const void* w1,
-                       const void* b1, const void* wd, const void* bd, const float* bn_w,
-                       const float* bn_b, const float* bn_mean, const float* bn_var,
-                       const void* w2, const void* b2, const int* lengths, const float* fnw,
-                       const float* fnb, const void* f1, const void* g1, const void* f2,
-                       const void* g2, const float* onw, const float* onb, float eps,
-                       void* h, void* h2, void* x2, void* hf, float* part, void* out, int B,
-                       int Tn, int D, int K, int F, int splits, int pw1_rows, int pw2_splits,
-                       cudaStream_t stream) {
-  // part serves both halves' split GEMMs
-  int err = run_conv<T>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths,
-                        eps, part, h, h2, x2, B, Tn, D, K, pw1_rows, pw2_splits, stream);
+int run_tiled(const void* x, const float* cnw, const float* cnb, const void* w1, const void* b1, const void* wd,
+              const void* bd, const float* bn_w, const float* bn_b, const float* bn_mean, const float* bn_var,
+              const void* w2, const void* b2, const int* lengths, const float* fnw, const float* fnb,
+              const void* f1, const void* g1, const void* f2, const void* g2, const float* onw, const float* onb,
+              float eps, void* h, void* h2, void* x2, void* hf, float* part, void* out, int B, int Tn, int D, int K,
+              int F, int splits, int pw1_rows, int pw2_splits, cudaStream_t stream) {
+  int err = run_conv<T>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps, part, h, h2,
+                        x2, B, Tn, D, K, pw1_rows, pw2_splits, stream);
   if (err != 0) return err;
   // the conv half is done with h: it holds the FFN's LayerNorm output
-  return run_ffn<T>(x2, fnw, fnb, f1, g1, f2, g2, onw, onb, eps, h, hf, part, out, B * Tn, D, F,
-                    splits, stream);
+  return run_ffn<T>(x2, fnw, fnb, f1, g1, f2, g2, onw, onb, eps, h, hf, part, out, B * Tn, D, F, splits, stream);
 }
 
 }  // namespace
@@ -59,11 +122,13 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x (B, T, D); conv: w1 (2D, D), b1 (2D,),
 // wd (D, K), bd (D,), w2 (D, D), b2 (D,); ffn: f1 (F, D), g1 (F,), f2 (D, F),
 // g2 (D,) — all in the activation dtype; the conv, BN, ffn and final norm
-// vectors (D,) f32; lengths (B,) int32 valid rows. K odd. Scratch
-// (allocated by the caller): h, h2, x2 (B, T, D), hf (B*T, F), part (f32,
-// the larger of the two halves' split partials). splits (fc2's k slices,
-// dividing ceil(F / 32)), pw1_rows, pw2_splits: the launch plans of K6 and
-// K5.
+// vectors (D,) f32; lengths (B,) int32 valid rows (min(len, T) is taken in
+// the kernels). K odd. Scratch (allocated by the caller): h, h2, x2 (B, T,
+// D), hf (B*T, F), part (f32, the tiled sequences' split partials; null for
+// the Hopper design). The plan (ops/conv_ffn_final.py k4_plan): hopper (1:
+// the Hopper design, bf16 only), splits (fc2's k slices), pw2_splits (pw2's),
+// and for the Hopper design pw1_cols (pw1's LayerNorm cluster), for the
+// tiled sequences pw1_rows (K5's plan).
 int pk_conv_ffn_final(int dtype, const void* x, const float* cnw, const float* cnb,
                       const void* w1, const void* b1, const void* wd, const void* bd,
                       const float* bn_w, const float* bn_b, const float* bn_mean,
@@ -71,19 +136,22 @@ int pk_conv_ffn_final(int dtype, const void* x, const float* cnw, const float* c
                       const float* fnw, const float* fnb, const void* f1, const void* g1,
                       const void* f2, const void* g2, const float* onw, const float* onb,
                       float eps, void* h, void* h2, void* x2, void* hf, float* part, void* out,
-                      int B, int T, int D, int K, int F, int splits, int pw1_rows, int pw2_splits,
-                      void* stream) {
+                      int B, int T, int D, int K, int F, int hopper, int splits, int pw1_rows,
+                      int pw2_splits, int pw1_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper)
+    return dtype != 1 ? (int)cudaErrorInvalidValue
+                      : run_hopper(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, fnw,
+                                   fnb, f1, g1, f2, g2, onw, onb, eps, h, h2, x2, hf, out, B, T, D, K, F, pw1_cols,
+                                   splits, pw2_splits, s);
   if (dtype == 0)
-    return run_conv_ffn_final<float>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2,
-                                     b2, lengths, fnw, fnb, f1, g1, f2, g2, onw, onb, eps, h, h2,
-                                     x2, hf, part, out, B, T, D, K, F, splits, pw1_rows,
-                                     pw2_splits, s);
+    return run_tiled<float>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, fnw, fnb, f1,
+                            g1, f2, g2, onw, onb, eps, h, h2, x2, hf, part, out, B, T, D, K, F, splits, pw1_rows,
+                            pw2_splits, s);
   if (dtype == 1)
-    return run_conv_ffn_final<__nv_bfloat16>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean,
-                                             bn_var, w2, b2, lengths, fnw, fnb, f1, g1, f2, g2,
-                                             onw, onb, eps, h, h2, x2, hf, part, out, B, T, D,
-                                             K, F, splits, pw1_rows, pw2_splits, s);
+    return run_tiled<__nv_bfloat16>(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, fnw,
+                                    fnb, f1, g1, f2, g2, onw, onb, eps, h, h2, x2, hf, part, out, B, T, D, K, F,
+                                    splits, pw1_rows, pw2_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,23 +11,38 @@
 //                                         and the residual of x2, not x
 //
 // ffn_body returns T (pallas_utils.py) and the reference's attention core
-// takes LN(x2) rounded to T, so K7 is K6 (no final LayerNorm) followed by
-// K1 with the fused pre-LN, exactly: the launch sequences of
-// feed_forward.cuh (run_ffn) and rel_attention.cuh (run_block) run one
-// after the other on the caller's stream (nine to eleven launches, by the
-// plans); the FFN's LayerNorm output borrows ctx before the attention half
-// needs it. The
-// reference's core scores the position term by
-// the angle-addition factorisation of the sinusoidal table; K1 gathers
+// takes LN(x2) rounded to T; those are the rounding points kept here. The
+// reference's core scores the position term by the angle-addition
+// factorisation of the sinusoidal table; K1's core, which K7 runs, gathers
 // projected table rows instead (the function is the same, the rounding of
 // the table in bf16 is not: see rel_attention.cu).
 //
-// What bounds it on the card: the FFN's two GEMMs and the attention's
-// projections (2*M*D*(2F + 4D) FLOPs plus the position GEMM), all on
-// ffn_gemm.cuh's tiles, and at long T the attention core, in IEEE f32 FMA
-// on the CUDA cores, as in K6 and K1. x2 (2 MB at B=8, T'=126, D=512) stays
-// in L2 between the halves; the saving on the card is one Python call and
-// its argument checks per block.
+// What bounds it on the card: the GEMMs (2*M*D*(2F + 4D) FLOPs plus the
+// position GEMM; 6.5 GFLOP at B=8, T'=126, D=512, F=2048). In bf16 they
+// take microseconds on the tensor cores, so the launches between them and
+// the passes of intermediates through device memory decide the time, and
+// the plan (ops/ffn_attention.py k7_plan) runs the Hopper design: five
+// launches, every GEMM on ffn_gemm.cuh's hopper_gemm_kernel (wgmma fed by
+// TMA), no LayerNorm launch, no f32 partials and no closing pass:
+//
+//   1. fc1 + SiLU on LN_ffn(x): the LayerNorm on the GEMM's A path (each
+//      cluster of column tiles normalises the rows once, into ctx)
+//   2. fc2, k split over a thread-block cluster that also spans the row's
+//      column tiles: x2 = round(x + 0.5 (y + b2)) and, from the row
+//      statistics exchanged in the cluster, xn = round(LN_attn(x2))
+//   3. QKV on xn (the head-major fold) and, in the same launch, the
+//      position GEMM P = round(pe pos_w^T)
+//   4. K1's attention core (rel_attention.cuh), which takes min(len, T)
+//      itself
+//   5. the out-projection, k split over a cluster: out = round(x2 + y + bo)
+//
+// In f32 the GEMMs are IEEE FMA on the CUDA cores, where the tiled GEMM's
+// 128-row tiles and its split-K closing pass beat a whole-row cluster, and
+// in bf16 a row wider than a cluster's 8 column tiles (D > 1024) cannot be
+// LayerNorm'd in one: there the plan runs K6's launch sequence
+// (feed_forward.cuh run_ffn) and then K1's (rel_attention.cuh run_block)
+// on the caller's stream, eleven launches; the FFN's LayerNorm output
+// borrows ctx before the attention half needs it.
 //
 // Plain C interface, loaded with ctypes. Returns cudaGetLastError() (0 =
 // success).
@@ -37,24 +52,81 @@
 
 namespace {
 
+// The Hopper design, bf16. fc1_cols: the column tiles that share fc1's
+// LayerNorm; fc2_splits, out_splits: the k slices of fc2 and the
+// out-projection.
+int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1, const void* g1, const void* f2,
+               const void* g2, const float* anw, const float* anb, float eps, const void* wq, const void* bq,
+               const void* wk, const void* bk, const void* wv, const void* bv, const void* bias_u,
+               const void* bias_v, const void* pe, const void* pos_w, const void* wo, const void* bo,
+               const int* lengths, void* hf, void* x2, void* qu, void* qv, void* kh, void* vh, void* pos, void* ctx,
+               void* out, int B, int Tn, int D, int H, int F, int fc1_cols, int fc2_splits, int out_splits,
+               cudaStream_t stream) {
+  const int M = B * Tn, HD = D / H;
+  if (M == 0) return 0;
+  cudaError_t err;
+
+  HgArgs up = {};
+  up.g[0].a = x;
+  up.g[0].w[0] = f1;
+  up.g[0].bias[0] = g1;
+  up.g[0].out[0] = hf;
+  up.g[0].M = M; up.g[0].N = F; up.g[0].K = D;
+  up.ln_w = fnw; up.ln_b = fnb; up.eps = eps;
+  up.cn = fc1_cols;
+  up.xn = ctx;  // LN_ffn(x) until fc2 writes LN_attn(x2) there
+  if ((err = launch_hopper_gemm<HE_SILU, true>(up, stream)) != cudaSuccess) return (int)err;
+
+  // ctx holds LN_attn(x2) until the core writes it
+  if ((err = launch_cluster_linear(hf, f2, g2, x, 0.5f, x2, anw, anb, eps, ctx, M, D, F, fc2_splits, stream)) !=
+      cudaSuccess)
+    return (int)err;
+
+  HgArgs q = {};
+  FfnGemmArgs& g = q.g[0];
+  g.a = ctx;
+  g.w[0] = wq; g.w[1] = wk; g.w[2] = wv;
+  g.bias[0] = bq; g.bias[1] = bk; g.bias[2] = bv;
+  g.out[0] = qu; g.out[1] = qv; g.out[2] = kh; g.out[3] = vh;
+  g.bias_u = bias_u; g.bias_v = bias_v;
+  g.M = M; g.N = 3 * D; g.K = D; g.nseg = D;
+  g.T = Tn; g.H = H; g.HD = HD;
+  g.scale = 1.f / sqrtf((float)HD);
+  FfnGemmArgs& p = q.g[1];
+  p.a = pe;
+  p.w[0] = pos_w;
+  p.out[0] = pos;
+  p.M = 2 * Tn - 1; p.N = D; p.K = D;
+  if ((err = launch_hopper_gemm<HE_QKV_POS, false>(q, stream)) != cudaSuccess) return (int)err;
+
+  switch (HD) {
+    case 32: err = launch_attn<bf16, 32>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
+    case 64: err = launch_attn<bf16, 64>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
+    case 128: err = launch_attn<bf16, 128>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  return (int)launch_cluster_linear(ctx, wo, bo, x2, 1.f, out, nullptr, nullptr, 0.f, nullptr, M, D, D, out_splits,
+                                    stream);
+}
+
+// K6's launch sequence, then K1's: splits (fc2's k slices), qkv_rows,
+// pos_splits, out_splits, their plans'. part serves both halves' split
+// GEMMs; ctx holds the FFN's LayerNorm output, then the attention's.
 template <typename T>
-int run_ffn_attention(const void* x, const float* fnw, const float* fnb, const void* f1,
-                      const void* g1, const void* f2, const void* g2, const float* anw,
-                      const float* anb, float eps, const void* wq, const void* bq, const void* wk,
-                      const void* bk, const void* wv, const void* bv, const void* bias_u,
-                      const void* bias_v, const void* pe, const void* pos_w, const void* wo,
-                      const void* bo, const int* lengths, void* hf, float* part, void* x2,
-                      void* qu, void* qv, void* kh, void* vh, void* pos, void* ctx, void* out,
-                      int B, int Tn, int D, int H, int F, int splits, int qkv_rows,
-                      int pos_splits, int out_splits, cudaStream_t stream) {
-  // ctx is free until the attention half: it holds the FFN's LayerNorm
-  // output, then the attention's; part serves both halves' split GEMMs
-  int err = run_ffn<T>(x, fnw, fnb, f1, g1, f2, g2, nullptr, nullptr, eps, ctx, hf, part, x2,
-                       B * Tn, D, F, splits, stream);
+int run_tiled(const void* x, const float* fnw, const float* fnb, const void* f1, const void* g1, const void* f2,
+              const void* g2, const float* anw, const float* anb, float eps, const void* wq, const void* bq,
+              const void* wk, const void* bk, const void* wv, const void* bv, const void* bias_u,
+              const void* bias_v, const void* pe, const void* pos_w, const void* wo, const void* bo,
+              const int* lengths, void* hf, float* part, void* x2, void* qu, void* qv, void* kh, void* vh,
+              void* pos, void* ctx, void* out, int B, int Tn, int D, int H, int F, int splits, int qkv_rows,
+              int pos_splits, int out_splits, cudaStream_t stream) {
+  int err = run_ffn<T>(x, fnw, fnb, f1, g1, f2, g2, nullptr, nullptr, eps, ctx, hf, part, x2, B * Tn, D, F, splits,
+                       stream);
   if (err != 0) return err;
-  return run_block<T>(x2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe, pos_w, wo, bo,
-                      lengths, part, qu, qv, kh, vh, pos, ctx, out, B, Tn, D, H, qkv_rows,
-                      pos_splits, out_splits, stream);
+  return run_block<T>(x2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe, pos_w, wo, bo, lengths, part,
+                      qu, qv, kh, vh, pos, ctx, out, B, Tn, D, H, qkv_rows, pos_splits, out_splits, stream);
 }
 
 }  // namespace
@@ -64,32 +136,43 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x (B, T, D); ffn: f1 (F, D), g1 (F,),
 // f2 (D, F), g2 (D,); attention: wq, wk, wv, pos_w, wo (D, D), bq, bk, bv,
 // bo, bias_u, bias_v (D,), pe (2T-1, D) — all in the activation dtype; fnw,
-// fnb, anw, anb (D,) f32; lengths (B,) int32 valid keys. Scratch (allocated
-// by the caller): hf (B*T, F), part (f32, the larger of the two halves'
-// split partials), x2 and ctx (B, T, D), qu, qv, kh, vh (B, H, T, hd), pos
-// (2T-1, D). splits (fc2's k slices, dividing ceil(F / 32)), qkv_rows,
-// pos_splits, out_splits: the launch plans of K6 and K1.
+// fnb, anw, anb (D,) f32; lengths (B,) int32 valid keys (min(len, T) is
+// taken in the kernels). Scratch (allocated by the caller): hf (B*T, F),
+// x2 and ctx (B, T, D), qu, qv, kh, vh (B, H, T, hd), pos (2T-1, D), part
+// (f32, the tiled sequences' split partials; null for the Hopper design).
+// The plan (ops/ffn_attention.py k7_plan): hopper (1: the Hopper design,
+// bf16 only), splits (fc2's k slices), out_splits (the out-projection's),
+// and for the Hopper design fc1_cols (fc1's LayerNorm cluster), for the
+// tiled sequences qkv_rows and pos_splits (K1's plan).
 int pk_ffn_attention(int dtype, const void* x, const float* fnw, const float* fnb, const void* f1,
                      const void* g1, const void* f2, const void* g2, const float* anw,
                      const float* anb, float eps, const void* wq, const void* bq, const void* wk,
                      const void* bk, const void* wv, const void* bv, const void* bias_u,
                      const void* bias_v, const void* pe, const void* pos_w, const void* wo,
-                     const void* bo, const int* lengths, void* hf, float* part, void* x2,
-                     void* qu, void* qv, void* kh, void* vh, void* pos, void* ctx, void* out,
-                     int B, int T, int D, int H, int F, int splits, int qkv_rows, int pos_splits,
-                     int out_splits, void* stream) {
+                     const void* bo, const int* lengths, void* hf, float* part, void* x2, void* qu,
+                     void* qv, void* kh, void* vh, void* pos, void* ctx, void* out, int B, int T, int D,
+                     int H, int F, int hopper, int splits, int qkv_rows, int pos_splits, int out_splits,
+                     int fc1_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper)
+    return dtype != 1 ? (int)cudaErrorInvalidValue
+                      : run_hopper(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u,
+                                   bias_v, pe, pos_w, wo, bo, lengths, hf, x2, qu, qv, kh, vh, pos, ctx, out, B, T,
+                                   D, H, F, fc1_cols, splits, out_splits, s);
   if (dtype == 0)
-    return run_ffn_attention<float>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk,
-                                    wv, bv, bias_u, bias_v, pe, pos_w, wo, bo, lengths, hf, part,
-                                    x2, qu, qv, kh, vh, pos, ctx, out, B, T, D, H, F, splits,
-                                    qkv_rows, pos_splits, out_splits, s);
+    return run_tiled<float>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe,
+                            pos_w, wo, bo, lengths, hf, part, x2, qu, qv, kh, vh, pos, ctx, out, B, T, D, H, F,
+                            splits, qkv_rows, pos_splits, out_splits, s);
   if (dtype == 1)
-    return run_ffn_attention<__nv_bfloat16>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk,
-                                            bk, wv, bv, bias_u, bias_v, pe, pos_w, wo, bo, lengths,
-                                            hf, part, x2, qu, qv, kh, vh, pos, ctx, out, B, T, D,
-                                            H, F, splits, qkv_rows, pos_splits, out_splits, s);
+    return run_tiled<__nv_bfloat16>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u,
+                                    bias_v, pe, pos_w, wo, bo, lengths, hf, part, x2, qu, qv, kh, vh, pos, ctx, out,
+                                    B, T, D, H, F, splits, qkv_rows, pos_splits, out_splits, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Clusters of `size` blocks of the Hopper GEMM that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error: what the
+// plans' table (ops/gemm_plan.py HOPPER_ACTIVE_CLUSTERS) is checked against.
+int pk_hopper_active_clusters(int size) { return hopper_active_clusters(size); }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
-// The port's one GEMM design, and the pass that closes a split-K product:
+// The port's one GEMM header, with two designs selected per launch. The
+// tiled GEMM and the pass that closes a split-K product (this part):
 // C[M, N] = A[M, K] @ W[N, K]^T (W in torch Linear layout, A's rows lda
 // apart) in BM x 128 block tiles (BM = 128, 96 or 64, as the launch plan
 // says), k in steps of 32, fed by a ring of shared-memory stages that
 // 16-byte cp.async copies fill while the block computes on an earlier
-// stage. Every kernel's GEMMs run on it: K6 (fc1, fc2), K1 (QKV, position,
-// out-projection), K5 (pw1, pw2), K8 (conv2), K3 (the DFT), and through
-// K6, K1 and K5 also K4 and K7.
+// stage; K6 (fc1, fc2), K1 (QKV, position, out-projection), K5 (pw1, pw2),
+// K8 (conv2) and K3 (the DFT) run on it, and K7 and K4 in f32 through K6's,
+// K1's and K5's sequences. The Hopper GEMM of K7's and K4's sublayers in
+// bf16 (wgmma fed by TMA, thread-block clusters) is the second part,
+// hopper_gemm_kernel, below.
 //
 // What bounds it: a GEMM of these shapes is bound by operations (K = 256
 // to 2048 against 4-byte elements), so the design keeps the FMA units fed:
@@ -24,7 +27,8 @@
 //         accumulators), fragments read with ldmatrix: 8 warps of BM/2 x 32
 //         outputs each, 4 stages of rows padded to 40 values (80 bytes,
 //         conflict-free for ldmatrix). The products of bf16 values are
-//         exact in f32, as in the plain versions; wgmma is later work.
+//         exact in f32, as in the plain versions (K7 and K4 run bf16 on
+//         wgmma, in the second part, where their rows fit a cluster).
 //
 // Each output sums its k in order within its k slice. Epilogues:
 //   FE_SILU     + bias, round to T, SiLU with an f32 sigmoid, round (K6 fc1)
@@ -61,6 +65,9 @@
 // the rows are not 16-byte aligned, and the same tiles are loaded element
 // by element.
 #pragma once
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is reached through the runtime)
 
 #include "async_copy.cuh"
 #include "gemm.cuh"
@@ -571,6 +578,871 @@ cudaError_t launch_linear(const void* a, const void* w, const void* bias, const 
   cudaError_t err = launch_tiled_gemm<T, FE_PARTIAL, 128, ANY_K>(g, splits, stream);
   if (err != cudaSuccess) return err;
   return launch_gemm_reduce<T>(part, splits, residual, 1.f, bias, nullptr, nullptr, 0.f, out, M, N, stream);
+}
+
+// ─── The bf16 sublayer GEMMs of K7 and K4 on Hopper ─────────────────────────
+// One kernel template, hopper_gemm_kernel<EPI, LNA, VEC>, runs every GEMM of
+// K7 and K4 in bf16 in 64 x 128 output tiles (in f32, and in bf16 where a
+// row spans more than a cluster's column tiles, K7 and K4 run K6's, K1's
+// and K5's launch sequences on the tiled GEMM). The GEMMs are bound by operations, but at
+// these sizes (M = B T' = 1008 at 10 s clips) the fixed costs around them
+// decide the time: launches, passes of intermediates through device memory,
+// and each block's prologue and epilogue. So the design takes what Hopper
+// adds, and keeps the epilogues off the critical path: wgmma.mma_async
+// m64n128k16 (f32 accumulators in registers) on tiles that TMA
+// (cp.async.bulk.tensor, 128-byte swizzle) brings into a 4-stage ring with
+// full/empty mbarriers per stage; 160 threads, one consumer warpgroup and
+// one producer warp; a stage is released when the next stage's products are
+// issued (wgmma.wait_group 1). Both operands are K-major (activations (M,
+// K), weights in torch's (N, K)), wgmma's own layout; the shared-memory
+// descriptors name the same 128-byte swizzle as the tensor maps. Where a
+// row stride or base is not a multiple of 16 bytes (or a QKV segment is not
+// a whole number of 64-row boxes), the producer warp fills the same
+// swizzled stages element by element (VEC = false).
+//
+// LNA: the A rows are LayerNorm'd on their way in. The launch runs as
+// clusters of (up to 8) column tiles of a row tile; each block takes the
+// f32 statistics of one k slice of the rows, the cluster merges them
+// through distributed shared memory, and each block writes its slice of
+// round(LN(x)) to a scratch copy of the rows that the cluster's TMA loads
+// then read (hg_ln_rows): every row is normalised once a cluster instead
+// of once a column tile, and the products read plain tiles.
+//
+// The accumulators go through shared memory before any epilogue, so that
+// every thread of the block forms outputs eight (or four) columns at a
+// time and stores them with 16-byte stores. Epilogues:
+//   HE_SILU     fc1: + bias, round, SiLU, round (FE_SILU's arithmetic)
+//   HE_GLU      pw1: the B tile holds 64 a rows and their 64 g rows; pad
+//               rows (t >= min(len, T), the min taken here) are written as
+//               0 (FE_GLU's arithmetic)
+//   HE_QKV_POS  problem 0 the QKV fold (FE_QKV's arithmetic), problem 1 (the
+//               blocks past problem 0's tiles) the position GEMM, rounded
+//   HE_LINEAR   k cut into `splits` slices that run as one thread-block
+//               cluster with `cn` column tiles of the same rows: each block
+//               leaves its f32 sums in shared memory, and the cluster adds the
+//               slices in order z = 0, 1, ... through distributed shared
+//               memory, + bias, round(res + coef * y) (round(y) without res)
+//               into out[0] when set, and, with on_w, round(LN(v)) into
+//               out_ln, the row statistics exchanged between the cluster's
+//               column tiles through distributed shared memory (cn is then
+//               every column tile of the row). No partials reach device
+//               memory and no closing launch runs.
+//
+// The launch runs the plan it is given (ops/gemm_plan.py hopper_plan: the k
+// slices and the cluster widths) and refuses one that breaks these rules.
+
+using bf16 = __nv_bfloat16;
+constexpr int HG_BM = 64, HG_BN = 128, HG_BK = 64, HG_STAGES = 4;  // k: one 128-byte swizzle row a stage
+constexpr int HG_THREADS = 160;
+constexpr int HG_RLD = HG_BN + 4;  // f32 staging tile row
+constexpr int HG_MAX_CLUSTER = 8;
+constexpr int HE_SILU = 0, HE_GLU = 1, HE_QKV_POS = 2, HE_LINEAR = 3;
+constexpr int HG_STAGE = (HG_BM + HG_BN) * HG_BK;  // bf16 values per stage
+constexpr int HG_TX = HG_STAGE * 2;                 // bytes a stage's TMA loads bring
+constexpr int HG_RING = HG_STAGES * HG_TX;
+// dynamic shared memory: 1 KB to align the ring to the swizzle's 1,024-byte
+// period, the ring (which also holds the f32 staging tile after the last k
+// step), 4 x 64 f32 row values (LayerNorm statistics, the cluster's row
+// exchange), 3 x 128 column values (an epilogue's biases) and 16
+// mbarriers: 102,016 B, two blocks an SM
+constexpr int HG_SMEM = 1024 + HG_RING + (4 * HG_BM + 3 * HG_BN) * 4 + 16 * 8;
+static_assert(HG_BM * HG_RLD * 4 <= HG_RING, "the staging tile fits the ring");
+static_assert(HG_SMEM <= 232448, "an H100 block's shared memory");
+
+struct HgArgs {
+  FfnGemmArgs g[2];      // the launch's GEMMs: one, or (HE_QKV_POS) QKV then the position GEMM
+  int tiles_n[2], tiles[2];
+  const float* ln_w;     // LNA: the LayerNorm of g[0].a's rows
+  const float* ln_b;
+  float eps;
+  const void* res;       // HE_LINEAR: residual (M, N) or null
+  float coef;
+  const float* on_w;     // HE_LINEAR: LayerNorm of the result into out_ln, or null
+  const float* on_b;
+  void* out_ln;
+  int cn, splits;        // HE_LINEAR: column tiles and k slices per cluster; LNA: column tiles per cluster
+  void* xn;              // LNA: the (M, K) LayerNorm'd rows
+};
+
+struct HgMaps {
+  CUtensorMap a[2];      // activations of each problem
+  CUtensorMap b[2][3];   // weight segments of each problem
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of the given parity to complete. A stage that never
+// arrives is a fault, not a hang: after 2^30 polls (seconds) the block traps.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\nselp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1u << 30)) __trap();
+  }
+}
+// generic-proxy writes to shared memory, made visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows under
+// the 128-byte swizzle: 8-row groups 1,024 bytes apart (the leading offset
+// is not read in this mode); k16 step j starts 32 j bytes further
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Weight row r of column tile tn (null past the edge): HE_GLU's tile is 64
+// a rows then their 64 g rows of W1 (2 nseg rows); otherwise N rows over
+// up to three segments of nseg rows.
+template <int EPI>
+__device__ __forceinline__ const bf16* hg_w_row(const FfnGemmArgs& g, int tn, int r) {
+  if constexpr (EPI == HE_GLU) {
+    const int gate = r >= HG_BN / 2, o = tn * (HG_BN / 2) + (r & (HG_BN / 2 - 1));
+    if (o >= g.nseg) return nullptr;
+    return static_cast<const bf16*>(g.w[0]) + ((size_t)gate * g.nseg + o) * g.K;
+  } else {
+    const int n = tn * HG_BN + r;
+    if (n >= g.N) return nullptr;
+    const int seg = (n >= g.nseg) + (n >= 2 * g.nseg);
+    return static_cast<const bf16*>(g.w[seg]) + (size_t)(n - seg * g.nseg) * g.K;
+  }
+}
+
+// Element (r, kk) of a stage tile of 64-value rows under the 128-byte swizzle
+__device__ __forceinline__ int sw128_at(int r, int kk) { return r * 64 + ((((kk >> 3) ^ (r & 7))) << 3) + (kk & 7); }
+
+// The element-wise fill of a stage (rows past the edge and k past K are 0)
+template <typename RowFn>
+__device__ __forceinline__ void sw128_fill(bf16* s, int rows, RowFn row, int K, int k0, int lane) {
+  for (int i = lane; i < rows * HG_BK; i += 32) {
+    const int r = i / HG_BK, kk = i - r * HG_BK, k = k0 + kk;
+    const bf16* src = row(r);
+    s[sw128_at(r, kk)] = (src != nullptr && k < K) ? src[k] : __float2bfloat16(0.f);
+  }
+}
+
+// 16 bytes at p (16-byte aligned) as eight floats
+__device__ __forceinline__ void ld16(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Eight outputs v[0..7] to dst[0..7] (n of them valid): one 16-byte store
+// when all eight are valid and dst is 16-byte aligned
+__device__ __forceinline__ void st8(bf16* dst, const float (&v)[8], int n) {
+  if (n >= 8 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < n) st(dst + e, v[e]);
+  }
+}
+
+// The tile's column vectors of a non-linear epilogue into colv (3 x 128
+// floats), so that the outputs read them from shared memory: HE_SILU its
+// bias; HE_GLU the a and g biases of its 64 outputs; QKV each column's
+// segment bias and, in the q segment, the u and v biases scaled by
+// 1/sqrt(hd) and rounded, as the reference kernel does
+template <int EPI>
+__device__ __forceinline__ void hg_column_vectors(const HgArgs& a, int prob, int tn, float* colv, int tid) {
+  const FfnGemmArgs& g = a.g[prob];
+  for (int c = tid; c < HG_BN; c += HG_THREADS) {
+    if constexpr (EPI == HE_GLU) {
+      const int o = tn * (HG_BN / 2) + (c & (HG_BN / 2 - 1)), gate = c >= HG_BN / 2;
+      colv[c] = o < g.nseg ? ld(static_cast<const bf16*>(g.bias[0]) + gate * g.nseg + o) : 0.f;
+    } else if constexpr (EPI == HE_SILU) {
+      const int n = tn * HG_BN + c;
+      colv[c] = n < g.N ? ld(static_cast<const bf16*>(g.bias[0]) + n) : 0.f;
+    } else if (prob == 0) {
+      const int n = tn * HG_BN + c;
+      if (n >= g.N) continue;
+      const int seg = (n >= g.nseg) + (n >= 2 * g.nseg), nn = n - seg * g.nseg;
+      colv[c] = ld(static_cast<const bf16*>(g.bias[seg]) + nn);
+      if (seg == 0) {
+        colv[HG_BN + c] = round_to<bf16>(ld(static_cast<const bf16*>(g.bias_u) + nn) * g.scale);
+        colv[2 * HG_BN + c] = round_to<bf16>(ld(static_cast<const bf16*>(g.bias_v) + nn) * g.scale);
+      }
+    }
+  }
+}
+
+// A non-linear epilogue from the f32 staging tile (64 x HG_RLD) and the
+// column vectors: every thread takes chunks of eight output columns of one
+// row
+template <int EPI>
+__device__ __forceinline__ void hg_store(const HgArgs& a, int prob, const float* red, const float* colv, int m0,
+                                         int tn, int tid) {
+  const FfnGemmArgs& g = a.g[prob];
+  constexpr int W = EPI == HE_GLU ? HG_BN / 2 : HG_BN, CPR = W / 8;
+  constexpr int IPT = (HG_BM * CPR + HG_THREADS - 1) / HG_THREADS;
+  // every chunk of the thread in one unrolled pass, so that their arithmetic overlaps
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int i = tid + j * HG_THREADS;
+    const int r = i / CPR, c0 = (i - r * CPR) * 8, m = m0 + r;
+    if (i >= HG_BM * CPR || m >= g.M) continue;
+    const float* src = red + r * HG_RLD + c0;
+    float v[8];
+    if constexpr (EPI == HE_GLU) {
+      const int o0 = tn * W + c0, n = min(8, g.nseg - o0);
+      if (n <= 0) continue;
+      const int b = m / g.T, t = m - b * g.T;
+      const bool live = t < min(g.lengths[b], g.T);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float av = round_to<bf16>(src[e] + colv[c0 + e]);
+        const float gv = round_to<bf16>(src[e + W] + colv[W + c0 + e]);
+        v[e] = live ? av * sigmoid_f32(gv) : 0.f;
+      }
+      st8(static_cast<bf16*>(g.out[0]) + (size_t)m * g.nseg + o0, v, n);
+    } else {
+      const int n0 = tn * W + c0, n = min(8, g.N - n0);
+      if (n <= 0) continue;
+      if (EPI == HE_QKV_POS && prob == 0) {
+        // a chunk of 8 lies in one segment and one head: nseg and hd are multiples of 8
+        const int seg = (n0 >= g.nseg) + (n0 >= 2 * g.nseg), nn = n0 - seg * g.nseg;
+        const int b = m / g.T, t = m - b * g.T, h = nn / g.HD, c = nn - h * g.HD;
+        const size_t o = (((size_t)b * g.H + h) * g.T + t) * g.HD + c;
+        if (seg == 0) {
+          float u[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float qs = round_to<bf16>((src[e] + colv[c0 + e]) * g.scale);
+            v[e] = qs + colv[HG_BN + c0 + e];
+            u[e] = qs + colv[2 * HG_BN + c0 + e];
+          }
+          st8(static_cast<bf16*>(g.out[0]) + o, v, n);
+          st8(static_cast<bf16*>(g.out[1]) + o, u, n);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = src[e] + colv[c0 + e];
+          st8(static_cast<bf16*>(g.out[seg + 1]) + o, v, n);
+        }
+      } else if (EPI == HE_QKV_POS) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = src[e];
+        st8(static_cast<bf16*>(g.out[0]) + (size_t)m * g.N + n0, v, n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float h = round_to<bf16>(src[e] + colv[c0 + e]);
+          v[e] = h * sigmoid_f32(h);
+        }
+        st8(static_cast<bf16*>(g.out[0]) + (size_t)m * g.N + n0, v, n);
+      }
+    }
+  }
+}
+
+// Four values at p as floats, and back (one 8-byte access when p is aligned
+// for it, else one by one; n of them valid)
+__device__ __forceinline__ void ld4(const bf16* p, float (&v)[4], int n) {
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < n ? ld(p + e) : 0.f;
+  }
+}
+__device__ __forceinline__ void st4(bf16* p, const float (&v)[4], int n) {
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                              *reinterpret_cast<const uint32_t*>(&b));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) st(p + e, v[e]);
+  }
+}
+
+// Merge (nb, mb, qb) into (n, mu, m2): Chan's pairwise formula for the
+// count, mean and sum of squared deviations of two disjoint sets
+__device__ __forceinline__ void chan_merge(float& n, float& mu, float& m2, float nb, float mb, float qb) {
+  const float nn = n + nb;
+  if (nb <= 0.f) return;
+  const float d = mb - mu;
+  mu += d * (nb / nn);
+  m2 += qb + d * d * (n * nb / nn);
+  n = nn;
+}
+
+// Up to 8 values of row xr at [k, k + 8) below k_hi as floats; the count
+template <bool VEC>
+__device__ __forceinline__ int hg_chunk(const bf16* xr, int k, int k_hi, float (&v)[8]) {
+  if constexpr (VEC) {
+    ld16(xr + k, v);
+    return 8;
+  } else {
+    const int n = min(8, k_hi - k);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < n ? ld(xr + k + e) : 0.f;
+    return n;
+  }
+}
+
+// LNA: the A rows LayerNorm'd into xn before the GEMM reads them. The
+// launch's clusters span `C` column tiles of one row tile, and block q of a
+// cluster takes k slice q of the 64 rows: the f32 count, mean and sum of
+// squared deviations of its slice per row (each 16-byte chunk's exactly,
+// then merged by Chan's formula), exchanged through distributed shared
+// memory and merged in the order q = 0, 1, ... (the same in every block),
+// then its slice of round((x - mean) rstd w + b) written to xn. Every
+// cluster of the row tile writes the rows, the same bytes: a cluster reads
+// them only once its own blocks have written all of them, so another
+// cluster's writes leave what it reads as it was. The 128 consumer threads
+// take part, two to a row. On return the cluster's xn rows are complete and
+// visible to its TMA loads.
+template <bool VEC>
+__device__ __forceinline__ void hg_ln_rows(const HgArgs& a, bf16* xn, int m0, int C, int q, float* pmu, float* pm2,
+                                           float* mean, float* rstd, int tid) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int LT = 128, TPR = LT / HG_BM, E = 8;
+  const FfnGemmArgs& g = a.g[0];
+  const int K = g.K, ks = ((K + C - 1) / C + E - 1) / E * E;  // slice length, whole chunks
+  const int k_lo = min(K, q * ks), k_hi = min(K, k_lo + ks);
+  const bf16* A = static_cast<const bf16*>(g.a);
+  const int r = tid / TPR, p = tid - r * TPR, m = m0 + r;
+  const bool work = tid < LT && m < g.M;
+  float n = 0.f, mu = 0.f, m2 = 0.f;
+  if (work) {
+    const bf16* xr = A + (size_t)m * g.lda;
+#pragma unroll 8
+    for (int k = k_lo + p * E; k < k_hi; k += TPR * E) {
+      float v[E];
+      const int cnt = hg_chunk<VEC>(xr, k, k_hi, v);
+      float cm = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) cm += v[e];
+      cm /= (float)cnt;
+      float c2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) c2 += e < cnt ? (v[e] - cm) * (v[e] - cm) : 0.f;
+      chan_merge(n, mu, m2, (float)cnt, cm, c2);
+    }
+  }
+  if (tid < LT) {
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) {
+      const float nb = __shfl_xor_sync(0xffffffffu, n, o), mb = __shfl_xor_sync(0xffffffffu, mu, o);
+      const float qb = __shfl_xor_sync(0xffffffffu, m2, o);
+      // the lower lane's share first, so that the TPR threads agree
+      if (p & o) {
+        float n2 = nb, mu2 = mb, q2 = qb;
+        chan_merge(n2, mu2, q2, n, mu, m2);
+        n = n2; mu = mu2; m2 = q2;
+      } else {
+        chan_merge(n, mu, m2, nb, mb, qb);
+      }
+    }
+    if (p == 0) {
+      pmu[r] = mu;
+      pm2[r] = m2;
+    }
+  }
+  cluster.sync();  // every slice's partial statistics are in place
+  if (tid < HG_BM) {
+    float tn = 0.f, tmu = 0.f, tm2 = 0.f;
+    for (int j = 0; j < C; ++j) {
+      const int lo = min(K, j * ks), cnt = min(K, lo + ks) - lo;
+      chan_merge(tn, tmu, tm2, (float)cnt, cluster.map_shared_rank(pmu, j)[tid],
+                 cluster.map_shared_rank(pm2, j)[tid]);
+    }
+    mean[tid] = tmu;
+    rstd[tid] = 1.f / sqrtf(tm2 / (float)K + a.eps);
+  }
+  __syncthreads();
+  if (work) {
+    const bf16* xr = A + (size_t)m * g.lda;
+    bf16* dst = xn + (size_t)m * K;
+    const float mu_r = mean[r], rs = rstd[r];
+#pragma unroll 8
+    for (int k = k_lo + p * E; k < k_hi; k += TPR * E) {
+      float v[E];
+      const int cnt = hg_chunk<VEC>(xr, k, k_hi, v);
+      float y[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) y[e] = e < cnt ? (v[e] - mu_r) * rs * a.ln_w[k + e] + a.ln_b[k + e] : 0.f;
+      st8(dst + k, y, cnt);
+    }
+  }
+  // the rows go to TMA (the async proxy) in the other blocks of the cluster
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  cluster.sync();
+}
+
+// HE_LINEAR's closing epilogue, run by every thread of every block of the
+// cluster once the block's f32 sums are in `red` (64 x HG_RLD). Each block
+// closes rows [slice, slice + 1) * 64 / splits of its column tile: a thread
+// takes four columns of a row (a warp, one row), four such items at a
+// time, every load of the four (residuals, the other blocks' sums) issued
+// before any store. The results go back into the block's own rows of
+// `red`, which no other block reads. With a LayerNorm of the result, each
+// block takes its tile's count, mean and squared deviations of every row
+// (two passes over the tile's values), the cluster exchanges them once,
+// and every block merges the cn tiles' in order j = 0, 1, ... by Chan's
+// formula. colv holds the tile's bias and LayerNorm vectors; mean[] and
+// rstd[] the rows' statistics (no LNA here).
+__device__ __forceinline__ void hg_cluster_close(const HgArgs& a, float* red, float* colv, float* mean, float* rstd,
+                                                 float* rowx, float* rowy, int m0, int tn, int slice, int tid) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int U = 4, G = HG_BN / 4;  // items in flight per thread; items a row
+  const FfnGemmArgs& g = a.g[0];
+  const int cnl = tn % a.cn, rows = HG_BM / a.splits, r_lo = slice * rows, lane = tid & 31;
+  const bool ln = a.on_w != nullptr;
+  const bf16* bias = static_cast<const bf16*>(g.bias[0]);
+  const bf16* res = static_cast<const bf16*>(a.res);
+  bf16* out = static_cast<bf16*>(g.out[0]);
+  const int items = rows * G;
+  for (int c = tid; c < HG_BN; c += HG_THREADS) {
+    const int n = tn * HG_BN + c;
+    colv[c] = bias != nullptr && n < g.N ? ld(bias + n) : 0.f;
+    if (ln) {
+      colv[HG_BN + c] = n < g.N ? a.on_w[n] : 0.f;
+      colv[2 * HG_BN + c] = n < g.N ? a.on_b[n] : 0.f;
+    }
+  }
+  cluster.sync();  // every slice's sums are in place
+  for (int i0 = tid; i0 < items; i0 += U * HG_THREADS) {
+    float x[U][4];
+    float4 y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * HG_THREADS, r = r_lo + i / G, c = (i % G) * 4, m = m0 + r, n0 = tn * HG_BN + c;
+      const int nv = i < items && m < g.M ? min(4, g.N - n0) : 0;
+      y[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      x[u][0] = x[u][1] = x[u][2] = x[u][3] = 0.f;
+      if (res != nullptr && nv > 0) ld4(res + (size_t)m * g.N + n0, x[u], nv);
+    }
+    for (int z = 0; z < a.splits; ++z) {
+      const float* src = cluster.map_shared_rank(red, z * a.cn + cnl);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * HG_THREADS;
+        if (i < items) {
+          const float4 p = *reinterpret_cast<const float4*>(src + (r_lo + i / G) * HG_RLD + (i % G) * 4);
+          y[u].x += p.x; y[u].y += p.y; y[u].z += p.z; y[u].w += p.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * HG_THREADS;
+      if (i >= items) break;  // warp-uniform: items is a multiple of 32
+      const int r = r_lo + i / G, c = (i % G) * 4, m = m0 + r, n0 = tn * HG_BN + c;
+      const int nv = m < g.M ? min(4, g.N - n0) : 0;
+      float v[4] = {y[u].x, y[u].y, y[u].z, y[u].w};
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = v[e] + colv[c + e];
+        v[e] = e < nv ? round_to<bf16>(res != nullptr ? x[u][e] + a.coef * s : s) : 0.f;
+        sum += v[e];
+      }
+      if (out != nullptr && nv > 0) st4(out + (size_t)m * g.N + n0, v, nv);
+      *reinterpret_cast<float4*>(red + r * HG_RLD + c) = make_float4(v[0], v[1], v[2], v[3]);
+      if (ln) {
+        const float cnt = warp_sum((float)max(nv, 0)), tmean = cnt > 0.f ? warp_sum(sum) / cnt : 0.f;
+        float d2 = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d2 += e < nv ? (v[e] - tmean) * (v[e] - tmean) : 0.f;
+        d2 = warp_sum(d2);
+        if (lane == 0) {
+          rowx[r] = tmean;
+          rowy[r] = d2;
+        }
+      }
+    }
+  }
+  if (ln) {
+    cluster.sync();  // every column tile's row statistics are in place
+    if (tid < rows) {
+      const int r = r_lo + tid;
+      float n = 0.f, mu = 0.f, m2 = 0.f;
+      for (int j = 0; j < a.cn; ++j) {
+        const float cnt = (float)max(0, min(HG_BN, g.N - j * HG_BN));
+        chan_merge(n, mu, m2, cnt, cluster.map_shared_rank(rowx, slice * a.cn + j)[r],
+                   cluster.map_shared_rank(rowy, slice * a.cn + j)[r]);
+      }
+      mean[r] = mu;
+      rstd[r] = 1.f / sqrtf(m2 / (float)g.N + a.eps);
+    }
+    __syncthreads();
+    bf16* out_ln = static_cast<bf16*>(a.out_ln);
+    for (int i = tid; i < items; i += HG_THREADS) {
+      const int r = r_lo + i / G, c = (i % G) * 4, m = m0 + r, n0 = tn * HG_BN + c;
+      const int nv = m < g.M ? min(4, g.N - n0) : 0;
+      if (nv <= 0) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (red[r * HG_RLD + c + e] - mean[r]) * rstd[r] * colv[HG_BN + c + e] + colv[2 * HG_BN + c + e];
+      st4(out_ln + (size_t)m * g.N + n0, v, nv);
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
+// The register cap of three blocks an SM: two blocks (ten warps, three on
+// some of the SM's four register files; shared memory holds no third) need
+// at most 136 registers a thread, which 3 x 160 threads sets.
+template <int EPI, bool LNA, bool VEC>
+__global__ void __launch_bounds__(HG_THREADS, 3)
+    hopper_gemm_kernel(const __grid_constant__ HgArgs a, const __grid_constant__ HgMaps maps) {
+  static_assert(!LNA || EPI == HE_SILU || EPI == HE_GLU, "one problem with a LayerNorm'd A");
+  extern __shared__ unsigned char hg_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(hg_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* mean = reinterpret_cast<float*>(base + HG_RING);
+  float* rstd = mean + HG_BM;
+  float* rowx = rstd + HG_BM;
+  float* rowy = rowx + HG_BM;
+  float* colv = rowy + HG_BM;  // 3 x HG_BN
+  uint64_t* full = reinterpret_cast<uint64_t*>(colv + 3 * HG_BN);
+  uint64_t* empty = full + 8;
+  float* red = reinterpret_cast<float*>(base);  // the staging tile, once the ring is free
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // which tile of which problem, which k slice
+  int prob = 0, tm, tn, slice = 0;
+  if constexpr (EPI == HE_LINEAR || LNA) {
+    const int size = EPI == HE_LINEAR ? a.cn * a.splits : a.cn;
+    const int cid = blockIdx.x / size, rank = blockIdx.x - cid * size;
+    const int groups = (a.tiles_n[0] + a.cn - 1) / a.cn;
+    tm = cid / groups;
+    tn = (cid - tm * groups) * a.cn + rank % a.cn;
+    slice = EPI == HE_LINEAR ? rank / a.cn : 0;
+  } else {
+    int tile = blockIdx.x;
+    if (EPI == HE_QKV_POS && tile >= a.tiles[0]) {
+      prob = 1;
+      tile -= a.tiles[0];
+    }
+    tm = tile / a.tiles_n[prob];
+    tn = tile - tm * a.tiles_n[prob];
+  }
+  const FfnGemmArgs& g = a.g[prob];
+  const int m0 = tm * HG_BM;
+  const int step0 = slice * g.steps;
+  const int nsteps = min(g.steps, (g.K + HG_BK - 1) / HG_BK - step0);
+  // the GEMM's A: the activations, or with LNA the LayerNorm'd rows
+  const bf16* A = static_cast<const bf16*>(LNA ? a.xn : g.a);
+  const int lda = LNA ? g.K : g.lda;
+  auto a_row = [&](int r) -> const bf16* { return m0 + r < g.M ? A + (size_t)(m0 + r) * lda : nullptr; };
+  auto b_row = [&](int r) { return hg_w_row<EPI>(g, tn, r); };
+
+  if (tid == 0) {
+    for (int s = 0; s < HG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (LNA) {
+    hg_ln_rows<VEC>(a, static_cast<bf16*>(a.xn), m0, a.cn, tn % a.cn, rowx, rowy, mean, rstd, tid);
+    if (tn >= a.tiles_n[0]) return;  // a block that only LayerNorms its slice
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  if (warp == 4) {
+    // producer
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % HG_STAGES, k0 = (step0 + step) * HG_BK;
+      if (step >= HG_STAGES) mbar_wait(&empty[s], ((step / HG_STAGES) - 1) & 1);
+      bf16* as = ring + s * HG_STAGE;
+      bf16* bs = as + HG_BM * HG_BK;
+      if constexpr (VEC) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], HG_TX);
+          tma_2d(as, &maps.a[prob], k0, m0, &full[s]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            int seg = 0, row;
+            if constexpr (EPI == HE_GLU) {
+              row = j * g.nseg + tn * (HG_BN / 2);
+            } else {
+              // only QKV has segments; another problem's rows past N read as 0
+              const int n = tn * HG_BN + j * (HG_BN / 2);
+              if (EPI == HE_QKV_POS && prob == 0) seg = min(n / g.nseg, 2);
+              row = n - seg * g.nseg;
+            }
+            tma_2d(bs + j * (HG_BN / 2) * HG_BK, &maps.b[prob][seg], k0, row, &full[s]);
+          }
+        }
+      } else {
+        sw128_fill(as, HG_BM, a_row, g.K, k0, lane);
+        sw128_fill(bs, HG_BN, b_row, g.K, k0, lane);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // consumers
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % HG_STAGES;
+      mbar_wait(&full[s], (step / HG_STAGES) & 1);
+      const bf16* as = ring + s * HG_STAGE;
+      const bf16* bs = as + HG_BM * HG_BK;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint64_t da = sw128_desc(as), db = sw128_desc(bs);
+#pragma unroll
+      for (int kk = 0; kk < HG_BK / 16; ++kk) wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous step's products are done: its stage goes back to the producer
+      wgmma_wait<1>();
+      if (step > 0 && lane == 0) mbar_arrive(&empty[(step - 1) % HG_STAGES]);
+    }
+    wgmma_wait<0>();
+  }
+
+  __syncthreads();  // every product is done and the ring is free
+  if (warp < 4) {
+    // accumulator i: row 16 warp + lane/4 (+8 for i%4 >= 2), column 8 (i/4) + 2 (lane%4) + i%2
+    const int rb = 16 * warp + (lane >> 2), cb = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2)
+      *reinterpret_cast<float2*>(red + (rb + 8 * ((i >> 1) & 1)) * HG_RLD + 8 * (i >> 2) + cb) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+
+  if constexpr (EPI == HE_LINEAR) {
+    hg_cluster_close(a, red, colv, mean, rstd, rowx, rowy, m0, tn, slice, tid);
+  } else {
+    hg_column_vectors<EPI>(a, prob, tn, colv, tid);
+    __syncthreads();
+    hg_store<EPI>(a, prob, red, colv, m0, tn, tid);
+  }
+}
+
+// ─── Host side: tensor maps and launches ───────────────────────────────────
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the libraries link no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) != cudaSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, cols) bf16 tensor with rows ld elements apart, in boxes of 64
+// rows x 64 values under the 128-byte swizzle
+inline bool encode_bf16_rows(CUtensorMap* map, const void* ptr, int rows, int cols, int ld) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {HG_BK, HG_BN / 2};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The launch configuration of `blocks` blocks in clusters of `cluster`
+struct HgLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  HgLaunch(int blocks, int cluster, cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(HG_THREADS);
+    cfg.dynamicSmemBytes = HG_SMEM;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of `size` blocks of hopper_gemm_kernel that the card holds at
+// once (cudaOccupancyMaxActiveClusters; every instantiation takes the same
+// threads and shared memory, which hold two blocks an SM), or minus the
+// error. The plans' table (ops/gemm_plan.py HOPPER_ACTIVE_CLUSTERS) is
+// checked against it on the card.
+inline int hopper_active_clusters(int size) {
+  auto kernel = hopper_gemm_kernel<HE_LINEAR, false, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HG_SMEM);
+  HgLaunch l(size * 64, size, nullptr);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Launch one hopper_gemm_kernel: a.g[0] (and with HE_QKV_POS a.g[1]) with
+// M, N, K, nseg and lda set (0: N and K); HE_LINEAR with a.cn and a.splits;
+// LNA with a.ln_w, a.ln_b, a.eps, a.cn and a.xn ((M, K) bf16). Fills in
+// the tiles and k steps, picks the loader (TMA where every row is 16-byte
+// aligned, element by element otherwise) and encodes the tensor maps. The
+// k slices and cluster widths are the plan's, as given: a plan they break
+// (k slices that do not divide the k steps or the 64 rows, a cluster of
+// more than 8 blocks, a LayerNorm'd result whose row leaves the cluster) is
+// refused with cudaErrorInvalidValue.
+template <int EPI, bool LNA>
+cudaError_t launch_hopper_gemm(HgArgs a, cudaStream_t stream) {
+  const int nprob = EPI == HE_QKV_POS ? 2 : 1;
+  const int splits = EPI == HE_LINEAR ? a.splits : 1;
+  bool vec = true;
+  for (int p = 0; p < nprob; ++p) {
+    FfnGemmArgs& g = a.g[p];
+    if (g.nseg == 0) g.nseg = g.N;
+    if (g.lda == 0) g.lda = g.K;
+    const int steps = (g.K + HG_BK - 1) / HG_BK;
+    if (splits < 1 || steps % splits != 0 || HG_BM % splits != 0) return cudaErrorInvalidValue;
+    g.steps = steps / splits;
+    a.tiles_n[p] = EPI == HE_GLU ? (g.nseg + HG_BN / 2 - 1) / (HG_BN / 2) : (g.N + HG_BN - 1) / HG_BN;
+    a.tiles[p] = a.tiles_n[p] * ((g.M + HG_BM - 1) / HG_BM);
+    const int segs = EPI == HE_QKV_POS && p == 0 ? 3 : 1;
+    vec = vec && (g.K * 2) % 16 == 0 && (g.lda * 2) % 16 == 0 && aligned16(g.a);
+    for (int s = 0; s < segs; ++s) vec = vec && aligned16(g.w[s]);
+    if (segs == 3) vec = vec && g.nseg % (HG_BN / 2) == 0;
+  }
+  if (a.g[0].M == 0) return cudaSuccess;
+  // QKV's chunks of eight stay inside one segment and one head
+  if (EPI == HE_QKV_POS && (a.g[0].nseg % 8 != 0 || a.g[0].HD % 8 != 0)) return cudaErrorInvalidValue;
+  const int row_tiles = a.tiles[0] / a.tiles_n[0];
+  int blocks = a.tiles[0] + (nprob == 2 ? a.tiles[1] : 0), cluster = 1;
+  if (EPI == HE_LINEAR) {
+    if (a.cn < 1 || a.tiles_n[0] % a.cn != 0 || a.cn * splits > HG_MAX_CLUSTER) return cudaErrorInvalidValue;
+    if (a.on_w != nullptr && a.cn != a.tiles_n[0]) return cudaErrorInvalidValue;
+    cluster = a.cn * splits;
+    blocks = a.tiles[0] * splits;
+  }
+  if (LNA) {
+    if (a.xn == nullptr || a.cn < 1 || a.cn > min(HG_MAX_CLUSTER, a.tiles_n[0])) return cudaErrorInvalidValue;
+    cluster = a.cn;
+    blocks = row_tiles * ((a.tiles_n[0] + a.cn - 1) / a.cn) * a.cn;
+  }
+  auto kernel = vec ? hopper_gemm_kernel<EPI, LNA, true> : hopper_gemm_kernel<EPI, LNA, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HG_SMEM);
+  if (err != cudaSuccess) return err;
+  HgMaps maps{};
+  if (vec) {
+    for (int p = 0; p < nprob; ++p) {
+      const FfnGemmArgs& g = a.g[p];
+      const int segs = EPI == HE_QKV_POS && p == 0 ? 3 : 1;
+      const int wrows = EPI == HE_GLU ? 2 * g.nseg : (segs == 3 ? g.nseg : g.N);
+      bool ok = LNA ? encode_bf16_rows(&maps.a[p], a.xn, g.M, g.K, g.K)
+                    : encode_bf16_rows(&maps.a[p], g.a, g.M, g.K, g.lda);
+      for (int s = 0; s < segs; ++s) ok = ok && encode_bf16_rows(&maps.b[p][s], g.w[s], wrows, g.K, g.K);
+      if (!ok) return cudaErrorInvalidValue;
+    }
+  }
+  HgLaunch l(blocks, cluster, stream);
+  l.cfg.numAttrs = EPI == HE_LINEAR || LNA ? 1 : 0;
+  err = cudaLaunchKernelEx(&l.cfg, kernel, a, maps);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// HE_LINEAR on (M, N, K): sum + bias, round(res + coef * y) into out (when
+// set), round(LN(v)) into out_ln (when on_w is set; every column tile in
+// the cluster). splits: k slices, the plan's.
+inline cudaError_t launch_cluster_linear(const void* act, const void* w, const void* bias, const void* res,
+                                         float coef, void* out, const float* on_w, const float* on_b, float eps,
+                                         void* out_ln, int M, int N, int K, int splits, cudaStream_t stream) {
+  HgArgs a = {};
+  a.g[0].a = act;
+  a.g[0].w[0] = w;
+  a.g[0].bias[0] = bias;
+  a.g[0].out[0] = out;
+  a.g[0].M = M; a.g[0].N = N; a.g[0].K = K;
+  a.res = res;
+  a.coef = coef;
+  a.on_w = on_w;
+  a.on_b = on_b;
+  a.eps = eps;
+  a.out_ln = out_ln;
+  a.splits = splits;
+  a.cn = on_w != nullptr ? (N + HG_BN - 1) / HG_BN : 1;
+  return launch_hopper_gemm<HE_LINEAR, false>(a, stream);
 }
 
 }  // namespace

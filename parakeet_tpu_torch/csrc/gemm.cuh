@@ -1,8 +1,9 @@
 // Shared device helpers of the port's hand-written kernels (sm_90a): dtype
 // loads and stores, rounding to the activation dtype, the f32 sigmoid, a
 // warp sum, and the whole-row LayerNorm that K6, K1 and K5 (and K4, K7
-// through them) run once before their first GEMM. The GEMM itself is
-// ffn_gemm.cuh's, the only one in the port.
+// through them in f32) run once before their first GEMM; in bf16 K7 and K4
+// LayerNorm inside their GEMMs. The GEMMs are ffn_gemm.cuh's, the only GEMM
+// header in the port.
 //
 // What bounds the LayerNorm: its bytes (one read of x for the statistics,
 // one more for the output, one write); a warp per row keeps each row's

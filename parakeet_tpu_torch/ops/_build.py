@@ -34,9 +34,12 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parakeet_tpu_torch"
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills on stderr, which `build` keeps in BUILD_LOG (there is no ncu on the
+# card's machine)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -51,6 +54,8 @@ SM_COUNT = 132
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# the compiler's stderr of each library built by this process, by name
+BUILD_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -94,7 +99,8 @@ def library_path(name: str) -> Path:
 
 def _compile(compiler: list[str], src: Path, lib: Path, link: tuple[str, ...] = ()) -> Path:
     """Compile `src` into `lib` through a temporary file; `link` follows
-    the source on the command line."""
+    the source on the command line. The compiler's stderr goes to
+    BUILD_LOG under the source's stem."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -103,6 +109,7 @@ def _compile(compiler: list[str], src: Path, lib: Path, link: tuple[str, ...] = 
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        BUILD_LOG[src.stem] = proc.stderr
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -206,6 +213,6 @@ def refuse_grad(name: str, *tensors) -> None:
                            "(train with FusedLayers(), whose attention kernel K1 differentiates)")
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources",
+__all__ = ["BUILD_DIR", "BUILD_LOG", "NVCC_FLAGS", "GXX_FLAGS", "DTYPE_CODE", "SHARED_MEMORY_LIMIT", "SM_COUNT", "sources",
            "source_digest", "library_path", "build", "host_library_path", "build_host", "build_capi",
            "load", "ptr", "stream", "check_rc", "refuse_grad"]

@@ -8,14 +8,20 @@ runs for every block under set_fused_block2(True) (bench.py
     x2 = x + ConvModule(x), pad rows masked (K5's function) →
     x3 = x2 + 0.5·FFN(x2) (K6's function) → final LayerNorm
 
-Both bodies round to the activation dtype in the reference, so K4 is K5
-followed by K6 with the final LayerNorm, exactly; the plain version
-`fused_conv_ffn_final_reference` is that composition of the two plain
-versions. `fused_conv_ffn_final` dispatches on the tensor's device: CUDA
-tensors run the hand-written kernel in csrc/conv_ffn_final.cu (the launch
-sequences of K5 and K6 in one C call, see its note) or raise, CPU tensors
-run the plain version. What it drops from the TPU kernel: T padded to 128
-lanes, the SMEM length block and whole-array VMEM weight blocks.
+Both bodies round to the activation dtype in the reference, so K4's result
+is K5's followed by K6's with the final LayerNorm, exactly; the plain
+version `fused_conv_ffn_final_reference` is that composition of the two
+plain versions. `fused_conv_ffn_final` dispatches on the tensor's device:
+CUDA tensors run the hand-written kernel in csrc/conv_ffn_final.cu or
+raise, CPU tensors run the plain version. In bf16 the kernel is five
+launches of its own (`k4_plan`; see the .cu's note): pw1 with the GLU on
+the LayerNorm'd rows, K5's depthwise pass, pw2 closing in a thread-block
+cluster that also writes LN_ffn(x2), fc1, and fc2 closing in a cluster with
+the final LayerNorm, the GEMMs on wgmma with TMA loads. In f32 (IEEE FMA on
+the CUDA cores), and in bf16 where a row spans more than a cluster's 8
+column tiles (D > 1024), it runs K5's launch sequence and then K6's in the
+same C call. What it drops from the TPU kernel: T padded to 128 lanes, the
+SMEM length block and whole-array VMEM weight blocks.
 
 On a mesh with a 'model' axis > 1 (parallel/mesh.py) K4 takes the whole
 weights, gathered once when the facade is built, and computes its
@@ -26,14 +32,66 @@ kernel it has no rule for (models/encoder.py).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from parakeet_tpu_torch.ops import conv_module as CM
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
+from parakeet_tpu_torch.ops.gemm_plan import HopperPlan, hopper_fits, hopper_plan
 
-_F32 = torch.float32
+
+# launches of the tiled sequences: K5's (LayerNorm, pw1, depthwise pass, pw2
+# and its closing pass) and K6's (LayerNorm, fc1, fc2, closing pass)
+TILED_LAUNCHES = 5 + 4
+
+
+@dataclass(frozen=True)
+class K4Plan:
+    """How K4 launches for (B, T, D, F): in bf16 where a row fits a cluster
+    (`hopper`), the Hopper design's four GEMM launches (ops/gemm_plan.py
+    hopper_plan) and K5's depthwise pass; else K5's plan, then K6's (the
+    tiled sequences). `launches`: the kernel launches of one call."""
+
+    hopper: bool
+    launches: int
+    pw1: HopperPlan | None = None
+    pw2: HopperPlan | None = None
+    fc1: HopperPlan | None = None
+    fc2: HopperPlan | None = None
+    conv: CM.ConvPlan | None = None
+    ffn: FF.FfnPlan | None = None
+
+    def ints(self) -> tuple[int, int, int, int, int]:
+        """(hopper, splits, pw1_rows, pw2_splits, pw1_cols), as the C entry
+        takes them."""
+        if self.hopper:
+            return 1, self.fc2.splits, 0, self.pw2.splits, self.pw1.cluster_cols
+        pw1_rows, pw2_splits = self.conv.ints()
+        return 0, self.ffn.splits, pw1_rows, pw2_splits, 0
+
+    def partials(self, m: int, d: int) -> int:
+        """f32 elements of the tiled sequences' split partials (0 for the
+        Hopper design): pw2's, then fc2's, in one buffer."""
+        return 0 if self.hopper else max(self.ffn.splits * m * d, self.conv.partials)
+
+
+def k4_plan(b: int, t: int, d: int, f: int, itemsize: int = 4) -> K4Plan:
+    """The Hopper design in bf16 (gemm_plan.hopper_fits): pw1 (GLU over W1's
+    2D rows, the LayerNorm on its A path), pw2 and fc2 (k split over a
+    cluster that holds every column tile of their rows, for LN_ffn and the
+    final LayerNorm), fc1 (N = F). At B=8, T'=126, D=512: 128, 128
+    (clusters of 4 column tiles x 2 k slices), 256 and 128 blocks. In f32
+    (and bf16 rows wider than a cluster) K5's conv_plan and K6's
+    ffn_plan."""
+    m = b * t
+    if itemsize == 2 and hopper_fits(d):
+        return K4Plan(True, 5, pw1=hopper_plan(m, 2 * d, d, "glu", ln=True),
+                      pw2=hopper_plan(m, d, d, "linear", whole_rows=True),
+                      fc1=hopper_plan(m, f, d, "silu"),
+                      fc2=hopper_plan(m, d, f, "linear", whole_rows=True))
+    return K4Plan(False, TILED_LAUNCHES, conv=CM.conv_plan(m, d, itemsize), ffn=FF.ffn_plan(m, d, f, itemsize))
 
 
 def fused_conv_ffn_final_reference(
@@ -62,7 +120,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_conv_ffn_final
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 22 + [ctypes.c_float] + [p] * 6 + [i] * 8 + [p]
+        fn.argtypes = [i] + [p] * 22 + [ctypes.c_float] + [p] * 6 + [i] * 10 + [p]
         fn.restype = i
     return lib
 
@@ -78,7 +136,8 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
     refuse_grad("fused_conv_ffn_final", x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, final_norm_w, final_norm_b)
     name = "fused_conv_ffn_final"
     x, w1, b1, wd, bd, w2, b2, cvecs, valid = CM.checked_args(
-        x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, name)
+        x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, name,
+        clamp=False)
     _, fc1_w, fc1_b, fc2_w, fc2_b, fvecs = FF.checked_args(
         x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, final_norm_w, final_norm_b, name)
     b, t, d = x.shape
@@ -86,13 +145,10 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
     dt = x.dtype
 
     out = torch.empty_like(x)
-    h, h2, x2 = (torch.empty_like(x) for _ in range(3))
-    # the FFN half's LayerNorm output reuses h (see csrc/conv_ffn_final.cu)
-    plan = FF.ffn_plan(b * t, d, f, x.element_size())
-    conv = CM.conv_plan(b * t, d, x.element_size())
+    h, h2, x2 = (torch.empty_like(x) for _ in range(3))  # each half's LayerNorm output borrows h2, then h
+    plan = k4_plan(b, t, d, f, x.element_size())
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    # pw2's partials, then fc2's: one buffer for both
-    part = torch.empty(max(plan.splits * b * t * d, conv.partials), dtype=_F32, device=x.device)
+    part = torch.empty(plan.partials(b * t, d), dtype=torch.float32, device=x.device) if not plan.hopper else None
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_conv_ffn_final(
@@ -101,7 +157,7 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
             ptr(fvecs[0]), ptr(fvecs[1]), ptr(fc1_w), ptr(fc1_b), ptr(fc2_w), ptr(fc2_b),
             ptr(fvecs[2]), ptr(fvecs[3]), float(eps),
             ptr(h), ptr(h2), ptr(x2), ptr(hf), ptr(part), ptr(out), b, t, d, k, f,
-            plan.splits, *conv.ints(), stream(x.device),
+            *plan.ints(), stream(x.device),
         )
     check_rc(rc, name)
     fused_conv_ffn_final.launches += 1
@@ -140,4 +196,5 @@ def fused_conv_ffn_final(
 
 fused_conv_ffn_final.launches = 0
 
-__all__ = ["fused_conv_ffn_final", "fused_conv_ffn_final_reference", "build"]
+__all__ = ["fused_conv_ffn_final", "fused_conv_ffn_final_reference", "build", "K4Plan", "k4_plan",
+           "TILED_LAUNCHES"]

@@ -40,11 +40,13 @@ from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_
 _F32 = torch.float32
 
 
-def _valid_rows(lengths, b: int, t: int, device) -> torch.Tensor:
-    """(B,) int32 valid row counts, min(len_b, T); all T without lengths."""
+def _valid_rows(lengths, b: int, t: int, device, clamp: bool = True) -> torch.Tensor:
+    """(B,) int32 valid row counts, min(len_b, T) (clamp=False: as given,
+    for a kernel that takes the min itself); all T without lengths."""
     if lengths is None:
         return torch.full((b,), t, dtype=torch.int32, device=device)
-    return torch.as_tensor(lengths, device=device).to(torch.int32).clamp(max=t)
+    lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
+    return lengths.clamp(max=t) if clamp else lengths
 
 
 def fused_conv_module_reference(
@@ -105,11 +107,12 @@ def build() -> None:
 
 
 def checked_args(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths,
-                 name: str = "fused_conv_module"):
+                 name: str = "fused_conv_module", clamp: bool = True):
     """The kernel's operands, checked against x and made contiguous:
     (x, w1, b1, wd, bd, w2, b2) in x's dtype, the six norm and BN vectors
     in f32, and the (B,) int32 valid row counts. Raises on what the kernel
-    does not take. Shared with K4, which runs the conv-module sequence."""
+    does not take. Shared with K4, whose kernels take min(len, T)
+    themselves (clamp=False leaves the lengths as given)."""
     b, t, d = x.shape
     k = wd.shape[-1]
     dt = x.dtype
@@ -126,7 +129,7 @@ def checked_args(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var,
             raise ValueError(f"{name}: {key} has shape {tuple(w.shape)}, want {shape}")
     tensors = tuple(a.contiguous() for a in (x, w1, b1, wd, bd, w2, b2))
     vecs = [v.to(device=x.device, dtype=_F32).contiguous() for v in (norm_w, norm_b, bn_w, bn_b, bn_mean, bn_var)]
-    return (*tensors, vecs, _valid_rows(lengths, b, t, x.device).contiguous())
+    return (*tensors, vecs, _valid_rows(lengths, b, t, x.device, clamp).contiguous())
 
 
 def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):

@@ -9,16 +9,22 @@ runs for every block under set_fused_attention("mega") (bench.py
     out = x2 + Attention(LN(x2)) (K1's function with the fused pre-LN; the
     residual is x2, not x)
 
-ffn_body rounds to the activation dtype in the reference, so K7 is K6
-followed by K1, exactly; the plain version `fused_ffn_attention_reference`
-is that composition of the two plain versions. `fused_ffn_attention`
-dispatches on the tensor's device: CUDA tensors run the hand-written
-kernel in csrc/ffn_attention.cu (the launch sequences of K6 and K1 in one
-C call, see its note) or raise, CPU tensors run the plain version. The
-reference's core scores the position term by the angle-addition
-factorisation of the sinusoidal table; the port gathers projected table
-rows (K1). The two agree to f32 rounding; in bf16 they round the table at
-different points.
+ffn_body rounds to the activation dtype in the reference, so K7's result is
+K6's followed by K1's, exactly; the plain version
+`fused_ffn_attention_reference` is that composition of the two plain
+versions. `fused_ffn_attention` dispatches on the tensor's device: CUDA
+tensors run the hand-written kernel in csrc/ffn_attention.cu or raise, CPU
+tensors run the plain version. In bf16 the kernel is five launches of its
+own (`k7_plan`; see the .cu's note): fc1 on the LayerNorm'd rows, fc2
+closing in a thread-block cluster that also writes LN_attn(x2), QKV with
+the position GEMM in the same launch, K1's attention core and the
+out-projection closing in a cluster, the GEMMs on wgmma with TMA loads. In
+f32 (IEEE FMA on the CUDA cores), and in bf16 where a row spans more than a
+cluster's 8 column tiles (D > 1024), it runs K6's launch sequence and then
+K1's in the same C call. The reference's core scores the position term
+by the angle-addition factorisation of the sinusoidal table; the port
+gathers projected table rows (K1's core). The two agree to f32 rounding; in
+bf16 they round the table at different points.
 
 On a mesh with a 'model' axis > 1 (parallel/mesh.py) K7 takes the whole
 weights, gathered once when the facade is built, and computes ffn1 and
@@ -30,12 +36,77 @@ head-sharded mode.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops import rel_attention as RA
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
+from parakeet_tpu_torch.ops.gemm_plan import HopperPlan, hopper_fits, hopper_plan
+
+
+# launches of the tiled sequences: K6's (LayerNorm, fc1, fc2, closing pass)
+# and K1's with its pre-LN (LayerNorm, QKV, position GEMM and its closing
+# pass, core, out-projection and its closing pass)
+TILED_LAUNCHES = 4 + 7
+
+
+@dataclass(frozen=True)
+class K7Plan:
+    """How K7 launches for (B, T, D, F): in bf16 where a row fits a cluster
+    (`hopper`), the Hopper design's four GEMM launches (ops/gemm_plan.py
+    hopper_plan) around K1's core; else K6's plan, then K1's (the tiled
+    sequences). `launches`: the kernel launches of one call."""
+
+    hopper: bool
+    launches: int
+    fc1: HopperPlan | None = None
+    fc2: HopperPlan | None = None
+    qkv_pos: HopperPlan | None = None
+    out: HopperPlan | None = None
+    ffn: FF.FfnPlan | None = None
+    attn: RA.BlockPlan | None = None
+
+    def ints(self) -> tuple[int, int, int, int, int, int]:
+        """(hopper, splits, qkv_rows, pos_splits, out_splits, fc1_cols), as
+        the C entry takes them."""
+        if self.hopper:
+            return 1, self.fc2.splits, 0, 0, self.out.splits, self.fc1.cluster_cols
+        qkv_rows, pos_splits, out_splits = self.attn.ints()
+        return 0, self.ffn.splits, qkv_rows, pos_splits, out_splits, 0
+
+    def partials(self, m: int, d: int) -> int:
+        """f32 elements of the tiled sequences' split partials (0 for the
+        Hopper design): fc2's, then the attention half's, in one buffer."""
+        return 0 if self.hopper else max(self.ffn.splits * m * d, self.attn.partials)
+
+
+def k7_plan(b: int, t: int, d: int, f: int, itemsize: int = 4) -> K7Plan:
+    """The Hopper design in bf16 (gemm_plan.hopper_fits): fc1 (N = F, the
+    LayerNorm on its A path), fc2 (k split over a cluster that holds every
+    column tile of its rows, for LN_attn), QKV (N = 3D) with the position
+    GEMM ((2T−1) × D) in one launch, and the out-projection (k split over a
+    cluster). At B=8, T'=126, D=512: 256 (LayerNorm clusters of 2 column
+    tiles), 128 (clusters of 4 column tiles x 2 k slices), 208 and 128
+    blocks (2 k slices). In f32 (and bf16 rows wider than a cluster) K6's
+    ffn_plan and K1's block_plan."""
+    m = b * t
+    if itemsize == 2 and hopper_fits(d):
+        return K7Plan(True, 5, fc1=hopper_plan(m, f, d, "silu", ln=True),
+                      fc2=hopper_plan(m, d, f, "linear", whole_rows=True),
+                      qkv_pos=hopper_plan(m, 3 * d, d, "qkv_pos", extra=(2 * t - 1, d)),
+                      out=hopper_plan(m, d, d, "linear"))
+    return K7Plan(False, TILED_LAUNCHES, ffn=FF.ffn_plan(m, d, f, itemsize), attn=RA.block_plan(b, t, d, itemsize))
+
+
+def hopper_active_clusters(size: int) -> int:
+    """Clusters of `size` blocks of the Hopper GEMM that this card holds at
+    once (cudaOccupancyMaxActiveClusters): what gemm_plan's
+    HOPPER_ACTIVE_CLUSTERS says for an H100. Raises without a card."""
+    n = _lib().pk_hopper_active_clusters(size)
+    check_rc(max(0, -n), "hopper_active_clusters")
+    return n
 
 
 def fused_ffn_attention_reference(
@@ -62,8 +133,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_ffn_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 9 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 11 + [p]
         fn.restype = i
+        lib.pk_hopper_active_clusters.argtypes = [i]
+        lib.pk_hopper_active_clusters.restype = i
     return lib
 
 
@@ -79,7 +152,7 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
     x, fc1_w, fc1_b, fc2_w, fc2_b, fvecs = FF.checked_args(
         x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, name=name)
     a = RA.checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths,
-                        attn_norm_w, attn_norm_b, name)
+                        attn_norm_w, attn_norm_b, name, clamp=False)
     b, t, d = x.shape
     heads, hd = bias_u.shape
     f = fc1_w.shape[0]
@@ -87,11 +160,9 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
 
     out = torch.empty_like(x)
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    plan = FF.ffn_plan(b * t, d, f, x.element_size())
-    attn = RA.block_plan(b, t, d, x.element_size())
-    # fc2's partials, then the attention half's: one buffer for both
-    part = torch.empty(max(plan.splits * b * t * d, attn.partials), dtype=torch.float32, device=x.device)
-    x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds both LayerNorm outputs
+    plan = k7_plan(b, t, d, f, x.element_size())
+    part = torch.empty(plan.partials(b * t, d), dtype=torch.float32, device=x.device) if not plan.hopper else None
+    x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds both LayerNorms' outputs
     qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
     pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
     lib = _lib()
@@ -103,7 +174,7 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
             ptr(a["bias_u"]), ptr(a["bias_v"]), ptr(a["pe"]), ptr(a["pos_w"]), ptr(a["wo"]),
             ptr(a["bo"]), ptr(a["kv"]), ptr(hf), ptr(part), ptr(x2),
             ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-            b, t, d, heads, f, plan.splits, *attn.ints(), stream(x.device),
+            b, t, d, heads, f, *plan.ints(), stream(x.device),
         )
     check_rc(rc, name)
     fused_ffn_attention.launches += 1
@@ -142,4 +213,5 @@ def fused_ffn_attention(
 
 fused_ffn_attention.launches = 0
 
-__all__ = ["fused_ffn_attention", "fused_ffn_attention_reference", "build"]
+__all__ = ["fused_ffn_attention", "fused_ffn_attention_reference", "build", "K7Plan", "k7_plan",
+           "hopper_active_clusters", "TILED_LAUNCHES"]

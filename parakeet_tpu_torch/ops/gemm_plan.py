@@ -1,5 +1,6 @@
-"""Launch plan of the shared tiled GEMM (csrc/ffn_gemm.cuh), computed in
-Python and passed to the CUDA entries as ints.
+"""Launch plans of csrc/ffn_gemm.cuh's GEMMs, computed in Python and passed
+to the CUDA entries as ints: the shared tiled GEMM (`gemm_plan`) and the
+Hopper GEMM of K7's and K4's sublayers in bf16 (`hopper_plan`, at the end).
 
 The GEMM runs C[M, N] = A[M, K] @ W[N, K]^T in block tiles of `rows` x 128
 outputs, k in steps of 32. A GEMM whose epilogue is linear (a bias and a
@@ -60,6 +61,12 @@ def tiles(m: int, n: int, rows: int = 128) -> int:
     return -(-m // rows) * -(-n // GEMM_COLS)
 
 
+def _fills(blocks: int) -> bool:
+    """Whether `blocks` give every SM one and fill at least WAVE_FILL of
+    the waves (one block an SM) that they take."""
+    return blocks >= SM_COUNT and blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
+
+
 def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True,
               rows: int = GEMM_ROWS[-1]) -> GemmPlan:
     """The plan of one (M, N, K) GEMM. split_k (linear epilogues): `rows`-row
@@ -73,12 +80,7 @@ def gemm_plan(m: int, n: int, k: int, itemsize: int = 4, split_k: bool = True,
         base = tiles(m, n, rows)
         steps = -(-k // GEMM_K_STEP)
         divisors = [s for s in range(1, min(steps, MAX_SPLITS) + 1) if steps % s == 0]
-
-        def fills(s: int) -> bool:
-            blocks = base * s
-            return blocks >= SM_COUNT and blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
-
-        splits = next((s for s in divisors if fills(s)), divisors[-1])
+        splits = next((s for s in divisors if _fills(base * s)), divisors[-1])
     else:
         rows, splits = min(GEMM_ROWS, key=lambda r: -(-tiles(m, n, r) // SM_COUNT) * r), 1
     smem = gemm_smem(rows, itemsize)
@@ -116,5 +118,115 @@ def partial_elems(m: int, n: int, plan: GemmPlan) -> int:
     return plan.splits * m * n
 
 
+# ─── The bf16 sublayer GEMMs of K7 and K4 (ffn_gemm.cuh hopper_gemm_kernel) ──
+# 64 x 128 output tiles on wgmma m64n128k16 fed by TMA boxes of 64 k values x
+# 64 rows through a 4-stage ring (160 threads: one consumer warpgroup, one
+# producer warp; shared memory holds two blocks an SM). A linear epilogue
+# splits k over a thread-block cluster of at most MAX_CLUSTER blocks, which,
+# when a LayerNorm of the result follows, also spans every column tile of
+# the rows. The C launch runs the plan as given and refuses one that breaks
+# these rules.
+HOPPER_ROWS, HOPPER_COLS, HOPPER_K_STEP = 64, 128, 64
+HOPPER_KINDS = ("silu", "glu", "qkv_pos", "linear")
+MAX_CLUSTER = 8
+TMA_BOX = (64, 64)  # (k values, rows) of one TMA box: the k extent is the 128-byte swizzle
+WGMMA_N = HOPPER_COLS
+# dynamic shared memory of a block (bytes): 1 KB to align the ring, the ring
+# (4 stages of (64 + 128) rows x 64 bf16 values), 4 x 64 f32 row values
+# (LayerNorm statistics, the cluster's row exchange), 3 x 128 f32 column
+# values (an epilogue's biases) and 16 mbarriers (ffn_gemm.cuh HG_SMEM)
+HOPPER_SMEM = 1024 + 4 * (HOPPER_ROWS + HOPPER_COLS) * HOPPER_K_STEP * 2 + (4 * HOPPER_ROWS + 3 * HOPPER_COLS) * 4 + 16 * 8
+# Clusters of n blocks of hopper_gemm_kernel that an H100 SXM (132 SMs)
+# holds at once, by n, as cudaOccupancyMaxActiveClusters answered on an
+# NVIDIA H100 80GB HBM3 (ops/ffn_attention.py hopper_active_clusters;
+# chip_smoke.py prints the card's answer beside this table). A cluster is
+# scheduled whole inside one GPC, so clusters hold fewer blocks at once
+# than the 264 that single blocks do.
+HOPPER_ACTIVE_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+
+
+def hopper_waves(size: int, clusters: int) -> int:
+    """Waves that `clusters` clusters of `size` blocks take on the card."""
+    return -(-clusters // HOPPER_ACTIVE_CLUSTERS[size])
+
+
+@dataclass(frozen=True)
+class HopperPlan:
+    """How one hopper_gemm_kernel launch runs: its epilogue kind, the k
+    slices and the column tiles a cluster holds (cluster = cols x splits
+    blocks; 1 without a cluster), the blocks and the k steps."""
+
+    kind: str
+    splits: int
+    cluster_cols: int
+    blocks: int
+    k_steps: int
+
+    @property
+    def cluster(self) -> int:
+        return self.cluster_cols * self.splits
+
+
+def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
+                extra: tuple[int, int] | None = None, ln: bool = False) -> HopperPlan:
+    """The plan of one bf16 (M, N, K) GEMM of K7 or K4. kind "silu", "glu"
+    (N counts W1's 2D rows; a tile holds 64 outputs), "qkv_pos" (extra: the
+    position GEMM's (rows, N), same K, tiled in the same launch) or
+    "linear".
+
+    ln: the A rows are LayerNorm'd on the way in, once a cluster of column
+    tiles (the grid padded to whole clusters): 8 of them (fewer when there
+    are fewer), down to 4 or 2 only where that puts the launch in one wave
+    (a smaller cluster LayerNorms a longer slice of each row in every block,
+    which costs more than a wave of a long launch).
+
+    A linear GEMM splits k into the fewest slices (dividing the k steps and
+    the tile's 64 rows, cluster at most MAX_CLUSTER) whose blocks give every
+    SM one and fill at least WAVE_FILL of their waves, else the most; then
+    into fewer where that costs fewer waves x k steps a block (the fewest
+    waves on a tie), since the card holds fewer blocks at once in clusters.
+    whole_rows puts every column tile of the rows in the cluster (a
+    LayerNorm of the result follows); a row of more than MAX_CLUSTER tiles
+    raises."""
+    if kind not in HOPPER_KINDS:
+        raise ValueError(f"hopper_plan: kind {kind!r}")
+    row_tiles = -(-m // HOPPER_ROWS)
+    cols = -(-(n // 2) // (HOPPER_COLS // 2)) if kind == "glu" else -(-n // HOPPER_COLS)
+    steps = -(-k // HOPPER_K_STEP)
+    if ln:
+        if kind not in ("silu", "glu") or extra is not None:
+            raise ValueError("hopper_plan: a LayerNorm'd A needs one SiLU or GLU problem")
+        c = min(MAX_CLUSTER, cols)
+        if hopper_waves(c, row_tiles * -(-cols // c)) > 1:
+            c = next((s for s in (4, 2) if s < c and hopper_waves(s, row_tiles * -(-cols // s)) == 1), c)
+        return HopperPlan(kind, 1, c, row_tiles * -(-cols // c) * c, steps)
+    if kind != "linear":
+        blocks = row_tiles * cols
+        if extra is not None:
+            blocks += -(-extra[0] // HOPPER_ROWS) * -(-extra[1] // HOPPER_COLS)
+        return HopperPlan(kind, 1, 1, blocks, steps)
+    cn = cols if whole_rows else 1
+    if cn > MAX_CLUSTER:
+        raise ValueError(f"hopper_plan: a row of {n} columns spans {cn} tiles, more than a cluster's "
+                         f"{MAX_CLUSTER} blocks")
+    options = [s for s in (1, 2, 4, 8) if s * cn <= MAX_CLUSTER and steps % s == 0]
+    splits = next((s for s in options if _fills(row_tiles * cols * s)), options[-1])
+    clusters = row_tiles * cols // cn
+    for s in (s for s in options[::-1] if s < splits):  # waves / s against splits', cross-multiplied
+        ws, wb = hopper_waves(cn * s, clusters), hopper_waves(cn * splits, clusters)
+        if ws * splits < wb * s or (ws * splits == wb * s and ws < wb):
+            splits = s
+    return HopperPlan(kind, splits, cn, row_tiles * cols * splits, steps)
+
+
+def hopper_fits(d: int) -> bool:
+    """Whether K7's and K4's Hopper design takes width D: a row of the
+    LayerNorm'd results (fc2's, pw2's) fits one cluster's column tiles."""
+    return -(-d // HOPPER_COLS) <= MAX_CLUSTER
+
+
 __all__ = ["GEMM_COLS", "GEMM_ROWS", "GEMM_K_STEP", "MAX_SPLITS", "WAVE_FILL", "DFT_ROWS", "GemmPlan",
-           "gemm_plan", "gemm_smem", "dft_cols", "dft_plan", "partial_elems", "tiles"]
+           "gemm_plan", "gemm_smem", "dft_cols", "dft_plan", "partial_elems", "tiles", "HOPPER_ROWS",
+           "HOPPER_COLS", "HOPPER_K_STEP", "HOPPER_KINDS", "HOPPER_SMEM",
+           "HOPPER_ACTIVE_CLUSTERS", "MAX_CLUSTER", "TMA_BOX", "WGMMA_N", "HopperPlan", "hopper_plan",
+           "hopper_waves", "hopper_fits"]

@@ -71,10 +71,13 @@ def _check_score_storage(score_bf16: bool) -> None:
         )
 
 
-def _key_lengths(lengths, b: int, t: int, device) -> torch.Tensor:
+def _key_lengths(lengths, b: int, t: int, device, clamp: bool = True) -> torch.Tensor:
+    """(B,) int32 key counts, min(len, T) (clamp=False: as given, for a
+    kernel that takes the min itself); all T without lengths."""
     if lengths is None:
         return torch.full((b,), t, dtype=torch.int32, device=device)
-    return torch.as_tensor(lengths, device=device).to(torch.int32).clamp(max=t)
+    lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
+    return lengths.clamp(max=t) if clamp else lengths
 
 
 def rel_attention_block_reference(
@@ -214,13 +217,15 @@ def build() -> None:
 
 
 def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b,
-                 name: str = "rel_attention_block", heads_partial: bool = False) -> dict:
+                 name: str = "rel_attention_block", heads_partial: bool = False, clamp: bool = True) -> dict:
     """The block kernel's operands, checked against x and made contiguous:
     the weights in x's dtype, the norm vectors in f32 (None without the
     fused pre-LN), the (B,) int32 key lengths and the position table pe.
     Raises on what the kernel does not take. Shared with K7, which runs the
-    block's launch sequence after the FFN's. heads_partial: the
-    head-sharded mode's operands (H·hd rows of the layer's D; no bo)."""
+    block's launch sequence in f32 and its own in bf16. heads_partial: the
+    head-sharded mode's operands (H·hd rows of the layer's D; no bo).
+    clamp=False leaves the lengths as given (K7's kernels take min(len, T)
+    themselves)."""
     b, t, d = x.shape
     heads, hd = bias_u.shape
     dl = heads * hd
@@ -247,7 +252,7 @@ def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengt
     if norm_w is not None:
         norm_w = norm_w.to(device=x.device, dtype=_F32).contiguous()
         norm_b = norm_b.to(device=x.device, dtype=_F32).contiguous()
-    out.update(norm_w=norm_w, norm_b=norm_b, kv=_key_lengths(lengths, b, t, x.device).contiguous(),
+    out.update(norm_w=norm_w, norm_b=norm_b, kv=_key_lengths(lengths, b, t, x.device, clamp).contiguous(),
                pe=position_table(t, d, x.device, dt))
     return out
 

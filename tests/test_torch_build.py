@@ -77,9 +77,10 @@ GEMM_HEADERS = ["ffn_gemm.cuh", "async_copy.cuh", "gemm.cuh"]
     ("log_mel", GEMM_HEADERS),
 ])
 def test_composed_kernels_hash_the_sequences_they_include(name, headers):
-    """Every kernel runs its GEMMs on the shared tiled GEMM (ffn_gemm.cuh):
-    K6, K1 and K5 from their launch sequences' headers (K4 and K7 compose
-    K5's, K6's and K1's), K8's conv2 and K3's DFT directly, so an edit to
+    """Every kernel runs its GEMMs on ffn_gemm.cuh: K6, K1 and K5 on the
+    tiled GEMM from their launch sequences' headers, K8's conv2 and K3's
+    DFT on it directly, K4 and K7 on its Hopper GEMM in bf16 and on K5's,
+    K6's and K1's sequences in f32 (through those headers), so an edit to
     any of those headers rebuilds each library that reaches it. K2 uses
     only the helpers."""
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", *headers]
@@ -88,12 +89,31 @@ def test_composed_kernels_hash_the_sequences_they_include(name, headers):
 
 
 def test_one_gemm_design_in_the_sources():
-    """The 64x64 GEMM that K8 and K3 ran on is gone: the tiled GEMM of
-    ffn_gemm.cuh is the only one, and gemm.cuh keeps the helpers and the
-    LayerNorm."""
+    """The 64x64 GEMM that K8 and K3 ran on is gone: ffn_gemm.cuh is the
+    port's one GEMM header (the tiled GEMM, and the Hopper GEMM of K4's and
+    K7's sublayers in bf16 with every wgmma, TMA and mbarrier instruction
+    of the port), and gemm.cuh keeps the helpers and the LayerNorm. In bf16
+    (run_hopper) K4 and K7 run their GEMMs on the Hopper GEMM alone: no
+    LayerNorm launch, no split-K closing pass, none of K6's, K1's or K5's
+    launch sequences; in f32 (run_tiled) they run those sequences."""
     text = {p.name: p.read_text() for p in _build._CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
     for word in (r"\bgemm_nt_kernel\b", r"\bGemmArgs\b", r"\blaunch_gemm\b", r"\bGBM\b", r"\bEPI_"):
         assert not [name for name, src in text.items() if re.search(word, src)], word
     assert "layer_norm_rows_kernel" in text["gemm.cuh"] and "FfnGemmArgs" not in text["gemm.cuh"]
     for name in ("subsample.cu", "log_mel.cu"):
         assert "launch_tiled_gemm_rows<" in text[name], name
+    for word in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.", "hopper_gemm_kernel<"):
+        assert [name for name, src in text.items() if word in src] == ["ffn_gemm.cuh"], word
+
+    def body(src, fn):
+        rest = src[src.index(f"int {fn}("):]
+        return rest[:rest.index("\n}\n")]
+
+    for name, seqs in (("ffn_attention.cu", ("run_ffn", "run_block")), ("conv_ffn_final.cu", ("run_conv", "run_ffn"))):
+        hopper, tiled = body(text[name], "run_hopper"), body(text[name], "run_tiled")
+        assert "launch_hopper_gemm<" in hopper and "launch_cluster_linear(" in hopper, name
+        for word in ("launch_layer_norm_rows", "launch_gemm_reduce", "launch_linear", "launch_tiled_gemm",
+                     "run_ffn", "run_block", "run_conv"):
+            assert not re.search(rf"\b{word}\b", hopper), (name, word)
+        assert [w for w in seqs if re.search(rf"\b{w}<", tiled)] == list(seqs), name
+        assert "hopper" not in tiled, name

@@ -1,0 +1,204 @@
+"""K7 and K4 on the Hopper GEMM of csrc/ffn_gemm.cuh (hopper_gemm_kernel,
+bf16) and on the tiled sequences (f32, and bf16 rows wider than a
+cluster), and the C entries of every kernel library against what their
+wrappers pass.
+
+The ctypes checks run here without nvcc: each `extern "C"` entry of
+csrc/*.cu is parsed and held to the `argtypes` its wrapper sets (a wrong
+count truncates or shifts pointers silently). The kernels themselves are
+held to their plain versions on the card (marked `cuda`; they skip inside
+the test without one): f32 at the reference block kernels' tolerance, bf16
+within 1% of the output's scale, at the 110m widths, at odd widths (row
+strides that TMA cannot load, QKV segments of 96 rows), at D = 1280 (past
+a cluster's column tiles) and with lengths below T'."""
+
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from parakeet_tpu_torch.ops import _build
+from parakeet_tpu_torch.ops import conv_ffn_final as K4
+from parakeet_tpu_torch.ops import conv_module as CM
+from parakeet_tpu_torch.ops import feed_forward as FF
+from parakeet_tpu_torch.ops import ffn_attention as K7
+from parakeet_tpu_torch.ops import log_mel as LM
+from parakeet_tpu_torch.ops import rel_attention as RA
+from parakeet_tpu_torch.ops import subsample as SS
+
+RTOL, ATOL = 1e-3, 1e-5  # the reference's tests/test_pallas_block.py
+BF16_SCALE_FRAC = 0.01
+
+# library -> (wrapper module, the function that loads it and sets argtypes)
+LIBRARIES = {
+    "rel_attention": (RA, "_lib"), "rel_attention_v1": (RA, "_lib_v1"), "feed_forward": (FF, "_lib"),
+    "conv_module": (CM, "_lib"), "subsample": (SS, "_lib"), "conv_ffn_final": (K4, "_lib"),
+    "ffn_attention": (K7, "_lib"), "log_mel": (LM, "_lib"),
+}
+
+
+class _FakeLib:
+    """Stands in for a loaded library: each attribute a function object
+    whose argtypes the wrapper fills in."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self.fns.setdefault(name, types.SimpleNamespace(argtypes=None, restype=None))
+
+
+def c_entries(name: str) -> dict[str, list[str]]:
+    """The `extern "C"` functions of csrc/<name>.cu, each with its parameter
+    types (pointer, float or int)."""
+    src = (_build._CSRC / f"{name}.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"\bint (pk_\w+)\(([^)]*)\)\s*\{", block):
+        kinds = []
+        for param in m.group(2).split(","):
+            param = " ".join(param.split())
+            kinds.append("pointer" if "*" in param else param.rsplit(" ", 1)[0].replace("const ", ""))
+        out[m.group(1)] = kinds
+    return out
+
+
+def test_every_kernel_library_is_checked():
+    assert sorted(LIBRARIES) == sorted(p.stem for p in _build._CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("name", sorted(LIBRARIES))
+def test_c_entries_take_what_the_wrappers_pass(name, monkeypatch):
+    module, loader = LIBRARIES[name]
+    fake = _FakeLib()
+    monkeypatch.setattr(module, "load", lambda lib: fake if lib == name else _FakeLib())
+    getattr(module, loader)()
+    entries = c_entries(name)
+    assert entries and set(fake.fns) == set(entries)
+    want = {"pointer": "c_void_p", "int": "c_int", "float": "c_float"}
+    for fn, kinds in entries.items():
+        got = [t.__name__ for t in fake.fns[fn].argtypes]
+        assert got == [want[k] for k in kinds], fn
+        assert fake.fns[fn].restype.__name__ == "c_int"
+
+
+# ─── on the card ────────────────────────────────────────────────────────────
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    from parakeet_tpu_torch.ops.layers import require_ieee_f32
+
+    require_ieee_f32()
+
+
+def _dev(dtype):
+    def dev(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+    return dev
+
+
+def _ffn(rng, dev, d, f):
+    return [dev(1 + 0.1 * rng.randn(d), torch.float32), dev(0.1 * rng.randn(d), torch.float32),
+            dev(rng.randn(f, d) / np.sqrt(d)), dev(0.05 * rng.randn(f)),
+            dev(rng.randn(d, f) / np.sqrt(f)), dev(0.05 * rng.randn(d))]
+
+
+def _k7_args(rng, dev, b, t, d, f, heads):
+    attn = []
+    for _ in range(3):
+        attn += [dev(rng.normal(0, 1 / np.sqrt(d), (d, d))), dev(rng.normal(0, 0.02, d))]
+    attn += [dev(rng.normal(0, 0.02, (heads, d // heads))), dev(rng.normal(0, 0.02, (heads, d // heads))),
+             dev(rng.normal(0, 1 / np.sqrt(d), (d, d))), dev(rng.normal(0, 1 / np.sqrt(d), (d, d))),
+             dev(rng.normal(0, 0.02, d))]
+    return (dev(rng.randn(b, t, d)), *_ffn(rng, dev, d, f), dev(1 + 0.1 * rng.randn(d), torch.float32),
+            dev(0.1 * rng.randn(d), torch.float32), *attn)
+
+
+def _k4_args(rng, dev, b, t, d, f):
+    f32 = torch.float32
+    conv = [dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32),
+            dev(rng.randn(2 * d, d, 1) / np.sqrt(d)), dev(0.05 * rng.randn(2 * d)),
+            dev(rng.randn(d, 1, 9) / 3), dev(0.05 * rng.randn(d)),
+            dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32),
+            dev(0.1 * rng.randn(d), f32), dev(1 + 0.2 * np.abs(rng.randn(d)), f32),
+            dev(rng.randn(d, d, 1) / np.sqrt(d)), dev(0.05 * rng.randn(d))]
+    return (dev(rng.randn(b, t, d)), *conv, *_ffn(rng, dev, d, f),
+            dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32))
+
+
+def _hold(got, ref, rows):
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert np.isfinite(g).all()
+    for i, n in enumerate(rows):
+        if got.dtype == torch.float32:
+            np.testing.assert_allclose(g[i, :n], r[i, :n], rtol=RTOL, atol=ATOL)
+        else:
+            assert np.abs(g[i, :n] - r[i, :n]).max() <= BF16_SCALE_FRAC * np.abs(r).max()
+
+
+# (B, T, D, F, H): the 110m widths at a short T, odd widths (K and lda of
+# 100 and 36 values: TMA cannot load those rows; D = 96: QKV segments that
+# are not whole 64-row boxes), lengths below T, and D = 1280 (10 column
+# tiles: the tiled sequences in bf16 too)
+SHAPES = [(2, 64, 512, 2048, 8), (3, 37, 96, 100, 3), (2, 20, 64, 128, 2), (2, 64, 1280, 1280, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lengths", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k7_kernel_matches_plain_version_on_the_card(shape, dtype, with_lengths):
+    _need_card()
+    b, t, d, f, heads = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape))
+    args = _k7_args(rng, _dev(dt), b, t, d, f, heads)
+    lengths = [t, *(max(1, t - 7 * i - 3) for i in range(1, b))] if with_lengths else [t] * b
+    lt = torch.tensor(lengths, dtype=torch.int32, device="cuda") if with_lengths else None
+    before = K7.fused_ffn_attention.launches
+    with torch.inference_mode():
+        got = K7.fused_ffn_attention(*args, lengths=lt)
+        ref = K7.fused_ffn_attention_reference(*args, lengths=lt)
+    assert K7.fused_ffn_attention.launches == before + 1
+    _hold(got, ref, lengths)  # pad query rows are garbage in both, as in the reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lengths", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 512, 2048), (3, 37, 36, 70), (3, 37, 96, 100), (2, 64, 1280, 1280)])
+def test_k4_kernel_matches_plain_version_on_the_card(shape, dtype, with_lengths):
+    _need_card()
+    b, t, d, f = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape))
+    args = _k4_args(rng, _dev(dt), b, t, d, f)
+    lengths = [t, *(max(1, t - 9 * i - 2) for i in range(1, b))] if with_lengths else [t] * b
+    lt = torch.tensor(lengths, dtype=torch.int32, device="cuda") if with_lengths else None
+    before = K4.fused_conv_ffn_final.launches
+    with torch.inference_mode():
+        got = K4.fused_conv_ffn_final(*args, lengths=lt)
+        ref = K4.fused_conv_ffn_final_reference(*args, lengths=lt)
+    assert K4.fused_conv_ffn_final.launches == before + 1
+    _hold(got, ref, [t] * b)  # every row: the conv half masks pad rows the same way in both
+
+
+@pytest.mark.cuda
+def test_hopper_clusters_held_at_once_on_the_card():
+    """The Hopper GEMM's clusters of 1-8 blocks that the card holds at once
+    (cudaOccupancyMaxActiveClusters): some of every size, and no more
+    blocks than two an SM (shared memory holds no third). The plans'
+    table is what an H100 SXM answered; a card whose GPCs differ answers
+    otherwise, which changes a plan's speed, not its result."""
+    _need_card()
+    from parakeet_tpu_torch.ops import gemm_plan as GP
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in range(1, GP.MAX_CLUSTER + 1):
+        held = K7.hopper_active_clusters(n)
+        assert 1 <= held and held * n <= 2 * sms, (n, held)

@@ -1,14 +1,19 @@
 """Launch plans of the shared tiled GEMM (ops/gemm_plan.py gemm_plan, as
 K6's ffn_plan, K1's block_plan, K5's conv_plan, K8's subsample_plan and
-K3's dft_plan use it) and of K2 (ops/rel_attention.py v1_plan), computed
+K3's dft_plan use it), of K7's and K4's Hopper GEMMs (hopper_plan, as
+k7_plan and k4_plan use it) and of K2 (ops/rel_attention.py v1_plan), computed
 in Python and passed to the CUDA kernels as ints. A launch refused for too much shared memory never runs,
 so these checks are the guard that runs without a card."""
+
+import re
 
 import pytest
 import torch
 
 from parakeet_tpu_torch.ops import _build
+from parakeet_tpu_torch.ops import conv_ffn_final as K4
 from parakeet_tpu_torch.ops import conv_module as CM
+from parakeet_tpu_torch.ops import ffn_attention as K7
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops import gemm_plan as GP
 from parakeet_tpu_torch.ops import rel_attention as RA
@@ -288,3 +293,144 @@ def test_k7_and_k4_plans_at_the_600m_widths(b, t, itemsize):
         assert (k // GP.GEMM_K_STEP) % g.splits == 0 and 1 <= g.splits <= GP.MAX_SPLITS
     assert attn.qkv.splits == 1 and conv.pw1.splits == 1
     assert attn.partials == max(attn.pos.splits * (2 * t - 1) * d, attn.out.splits * m * d)
+
+
+# ─── K7's and K4's plans: the Hopper GEMMs in bf16 (gemm_plan.hopper_plan), else the tiled sequences ───
+
+HOPPER_SEQ_LENS = (64, 126, 751, 1001, 3000)  # from the encoder's _FFN_MIN_FRAMES up
+
+
+def _hopper_plans(b, t, d, f):
+    """(name, plan, K, K of a LayerNorm'd A or 0) of every GEMM launch of K7 and K4 in bf16."""
+    k7, k4 = K7.k7_plan(b, t, d, f, 2), K4.k4_plan(b, t, d, f, 2)
+    return [("k7 fc1", k7.fc1, d, d), ("k7 fc2", k7.fc2, f, 0), ("k7 qkv_pos", k7.qkv_pos, d, 0),
+            ("k7 out", k7.out, d, 0), ("k4 pw1", k4.pw1, d, d), ("k4 pw2", k4.pw2, d, 0), ("k4 fc1", k4.fc1, d, 0),
+            ("k4 fc2", k4.fc2, f, 0)]
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("d, f", FFN_WIDTHS)
+@pytest.mark.parametrize("t", HOPPER_SEQ_LENS)
+@pytest.mark.parametrize("b", (1, 8))
+def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
+    """bf16: clusters of 1-8 blocks whose k slices divide the k steps (and
+    the tile's 64 rows, each slice closing its share), the ring, its
+    barriers and a LayerNorm's vectors within a block's shared memory, TMA
+    boxes within 256 per dimension, a wgmma N that is a multiple of 8 up to
+    256, and the blocks the tiles, clusters and slices make; the ints the C
+    entries take. f32: K6's, K1's and K5's own plans, in the same ints."""
+    m = b * t
+    k7, k4 = K7.k7_plan(b, t, d, f, itemsize), K4.k4_plan(b, t, d, f, itemsize)
+    if itemsize == 4:
+        ffn, attn, conv = FF.ffn_plan(m, d, f, 4), RA.block_plan(b, t, d, 4), CM.conv_plan(m, d, 4)
+        assert not k7.hopper and not k4.hopper
+        assert (k7.ffn, k7.attn, k4.conv, k4.ffn) == (ffn, attn, conv, ffn)
+        assert k7.ints() == (0, ffn.splits, *attn.ints(), 0) and k4.ints() == (0, ffn.splits, *conv.ints(), 0)
+        assert k7.partials(m, d) == max(ffn.splits * m * d, attn.partials)
+        assert k4.partials(m, d) == max(ffn.splits * m * d, conv.partials)
+        assert (k7.launches, k4.launches) == (K7.TILED_LAUNCHES, K4.TILED_LAUNCHES) == (11, 9)
+        return
+    assert k7.hopper and k4.hopper and k7.launches == k4.launches == 5
+    assert k7.partials(m, d) == k4.partials(m, d) == 0
+    assert all(1 <= side <= 256 for side in GP.TMA_BOX) and GP.TMA_BOX[0] * 2 == 128  # the 128-byte swizzle
+    assert GP.TMA_BOX == (GP.HOPPER_K_STEP, GP.HOPPER_COLS // 2)
+    assert GP.WGMMA_N % 8 == 0 and GP.WGMMA_N <= 256
+    assert GP.HOPPER_SMEM <= LIMIT and GP.HOPPER_SMEM * 2 <= 228 * 1024  # two blocks an SM
+    rows = GP.HOPPER_ROWS
+    for name, plan, k, ln_k in _hopper_plans(b, t, d, f):
+        assert 1 <= plan.cluster <= GP.MAX_CLUSTER and rows % plan.splits == 0, name
+        assert plan.k_steps == -(-k // GP.HOPPER_K_STEP) and plan.k_steps % plan.splits == 0, name
+        if ln_k:
+            # one cluster of column tiles LayerNorms the rows once: 8 of them, or 4 or 2 in one wave
+            cols = -(-d // 64) if plan.kind == "glu" else -(-f // 128)
+            c = plan.cluster
+            assert c == min(GP.MAX_CLUSTER, cols) or (c in (4, 2) and GP.hopper_waves(c, -(-m // rows) * -(-cols // c)) == 1)
+            assert plan.splits == 1 and plan.blocks == -(-m // rows) * -(-cols // c) * c, name
+        elif plan.kind == "linear":
+            assert plan.blocks == -(-m // rows) * -(-d // 128) * plan.splits, name
+        elif plan.kind == "qkv_pos":
+            assert plan.blocks == -(-m // rows) * -(-3 * d // 128) + -(-(2 * t - 1) // rows) * -(-d // 128)
+        else:
+            assert plan.blocks == -(-m // rows) * -(-f // 128), name
+    # a LayerNorm of the result follows fc2 and pw2: every column tile of the rows in the cluster
+    for plan in (k7.fc2, k4.pw2, k4.fc2):
+        assert plan.cluster_cols == -(-d // 128)
+    assert k7.out.cluster_cols == 1
+    assert k7.ints() == (1, k7.fc2.splits, 0, 0, k7.out.splits, k7.fc1.cluster_cols)
+    assert k4.ints() == (1, k4.fc2.splits, 0, k4.pw2.splits, k4.pw1.cluster_cols)
+
+
+@pytest.mark.parametrize("d, f", FFN_WIDTHS)
+def test_hopper_plans_fill_the_card_at_ten_second_clips(d, f):
+    """B=8, T'=126 (M = 1008: 16 row tiles of 64). In bf16 fc1, QKV with
+    the position GEMM and K4's fc1 give every SM a block. A GEMM whose
+    result is LayerNorm'd keeps a row in one cluster of at most 8 blocks,
+    so it takes at most 8 x 16 = 128 blocks: the plan takes all of them (k
+    split in clusters of 8, 30 of which the card holds at once). The
+    out-projection at D=512 takes 2 k slices, 128 blocks in 64 clusters of
+    2, one wave: 4 slices would make 256 blocks in 64 clusters of 4, of
+    which the card holds 62, two waves of half the k steps, and the tie
+    goes to fewer waves. pw1's tiles of 64 GLU outputs make 16 x D/64
+    blocks. In f32 K7 and K4 run the tiled sequences' plans."""
+    k7, k4 = K7.k7_plan(8, 126, d, f, 2), K4.k4_plan(8, 126, d, f, 2)
+    for plan in (k7.fc2, k4.pw2, k4.fc2):
+        assert plan.cluster == GP.MAX_CLUSTER and plan.blocks == 16 * GP.MAX_CLUSTER
+        assert GP.hopper_waves(plan.cluster, 16) == 1  # one cluster a row tile
+    assert k7.out.blocks >= GP.WAVE_FILL * 132 and GP.hopper_waves(k7.out.cluster, 16 * d // 128) == 1
+    for plan in (k7.fc1, k7.qkv_pos, k4.fc1):
+        assert plan.blocks >= 132
+    assert k4.pw1.blocks == 16 * d // 64
+    if d == 512:
+        assert (k7.fc2.splits, k7.out.splits) == (2, 2)
+        assert GP.hopper_waves(4, 64) == 2 and GP.hopper_waves(2, 64) == 1
+    assert not K7.k7_plan(8, 126, d, f, 4).hopper and not K4.k4_plan(8, 126, d, f, 4).hopper
+
+
+_LAUNCH = re.compile(r"\b(launch_hopper_gemm|launch_cluster_linear|launch_depthwise|launch_attn|launch_layer_norm_rows|"
+                     r"launch_tiled_gemm_rows|launch_tiled_gemm|launch_gemm_reduce|launch_linear|run_ffn|run_block|"
+                     r"run_conv)\b")
+
+
+def _c_launches(path, fn: str) -> int:
+    """Kernel launches of `int fn(` in a csrc/ file: one for each launcher
+    called, two for launch_linear (its GEMM and closing pass), the
+    attention core's switch over head dims once, and K6's, K1's and K5's
+    sequences (run_ffn, run_block, run_conv) counted in their headers (K1's
+    up to its head-sharded branch)."""
+    src = path.read_text()
+    body = src[src.index(f"int {fn}("):]
+    body = body[body.index("{"):body.index("\n}\n")]
+    if fn == "run_block":
+        body = body[:body.index("FfnGemmArgs o = {};")]
+    headers = {"run_ffn": "feed_forward.cuh", "run_block": "rel_attention.cuh", "run_conv": "conv_module.cuh"}
+    calls = _LAUNCH.findall(body)
+    n = ("launch_attn" in calls) + sum(2 if c == "launch_linear" else 1 for c in calls
+                                       if c != "launch_attn" and c not in headers)
+    return n + sum(_c_launches(_build._CSRC / headers[c], c) for c in calls if c in headers)
+
+
+def test_k7_and_k4_plans_count_their_c_launches():
+    csrc = _build._CSRC
+    for itemsize, fn, n7, n4 in ((2, "run_hopper", 5, 5), (4, "run_tiled", 11, 9)):
+        k7, k4 = K7.k7_plan(8, 126, 512, 2048, itemsize), K4.k4_plan(8, 126, 512, 2048, itemsize)
+        assert _c_launches(csrc / "ffn_attention.cu", fn) == k7.launches == n7
+        assert _c_launches(csrc / "conv_ffn_final.cu", fn) == k4.launches == n4
+
+
+def test_hopper_plan_refuses_a_row_past_one_cluster():
+    with pytest.raises(ValueError, match="cluster"):
+        GP.hopper_plan(1008, 2048, 2048, "linear", whole_rows=True)
+    assert GP.hopper_plan(1008, 2048, 2048, "linear").cluster_cols == 1
+
+
+@pytest.mark.parametrize("d", (1152, 1280, 2048))
+def test_k7_and_k4_take_rows_wider_than_a_cluster(d):
+    """A row of more than 8 column tiles (D > 1024) cannot be LayerNorm'd
+    in one cluster: in bf16 too K7 and K4 then run the tiled sequences, so
+    they take every width their wrappers take."""
+    assert GP.hopper_fits(1024) and not GP.hopper_fits(d)
+    for itemsize in ITEMSIZES:
+        k7, k4 = K7.k7_plan(8, 126, d, 4 * d, itemsize), K4.k4_plan(8, 126, d, 4 * d, itemsize)
+        assert not k7.hopper and not k4.hopper
+        assert k7.ints()[0] == k4.ints()[0] == 0 and (k7.launches, k4.launches) == (11, 9)
+        assert k7.ffn == FF.ffn_plan(8 * 126, d, 4 * d, itemsize) and k4.conv == CM.conv_plan(8 * 126, d, itemsize)
