@@ -14,8 +14,13 @@ Phases, each of which raises (exit code 1) on failure:
               the same CUDA tensors at the 110m widths, in f32 and bf16:
               K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
               with and without the fused LayerNorm + residual, timed in f32
-              and bf16; the 600m widths D=1024, hd=128 at T'=126; B=1 at
-              T'=3000, one kernel for every length), K6 FFN (T'=126 and
+              and bf16, each launch's device time and the launches per
+              call against the plan's: 3 in bf16, 7 tiled; the 600m widths
+              D=1024, hd=128 at T'=126 and B=1, T'=300; hd=32 at B=2,
+              T'=77; Sortformer's B=1, T'=751, timed; B=1 at T'=3000, one
+              kernel for every length; at each shape the core's plan, its
+              key splits and the blocks an SM holds, by the plan and by
+              cudaOccupancyMaxActiveBlocksPerMultiprocessor), K6 FFN (T'=126 and
               751, with and without the final LayerNorm, timed in f32 and
               bf16; and D=1024, F=4096 at T'=126), K5 conv module (T'=126
               and 751, mixed lengths and none, timed in f32 and bf16; and
@@ -71,7 +76,9 @@ Phases, each of which raises (exit code 1) on failure:
               plain versions in f32 and bf16, timed, each with its bound:
               K8 on mel (8, 1001, 128), K7 and K4 at D=1024, F=4096, H=8,
               T'=126 with mixed lengths, K2 at hd=128 and T'=126 and 751,
-              K1 at D=1024, B=1, T'=1188 (a dense 95 s clip). K7 and K4,
+              K1 at D=1024, B=1, T'=1188 (a dense 95 s clip) and the 600m
+              trainer's B=4 and B=2 at T'=125 (each launch's time, the
+              core's plan). K7 and K4,
               here and in phase 3 at T'=126 and 751 (f32 and bf16): each
               launch's device time (torch.matmul in the same dtype beside
               each GEMM), the launches per call against k7_plan / k4_plan
@@ -135,7 +142,7 @@ Phases, each of which raises (exit code 1) on failure:
               beam 1 (must equal greedy), CTC beam 8 with a bigram ARPA LM
               written under build/, TDT beam 4 rescored by NeuralLM.random,
               tokens and frames equal to the CPU's, beam path scores within
-              1e-4; eou-120m streaming with int8, B=1, 25 pushes, no kernel
+              1e-4; eou-120m streaming with int8, B=1, 8 pushes, no kernel
               launched, and its push wall against f32 in turns
  11. serve    (runs after paths, with the 110m weights) tdt-ctc-110m at full
               width behind the port's HTTP server (make_server on
@@ -202,7 +209,8 @@ Phases, each of which raises (exit code 1) on failure:
               end below the first loss
  13. mesh     (last) inference over torch.distributed on the one card:
               K1's head-sharded mode (one 'model' rank's 4 of 8 heads,
-              B=8, T'=126, mixed lengths, D=512 and D=1024 hd=128, and
+              B=8, T'=126, mixed lengths, D=512 and D=1024 hd=128, B=1,
+              T'=300 at D=1024 (the core's keys split), and
               the shape dp1×tp2 gives it on the 8 clips, with their key
               lengths) against its plain version in f32 (timed, with its
               bound) and bf16;
@@ -243,14 +251,17 @@ Phases, each of which raises (exit code 1) on failure:
               unreduced gradients (a missing 'data' mean or 'seq' sum)
               must fail that check; K1's launches a step a
               rank (whole heads and head-sharded) exactly as predicted,
-              the step wall, the share of a step inside the collectives
-              and the peak memory a rank; (v) train_cli under python -m
-              torch.distributed.run (two gloo ranks each) with
+              the wall of a step with the collective clock on, its share
+              inside the collectives and the peak memory a rank; (v)
+              train_cli under python -m torch.distributed.run (two gloo
+              ranks each, two clips, one a rank) with
               --data-parallel 2 and with --model-parallel 2 (110m): 1
               step and a checkpoint, --resume to 2 and --export (vocab
               rows 1025 in the export, 1026 in the tp checkpoint), and
               train_diar_cli --data-parallel 2; the launches of a round
-              at once. Coverage on one card, not a scaling figure
+              at once, the first round beside the gloo cases (whose step
+              walls it shares the host and the card with). Coverage on
+              one card, not a scaling figure
  15. lookahead  (tdt-ctc-110m after serve, with its weights; tdt-600m
               and rnnt-600m beside paths600m, with theirs) the greedy
               decode loops on one encoder output of each model (the
@@ -579,7 +590,7 @@ def edge_shapes_phase(card: str) -> None:
                   dev(0.1 * rng.randn(d), f32), *_attention_weights(rng, dev, d, heads))
             k4 = (dev(rng.randn(b, t, d)), *_conv_weights(rng, dev, d), *_ffn_weights(rng, dev, d, f),
                   dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32))
-            hopper = K7.k7_plan(b, t, d, f, k7[0].element_size()).hopper
+            hopper = K7.k7_plan(b, t, d, f, k7[0].element_size(), heads).hopper
             with torch.inference_mode():
                 got7, ref7 = K7.fused_ffn_attention(*k7, lengths=lt), K7.fused_ffn_attention_reference(*k7, lengths=lt)
                 got4 = K4.fused_conv_ffn_final(*k4, lengths=lt)
@@ -725,13 +736,60 @@ def _attention_args(rng, dev, b, t, d, heads):
     return [x, *_attention_weights(rng, dev, d, heads)]
 
 
+# K1's launches the bf16 Hopper design leaves out: the LayerNorm pass, the tiled GEMMs and their closing passes
+K1_TILED_STAGES = ("layer_norm_rows_kernel", "gemm_reduce_kernel", "ffn_gemm")
+
+
+def k1_core_line(tag: str, b: int, t: int, d: int, heads: int, itemsize: int, card: str, dl: int | None = None) -> dict:
+    """K1's core plan at a shape: blocks, key splits (the cluster width),
+    key tiles a split, blocks an SM holds by the plan and by the card's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (they must agree)."""
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    plan = RA.heads_plan(b, t, d, dl or d, itemsize, heads).core
+    card_resident = RA.core_resident(itemsize, plan.hd)
+    log(f"  {tag} core plan: {plan.blocks} blocks x {plan.splits} key splits (clusters of {plan.splits}), "
+        f"{plan.tiles_per_split} of {plan.tiles} key tiles of {plan.key_tile} a split, {plan.threads} threads, "
+        f"{plan.smem} B shared; resident blocks an SM: plan {plan.resident}, card {card_resident} "
+        f"({card_resident * plan.threads // 32} warps) [{card}]")
+    if card_resident != plan.resident:
+        raise RuntimeError(f"{tag}: the card holds {card_resident} core blocks an SM, the plan says {plan.resident}")
+    return {"blocks": plan.blocks, "splits": plan.splits, "resident": card_resident}
+
+
+def k1_stage_lines(tag: str, fn, b: int, t: int, d: int, heads: int, dtype, card: str) -> dict:
+    """K1's launches by kernel (device ms per call) beside torch.matmul on
+    each GEMM's shapes in the same dtype, and its launches per call against
+    the plan's: in bf16 at D <= 1024 the Hopper design's 3 (QKV with the
+    LayerNorm and P, the core, the out-projection), with no LayerNorm pass,
+    tiled GEMM or closing pass; else the tiled design's 7."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    m = b * t
+    plan = RA.block_plan(b, t, d, torch.empty((), dtype=dtype).element_size(), heads)
+    st = stage_times(tag, fn, [("QKV", m, 3 * d, d), ("P", 2 * t - 1, d, d), ("out", m, d, d)], card, dtype=dtype)
+    tiled = [label for label in st["stages"] if any(word in label for word in K1_TILED_STAGES)]
+    if plan.hopper and tiled:
+        raise RuntimeError(f"{tag}: the Hopper design still launches {tiled}")
+    n = kernel_launches(fn)
+    if n != plan.launches:
+        raise RuntimeError(f"{tag}: {n:g} launches per call, the plan says {plan.launches}")
+    core = sum(ms for label, ms in st["stages"].items() if "rel_attn_" in label)
+    log(f"  {tag}: {n:g} launches per call ({'the Hopper design' if plan.hopper else 'the tiled design'}); "
+        f"the core alone {core:.4f} ms [{card}]")
+    return {**st, "launches": n, "core_ms": core}
+
+
 def attention_phase(card: str) -> dict:
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
     log(f"== K1 rel_attention_block vs rel_attention_block_reference (B={B}, D={D}, H={H})")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {},
+           "bf16_stages": {}, "core": {}}
     for t in (126, 751):
         for dtype, name in _dtypes():
             for with_norm in (True, False):
@@ -757,29 +815,41 @@ def attention_phase(card: str) -> dict:
                     pe_bytes = (2 * t - 1) * D * got.element_size()
                     out[key.replace("times", "work")][t] = (attention_flops(B, t, D, H, lengths),
                                                             tensor_bytes(*args, *kw.values(), got) + pe_bytes)
+                    out["core"][f"T'={t} {name}"] = k1_core_line(tag, B, t, D, H, got.element_size(), card)
+                    stages = "stages" if dtype == torch.float32 else "bf16_stages"
+                    out[stages][t] = k1_stage_lines(tag, fn, B, t, D, H, dtype, card)
                     if dtype == torch.float32:
-                        m = B * t
-                        out["stages"][t] = stage_times(tag, fn, [("QKV", m, 3 * D, D), ("P", 2 * t - 1, D, D),
-                                                                 ("out", m, D, D)], card)
                         out["stages"][t]["tiles"] = tile_choice(tag, fn, RA, "block_plan", "qkv", card)
-    # the 600m widths (D=1024, H=8, hd=128), and one long item past any
-    # length cap (B=1, T'=3000, a mixed length): one kernel for every T
-    for b, t, d in ((B, 126, 1024), (1, 3000, D)):
+    # every head dim, split and unsplit: hd 32 (B=2, T'=77: 2 key splits),
+    # the 600m widths (D=1024, hd=128) at T'=126 (no split) and B=1, T'=300
+    # (4 splits), Sortformer's B=1, T'=751 (4 splits, timed), and one long
+    # item past any length cap (B=1, T'=3000): one kernel for every T
+    for b, t, d, heads in ((2, 77, 256, 8), (B, 126, 1024, H), (1, 300, 1024, H), (1, 751, D, H), (1, 3000, D, H)):
         for dtype, name in _dtypes():
             rng = np.random.RandomState(40 + t + d)
             dev = _dev(rng, dtype)
-            args = _attention_args(rng, dev, b, t, d, H)
-            lengths = _mixed_lengths(rng, t) if b == B else np.asarray([rng.randint(t // 2, t)])
+            args = _attention_args(rng, dev, b, t, d, heads)
+            lengths = _mixed_lengths(rng, t) if b == B else np.asarray([rng.randint(t // 2, t), t][:b])
             kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
                       norm_w=dev(1 + rng.normal(0, 0.1, d), torch.float32),
                       norm_b=dev(rng.normal(0, 0.1, d), torch.float32))
             with torch.inference_mode():
                 got = RA.rel_attention_block(*args, **kw)
                 ref = RA.rel_attention_block_reference(*args, **kw)
-            tag = f"K1 B={b} T'={t} D={d} hd={d // H} {name} lengths {lengths.min()}-{lengths.max()}"
+            shape = f"B={b} T'={t} D={d} hd={d // heads}"
+            tag = f"K1 {shape} {name} lengths {lengths.min()}-{lengths.max()}"
             err = check_close(tag, got, ref, _valid_rows(lengths, t))
             if dtype == torch.float32:
                 out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["core"][f"{shape} {name}"] = k1_core_line(tag, b, t, d, heads, got.element_size(), card)
+            if (b, t) == (1, 751):
+                key = "times" if dtype == torch.float32 else "bf16_times"
+                fn = lambda: RA.rel_attention_block(*args, **kw)  # noqa: E731
+                out[key][shape] = time_pair(tag, fn, lambda: RA.rel_attention_block_reference(*args, **kw), card)
+                out[key.replace("times", "work")][shape] = (
+                    attention_flops(b, t, d, heads, lengths),
+                    tensor_bytes(*args, *kw.values(), got) + (2 * t - 1) * d * got.element_size())
+                k1_stage_lines(tag, fn, b, t, d, heads, dtype, card)
     return out
 
 
@@ -1151,21 +1221,26 @@ def kernels_600m_phase(card: str) -> dict:
                 lambda got: (core_flops(t, hd6, H, lengths), tensor_bytes(*k2, lt2, got)),
                 rows=_valid_rows(lengths, t), view=lambda a: a.transpose(1, 2))
 
-        t = 1188
-        rng = np.random.RandomState(1600)
-        dev = _dev(rng, dtype)
-        k1 = _attention_args(rng, dev, 1, t, d6, H)
-        lengths = np.asarray([t])
-        kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
-                  norm_w=dev(1 + rng.normal(0, 0.1, d6), torch.float32),
-                  norm_b=dev(rng.normal(0, 0.1, d6), torch.float32))
-        run("rel_attention_block", f"B=1 T'={t} D={d6} hd={hd6}", dtype, name,
-            lambda: RA.rel_attention_block(*k1, **kw), lambda: RA.rel_attention_block_reference(*k1, **kw),
-            lambda got: (attention_flops(1, t, d6, H, lengths),
-                         tensor_bytes(*k1, *kw.values(), got) + (2 * t - 1) * d6 * got.element_size()))
-        if dtype == torch.float32:  # where K1's time goes at the dense 95 s shape
-            stage_times(f"K1 600m B=1 T'={t} f32", lambda: RA.rel_attention_block(*k1, **kw),
-                        [("QKV", t, 3 * d6, d6), ("P", 2 * t - 1, d6, d6), ("out", t, d6, d6)], card)
+        # K1 at the dense 95 s call (B=1, T'=1188) and the 600m trainer's
+        # batches (B=4 and B=2 at T'=125, mixed lengths): split keys
+        for b, t in ((1, 1188), (4, 125), (2, 125)):
+            rng = np.random.RandomState(1600 + b)
+            dev = _dev(rng, dtype)
+            k1 = _attention_args(rng, dev, b, t, d6, H)
+            lengths = np.asarray([t]) if b == 1 else np.asarray([t, *rng.randint(t // 4, t + 1, size=b - 1)])
+            kw = dict(lengths=torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
+                      norm_w=dev(1 + rng.normal(0, 0.1, d6), torch.float32),
+                      norm_b=dev(rng.normal(0, 0.1, d6), torch.float32))
+            shape = f"B={b} T'={t} D={d6} hd={hd6}"
+            run("rel_attention_block", shape, dtype, name,
+                lambda: RA.rel_attention_block(*k1, **kw), lambda: RA.rel_attention_block_reference(*k1, **kw),
+                lambda got: (attention_flops(b, t, d6, H, lengths),
+                             tensor_bytes(*k1, *kw.values(), got) + (2 * t - 1) * d6 * got.element_size()),
+                rows=_valid_rows(lengths, t))
+            tag = f"K1 600m {shape} {name}"
+            k1_core_line(tag, b, t, d6, H, k1[0].element_size(), card)
+            # where K1's time goes: each launch, the core alone
+            k1_stage_lines(tag, lambda: RA.rel_attention_block(*k1, **kw), b, t, d6, H, dtype, card)
     return out
 
 
@@ -2392,13 +2467,11 @@ def options_phase(flat6, clips, card: str) -> dict:
     flat = model_params("tdt-ctc-110m")
     fused_cfg = FusedLayers(ffn=True, conv=True, subsample=True)
     out = {}
-    # int8 fused (launches_quantized) is held to the CPU on the timed batch of 8 clips, the other three
-    # on the 4 clips under 6 s (the CPU's decodes set the part's time)
+    # each held to the CPU on the 4 clips under 6 s (the CPU's decodes set the part's time)
     for mode in ("int8", "int4"):
         for label, cfg in (("default", FusedLayers()), ("fused", fused_cfg)):
-            out[f"{mode} {label}"] = path_phase(
-                f"{mode} {label}", cfg, flat, clips, card, quantize=mode,
-                compare_clips=None if (mode, label) == ("int8", "fused") else short_clips(clips))
+            out[f"{mode} {label}"] = path_phase(f"{mode} {label}", cfg, flat, clips, card, quantize=mode,
+                                                compare_clips=short_clips(clips))
     part("110m quantized paths")
     out["w8a8 default"] = w8a8_phase(flat, clips, card)
     part("W8A8")
@@ -2440,22 +2513,22 @@ def options_phase(flat6, clips, card: str) -> dict:
 
     eou_cfg = C.make_eou_120m_config()
     flat_e = P.init_params_numpy(P.eou_spec(eou_cfg), seed=0)
-    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:12]
+    pushes = _stream_pushes(synthetic_clips(1, seed=1700, min_s=8, max_s=8)[0])[:8]
     log(f"== options streaming: eou-120m quantize='int8', f32, B=1, {len(pushes)} pushes of 160 ms")
     gpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda", quantize="int8")
     cpu = StreamingTranscriber(config=eou_cfg, params=flat_e, device="cpu", quantize="int8")
     out["streaming int8"] = streaming_facade_check("eou-120m int8 B=1", gpu, cpu, pushes, card)
-    # int8 against f32 on this host: wall per push over the first 6 pushes
-    # in turns (f32, int8, int8, f32), the lesser of each; device ms over 6
+    # int8 against f32 on this host: wall per push over the first 4 pushes
+    # in turns (f32, int8, int8, f32), the lesser of each; device ms over 4
     trs = {"f32": StreamingTranscriber(config=eou_cfg, params=flat_e, device="cuda"), "int8": gpu}
     push_ms, dev_ms = {}, {}
     for name in [*trs, *reversed(trs)]:
-        t = wall_ms(lambda: _run_stream(trs[name], pushes[:6]), 1) / 6
+        t = wall_ms(lambda: _run_stream(trs[name], pushes[:4]), 1) / 4
         push_ms[name] = min(push_ms.get(name, float("inf")), t)
     for name, tr in trs.items():
-        dev_ms[name] = device_ms(lambda: _run_stream(tr, pushes[:6]), calls=1, profiles=1) / 6
-    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 6 pushes, best of 2 turns) "
-        + ", ".join(f"{k} {v:.3f}" for k, v in push_ms.items()) + "; device ms (first 6 pushes) "
+        dev_ms[name] = device_ms(lambda: _run_stream(tr, pushes[:4]), calls=1, profiles=1) / 4
+    log("  eou-120m B=1 per push, f32 vs int8 in turns: wall ms (mean of the first 4 pushes, best of 2 turns) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in push_ms.items()) + "; device ms (first 4 pushes) "
         + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()) + f" [{card}]")
     out["streaming int8"].update(push_ms=push_ms, push_dev_ms=dev_ms)
     part("streaming")
@@ -3809,7 +3882,8 @@ def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
     """K1's head-sharded mode against its plain version on the same CUDA
     tensors, one 'model' rank's 4 heads of an 8-head layer with the fused
     LayerNorm: with `base`, B=8, T'=126, mixed lengths, at D=512 (hd 64)
-    and D=1024 (hd 128); and at each of `shapes`, (B, T', key lengths,
+    and D=1024 (hd 128), and B=1, T'=300 at D=1024 (the core's keys split
+    in clusters); and at each of `shapes`, (B, T', key lengths,
     what) of a mesh run's launches (D=512). Each f32 by check_close and
     timed with its bound, each bf16 checked; and each through
     RelAttentionBlockHeadsFunction under grad (one launch counted), its
@@ -3821,7 +3895,8 @@ def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
 
     out = {"max_abs_err": 0.0, "times": {}, "work": {}, "grads": {}}
     local = 4
-    cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024)] if base else []
+    cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024),
+             (1, 300, 1024, [263], "B=1 T'=300 D=1024", 90 + 300)] if base else []
     cases += [(b, t, D, lens, f"B={b} T'={t} D={D} hd={D // H} ({what})", 2490 + i)
               for i, (b, t, lens, what) in enumerate(shapes)]
     for b, t, d, given, key, seed in cases:
@@ -3846,6 +3921,7 @@ def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
                 ref = RA.rel_attention_block_reference(*args[:11], None, heads_partial=True, **kw)
             tag = (f"K1 head-sharded B={b} T'={t} D={d} hd={hd} local heads {local} {name} lengths "
                    f"{lengths.min()}-{lengths.max()}")
+            k1_core_line(tag, b, t, d, local, x.element_size(), card, dl=dl)
             if got.dtype != torch.float32 or tuple(got.shape) != (b, t, d):
                 raise RuntimeError(f"{tag}: partial is {got.dtype} {tuple(got.shape)}, want f32 {(b, t, d)}")
             rows = _valid_rows(lengths, t)
@@ -4279,28 +4355,23 @@ def key_patterns(keys) -> str:
 
 
 def _timed_step(step, state, batch, clock) -> dict:
-    """One synchronised step (its wall, launches and peak memory), then one
-    more with the collective clock on (its wall and time inside the
-    collectives)."""
+    """One synchronised step with the collective clock on: its wall, time
+    inside the collectives, launches and peak memory (the clock's
+    synchronisations around each collective are inside the wall)."""
     import torch
 
     sync()
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, _, loss = step(state.params, state.opt_state, batch)
-    float(loss)
-    sync()
-    wall = (time.perf_counter() - t0) * 1e3
-    launches = {k: v for k, v in read_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated() / 1e9
     clock.on, clock.calls, clock.gloo_s, clock.staging_s = True, 0, 0.0, 0.0
     t0 = time.perf_counter()
     float(step(state.params, state.opt_state, batch)[2])
     sync()
     clock.on = False
-    coll = {"wall_ms": (time.perf_counter() - t0) * 1e3, "calls": clock.calls, "gloo_ms": clock.gloo_s * 1e3,
-            "staging_ms": clock.staging_s * 1e3}
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    coll = {"wall_ms": wall, "calls": clock.calls, "gloo_ms": clock.gloo_s * 1e3, "staging_ms": clock.staging_s * 1e3}
     return {"step_ms": wall, "launches": launches, "peak_gb": peak, "collectives": coll}
 
 
@@ -4337,7 +4408,7 @@ def train_mesh_rank(rank: int, files: dict) -> dict:
     tdt-ctc-110m hybrid steps on the loader's batch; (iii) Sortformer-117m
     on dp2 and dp1×tp2; (ii) dp1×pipe2 tdt-600m (tdt, B=4, 2 microbatches):
     each against the single-device card step's loss and gradients, then
-    a timed step and one with the collective clock on."""
+    a timed step with the collective clock on."""
     import torch
 
     from parakeet_tpu_torch import config as C
@@ -4472,20 +4543,30 @@ def single_train_reference(model: str, batch: dict, path: Path, card: str, remat
     return out
 
 
-def torchrun_all(jobs: dict) -> dict:
-    """Each job {tag: (module, argv)} as `python -m torch.distributed.run
+def torchrun_start(jobs: dict, logs: Path) -> dict:
+    """Start each job {tag: (module, argv)} as `python -m torch.distributed.run
     --standalone --nproc-per-node 2 -m module argv` from the repo root
     (rendezvous on localhost, a free port each), all at once so that the
-    ranks' start-up overlaps; each job's stderr (rank 0 logs), echoed. A
-    failing rank fails the run."""
+    ranks' start-up overlaps, their output to files under `logs`; returns
+    {tag: (process, stderr file)} for `torchrun_wait`."""
+    logs.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (module, argv) in jobs.items():
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2", "-m", module,
                *argv]
-        procs[tag] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        err = logs / f"{len(list(logs.iterdir()))}.err"
+        with open(err, "w") as f:
+            procs[tag] = (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=f, text=True), err)
+    return procs
+
+
+def torchrun_wait(procs: dict) -> dict:
+    """Each started job's stderr (rank 0 logs), echoed; a failing rank fails
+    the run."""
     out = {}
-    for tag, proc in procs.items():
-        _, err = proc.communicate(timeout=600)
+    for tag, (proc, path) in procs.items():
+        proc.wait(timeout=600)
+        err = path.read_text()
         for line in err.splitlines():
             if line.startswith(("step ", "# ")):
                 log(f"    [{tag}] {line}")
@@ -4495,42 +4576,56 @@ def torchrun_all(jobs: dict) -> dict:
     return out
 
 
-def train_mesh_cli_part(card: str) -> dict:
-    """(v) train_cli under python -m torch.distributed.run, two gloo ranks
-    on the card, tdt-ctc-110m: --data-parallel 2, and --model-parallel 2
-    (the 1025 vocabulary padded to 1026): 1 step and a checkpoint, then
-    --resume to 2 and --export, the export's vocab rows unpadded (1025);
-    and train_diar_cli --data-parallel 2 (Sortformer-117m), 1 step. The
-    launches of a round run at once (their start-up dominates: ~40 s a
-    110m launch alone, PR 14's first card runs)."""
+def train_mesh_cli_start() -> dict:
+    """(v)'s first round, started: train_cli under python -m
+    torch.distributed.run, two gloo ranks on the card, tdt-ctc-110m with
+    --data-parallel 2 and with --model-parallel 2 (the 1025 vocabulary
+    padded to 1026), 1 step and a checkpoint each, and train_diar_cli
+    --data-parallel 2 (Sortformer-117m), 1 step, all at once. The phase
+    runs its gloo cases while these start (their start-up dominates: ~40 s
+    a 110m launch alone, PR 14's first card runs); `train_mesh_cli_part`
+    waits for them and runs the second round."""
     from parakeet_tpu_torch import config as C
     from parakeet_tpu_torch import params as P
-    from parakeet_tpu_torch.io.safetensors import load_safetensors, save_safetensors
+    from parakeet_tpu_torch.io.safetensors import save_safetensors
 
     t0 = time.perf_counter()
-    manifest = train_corpus(MESH_DIR / "cli", 4, seed=31, min_s=2.0, max_s=4.0)
-    diar = train_corpus(MESH_DIR / "diar", 4, seed=99, min_s=4.0, max_s=4.0, rttm=True)
+    # two clips a run, one a rank: the launches' start-up, not the step, sets the part's time
+    manifest = train_corpus(MESH_DIR / "cli", 2, seed=31, min_s=2.0, max_s=4.0)
+    diar = train_corpus(MESH_DIR / "diar", 2, seed=99, min_s=4.0, max_s=4.0, rttm=True)
     vocab = smoke_vocab(1025)
     # the runs start from weights drawn here on the card: each rank's numpy draw cost seconds
     init, init_sf = MESH_DIR / "init110m.safetensors", MESH_DIR / "init_sortformer.safetensors"
     save_safetensors(host_params(P.tdt_ctc_spec(C.make_110m_config()), seed=0), init)
     save_safetensors(host_params(P.sortformer_spec(C.make_sortformer_117m_config()), seed=0), init_sf)
     flags = {"--data-parallel 2": ["--data-parallel", "2"], "--model-parallel 2": ["--model-parallel", "2"]}
-    base = {tag: ["--manifest", str(manifest), "--vocab", str(vocab), "--init-weights", str(init), "--batch-size", "4",
+    base = {tag: ["--manifest", str(manifest), "--vocab", str(vocab), "--init-weights", str(init), "--batch-size", "2",
                   "--log-every", "1", "--dist-backend", "gloo", "--checkpoint-dir", str(MESH_DIR / f"ck{f[0]}"), *f]
             for tag, f in flags.items()}
-    export = {tag: MESH_DIR / f"export{f[0]}.safetensors" for tag, f in flags.items()}
     log("== (v) train_cli --data-parallel 2 and --model-parallel 2 (1 step and a checkpoint) and train_diar_cli "
-        "--data-parallel 2 (1 step) under python -m torch.distributed.run, two gloo ranks on the card each, at once")
+        "--data-parallel 2 (1 step) under python -m torch.distributed.run, two gloo ranks on the card each, at once, "
+        "started beside the gloo cases")
     jobs = {tag: ("parakeet_tpu_torch.train_cli", argv + ["--steps", "1"]) for tag, argv in base.items()}
     jobs["diar"] = ("parakeet_tpu_torch.train_diar_cli", ["--manifest", str(diar), "--init-weights", str(init_sf),
-                                                          "--batch-size", "4", "--steps", "1", "--log-every", "1",
+                                                          "--batch-size", "2", "--steps", "1", "--log-every", "1",
                                                           "--data-parallel", "2", "--dist-backend", "gloo"])
-    first = torchrun_all(jobs)
+    return {"t0": t0, "flags": flags, "base": base, "first": torchrun_start(jobs, MESH_DIR / "cli_logs")}
+
+
+def train_mesh_cli_part(started: dict) -> dict:
+    """(v) after `train_mesh_cli_start`: its round waited for, then the two
+    train_cli runs again, --resume to 2 and --export, at once; the losses,
+    the export's vocab rows unpadded (1025) and the tp checkpoint's padded
+    (1026)."""
+    from parakeet_tpu_torch.io.safetensors import load_safetensors
+
+    flags, base = started["flags"], started["base"]
+    first = torchrun_wait(started["first"])
+    export = {tag: MESH_DIR / f"export{f[0]}.safetensors" for tag, f in flags.items()}
     log("== (v) the two train_cli runs again: --resume to step 2 and --export, at once")
-    second = torchrun_all({tag: ("parakeet_tpu_torch.train_cli",
-                                 argv + ["--steps", "2", "--resume", "--export", str(export[tag])])
-                           for tag, argv in base.items()})
+    second = torchrun_wait(torchrun_start({tag: ("parakeet_tpu_torch.train_cli",
+                                                 argv + ["--steps", "2", "--resume", "--export", str(export[tag])])
+                                           for tag, argv in base.items()}, MESH_DIR / "cli_logs"))
     out = {}
     for tag in flags:
         l1, l2 = cli_losses(first[tag]), cli_losses(second[tag])
@@ -4551,8 +4646,9 @@ def train_mesh_cli_part(card: str) -> dict:
     if sorted(losses) != [1] or not all(np.isfinite(v) for v in losses.values()):
         raise RuntimeError(f"train_diar_cli --data-parallel 2: losses {losses}")
     out["diar"] = {"losses": losses}
-    out["seconds"] = time.perf_counter() - t0
-    log(f"  train_diar_cli --data-parallel 2: losses {losses}; the CLIs {out['seconds']:.1f} s")
+    out["seconds"] = time.perf_counter() - started["t0"]
+    log(f"  train_diar_cli --data-parallel 2: losses {losses}; the CLIs {out['seconds']:.1f} s from their start, "
+        f"beside the gloo cases")
     return out
 
 
@@ -4638,6 +4734,7 @@ def train_mesh_phase(card: str) -> dict:
     log(f"  (references saved, {time.perf_counter() - t0:.1f} s into the phase)")
     out = {"single": single, **train_mesh_k1_part({"110m": batch, "sortformer": sf_batch, "600m": b600}, card)}
 
+    cli = train_mesh_cli_start()  # (v)'s first round runs beside the gloo cases
     t1 = time.perf_counter()
     ranks = spawn_ranks(train_mesh_rank, 2, {k: str(v) for k, v in files.items()}, backend="gloo", timeout=900,
                         threads=0)
@@ -4678,7 +4775,7 @@ def train_mesh_phase(card: str) -> dict:
             f"{c['staging_ms']:.1f} ms = {inside / c['wall_ms']:.1%} of the wall [{card}] ({res['seconds']:.1f} s)")
         out["cases"].setdefault(name, []).append({k: v for k, v in res.items() if k != "grads"}
                                                  | {"worst": g["worst"], "over": g["over"][0][0]})
-    out["cli"] = train_mesh_cli_part(card)
+    out["cli"] = train_mesh_cli_part(cli)
     # K1's launches a step a rank on each mesh trainer, as counted in the runs above
     out["launches"] = {name: cases[0]["launches"] for name, cases in out["cases"].items()}
     return out

@@ -1,6 +1,6 @@
 // 16-byte asynchronous copies from device memory to shared memory
 // (cp.async, sm_80 and later) for the kernels that stream tiles through a
-// ring of shared-memory stages: the shared GEMM (ffn_gemm.cuh), K1's core
+// ring of shared-memory stages: the shared GEMM (ffn_gemm.cuh), K1's f32 core
 // (rel_attention.cuh) and K2's one-pass core (rel_attention_v1.cu).
 #pragma once
 

@@ -30,19 +30,30 @@
 //   2. fc2, k split over a thread-block cluster that also spans the row's
 //      column tiles: x2 = round(x + 0.5 (y + b2)) and, from the row
 //      statistics exchanged in the cluster, xn = round(LN_attn(x2))
-//   3. QKV on xn (the head-major fold) and, in the same launch, the
-//      position GEMM P = round(pe pos_w^T)
-//   4. K1's attention core (rel_attention.cuh), which takes min(len, T)
-//      itself
+//   3. QKV on xn (the head-major fold, v stored transposed for the core's
+//      wgmma) and, in the same launch, the position GEMM P = round(pe
+//      pos_w^T)
+//   4. K1's bf16 attention core (rel_attention.cuh rel_attn_wgmma_kernel:
+//      wgmma fed by TMA, keys split over a cluster where the plan says),
+//      which takes min(len, T) itself
 //   5. the out-projection, k split over a cluster: out = round(x2 + y + bo)
 //
 // In f32 the GEMMs are IEEE FMA on the CUDA cores, where the tiled GEMM's
 // 128-row tiles and its split-K closing pass beat a whole-row cluster, and
 // in bf16 a row wider than a cluster's 8 column tiles (D > 1024) cannot be
 // LayerNorm'd in one: there the plan runs K6's launch sequence
-// (feed_forward.cuh run_ffn) and then K1's (rel_attention.cuh run_block)
-// on the caller's stream, eleven launches; the FFN's LayerNorm output
-// borrows ctx before the attention half needs it.
+// (feed_forward.cuh run_ffn) and then K1's tiled one (rel_attention.cuh
+// run_block, with K1's core of the dtype) on the caller's stream, eleven
+// launches; the FFN's LayerNorm output borrows ctx before the attention
+// half needs it.
+//
+// Measured (device time, B=8, D=512, F=2048, mixed lengths; NVIDIA H100
+// 80GB HBM3, 700.00 W; chip_smoke.py), in turns on one card with K1's
+// core before (f32 FMA on bf16 loads; old, new, new, old): bf16 0.0894,
+// 0.0820, 0.0817, 0.0893 ms at T'=126 and 0.7443, 0.3821, 0.3337, 0.7436 at
+// T'=751 (K1's wgmma core 0.0069 and 0.0754 of the new); f32 0.2686,
+// 0.2695, 0.2694, 0.2700 and 1.6756, 1.6021, 1.6044, 1.6765 (the tiled
+// sequences, with K1's 8-warp core in the new).
 //
 // Plain C interface, loaded with ctypes. Returns cudaGetLastError() (0 =
 // success).
@@ -61,7 +72,7 @@ int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1
                const void* bias_v, const void* pe, const void* pos_w, const void* wo, const void* bo,
                const int* lengths, void* hf, void* x2, void* qu, void* qv, void* kh, void* vh, void* pos, void* ctx,
                void* out, int B, int Tn, int D, int H, int F, int fc1_cols, int fc2_splits, int out_splits,
-               cudaStream_t stream) {
+               int core_splits, cudaStream_t stream) {
   const int M = B * Tn, HD = D / H;
   if (M == 0) return 0;
   cudaError_t err;
@@ -92,6 +103,7 @@ int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1
   g.M = M; g.N = 3 * D; g.K = D; g.nseg = D;
   g.T = Tn; g.H = H; g.HD = HD;
   g.scale = 1.f / sqrtf((float)HD);
+  g.vt_ld = (Tn + 7) & ~7;  // v transposed, for the core's wgmma
   FfnGemmArgs& p = q.g[1];
   p.a = pe;
   p.w[0] = pos_w;
@@ -99,13 +111,9 @@ int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1
   p.M = 2 * Tn - 1; p.N = D; p.K = D;
   if ((err = launch_hopper_gemm<HE_QKV_POS, false>(q, stream)) != cudaSuccess) return (int)err;
 
-  switch (HD) {
-    case 32: err = launch_attn<bf16, 32>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
-    case 64: err = launch_attn<bf16, 64>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
-    case 128: err = launch_attn<bf16, 128>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
+  if ((err = launch_attn<bf16>(qu, qv, kh, vh, pos, lengths, ctx, B, Tn, H, HD, core_splits, stream)) !=
+      cudaSuccess)
+    return (int)err;
 
   return (int)launch_cluster_linear(ctx, wo, bo, x2, 1.f, out, nullptr, nullptr, 0.f, nullptr, M, D, D, out_splits,
                                     stream);
@@ -121,12 +129,13 @@ int run_tiled(const void* x, const float* fnw, const float* fnb, const void* f1,
               const void* bias_v, const void* pe, const void* pos_w, const void* wo, const void* bo,
               const int* lengths, void* hf, float* part, void* x2, void* qu, void* qv, void* kh, void* vh,
               void* pos, void* ctx, void* out, int B, int Tn, int D, int H, int F, int splits, int qkv_rows,
-              int pos_splits, int out_splits, cudaStream_t stream) {
+              int pos_splits, int out_splits, int core_splits, cudaStream_t stream) {
   int err = run_ffn<T>(x, fnw, fnb, f1, g1, f2, g2, nullptr, nullptr, eps, ctx, hf, part, x2, B * Tn, D, F, splits,
                        stream);
   if (err != 0) return err;
   return run_block<T>(x2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe, pos_w, wo, bo, lengths, part,
-                      qu, qv, kh, vh, pos, ctx, out, B, Tn, D, H, qkv_rows, pos_splits, out_splits, stream);
+                      qu, qv, kh, vh, pos, ctx, out, B, Tn, D, H, 0, qkv_rows, pos_splits, out_splits, core_splits,
+                      stream);
 }
 
 }  // namespace
@@ -152,21 +161,21 @@ int pk_ffn_attention(int dtype, const void* x, const float* fnw, const float* fn
                      const void* bo, const int* lengths, void* hf, float* part, void* x2, void* qu,
                      void* qv, void* kh, void* vh, void* pos, void* ctx, void* out, int B, int T, int D,
                      int H, int F, int hopper, int splits, int qkv_rows, int pos_splits, int out_splits,
-                     int fc1_cols, void* stream) {
+                     int fc1_cols, int core_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hopper)
     return dtype != 1 ? (int)cudaErrorInvalidValue
                       : run_hopper(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u,
                                    bias_v, pe, pos_w, wo, bo, lengths, hf, x2, qu, qv, kh, vh, pos, ctx, out, B, T,
-                                   D, H, F, fc1_cols, splits, out_splits, s);
+                                   D, H, F, fc1_cols, splits, out_splits, core_splits, s);
   if (dtype == 0)
     return run_tiled<float>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe,
                             pos_w, wo, bo, lengths, hf, part, x2, qu, qv, kh, vh, pos, ctx, out, B, T, D, H, F,
-                            splits, qkv_rows, pos_splits, out_splits, s);
+                            splits, qkv_rows, pos_splits, out_splits, core_splits, s);
   if (dtype == 1)
     return run_tiled<__nv_bfloat16>(x, fnw, fnb, f1, g1, f2, g2, anw, anb, eps, wq, bq, wk, bk, wv, bv, bias_u,
                                     bias_v, pe, pos_w, wo, bo, lengths, hf, part, x2, qu, qv, kh, vh, pos, ctx, out,
-                                    B, T, D, H, F, splits, qkv_rows, pos_splits, out_splits, s);
+                                    B, T, D, H, F, splits, qkv_rows, pos_splits, out_splits, core_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

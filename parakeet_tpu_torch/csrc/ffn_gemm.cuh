@@ -8,7 +8,8 @@
 // K8 (conv2) and K3 (the DFT) run on it, and K7 and K4 in f32 through K6's,
 // K1's and K5's sequences. The Hopper GEMM of K7's and K4's sublayers in
 // bf16 (wgmma fed by TMA, thread-block clusters) is the second part,
-// hopper_gemm_kernel, below.
+// hopper_gemm_kernel, below, with the port's wrappers of those Hopper
+// instructions (K1's bf16 attention core, rel_attention.cuh, uses them too).
 //
 // What bounds it: a GEMM of these shapes is bound by operations (K = 256
 // to 2048 against 4-byte elements), so the design keeps the FMA units fed:
@@ -108,6 +109,8 @@ struct FfnGemmArgs {
   int act;               // FE_ACT_NCHW: ACT_RELU or ACT_SILU
   float scale;           // FE_QKV: 1 / sqrt(hd)
   int steps;             // k steps of FBK per k slice
+  int vt_ld;             // FE_QKV, HE_QKV_POS: 0, or v stored transposed, (B, H, hd, vt_ld) with keys
+                         // contiguous (K1's bf16 core reads it as wgmma's K-major B)
 };
 
 // Tile row r of the W tile whose first GEMM column is n0, or null past the
@@ -177,6 +180,8 @@ __device__ __forceinline__ void gemm_store(const FfnGemmArgs& g, int m, int n, f
       const float vs = round_to<T>(ld(static_cast<const T*>(g.bias_v) + nn) * g.scale);
       st(static_cast<T*>(g.out[0]) + o, qs + us);
       st(static_cast<T*>(g.out[1]) + o, qs + vs);
+    } else if (sizeof(T) == 2 && seg == 2 && g.vt_ld > 0) {  // bf16 only: the f32 core reads v as stored
+      st(static_cast<T*>(g.out[3]) + (((size_t)b * g.H + h) * g.HD + c) * g.vt_ld + t, v);
     } else {
       st(static_cast<T*>(g.out[seg + 1]) + o, v);
     }
@@ -740,6 +745,76 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The same product at N = 64 (K1's content scores)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D += A B with A (64 x 16 bf16) from registers, four b32 a thread in the
+// layout of a m64 accumulator's 16 columns (K1's probabilities times its
+// values), B from shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "
+      "%59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),
+        "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Weight row r of column tile tn (null past the edge): HE_GLU's tile is 64
 // a rows then their 64 g rows of W1 (2 nseg rows); otherwise N rows over
 // up to three segments of nseg rows.
@@ -874,6 +949,11 @@ __device__ __forceinline__ void hg_store(const HgArgs& a, int prob, const float*
           }
           st8(static_cast<bf16*>(g.out[0]) + o, v, n);
           st8(static_cast<bf16*>(g.out[1]) + o, u, n);
+        } else if (seg == 2 && g.vt_ld > 0) {
+          bf16* vt = static_cast<bf16*>(g.out[3]) + (((size_t)b * g.H + h) * g.HD + c) * g.vt_ld + t;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (e < n) st(vt + (size_t)e * g.vt_ld, src[e] + colv[c0 + e]);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] = src[e] + colv[c0 + e];
@@ -1154,7 +1234,7 @@ __device__ __forceinline__ void hg_cluster_close(const HgArgs& a, float* red, fl
 template <int EPI, bool LNA, bool VEC>
 __global__ void __launch_bounds__(HG_THREADS, 3)
     hopper_gemm_kernel(const __grid_constant__ HgArgs a, const __grid_constant__ HgMaps maps) {
-  static_assert(!LNA || EPI == HE_SILU || EPI == HE_GLU, "one problem with a LayerNorm'd A");
+  static_assert(!LNA || EPI == HE_SILU || EPI == HE_GLU || EPI == HE_QKV_POS, "a LayerNorm'd A of problem 0");
   extern __shared__ unsigned char hg_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(hg_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -1169,9 +1249,19 @@ __global__ void __launch_bounds__(HG_THREADS, 3)
   bf16* ring = reinterpret_cast<bf16*>(base);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // which tile of which problem, which k slice
+  // which tile of which problem, which k slice. With LNA, problem 0's
+  // blocks come first in clusters of cn column tiles; HE_QKV_POS's problem
+  // 1 (the position GEMM, no LayerNorm) follows in as many blocks as its
+  // tiles, padded to whole clusters, each cluster all of one problem
   int prob = 0, tm, tn, slice = 0;
-  if constexpr (EPI == HE_LINEAR || LNA) {
+  const int p0_blocks = LNA ? a.tiles[0] / a.tiles_n[0] * ((a.tiles_n[0] + a.cn - 1) / a.cn) * a.cn : a.tiles[0];
+  if (LNA && EPI == HE_QKV_POS && blockIdx.x >= p0_blocks) {
+    const int tile = blockIdx.x - p0_blocks;
+    if (tile >= a.tiles[1]) return;  // a cluster's padding
+    prob = 1;
+    tm = tile / a.tiles_n[1];
+    tn = tile - tm * a.tiles_n[1];
+  } else if constexpr (EPI == HE_LINEAR || LNA) {
     const int size = EPI == HE_LINEAR ? a.cn * a.splits : a.cn;
     const int cid = blockIdx.x / size, rank = blockIdx.x - cid * size;
     const int groups = (a.tiles_n[0] + a.cn - 1) / a.cn;
@@ -1191,9 +1281,10 @@ __global__ void __launch_bounds__(HG_THREADS, 3)
   const int m0 = tm * HG_BM;
   const int step0 = slice * g.steps;
   const int nsteps = min(g.steps, (g.K + HG_BK - 1) / HG_BK - step0);
-  // the GEMM's A: the activations, or with LNA the LayerNorm'd rows
-  const bf16* A = static_cast<const bf16*>(LNA ? a.xn : g.a);
-  const int lda = LNA ? g.K : g.lda;
+  // the GEMM's A: the activations, or with LNA problem 0's LayerNorm'd rows
+  const bool lna = LNA && prob == 0;
+  const bf16* A = static_cast<const bf16*>(lna ? a.xn : g.a);
+  const int lda = lna ? g.K : g.lda;
   auto a_row = [&](int r) -> const bf16* { return m0 + r < g.M ? A + (size_t)(m0 + r) * lda : nullptr; };
   auto b_row = [&](int r) { return hg_w_row<EPI>(g, tn, r); };
 
@@ -1206,8 +1297,10 @@ __global__ void __launch_bounds__(HG_THREADS, 3)
   }
   __syncthreads();
   if constexpr (LNA) {
-    hg_ln_rows<VEC>(a, static_cast<bf16*>(a.xn), m0, a.cn, tn % a.cn, rowx, rowy, mean, rstd, tid);
-    if (tn >= a.tiles_n[0]) return;  // a block that only LayerNorms its slice
+    if (lna) {
+      hg_ln_rows<VEC>(a, static_cast<bf16*>(a.xn), m0, a.cn, tn % a.cn, rowx, rowy, mean, rstd, tid);
+      if (tn >= a.tiles_n[0]) return;  // a block that only LayerNorms its slice
+    }
   }
   float acc[64];
 #pragma unroll
@@ -1399,6 +1492,7 @@ cudaError_t launch_hopper_gemm(HgArgs a, cudaStream_t stream) {
     if (a.xn == nullptr || a.cn < 1 || a.cn > min(HG_MAX_CLUSTER, a.tiles_n[0])) return cudaErrorInvalidValue;
     cluster = a.cn;
     blocks = row_tiles * ((a.tiles_n[0] + a.cn - 1) / a.cn) * a.cn;
+    if (nprob == 2) blocks += (a.tiles[1] + a.cn - 1) / a.cn * a.cn;
   }
   auto kernel = vec ? hopper_gemm_kernel<EPI, LNA, true> : hopper_gemm_kernel<EPI, LNA, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HG_SMEM);
@@ -1409,8 +1503,8 @@ cudaError_t launch_hopper_gemm(HgArgs a, cudaStream_t stream) {
       const FfnGemmArgs& g = a.g[p];
       const int segs = EPI == HE_QKV_POS && p == 0 ? 3 : 1;
       const int wrows = EPI == HE_GLU ? 2 * g.nseg : (segs == 3 ? g.nseg : g.N);
-      bool ok = LNA ? encode_bf16_rows(&maps.a[p], a.xn, g.M, g.K, g.K)
-                    : encode_bf16_rows(&maps.a[p], g.a, g.M, g.K, g.lda);
+      bool ok = LNA && p == 0 ? encode_bf16_rows(&maps.a[p], a.xn, g.M, g.K, g.K)
+                              : encode_bf16_rows(&maps.a[p], g.a, g.M, g.K, g.lda);
       for (int s = 0; s < segs; ++s) ok = ok && encode_bf16_rows(&maps.b[p][s], g.w[s], wrows, g.K, g.K);
       if (!ok) return cudaErrorInvalidValue;
     }

@@ -9,66 +9,76 @@
 //   qu = q/sqrt(hd) + u/sqrt(hd),  qv = q/sqrt(hd) + v/sqrt(hd)
 //   P  = pe Wpos^T                      (2T-1, D), row r = relative position T-1-r
 //   score[t,s] = qu[t].k[s] + qv[t].P[T-1-t+s]     (-1e9 where s >= len)
-//   ctx = softmax(score) v              (f32 softmax, normalised after AV)
+//   ctx = softmax(score) v              (f32 softmax, normalised after AV;
+//                                        bf16: e rounded to bf16 before AV)
 //   y = ctx Wo^T + bo (+ x when LN is fused)
 //
-// Hand-written kernels, in order on the caller's stream (the LayerNorm in
-// gemm.cuh, the GEMMs and the closing pass in ffn_gemm.cuh, shared with the
-// other kernels; the core and the launch sequence, run_block, in
-// rel_attention.cuh, which K7 includes as well):
-//   layer_norm_rows_kernel  x' = round(LN(x)) once (only with the LN), so
-//                           that the QKV GEMM takes A by cp.async
-//   ffn_gemm<QKV>           x' [wq | wk | wv]^T: bias, the 1/sqrt(hd) fold
-//                           and the head-major qu, qv, k, v stores; 64-, 96-
-//                           or 128-row tiles by the launch plan
-//   ffn_gemm<PARTIAL>       P = pe Wpos^T in k slices by the plan, and
-//   gemm_reduce_kernel      its closing pass: in-order slice sum, round
-//   rel_attn_kernel         the register-blocked flash core: grid (T/BM,
-//                           B*H); key tiles with their values and P band
-//                           through a double-buffered cp.async ring; any T
-//                           runs with one kernel
-//   ffn_gemm<PARTIAL>       ctx Wo^T in k slices by the plan, and
-//   gemm_reduce_kernel      its closing pass: in-order slice sum, + bo,
-//                           + x with the LN, round once
+// Two launch sequences on the caller's stream (run_block, rel_attention.cuh,
+// which K7 includes as well; the plan, ops/rel_attention.py block_plan,
+// picks one):
+//   bf16 at D <= 1024 (the Hopper design), 3 launches, the GEMMs on
+//   ffn_gemm.cuh's hopper_gemm_kernel (wgmma fed by TMA):
+//     1. QKV (bias, the 1/sqrt(hd) fold, head-major qu, qv, k and v
+//        transposed) on LN(x), the LayerNorm on the A path once a cluster
+//        of column tiles, and in the same launch the position GEMM P
+//        (blocks that skip the LayerNorm)
+//     2. the bf16 core, rel_attn_wgmma_kernel
+//     3. the out-projection, k split over a thread-block cluster closed in
+//        distributed shared memory: round(x + y + bo)
+//   f32, bf16 at D > 1024 and the head-sharded mode (the tiled design), 7
+//   launches with the LayerNorm: layer_norm_rows_kernel, the tiled QKV
+//   GEMM, the position GEMM and its closing pass, the core of the dtype,
+//   the out-projection and its closing pass (ffn_gemm.cuh).
 //
-// What bounds it on the card: the FLOPs, in IEEE f32 FMA on the CUDA cores
-// (no TF32: f32 parity needs it; 67 TFLOP/s peak): the projections
-// (2*B*T*D*4D + 2*(2T-1)*D*D) and the core (6*hd*H*T*sum of valid keys).
-// At B=8, T'=126, D=512 that is 2.51 GFLOP, a 0.037 ms bound, against ~10
-// MB of operands (0.003 ms). An SM's shared memory serves 32 words per
-// clock against 128 FMAs, so a design that feeds each FMA from shared
-// memory runs at a fraction of the FMA rate. The design: the GEMMs on
-// ffn_gemm.cuh's register-blocked tiles, 8 x 8 f32 outputs per thread on
-// 128-row tiles (0.25 shared words per FMA; mma.sync tensor cores in bf16),
-// split along k where N = D leaves SMs idle, and the QKV GEMM, which cannot
-// split, on the 64-, 96- or 128-row tiles that load the busiest SM least;
-// a core where each thread owns a 4 x 8 patch of
-// scores (4 x 4 at f32, hd = 128) and reads q rows, 8 key rows and the 11
-// band rows the rel_shift maps its patch to, 4 values per read (0.42 words
-// per FMA), and AV blocked over 4 rows x hd/8 head dims (0.31-0.5 words per
-// FMA); the online max and sum are reduced over the 8 threads of a row;
-// nothing of size T^2 reaches device memory, and keys at or past the
-// length are skipped. bf16 runs the core in f32 SIMT on bf16 loads; tensor
-// cores for the core are later work.
+// What bounds it on the card: the FLOPs (2*B*T*D*4D + 2*(2T-1)*D*D for the
+// projections, 6*hd*H*T*(valid keys) for the core; 2.51 GFLOP at B=8,
+// T'=126, D=512). In f32 they run in IEEE FMA on the CUDA cores (no TF32:
+// f32 parity needs it; 67 TFLOP/s, a 0.0378 ms bound); an SM's shared
+// memory serves 32 words a clock against 128 FMAs, so the f32 core is a
+// register-blocked flash kernel that reads few words an FMA, and it needs
+// warps to hide the loads. In bf16 the tensor cores bound it at 0.0025 ms,
+// so the launches, the passes of intermediates through device memory and
+// the core's softmax decide the time.
 //
-// Measured (device time, B=8, 110m widths, mixed lengths, kernel / plain
-// version; NVIDIA H100 80GB HBM3, 700.00 W): f32 0.136 / 0.214 ms at
-// T'=126 (QKV GEMM 0.070, position and out-projection GEMMs 0.027, their
-// closing passes 0.012, core 0.021, LayerNorm 0.004) and 0.873 / 1.850 ms
-// at T'=751 (QKV 0.311, core 0.398: 21 TFLOP/s over the valid keys, GEMMs
-// 0.115, closing passes 0.029); bf16 0.094 / 0.318 and 0.534 / 2.042 ms.
-// The design before it (64x64 GEMM tiles with the LayerNorm on the A
-// loads, a core of one shared-memory load per FMA) took 0.232 and 2.184 ms
-// in f32.
+// The cores (rel_attention.cuh): both take 64 (f32 at hd 64: 128) query
+// rows of one (b, h) a block, walk the keys in tiles with an online f32
+// softmax, skip keys at or past the length, and keep nothing of size T^2
+// in device memory. bf16: one consumer warpgroup and a producer warp; TMA
+// brings q_u, q_v, then per 64-key tile the keys, the 128-row band of P
+// and the values (stored transposed by the QKV epilogue) into a 2-stage
+// ring under mbarriers; S = q_u K^T and R = q_v Band^T on wgmma (m64n64,
+// m64n128), R skewed onto S through shared memory (S[i][j] += R[i][j - i +
+// 63]), the probabilities rounded to bf16 straight from the accumulator
+// registers into wgmma's A registers for O += P V. f32: 8 warps a block (4
+// and 2 at hd 64 and 128 before), 4-row patches of scores (hd 128: over
+// half the head dims each, summed by a shuffle), a double-buffered cp.async
+// ring for keys and values and one band buffer refilled during AV. Where
+// the grid fills less than a wave, the plan splits the keys of each query
+// tile over a cluster of 2-8 blocks that merge their max, sum and output
+// through distributed shared memory in split order (one launch, no
+// partials in device memory, bit for bit repeatable).
+//
+// Measured (device time, mixed lengths, kernel / plain version; NVIDIA H100
+// 80GB HBM3, 700.00 W; chip_smoke.py): B=8, D=512, f32 0.1345 / 0.2172 ms
+// at T'=126 (QKV GEMM 0.0704, position and out-projection GEMMs 0.0278,
+// closing passes 0.0126, core 0.0212, LayerNorm 0.0044) and 0.7886 /
+// 1.8481 at T'=751 (core 0.3222, was 0.398); bf16 0.0420 / 0.3437 at
+// T'=126 (QKV+P with the LayerNorm 0.0255, core 0.0072, out-projection
+// 0.0092) and 0.2123 / 2.4723 at T'=751 (0.1077, 0.0535, 0.0299). D=1024,
+// B=1, T'=1188 (4 key splits): f32 1.0269 / 1.0290 (core 0.5133, was
+// 1.196), bf16 0.2050 / 1.3412. Against the design before (the cores of
+// 4 and 2 warps, 7 launches in bf16), in turns on one card (old, new, new,
+// old): f32 0.1356, 0.1336, 0.1332, 0.1345 ms at T'=126 and 0.8655,
+// 0.7876, 0.7819, 0.8596 at T'=751; bf16 0.0924, 0.0435, 0.0421, 0.0920
+// and 0.5305, 0.2124, 0.2123, 0.5292; T'=1188 f32 1.7225, 1.0692, 1.0266,
+// 1.7105 (plain 1.035-1.040), bf16 0.9620, 0.2057, 0.2059, 0.9615.
 //
 // Head-sharded mode (pk_rel_attention_block_heads), for tensor parallelism
-// over heads: the same launch sequence over one 'model' rank's heads (the
-// QKV GEMM N = 3 * H_local * hd, the position GEMM N = H_local * hd, the
-// out-projection K = H_local * hd), ending in an f32 closing pass with no
-// bias and no residual; the caller sums the ranks' partials, then adds both
-// once. Measured (device time, B=8, T'=126, 4 of 8 heads, f32; NVIDIA H100
-// 80GB HBM3, 700.00 W): 0.0998 / 0.1547 ms at D=512 and 0.2200 / 0.2706 ms
-// at D=1024 (hd 128), kernel / plain version.
+// over heads: the tiled design over one 'model' rank's heads (the QKV GEMM
+// N = 3 * H_local * hd, the position GEMM N = H_local * hd, the
+// out-projection K = H_local * hd) with the core of the dtype, ending in an
+// f32 closing pass with no bias and no residual; the caller sums the ranks'
+// partials, then adds both once.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
 // cudaGetLastError() (0 = success).
@@ -79,27 +89,29 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. ln_w == null skips the LayerNorm
 // and the residual; otherwise out = x + attention(LN(x)). Scratch
-// (allocated by the caller): part, the f32 partials of the position GEMM
-// and the out-projection (the larger of the two); qu, qv, kh, vh (B, H, T, hd); pos (2T-1, D);
-// ctx (B, T, D), all in the activation dtype. qkv_rows, pos_splits,
-// out_splits: the launch plan (ops/rel_attention.py block_plan).
+// (allocated by the caller): part, the f32 partials of the tiled position
+// GEMM and out-projection (the larger of the two; unused by the Hopper
+// design); qu, qv, kh (B, H, T, hd); vh (B, H, T, hd) in f32, (B, H, hd, T
+// rounded up to 8) in bf16; pos (2T-1, D); ctx (B, T, D), all in the
+// activation dtype. hopper, qkv, pos_splits, out_splits, core_splits: the
+// launch plan (ops/rel_attention.py block_plan; see run_block).
 int pk_rel_attention_block(int dtype, const void* x, const float* ln_w, const float* ln_b,
                            float eps, const void* wq, const void* bq, const void* wk,
                            const void* bk, const void* wv, const void* bv, const void* bias_u,
                            const void* bias_v, const void* pe, const void* pos_w, const void* wo,
                            const void* bo, const int* lengths, float* part, void* qu, void* qv,
                            void* kh, void* vh, void* pos, void* ctx, void* out, int B, int T,
-                           int D, int H, int qkv_rows, int pos_splits, int out_splits,
-                           void* stream) {
+                           int D, int H, int hopper, int qkv, int pos_splits, int out_splits,
+                           int core_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_block<float>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe,
                             pos_w, wo, bo, lengths, part, qu, qv, kh, vh, pos, ctx, out, B, T, D,
-                            H, qkv_rows, pos_splits, out_splits, s);
+                            H, hopper, qkv, pos_splits, out_splits, core_splits, s);
   if (dtype == 1)
     return run_block<__nv_bfloat16>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v,
                                     pe, pos_w, wo, bo, lengths, part, qu, qv, kh, vh, pos, ctx,
-                                    out, B, T, D, H, qkv_rows, pos_splits, out_splits, s);
+                                    out, B, T, D, H, hopper, qkv, pos_splits, out_splits, core_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -109,7 +121,8 @@ int pk_rel_attention_block(int dtype, const void* x, const float* ln_w, const fl
 // layer's. Writes partial, the (B*T, D) f32 out-projection of the local
 // heads, no bias and no residual (the caller sums it over the 'model' ranks,
 // then adds the bias and the residual once). ctx is (B*T, D), as it holds
-// the LayerNorm output first.
+// the LayerNorm output first. The tiled design with the core of the dtype
+// (qkv_rows, pos_splits, out_splits, core_splits: heads_plan's).
 int pk_rel_attention_block_heads(int dtype, const void* x, const float* ln_w, const float* ln_b,
                                  float eps, const void* wq, const void* bq, const void* wk,
                                  const void* bk, const void* wv, const void* bv,
@@ -117,19 +130,25 @@ int pk_rel_attention_block_heads(int dtype, const void* x, const float* ln_w, co
                                  const void* pos_w, const void* wo, const int* lengths,
                                  float* part, void* qu, void* qv, void* kh, void* vh, void* pos,
                                  void* ctx, float* partial, int B, int T, int D, int H, int HD,
-                                 int qkv_rows, int pos_splits, int out_splits, void* stream) {
+                                 int qkv_rows, int pos_splits, int out_splits, int core_splits,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (partial == nullptr || H * HD > D) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return run_block<float>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pe,
                             pos_w, wo, nullptr, lengths, part, qu, qv, kh, vh, pos, ctx, nullptr, B,
-                            T, D, H, qkv_rows, pos_splits, out_splits, s, HD, partial);
+                            T, D, H, 0, qkv_rows, pos_splits, out_splits, core_splits, s, HD, partial);
   if (dtype == 1)
     return run_block<__nv_bfloat16>(x, ln_w, ln_b, eps, wq, bq, wk, bk, wv, bv, bias_u, bias_v,
                                     pe, pos_w, wo, nullptr, lengths, part, qu, qv, kh, vh, pos,
-                                    ctx, nullptr, B, T, D, H, qkv_rows, pos_splits, out_splits, s,
-                                    HD, partial);
+                                    ctx, nullptr, B, T, D, H, 0, qkv_rows, pos_splits, out_splits,
+                                    core_splits, s, HD, partial);
   return (int)cudaErrorInvalidValue;
 }
+
+// Blocks of the attention core of (dtype, hd) that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error:
+// what ops/rel_attention.py core_plan's `resident` says for an H100.
+int pk_rel_attention_core_resident(int dtype, int hd) { return core_resident(dtype, hd); }
 
 }  // extern "C"

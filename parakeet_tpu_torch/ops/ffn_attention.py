@@ -17,8 +17,8 @@ tensors run the hand-written kernel in csrc/ffn_attention.cu or raise, CPU
 tensors run the plain version. In bf16 the kernel is five launches of its
 own (`k7_plan`; see the .cu's note): fc1 on the LayerNorm'd rows, fc2
 closing in a thread-block cluster that also writes LN_attn(x2), QKV with
-the position GEMM in the same launch, K1's attention core and the
-out-projection closing in a cluster, the GEMMs on wgmma with TMA loads. In
+the position GEMM in the same launch, K1's bf16 attention core (wgmma) and
+the out-projection closing in a cluster, the GEMMs on wgmma with TMA loads. In
 f32 (IEEE FMA on the CUDA cores), and in bf16 where a row spans more than a
 cluster's 8 column tiles (D > 1024), it runs K6's launch sequence and then
 K1's in the same C call. The reference's core scores the position term
@@ -61,6 +61,7 @@ class K7Plan:
 
     hopper: bool
     launches: int
+    core: RA.CorePlan
     fc1: HopperPlan | None = None
     fc2: HopperPlan | None = None
     qkv_pos: HopperPlan | None = None
@@ -68,13 +69,12 @@ class K7Plan:
     ffn: FF.FfnPlan | None = None
     attn: RA.BlockPlan | None = None
 
-    def ints(self) -> tuple[int, int, int, int, int, int]:
-        """(hopper, splits, qkv_rows, pos_splits, out_splits, fc1_cols), as
-        the C entry takes them."""
+    def ints(self) -> tuple[int, int, int, int, int, int, int]:
+        """(hopper, splits, qkv_rows, pos_splits, out_splits, fc1_cols,
+        core_splits), as the C entry takes them."""
         if self.hopper:
-            return 1, self.fc2.splits, 0, 0, self.out.splits, self.fc1.cluster_cols
-        qkv_rows, pos_splits, out_splits = self.attn.ints()
-        return 0, self.ffn.splits, qkv_rows, pos_splits, out_splits, 0
+            return 1, self.fc2.splits, 0, 0, self.out.splits, self.fc1.cluster_cols, self.core.splits
+        return 0, self.ffn.splits, self.attn.qkv.rows, self.attn.pos.splits, self.attn.out.splits, 0, self.core.splits
 
     def partials(self, m: int, d: int) -> int:
         """f32 elements of the tiled sequences' split partials (0 for the
@@ -82,7 +82,7 @@ class K7Plan:
         return 0 if self.hopper else max(self.ffn.splits * m * d, self.attn.partials)
 
 
-def k7_plan(b: int, t: int, d: int, f: int, itemsize: int = 4) -> K7Plan:
+def k7_plan(b: int, t: int, d: int, f: int, itemsize: int = 4, heads: int = 8) -> K7Plan:
     """The Hopper design in bf16 (gemm_plan.hopper_fits): fc1 (N = F, the
     LayerNorm on its A path), fc2 (k split over a cluster that holds every
     column tile of its rows, for LN_attn), QKV (N = 3D) with the position
@@ -90,14 +90,17 @@ def k7_plan(b: int, t: int, d: int, f: int, itemsize: int = 4) -> K7Plan:
     cluster). At B=8, T'=126, D=512: 256 (LayerNorm clusters of 2 column
     tiles), 128 (clusters of 4 column tiles x 2 k slices), 208 and 128
     blocks (2 k slices). In f32 (and bf16 rows wider than a cluster) K6's
-    ffn_plan and K1's block_plan."""
+    ffn_plan and K1's tiled plan (heads_plan over every head). K1's core
+    (`core`, RA.core_plan) in both."""
     m = b * t
+    core = RA.core_plan(b, t, heads, d // heads, itemsize)
     if itemsize == 2 and hopper_fits(d):
-        return K7Plan(True, 5, fc1=hopper_plan(m, f, d, "silu", ln=True),
+        return K7Plan(True, 5, core, fc1=hopper_plan(m, f, d, "silu", ln=True),
                       fc2=hopper_plan(m, d, f, "linear", whole_rows=True),
                       qkv_pos=hopper_plan(m, 3 * d, d, "qkv_pos", extra=(2 * t - 1, d)),
                       out=hopper_plan(m, d, d, "linear"))
-    return K7Plan(False, TILED_LAUNCHES, ffn=FF.ffn_plan(m, d, f, itemsize), attn=RA.block_plan(b, t, d, itemsize))
+    return K7Plan(False, TILED_LAUNCHES, core, ffn=FF.ffn_plan(m, d, f, itemsize),
+                  attn=RA.heads_plan(b, t, d, d, itemsize, heads))
 
 
 def hopper_active_clusters(size: int) -> int:
@@ -133,7 +136,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_ffn_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 11 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 23 + [i] * 12 + [p]
         fn.restype = i
         lib.pk_hopper_active_clusters.argtypes = [i]
         lib.pk_hopper_active_clusters.restype = i
@@ -160,10 +163,11 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
 
     out = torch.empty_like(x)
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    plan = k7_plan(b, t, d, f, x.element_size())
+    plan = k7_plan(b, t, d, f, x.element_size(), heads)
     part = torch.empty(plan.partials(b * t, d), dtype=torch.float32, device=x.device) if not plan.hopper else None
     x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds both LayerNorms' outputs
-    qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
+    qu, qv, kh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(3))
+    vh = RA.values_scratch(b, heads, t, hd, dt, x.device)
     pos = torch.empty((2 * t - 1, d), dtype=dt, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):

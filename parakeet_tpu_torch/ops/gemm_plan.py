@@ -169,16 +169,19 @@ class HopperPlan:
 
 def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
                 extra: tuple[int, int] | None = None, ln: bool = False) -> HopperPlan:
-    """The plan of one bf16 (M, N, K) GEMM of K7 or K4. kind "silu", "glu"
-    (N counts W1's 2D rows; a tile holds 64 outputs), "qkv_pos" (extra: the
-    position GEMM's (rows, N), same K, tiled in the same launch) or
-    "linear".
+    """The plan of one bf16 (M, N, K) GEMM of K7, K4 or K1. kind "silu",
+    "glu" (N counts W1's 2D rows; a tile holds 64 outputs), "qkv_pos"
+    (extra: the position GEMM's (rows, N), same K, tiled in the same
+    launch) or "linear".
 
-    ln: the A rows are LayerNorm'd on the way in, once a cluster of column
-    tiles (the grid padded to whole clusters): 8 of them (fewer when there
-    are fewer), down to 4 or 2 only where that puts the launch in one wave
-    (a smaller cluster LayerNorms a longer slice of each row in every block,
-    which costs more than a wave of a long launch).
+    ln: the A rows (of "qkv_pos", the QKV problem's) are LayerNorm'd on the
+    way in, once a cluster of column tiles (the grid padded to whole
+    clusters; the position GEMM's tiles follow, padded to whole clusters
+    too): 8 of them (fewer when there are fewer; for "qkv_pos" the most
+    that divide its column tiles, 6 of 12 at D=512, so that no block of a
+    cluster only LayerNorms), down to 4 or 2 only where that puts the
+    launch in one wave (a smaller cluster LayerNorms a longer slice of each
+    row in every block, which costs more than a wave of a long launch).
 
     A linear GEMM splits k into the fewest slices (dividing the k steps and
     the tile's 64 rows, cluster at most MAX_CLUSTER) whose blocks give every
@@ -193,18 +196,22 @@ def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
     row_tiles = -(-m // HOPPER_ROWS)
     cols = -(-(n // 2) // (HOPPER_COLS // 2)) if kind == "glu" else -(-n // HOPPER_COLS)
     steps = -(-k // HOPPER_K_STEP)
+    extra_tiles = -(-extra[0] // HOPPER_ROWS) * -(-extra[1] // HOPPER_COLS) if extra is not None else 0
     if ln:
-        if kind not in ("silu", "glu") or extra is not None:
-            raise ValueError("hopper_plan: a LayerNorm'd A needs one SiLU or GLU problem")
+        if kind == "linear" or (extra is not None) != (kind == "qkv_pos"):
+            raise ValueError("hopper_plan: a LayerNorm'd A needs a SiLU, GLU or QKV problem")
+
+        def clusters(c):
+            return row_tiles * -(-cols // c) + -(-extra_tiles // c)
+
         c = min(MAX_CLUSTER, cols)
-        if hopper_waves(c, row_tiles * -(-cols // c)) > 1:
-            c = next((s for s in (4, 2) if s < c and hopper_waves(s, row_tiles * -(-cols // s)) == 1), c)
-        return HopperPlan(kind, 1, c, row_tiles * -(-cols // c) * c, steps)
+        if kind == "qkv_pos":  # a width that divides the column tiles: no block only LayerNorms
+            c = max(s for s in range(1, c + 1) if cols % s == 0)
+        if hopper_waves(c, clusters(c)) > 1:
+            c = next((s for s in (4, 2) if s < c and hopper_waves(s, clusters(s)) == 1), c)
+        return HopperPlan(kind, 1, c, clusters(c) * c, steps)
     if kind != "linear":
-        blocks = row_tiles * cols
-        if extra is not None:
-            blocks += -(-extra[0] // HOPPER_ROWS) * -(-extra[1] // HOPPER_COLS)
-        return HopperPlan(kind, 1, 1, blocks, steps)
+        return HopperPlan(kind, 1, 1, row_tiles * cols + extra_tiles, steps)
     cn = cols if whole_rows else 1
     if cn > MAX_CLUSTER:
         raise ValueError(f"hopper_plan: a row of {n} columns spans {cn} tiles, more than a cluster's "
@@ -220,8 +227,9 @@ def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
 
 
 def hopper_fits(d: int) -> bool:
-    """Whether K7's and K4's Hopper design takes width D: a row of the
-    LayerNorm'd results (fc2's, pw2's) fits one cluster's column tiles."""
+    """Whether the Hopper designs of K7, K4 and K1 take width D: a row of
+    the LayerNorm'd results (fc2's, pw2's) fits one cluster's column
+    tiles (K1's design follows K7's)."""
     return -(-d // HOPPER_COLS) <= MAX_CLUSTER
 
 

@@ -15,10 +15,15 @@ _block_attention_or_none). Per layer:
 the hand-written kernel in csrc/rel_attention.cu (or raise), CPU tensors
 run `rel_attention_block_reference`, the plain torch version of the same
 function. The kernel's note on what bounds it on the card and how its
-design answers that is at the top of the .cu source. What it drops from the
-TPU kernel: T padded to 128 lanes, the SMEM length block, the blockN/hp/bdN
-MXU packings and the VMEM guards; it tiles keys flash-style instead, so any
-length runs.
+design answers that is at the top of the .cu source. In bf16 at D ≤ 1024
+it runs three launches (QKV with the LayerNorm and the position GEMM on
+the Hopper GEMM, the wgmma attention core, the out-projection in a
+cluster); in f32, in bf16 at D > 1024 and head-sharded, seven (the tiled
+GEMMs around the core of the dtype). `block_plan`, `heads_plan` and
+`core_plan` choose the launches, the core's tiles and its key splits.
+What it drops from the TPU kernel: T padded to 128 lanes, the SMEM length
+block, the blockN/hp/bdN MXU packings and the VMEM guards; it tiles keys
+flash-style instead, so any length runs.
 """
 
 from __future__ import annotations
@@ -26,14 +31,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from parakeet_tpu_torch.ops._build import DTYPE_CODE, SHARED_MEMORY_LIMIT, check_rc, load, ptr, refuse_grad, stream
-from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
+from parakeet_tpu_torch.ops._build import (DTYPE_CODE, SHARED_MEMORY_LIMIT, SM_COUNT, check_rc, load, ptr, refuse_grad,
+                                           stream)
+from parakeet_tpu_torch.ops.gemm_plan import (WAVE_FILL, GemmPlan, HopperPlan, gemm_plan, hopper_fits, hopper_plan,
+                                              partial_elems)
 
 _F32 = torch.float32
 _NEG_INF = -1e9
@@ -97,7 +104,10 @@ def rel_attention_block_reference(
 ) -> torch.Tensor:
     """Plain torch version of the kernel: same signature, same rounding
     points (products accumulate in f32; q/k/v, P and the AV result round to
-    x.dtype). Pad query rows (t ≥ length) hold garbage, as in the kernel.
+    x.dtype; in bf16 the unnormalised probabilities round to bf16 before
+    AV and the product is normalised after, as the reference kernel does;
+    in f32 the softmax normalises before AV, one order of the same sums).
+    Pad query rows (t ≥ length) hold garbage, as in the kernel.
 
     heads_partial: the head-sharded mode (`rel_attention_block_heads`): the
     weights hold H of the layer's heads (wq, wk, wv, pos_w (H·hd, D), wo (D,
@@ -149,8 +159,12 @@ def rel_attention_block_reference(
     kv = _key_lengths(lengths, b, tk, x.device)
     key_pad = keys[None, :] >= kv[:, None]  # (B, Tk)
     scores = scores.masked_fill(key_pad[:, None, None, :], _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = (probs @ split(v)).transpose(1, 2).reshape(b, t, dl).to(dt)
+    if dt == _F32:  # rounding e to f32 is the identity: normalised before AV
+        ctx = torch.softmax(scores, dim=-1) @ split(v)
+    else:  # the reference kernel's: e = exp(s − max) rounded for AV, the product scaled by 1 / Σe (unrounded)
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        ctx = (f(e.to(dt)) @ split(v)) * (1.0 / e.sum(dim=-1, keepdim=True))
+    ctx = ctx.transpose(1, 2).reshape(b, t, dl).to(dt)
     out = f(ctx) @ f(wo).T
     if heads_partial:
         return out
@@ -160,39 +174,174 @@ def rel_attention_block_reference(
     return out.to(dt)
 
 
+# the SM's shared memory (228 KB) and what each resident block reserves of it
+SM_SHARED_MEMORY, BLOCK_RESERVED = 233_472, 1024
+CORE_SPLITS = (1, 2, 4, 8)
+
+
+@dataclass(frozen=True)
+class CorePlan:
+    """How K1's attention core launches for (B, T, H, hd) in a dtype
+    (csrc/rel_attention.cuh): `rows` query rows a block, `key_tile` keys a
+    tile, `threads` a block, `smem` bytes of dynamic shared memory,
+    `resident` blocks an SM holds at once (by shared memory; the card's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor answers the same,
+    chip_smoke.py prints it), `blocks` of the grid without a split, and
+    `splits`, the key splits of each query tile (a thread-block cluster of
+    that many blocks, merged in distributed shared memory), of the `tiles`
+    key tiles of T."""
+
+    itemsize: int
+    hd: int
+    rows: int
+    key_tile: int
+    threads: int
+    smem: int
+    resident: int
+    blocks: int
+    splits: int
+    tiles: int
+
+    @property
+    def tiles_per_split(self) -> int:
+        """Key tiles of a split (the last may take fewer; an item's own key
+        count cuts them too)."""
+        return -(-self.tiles // self.splits)
+
+    @property
+    def warps(self) -> int:
+        """Warps resident on an SM."""
+        return self.resident * self.threads // 32
+
+
+def core_tile(itemsize: int, hd: int) -> tuple[int, int, int, int]:
+    """(query rows, key tile, threads, dynamic shared memory) of the core of
+    a dtype at head dim hd, as csrc/rel_attention.cuh sizes them. f32
+    (F32Tile): 256 threads (8 warps) of RPT rows x BN/8 keys: 128 rows of 4
+    at hd = 64; 64 rows of 4 at hd = 128, over half the head dims each;
+    64 rows of 2 at hd = 32; BN = 64 (32 at hd = 128); the probabilities,
+    q_u and q_v, two stages of keys and values and one position band of
+    BM + BN − 1 rows. bf16 (WgTile): 64 rows, one consumer
+    warpgroup and a producer warp (160 threads), 64-key tiles; 1 KB of
+    alignment, q_u and q_v and two stages (keys, 128 band rows, values
+    transposed) in 128-byte rows of 64 values (hd = 128: two a row), the
+    skew buffer (64 x 68 f32), the row maxima and sums and 5 mbarriers."""
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"core_tile: head dim {hd}; supported {_HEAD_DIMS}")
+    if itemsize == 4:
+        bm, bn = (128 if hd == 64 else 64), (32 if hd == 128 else 64)
+        return bm, bn, 256, 4 * (bm * (bn + 4) + hd * (2 * bm + 4 * bn + bm + bn - 1))
+    bm, hc = 64, max(1, hd // 64)
+    stage = 64 * 128 * hc + 128 * 128 * hc + hd * 128
+    return bm, 64, 160, 1024 + 2 * bm * 128 * hc + 2 * stage + bm * (bm + 4) * 4 + 2 * bm * 4 + 64
+
+
+def core_plan(b: int, t: int, heads: int, hd: int, itemsize: int = 4) -> CorePlan:
+    """The core's plan: ceil(T / rows) x B·H blocks; where they fill less
+    than WAVE_FILL of the waves (one block an SM) they take, the fewest key
+    splits of CORE_SPLITS that do, else the most; a split takes whole key
+    tiles, and no split is left without one. E.g. at H=8: B=8 at T'=751
+    does not split (768 blocks of 64 rows in bf16, 384 of 128 in f32 at hd
+    64), nor bf16 at T'=126 (128 blocks); f32 there (64 blocks of 128
+    rows) splits 2; B=1, T'=751 (96 or 48 blocks) splits 4; B=4, T'=125,
+    hd 128 (64 blocks) splits 2; B=1, T'=1188, hd 128 (152 blocks, two
+    waves of which the second holds 20) splits 4."""
+    bm, bn, threads, smem = core_tile(itemsize, hd)
+    if smem > SHARED_MEMORY_LIMIT:
+        raise ValueError(f"core_plan: {smem} B of shared memory per block")
+    resident = SM_SHARED_MEMORY // (smem + BLOCK_RESERVED)
+    blocks = -(-t // bm) * b * heads
+    tiles = -(-t // bn)
+    # each split whole key tiles, and none empty
+    options = [s for s in CORE_SPLITS if (s - 1) * -(-tiles // s) < tiles]
+    splits = next((s for s in options if _fills(blocks * s)), options[-1])
+    return CorePlan(itemsize, hd, bm, bn, threads, smem, resident, blocks, splits, tiles)
+
+
+def _fills(blocks: int) -> bool:
+    """Whether `blocks` fill at least WAVE_FILL of the waves (one block an
+    SM) that they take."""
+    return blocks >= WAVE_FILL * SM_COUNT * -(-blocks // SM_COUNT)
+
+
+# launches of one call: the Hopper design; the tiled design with the
+# LayerNorm (one fewer without)
+HOPPER_LAUNCHES, TILED_LAUNCHES = 3, 7
+
+
 @dataclass(frozen=True)
 class BlockPlan:
-    """How K1's GEMMs launch for (B, T, D) (ops/gemm_plan.py): the QKV
-    GEMM (nonlinear epilogue, no split: the 64-, 96- or 128-row tiles that
-    load the busiest SM least), the position
-    GEMM P = pe Wposᵀ and the out-projection (k slices, closed by the
-    reduction pass), and the f32 partials the two share."""
+    """How K1 launches for (B, T, D, H). In bf16 at D ≤ 1024 and over every
+    head (`hopper`), the Hopper design: `qkv_pos`, QKV with the LayerNorm on
+    its A path and the position GEMM in one hopper_gemm_kernel launch
+    (gemm_plan.hopper_plan), the core, and `out_proj`, the out-projection
+    split over a cluster. Otherwise the tiled design (ops/gemm_plan.py
+    gemm_plan): the QKV GEMM (nonlinear epilogue, no split: the 64-, 96- or
+    128-row tiles that load the busiest SM least), the position GEMM P =
+    pe Wposᵀ and the out-projection (k slices, closed by the reduction
+    pass), and the f32 partials the two share. `core`, the attention
+    core's plan, in both."""
 
     qkv: GemmPlan
     pos: GemmPlan
     out: GemmPlan
     partials: int
+    core: CorePlan
+    hopper: bool = False
+    qkv_pos: HopperPlan | None = None
+    out_proj: HopperPlan | None = None
 
-    def ints(self) -> tuple[int, int, int]:
-        """(qkv_rows, pos_splits, out_splits), as the C entries take them."""
-        return self.qkv.rows, self.pos.splits, self.out.splits
+    @property
+    def launches(self) -> int:
+        """Kernel launches of a call with the fused LayerNorm (the tiled
+        design launches one fewer without it)."""
+        return HOPPER_LAUNCHES if self.hopper else TILED_LAUNCHES
+
+    def ints(self) -> tuple[int, int, int, int, int]:
+        """(hopper, qkv, pos_splits, out_splits, core_splits), as the C
+        entries take them: qkv is the tiled QKV GEMM's block rows, or the
+        Hopper design's LayerNorm cluster of column tiles."""
+        if self.hopper:
+            return 1, self.qkv_pos.cluster_cols, 0, self.out_proj.splits, self.core.splits
+        return 0, self.qkv.rows, self.pos.splits, self.out.splits, self.core.splits
 
 
-def block_plan(b: int, t: int, d: int, itemsize: int = 4) -> BlockPlan:
-    """K1's plan for (B, T, D): every head (`heads_plan` with DL = D)."""
-    return heads_plan(b, t, d, d, itemsize)
+def block_plan(b: int, t: int, d: int, itemsize: int = 4, heads: int = 8) -> BlockPlan:
+    """K1's plan for (B, T, D) over every head: in bf16 at D ≤ 1024 the
+    Hopper design, else `heads_plan` with DL = D. At B=8, T'=126, D=512 in
+    bf16: QKV and the position GEMM in 210 blocks (LayerNorm clusters of
+    6 column tiles), the core in 128, the out-projection in 128 (2 k
+    slices)."""
+    plan = heads_plan(b, t, d, d, itemsize, heads)
+    if itemsize != 2 or not hopper_fits(d):
+        return plan
+    m = b * t
+    return replace(plan, hopper=True, partials=0,
+                   qkv_pos=hopper_plan(m, 3 * d, d, "qkv_pos", extra=(2 * t - 1, d), ln=True),
+                   out_proj=hopper_plan(m, d, d, "linear"))
 
 
-def heads_plan(b: int, t: int, d: int, dl: int, itemsize: int = 4) -> BlockPlan:
-    """The plan over heads DL = H·hd wide of a layer D wide: the QKV GEMM
-    (N = 3·DL, K = D), the position GEMM (N = DL, K = D) and the
-    out-projection (N = D, K = DL). DL = D is `block_plan`; DL < D, one
-    'model' rank's heads (`rel_attention_block_heads`)."""
+def heads_plan(b: int, t: int, d: int, dl: int, itemsize: int = 4, heads: int = 8) -> BlockPlan:
+    """The tiled plan over `heads` heads DL = H·hd wide of a layer D wide:
+    the QKV GEMM (N = 3·DL, K = D), the position GEMM (N = DL, K = D), the
+    out-projection (N = D, K = DL) and the core. DL = D is `block_plan`'s
+    tiled design; DL < D, one 'model' rank's heads
+    (`rel_attention_block_heads`, which always runs the tiled design)."""
     m, p_rows = b * t, 2 * t - 1
     qkv = gemm_plan(m, 3 * dl, d, itemsize, split_k=False)
     pos = gemm_plan(p_rows, dl, d, itemsize)
     out = gemm_plan(m, d, dl, itemsize)
-    return BlockPlan(qkv, pos, out, max(partial_elems(p_rows, dl, pos), partial_elems(m, d, out)))
+    return BlockPlan(qkv, pos, out, max(partial_elems(p_rows, dl, pos), partial_elems(m, d, out)),
+                     core_plan(b, t, heads, dl // heads, itemsize))
+
+
+def core_resident(itemsize: int, hd: int) -> int:
+    """Blocks of the core that one SM of this card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor): what core_plan's
+    `resident` says for an H100. Raises without a card."""
+    n = _lib().pk_rel_attention_core_resident(0 if itemsize == 4 else 1, hd)
+    check_rc(max(0, -n), "core_resident")
+    return n
 
 
 def _lib() -> ctypes.CDLL:
@@ -200,13 +349,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_rel_attention_block
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 7 + [p]
+        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 12 + [p] + [p] * 8 + [i] * 9 + [p]
         fn.restype = i
     fn = lib.pk_rel_attention_block_heads
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 11 + [p] + [p] * 8 + [i] * 8 + [p]
+        fn.argtypes = [i, p, p, p, ctypes.c_float] + [p] * 11 + [p] + [p] * 8 + [i] * 9 + [p]
         fn.restype = i
+    fn = lib.pk_rel_attention_core_resident
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -257,22 +410,34 @@ def checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengt
     return out
 
 
+def values_scratch(b: int, heads: int, t: int, hd: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The core's values: (B, H, T, hd) in f32; in bf16 transposed, (B, H,
+    hd, T rounded up to 8), the K-major B operand of the core's AV wgmma
+    (rows 16-byte aligned for its TMA loads)."""
+    if dtype == torch.bfloat16:
+        return torch.empty((b, heads, hd, -(-t // 8) * 8), dtype=dtype, device=device)
+    return torch.empty((b, heads, t, hd), dtype=dtype, device=device)
+
+
 def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b, eps,
             heads_partial: bool = False):
     """Launch K1 (or, heads_partial, its head-sharded mode: no bo, the f32
     partial out-projection back) on the current stream."""
     name = "rel_attention_block_heads" if heads_partial else "rel_attention_block"
     refuse_grad(name, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, norm_w, norm_b)
+    # the cores take min(len, T) themselves: no clamp launch
     a = checked_args(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, norm_w, norm_b,
-                     name=name, heads_partial=heads_partial)
+                     name=name, heads_partial=heads_partial, clamp=False)
     x = x.contiguous()
     b, t, d = x.shape
     heads, hd = bias_u.shape
     dt = x.dtype
 
-    plan = heads_plan(b, t, d, heads * hd, x.element_size()) if heads_partial else block_plan(b, t, d, x.element_size())
+    plan = (heads_plan(b, t, d, heads * hd, x.element_size(), heads) if heads_partial
+            else block_plan(b, t, d, x.element_size(), heads))
     part = torch.empty(plan.partials, dtype=_F32, device=x.device)
-    qu, qv, kh, vh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(4))
+    qu, qv, kh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(3))
+    vh = values_scratch(b, heads, t, hd, dt, x.device)
     pos = torch.empty((2 * t - 1, heads * hd), dtype=dt, device=x.device)
     ctx = torch.empty_like(x)  # the LayerNorm output (B, T, D) until the core writes its (B, T, H·hd)
     lib = _lib()
@@ -286,7 +451,7 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, bo, lengths, n
             rc = lib.pk_rel_attention_block_heads(
                 DTYPE_CODE[dt], *common, ptr(a["kv"]),
                 ptr(part), ptr(qu), ptr(qv), ptr(kh), ptr(vh), ptr(pos), ptr(ctx), ptr(out),
-                b, t, d, heads, hd, *plan.ints(), stream(x.device))
+                b, t, d, heads, hd, *plan.ints()[1:], stream(x.device))
         else:
             out = torch.empty_like(x)
             rc = lib.pk_rel_attention_block(
@@ -584,6 +749,14 @@ __all__ = [
     "BlockPlan",
     "block_plan",
     "heads_plan",
+    "CorePlan",
+    "core_plan",
+    "core_tile",
+    "core_resident",
+    "values_scratch",
+    "CORE_SPLITS",
+    "HOPPER_LAUNCHES",
+    "TILED_LAUNCHES",
     "checked_args",
     "build",
 ]

@@ -1,7 +1,8 @@
-"""K7 and K4 on the Hopper GEMM of csrc/ffn_gemm.cuh (hopper_gemm_kernel,
-bf16) and on the tiled sequences (f32, and bf16 rows wider than a
-cluster), and the C entries of every kernel library against what their
-wrappers pass.
+"""K7, K4 and K1 on the Hopper GEMM of csrc/ffn_gemm.cuh
+(hopper_gemm_kernel, bf16) and on the tiled sequences (f32, and bf16 rows
+wider than a cluster), K1's attention cores (bf16 wgmma, f32 CUDA cores,
+split and unsplit), and the C entries of every kernel library against what
+their wrappers pass.
 
 The ctypes checks run here without nvcc: each `extern "C"` entry of
 csrc/*.cu is parsed and held to the `argtypes` its wrapper sets (a wrong
@@ -131,14 +132,14 @@ def _k4_args(rng, dev, b, t, d, f):
             dev(1 + 0.1 * rng.randn(d), f32), dev(0.1 * rng.randn(d), f32))
 
 
-def _hold(got, ref, rows):
+def _hold(got, ref, rows, frac=BF16_SCALE_FRAC):
     g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
     assert np.isfinite(g).all()
     for i, n in enumerate(rows):
         if got.dtype == torch.float32:
             np.testing.assert_allclose(g[i, :n], r[i, :n], rtol=RTOL, atol=ATOL)
         else:
-            assert np.abs(g[i, :n] - r[i, :n]).max() <= BF16_SCALE_FRAC * np.abs(r).max()
+            assert np.abs(g[i, :n] - r[i, :n]).max() <= frac * np.abs(r).max()
 
 
 # (B, T, D, F, H): the 110m widths at a short T, odd widths (K and lda of
@@ -202,3 +203,97 @@ def test_hopper_clusters_held_at_once_on_the_card():
     for n in range(1, GP.MAX_CLUSTER + 1):
         held = K7.hopper_active_clusters(n)
         assert 1 <= held and held * n <= 2 * sms, (n, held)
+
+
+# ─── K1 on the card: every head dim, split and unsplit, both modes ──────────
+K1_BF16_SCALE_FRAC = 0.02  # chip_smoke.py's bf16 tolerance for K1
+# (B, T, D, H): hd 32 (D=96: rows TMA cannot load, QKV segments of 96 rows;
+# D=256 at B=2, T=77: 2 key splits), hd 64 (B=8, T=126: no split; B=1,
+# T=751: 4 splits), hd 128 (B=8, T=126: no split; B=1, T=300: key splits)
+K1_SHAPES = [(3, 37, 96, 3), (2, 77, 256, 8), (8, 126, 512, 8), (1, 751, 512, 8), (8, 126, 1024, 8),
+             (1, 300, 1024, 8)]
+
+
+def _k1_args(rng, dev, b, t, d, heads, local=None):
+    """x, then K1's weights over `local` of the layer's heads (all without
+    it): wq, bq, wk, bk, wv, bv, bias_u, bias_v, pos_w, wo, and bo when
+    whole."""
+    hd = d // heads
+    dl = (local or heads) * hd
+    w = []
+    for _ in range(3):
+        w += [dev(rng.normal(0, 1 / np.sqrt(d), (dl, d))), dev(rng.normal(0, 0.02, dl))]
+    w += [dev(rng.normal(0, 0.02, (dl // hd, hd))), dev(rng.normal(0, 0.02, (dl // hd, hd))),
+          dev(rng.normal(0, 1 / np.sqrt(d), (dl, d))), dev(rng.normal(0, 1 / np.sqrt(dl), (d, dl)))]
+    if local is None:
+        w.append(dev(rng.normal(0, 0.02, d)))
+    return (dev(rng.randn(b, t, d)), *w)
+
+
+def _k1_lengths(b, t):
+    return [t, *(max(1, t - 11 * i - 5) for i in range(1, b))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_norm", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_kernel_matches_plain_version_on_the_card(shape, dtype, with_norm):
+    _need_card()
+    b, t, d, heads = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape))
+    dev = _dev(dt)
+    args = _k1_args(rng, dev, b, t, d, heads)
+    lengths = _k1_lengths(b, t)
+    kw = dict(lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    if with_norm:
+        kw.update(norm_w=dev(1 + 0.1 * rng.randn(d), torch.float32), norm_b=dev(0.1 * rng.randn(d), torch.float32))
+    before = RA.rel_attention_block.launches
+    with torch.inference_mode():
+        got = RA.rel_attention_block(*args, **kw)
+        ref = RA.rel_attention_block_reference(*args, **kw)
+    assert RA.rel_attention_block.launches == before + 1
+    _hold(got, ref, lengths, K1_BF16_SCALE_FRAC)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 126, 512, 8), (1, 300, 1024, 8)])
+def test_k1_heads_kernel_matches_plain_version_on_the_card(shape, dtype):
+    """Head-sharded: 4 of 8 heads, the tiled design with the dtype's core
+    (split at B=1, T=300), an unrounded f32 partial."""
+    _need_card()
+    b, t, d, heads = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape) + 1)
+    dev = _dev(dt)
+    args = _k1_args(rng, dev, b, t, d, heads, local=4)
+    lengths = _k1_lengths(b, t)
+    kw = dict(lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+              norm_w=dev(1 + 0.1 * rng.randn(d), torch.float32), norm_b=dev(0.1 * rng.randn(d), torch.float32))
+    before = RA.rel_attention_block_heads.launches
+    with torch.inference_mode():
+        got = RA.rel_attention_block_heads(*args, **kw)
+        ref = RA.rel_attention_block_reference(*args, None, heads_partial=True, **kw)
+    assert RA.rel_attention_block_heads.launches == before + 1 and got.dtype == torch.float32
+    if dt == torch.float32:
+        _hold(got, ref, lengths)
+    else:
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        assert np.isfinite(g).all()
+        for i, n in enumerate(lengths):
+            assert np.abs(g[i, :n] - r[i, :n]).max() <= K1_BF16_SCALE_FRAC * np.abs(r).max()
+
+
+@pytest.mark.cuda
+def test_k1_core_resident_blocks_on_the_card():
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor answers what core_plan
+    says: in f32 at least 8 warps an SM at hd 64 and 128."""
+    _need_card()
+    for itemsize in (4, 2):
+        for hd in (32, 64, 128):
+            plan = RA.core_plan(8, 126, 8, hd, itemsize)
+            assert RA.core_resident(itemsize, hd) == plan.resident, (itemsize, hd)
+            if itemsize == 4 and hd > 32:
+                assert plan.warps >= 8

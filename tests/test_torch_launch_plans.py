@@ -124,12 +124,16 @@ def test_narrow_gemms_fill_the_card_at_ten_second_clips(d, itemsize):
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
 @pytest.mark.parametrize("t", SEQ_LENS)
 def test_block_and_conv_plans_size_their_partials(t, itemsize):
-    """K1's position GEMM and out-projection share one f32 partials buffer
-    (their closing passes run one after the other); K5's pw2 has its own."""
+    """K1's tiled position GEMM and out-projection share one f32 partials
+    buffer (their closing passes run one after the other); K5's pw2 has its
+    own. K1's Hopper design (bf16) writes none."""
     b, d = 8, 512
-    plan = RA.block_plan(b, t, d, itemsize)
-    assert plan.qkv.splits == 1 and plan.ints() == (plan.qkv.rows, plan.pos.splits, plan.out.splits)
+    plan = RA.heads_plan(b, t, d, d, itemsize)
+    assert plan.qkv.splits == 1 and not plan.hopper
+    assert plan.ints() == (0, plan.qkv.rows, plan.pos.splits, plan.out.splits, plan.core.splits)
     assert plan.partials == max(plan.pos.splits * (2 * t - 1) * d, plan.out.splits * b * t * d)
+    whole = RA.block_plan(b, t, d, itemsize)
+    assert whole == plan if itemsize == 4 else (whole.hopper and whole.partials == 0)
     conv = CM.conv_plan(b * t, d, itemsize)
     assert conv.pw1.splits == 1 and conv.ints() == (conv.pw1.rows, conv.pw2.splits)
     assert conv.partials == conv.pw2.splits * b * t * d
@@ -281,11 +285,12 @@ def test_v1_plan_at_head_dim_128(t, itemsize):
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
 @pytest.mark.parametrize("b, t", SHAPES_600M)
 def test_k7_and_k4_plans_at_the_600m_widths(b, t, itemsize):
-    """K7 runs ffn_plan then block_plan, K4 conv_plan then ffn_plan, at
-    D=1024, F=4096: every GEMM fits a block and splits whole k steps."""
+    """K7's tiled sequences run ffn_plan then K1's tiled plan, K4's
+    conv_plan then ffn_plan, at D=1024, F=4096: every GEMM fits a block and
+    splits whole k steps."""
     d, f, m = 1024, 4096, b * t
     ffn = FF.ffn_plan(m, d, f, itemsize)
-    attn = RA.block_plan(b, t, d, itemsize)
+    attn = RA.heads_plan(b, t, d, d, itemsize)
     conv = CM.conv_plan(m, d, itemsize)
     assert ffn.smem <= LIMIT and (f // GP.GEMM_K_STEP) % ffn.splits == 0
     for g, k in ((attn.qkv, d), (attn.pos, d), (attn.out, d), (conv.pw1, d), (conv.pw2, d)):
@@ -325,7 +330,8 @@ def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
         ffn, attn, conv = FF.ffn_plan(m, d, f, 4), RA.block_plan(b, t, d, 4), CM.conv_plan(m, d, 4)
         assert not k7.hopper and not k4.hopper
         assert (k7.ffn, k7.attn, k4.conv, k4.ffn) == (ffn, attn, conv, ffn)
-        assert k7.ints() == (0, ffn.splits, *attn.ints(), 0) and k4.ints() == (0, ffn.splits, *conv.ints(), 0)
+        assert k7.ints() == (0, ffn.splits, attn.qkv.rows, attn.pos.splits, attn.out.splits, 0, attn.core.splits)
+        assert k4.ints() == (0, ffn.splits, *conv.ints(), 0)
         assert k7.partials(m, d) == max(ffn.splits * m * d, attn.partials)
         assert k4.partials(m, d) == max(ffn.splits * m * d, conv.partials)
         assert (k7.launches, k4.launches) == (K7.TILED_LAUNCHES, K4.TILED_LAUNCHES) == (11, 9)
@@ -356,7 +362,8 @@ def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
     for plan in (k7.fc2, k4.pw2, k4.fc2):
         assert plan.cluster_cols == -(-d // 128)
     assert k7.out.cluster_cols == 1
-    assert k7.ints() == (1, k7.fc2.splits, 0, 0, k7.out.splits, k7.fc1.cluster_cols)
+    assert k7.ints() == (1, k7.fc2.splits, 0, 0, k7.out.splits, k7.fc1.cluster_cols, k7.core.splits)
+    assert k7.core == RA.core_plan(b, t, 8, d // 8, 2)
     assert k4.ints() == (1, k4.fc2.splits, 0, k4.pw2.splits, k4.pw1.cluster_cols)
 
 
@@ -393,19 +400,26 @@ _LAUNCH = re.compile(r"\b(launch_hopper_gemm|launch_cluster_linear|launch_depthw
 
 def _c_launches(path, fn: str) -> int:
     """Kernel launches of `int fn(` in a csrc/ file: one for each launcher
-    called, two for launch_linear (its GEMM and closing pass), the
-    attention core's switch over head dims once, and K6's, K1's and K5's
-    sequences (run_ffn, run_block, run_conv) counted in their headers (K1's
-    up to its head-sharded branch)."""
+    called, two for launch_linear (its GEMM and closing pass), and K6's,
+    K1's and K5's sequences (run_ffn, run_block, run_conv) counted in their
+    headers (K1's tiled design: from its first tiled statement up to its
+    head-sharded branch; `run_block/hopper`, its Hopper design, where the
+    launches with and without the LayerNorm are alternatives)."""
     src = path.read_text()
+    fn, _, part = fn.partition("/")
     body = src[src.index(f"int {fn}("):]
     body = body[body.index("{"):body.index("\n}\n")]
     if fn == "run_block":
-        body = body[:body.index("FfnGemmArgs o = {};")]
+        tiled = body.index("  g.a = x;\n")
+        if part == "hopper":
+            body = body[body.index("if (hopper) {"):tiled]
+        else:
+            body = body[tiled:body.index("FfnGemmArgs o = {};")]
+        if part == "hopper":
+            return len(set(_LAUNCH.findall(body)))
     headers = {"run_ffn": "feed_forward.cuh", "run_block": "rel_attention.cuh", "run_conv": "conv_module.cuh"}
     calls = _LAUNCH.findall(body)
-    n = ("launch_attn" in calls) + sum(2 if c == "launch_linear" else 1 for c in calls
-                                       if c != "launch_attn" and c not in headers)
+    n = sum(2 if c == "launch_linear" else 1 for c in calls if c not in headers)
     return n + sum(_c_launches(_build._CSRC / headers[c], c) for c in calls if c in headers)
 
 
@@ -415,6 +429,18 @@ def test_k7_and_k4_plans_count_their_c_launches():
         k7, k4 = K7.k7_plan(8, 126, 512, 2048, itemsize), K4.k4_plan(8, 126, 512, 2048, itemsize)
         assert _c_launches(csrc / "ffn_attention.cu", fn) == k7.launches == n7
         assert _c_launches(csrc / "conv_ffn_final.cu", fn) == k4.launches == n4
+
+
+def test_k1_plans_count_their_c_launches():
+    """K1 in bf16 at D ≤ 1024: 3 launches (QKV with the LayerNorm and the
+    position GEMM, the core, the out-projection in a cluster); the tiled
+    design (f32, bf16 at D > 1024): 7 with the LayerNorm."""
+    rel = _build._CSRC / "rel_attention.cuh"
+    assert _c_launches(rel, "run_block/hopper") == RA.HOPPER_LAUNCHES == 3
+    assert _c_launches(rel, "run_block") == RA.TILED_LAUNCHES == 7
+    for itemsize, d, hopper in ((2, 512, True), (2, 1024, True), (2, 1280, False), (4, 512, False), (4, 1024, False)):
+        plan = RA.block_plan(8, 126, d, itemsize, d // 128 if d > 1024 else 8)
+        assert plan.hopper == hopper and plan.launches == (3 if hopper else 7) and plan.ints()[0] == hopper
 
 
 def test_hopper_plan_refuses_a_row_past_one_cluster():
@@ -430,7 +456,111 @@ def test_k7_and_k4_take_rows_wider_than_a_cluster(d):
     they take every width their wrappers take."""
     assert GP.hopper_fits(1024) and not GP.hopper_fits(d)
     for itemsize in ITEMSIZES:
-        k7, k4 = K7.k7_plan(8, 126, d, 4 * d, itemsize), K4.k4_plan(8, 126, d, 4 * d, itemsize)
+        k7, k4 = K7.k7_plan(8, 126, d, 4 * d, itemsize, d // 128), K4.k4_plan(8, 126, d, 4 * d, itemsize)
         assert not k7.hopper and not k4.hopper
         assert k7.ints()[0] == k4.ints()[0] == 0 and (k7.launches, k4.launches) == (11, 9)
         assert k7.ffn == FF.ffn_plan(8 * 126, d, 4 * d, itemsize) and k4.conv == CM.conv_plan(8 * 126, d, itemsize)
+
+
+# ─── K1's attention core (ops/rel_attention.py core_plan) ───────────────────
+SM_SHARED = 233_472  # an H100 SM's shared memory (228 KB); each block reserves 1 KB of it
+HEAD_DIMS = (32, 64, 128)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_core_plan_fits_a_block_and_holds_eight_warps_an_sm_in_f32(hd, itemsize):
+    """The core's shared memory fits a block; in f32 an SM holds at least 8
+    of its warps at hd 64 and 128 (the design before held 4 and 2), counted
+    from the plan's bytes and threads; f32 keeps 4-row patches of scores
+    at hd 64 and 128."""
+    plan = RA.core_plan(8, 126, 8, hd, itemsize)
+    assert plan.smem <= LIMIT and plan.threads % 32 == 0
+    assert plan.resident == SM_SHARED // (plan.smem + 1024) >= 1
+    assert plan.warps == plan.resident * plan.threads // 32
+    if itemsize == 4:
+        assert plan.warps >= 8 and plan.threads == 256
+        bm, bn = plan.rows, plan.key_tile
+        assert plan.smem == 4 * (bm * (bn + 4) + hd * (2 * bm + 4 * bn + bm + bn - 1))
+        # scores a thread: 4 x 8 (hd 64), 4 x 4 over half the head dims (hd 128), 2 x 8 (hd 32)
+        assert bm * bn * (2 if hd == 128 else 1) // plan.threads == {32: 16, 64: 32, 128: 16}[hd]
+    else:
+        assert plan.threads == 160 and (plan.rows, plan.key_tile) == (64, 64)  # a consumer warpgroup, a producer warp
+        hc = max(1, hd // 64)
+        assert plan.smem == 1024 + 2 * 8192 * hc + 2 * (8192 * hc + 16384 * hc + hd * 128) + 64 * 68 * 4 + 512 + 64
+    assert RA.core_tile(itemsize, hd) == (plan.rows, plan.key_tile, plan.threads, plan.smem)
+
+
+# (B, T', hd, whether the plan splits the keys in f32, in bf16): the 110m
+# batch at 10 s (f32's 128-row query tiles make 64 blocks, which split) and
+# 60 s; Sortformer's one 60 s clip; the 600m trainer's B=4 batch and the
+# dense 95 s tdt-600m call
+CORE_SHAPES = ((8, 126, 64, (True, False)), (8, 751, 64, (False, False)), (1, 751, 64, (True, True)),
+               (4, 125, 128, (True, True)), (1, 1188, 128, (True, True)))
+
+
+def _fills(blocks):
+    return blocks >= 0.9 * 132 * -(-blocks // 132)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b, t, hd, split", CORE_SHAPES)
+def test_core_plan_splits_keys_only_where_the_grid_underfills(b, t, hd, split, itemsize):
+    """One key split where the grid (ceil(T/64) query tiles x B·H) fills 90%
+    of its waves of one block an SM; otherwise the fewest of 2, 4, 8 that
+    do. Each split takes whole key tiles and none is empty; a split's
+    cluster holds at most 8 blocks, all resident at once (within one
+    wave)."""
+    heads = 8
+    plan = RA.core_plan(b, t, heads, hd, itemsize)
+    assert plan.blocks == -(-t // plan.rows) * b * heads
+    assert plan.tiles == -(-t // plan.key_tile)
+    assert (plan.splits > 1) == split[itemsize == 2]
+    assert plan.splits in RA.CORE_SPLITS and plan.splits <= GP.MAX_CLUSTER
+    assert plan.splits <= 132 * plan.resident  # a cluster's blocks fit the card at once
+    assert _fills(plan.blocks) == (plan.splits == 1)
+    if split:
+        ok = [s for s in RA.CORE_SPLITS if (s - 1) * -(-plan.tiles // s) < plan.tiles]
+        assert _fills(plan.blocks * plan.splits) or plan.splits == ok[-1]
+        assert not any(_fills(plan.blocks * s) for s in ok if s < plan.splits)
+    # whole key tiles a split, and the last split not empty
+    tps = plan.tiles_per_split
+    assert tps * plan.splits >= plan.tiles and (plan.splits - 1) * tps < plan.tiles
+    assert RA.block_plan(b, t, hd * heads, itemsize, heads).core == plan
+
+
+def test_core_plan_at_the_named_shapes():
+    """B=1, T'=751, hd 64: 96 blocks in bf16 (48 in f32), 4 splits of 3
+    key tiles (384 blocks in bf16, 97% of three waves; f32's 8 splits
+    would leave some without a key tile); B=4, T'=125, hd 128: 64 blocks,
+    2 splits; B=1, T'=1188, hd 128: 152 blocks, 4 splits."""
+    assert RA.core_plan(1, 751, 8, 64, 4).splits == RA.core_plan(1, 751, 8, 64, 2).splits == 4
+    assert RA.core_plan(1, 751, 8, 64, 2).tiles_per_split == 3
+    assert RA.core_plan(4, 125, 8, 128, 4).splits == RA.core_plan(4, 125, 8, 128, 2).splits == 2
+    assert RA.core_plan(1, 1188, 8, 128, 2).splits == RA.core_plan(1, 1188, 8, 128, 4).splits == 4
+    # two key tiles of 64 cap the split at 2 in bf16; f32's 32-key tiles allow 4
+    assert (RA.core_plan(2, 125, 8, 128, 2).splits, RA.core_plan(2, 125, 8, 128, 4).splits) == (2, 4)
+
+
+@pytest.mark.parametrize("d", (512, 1024))
+@pytest.mark.parametrize("t", (64, 126, 751, 1188))
+def test_k1_hopper_plan_layer_norms_qkv_in_clusters(d, t):
+    """bf16: QKV with the LayerNorm on its A path and the position GEMM in
+    one launch, padded to whole clusters of column tiles (the position
+    GEMM's blocks skip the LayerNorm); the out-projection a cluster of k
+    slices."""
+    b = 8 if t < 1000 else 1
+    m, plan = b * t, RA.block_plan(b, t, d, 2)
+    assert plan.hopper and plan.partials == 0
+    qp, out = plan.qkv_pos, plan.out_proj
+    rows, cols, extra = -(-m // 64), -(-3 * d // 128), -(-(2 * t - 1) // 64) * -(-d // 128)
+    c = qp.cluster_cols
+    assert qp.kind == "qkv_pos" and qp.splits == 1 and 1 <= c <= GP.MAX_CLUSTER
+    assert qp.blocks == (rows * -(-cols // c) + -(-extra // c)) * c
+    # the most column tiles of 8 that divide them (no block only LayerNorms), or 4 or 2 for one wave
+    widest = max(w for w in range(1, GP.MAX_CLUSTER + 1) if cols % w == 0)
+    assert cols % c == 0 and (c == widest or GP.hopper_waves(c, qp.blocks // c) == 1)
+    assert out == GP.hopper_plan(m, d, d, "linear") and out.cluster_cols == 1
+    assert plan.ints() == (1, c, 0, out.splits, plan.core.splits)
+    with pytest.raises(ValueError, match="LayerNorm"):
+        GP.hopper_plan(m, 3 * d, d, "qkv_pos", ln=True)  # the position GEMM's shape is needed
