@@ -21,10 +21,18 @@ Phases, each of which raises (exit code 1) on failure:
               kernel for every length; at each shape the core's plan, its
               key splits and the blocks an SM holds, by the plan and by
               cudaOccupancyMaxActiveBlocksPerMultiprocessor), K6 FFN (T'=126 and
-              751, with and without the final LayerNorm, timed in f32 and
-              bf16; and D=1024, F=4096 at T'=126), K5 conv module (T'=126
-              and 751, mixed lengths and none, timed in f32 and bf16; and
-              D=1024 at T'=126), K8 subsampling front (mel (8, 1001, 80)
+              751 and D=1024, F=4096 at T'=126, with and without the final
+              LayerNorm, timed in f32 and bf16) and K5 conv module (the
+              same shapes, mixed lengths and none), each with its launches
+              by kernel beside torch.matmul on its GEMMs and its launches
+              per call against its plan's (bf16: the Hopper route, 2 and 3,
+              no LayerNorm or closing launch; f32: the tiled route, 4 and
+              5), in bf16 timed in turns with the tiled route (mma.sync,
+              the design they ran before), with fc1's and pw1's LayerNorm
+              cluster at 1, 2, 4 and 8 column tiles, and K6's fc1 with the
+              LayerNorm on its A path against a LayerNorm launch plus fc1
+              on a plain A; both at the card tests' shapes (odd widths,
+              D=1280, a short T'), K8 subsampling front (mel (8, 1001, 80)
               and (8, 6001, 80), C=256, ReLU timed in f32 and bf16, SiLU
               checked at T=1001), K4 conv
               module + ffn2 + final LayerNorm and K7 ffn1 + attention block
@@ -517,7 +525,9 @@ def stage_times(tag: str, fn, gemms, card: str, calls: int = 10, dtype=None) -> 
 
 def kernel_launches(fn, calls: int = 5) -> float:
     """Device launches per call of fn (kernels, copies and fills), from
-    torch.profiler's event counts; the device alone traced."""
+    torch.profiler's event counts; the device alone traced. A profile that
+    saw no device event dropped them (fn launches at least one kernel): up
+    to three more are taken, and 0 is returned only if all four saw none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -525,11 +535,15 @@ def kernel_launches(fn, calls: int = 5) -> float:
     with torch.inference_mode():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    return sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA) / calls
+        for _ in range(4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            n = sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
+            if n > 0:
+                break
+    return n / calls
 
 
 # the launches K7's and K4's Hopper design leaves out: a LayerNorm pass, a split-K closing pass, a torch clamp
@@ -853,55 +867,196 @@ def attention_phase(card: str) -> dict:
     return out
 
 
+# K6 and K5 at the shapes the card tests name (tests/test_torch_hopper_gemm.py
+# K6_K5_SHAPES): (B, T', D, F) at the 110m widths, odd widths (rows TMA
+# cannot load), D = 1280 (bf16's tiled route) and a short T'
+K6_K5_EDGE = ((2, 64, 512, 2048), (3, 37, 36, 70), (3, 37, 96, 100), (2, 64, 1280, 1280), (2, 20, 64, 128))
+
+
+def route_lines(tag: str, fn, gemms, dtype, plan, card: str) -> dict:
+    """K6's or K5's launches by kernel (device ms per call, torch.matmul in
+    the same dtype beside each GEMM) and its launches per call against its
+    plan's; the Hopper route launches no LayerNorm and no closing pass."""
+    st = stage_times(tag, fn, gemms, card, dtype=dtype)
+    bad = [label for label in st["stages"] if plan.route == "hopper" and any(
+        word in label for word in ("layer_norm_rows_kernel", "gemm_reduce_kernel", "ffn_gemm_"))]
+    if bad:
+        raise RuntimeError(f"{tag}: the Hopper route launches {bad}")
+    n = kernel_launches(fn)
+    if n != plan.launches:
+        raise RuntimeError(f"{tag}: {n:g} launches per call, the plan says {plan.launches}")
+    log(f"  {tag}: {n:g} launches per call (the {plan.route} route) [{card}]")
+    return {**st, "launches": n, "route": plan.route}
+
+
+def tiled_turns(tag: str, fn, module, plan_fn: str, tiled_plan, card: str) -> dict:
+    """bf16: the device time of `fn` on the Hopper route and on the tiled
+    route (mma.sync with the LayerNorm and closing launches: the design K6
+    and K5 ran in bf16 before), in turns, best of 2; only this measurement
+    swaps the plan."""
+    import torch
+
+    planner = getattr(module, plan_fn)
+    turns = {"hopper": [], "tiled": []}
+    with torch.inference_mode():
+        for _ in range(2):
+            turns["hopper"].append(device_ms(fn))
+            setattr(module, plan_fn, lambda *a, **kw: tiled_plan)
+            try:
+                turns["tiled"].append(device_ms(fn))
+            finally:
+                setattr(module, plan_fn, planner)
+    new, old = min(turns["hopper"]), min(turns["tiled"])
+    log(f"  {tag}: device ms in turns (best of 2): the Hopper route {new:.4f}, the tiled route (mma.sync) {old:.4f} "
+        f"(old / new {old / new:.2f}x) [{card}]")
+    return {"ms": new, "old_ms": old}
+
+
+def lna_choice(tag: str, fn, module, plan_fn: str, field: str, card: str) -> dict:
+    """bf16: the device time of `fn` with the LayerNorm'd GEMM (`field` of
+    the plan `module.plan_fn` returns) run in clusters of 1, 2, 4 and 8
+    column tiles (the fewest that exist when a row has fewer), each timed
+    twice; the plan's own width is marked. Only this measurement swaps the
+    plan; the port always runs the plan's choice."""
+    import dataclasses
+
+    import torch
+
+    planner = getattr(module, plan_fn)
+    chosen = {}
+
+    def with_cols(cols):
+        def plan_fn_cols(*a, **kw):
+            plan = planner(*a, **kw)
+            g = getattr(plan, field)
+            chosen.setdefault("plan", g.cluster_cols)
+            return plan if cols is None else dataclasses.replace(plan, **{field: dataclasses.replace(g, cluster_cols=cols)})
+        return plan_fn_cols
+
+    ms = {}
+    with torch.inference_mode():
+        fn()
+        widths = (1, 2, 4, 8)
+        for cols in (None, *widths, *reversed(widths)):
+            setattr(module, plan_fn, with_cols(cols))
+            try:
+                t = device_ms(fn)
+            finally:
+                setattr(module, plan_fn, planner)
+            key = chosen["plan"] if cols is None else cols
+            ms[key] = min(ms.get(key, float("inf")), t)
+    log(f"  {tag} {field} LayerNorm cluster widths, device ms of the whole call (best of 2): "
+        + ", ".join(f"{c} {ms[c]:.4f}{' (the plan)' if c == chosen['plan'] else ''}" for c in sorted(ms)) + f" [{card}]")
+    return ms
+
+
+def lna_line(tag: str, args, card: str) -> dict:
+    """bf16 fc1 at K6's shapes three ways: with the LayerNorm on its A path
+    (K6's Hopper route), on A as given (K6's Hopper route without norm
+    weights, as K4's fc1 runs), and the LayerNorm launch that a plain-A
+    fc1 would need before it (layer_norm_rows_kernel on the same rows, as
+    K1's head-sharded design launches it): device ms per call."""
+    import torch
+
+    from parakeet_tpu_torch.ops import feed_forward as FF
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    x, nw, nb, w1, b1, w2, b2 = args
+    b, t, d = x.shape
+    heads = 8
+    rng = np.random.RandomState(7)
+    dev = _dev(rng, torch.bfloat16)
+    att = _attention_args(rng, dev, b, t, d, heads)[1:]
+    wq, bq, wk, bk, wv, bv, bu, bvv, pos_w, wo = att[:10]
+
+    def fc1_ms(fn):
+        return sum(ms for label, ms in profile_device(fn, 10).items() if "hopper_gemm_kernel<0," in label)
+
+    with torch.inference_mode():
+        FF.fused_feed_forward(*args)
+        lna = fc1_ms(lambda: FF.fused_feed_forward(*args))
+        plain = fc1_ms(lambda: FF.fused_feed_forward(x, None, None, w1, b1, w2, b2))
+        heads_fn = lambda: RA.rel_attention_block_heads(x, wq, bq, wk, bk, wv, bv, bu, bvv, pos_w, wo,  # noqa: E731
+                                                         norm_w=nw, norm_b=nb)
+        heads_fn()
+        ln = sum(ms for label, ms in profile_device(heads_fn, 10).items() if "layer_norm_rows_kernel" in label)
+    verdict = "LNA wins" if lna < ln + plain else "LNA LOSES"
+    log(f"  {tag} fc1 ({b * t}x{d} @ {d}x{w1.shape[0]}), device ms: with the LayerNorm on its A path {lna:.4f}; "
+        f"a LayerNorm launch {ln:.4f} + fc1 on a plain A {plain:.4f} = {ln + plain:.4f}; {verdict} [{card}]")
+    return {"lna_ms": lna, "ln_ms": ln, "plain_ms": plain}
+
+
 def feed_forward_phase(card: str) -> dict:
     import torch
 
     from parakeet_tpu_torch.ops import feed_forward as FF
+    from parakeet_tpu_torch.ops import gemm_plan as GP
 
     log(f"== K6 fused_feed_forward vs fused_feed_forward_reference (B={B}, D={D}, F={FFN})")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {},
+           "redesign": {}, "lna": {}}
+
+    def cases(t, d, f, dtype, name, seed, label=None):
+        rng = np.random.RandomState(seed)
+        dev = _dev(rng, dtype)
+        x = dev(rng.randn(B, t, d))
+        norms = [dev(1 + 0.1 * rng.randn(d), torch.float32), dev(0.1 * rng.randn(d), torch.float32)]
+        weights = [dev(rng.randn(f, d) / np.sqrt(d)), dev(0.05 * rng.randn(f)),
+                   dev(rng.randn(d, f) / np.sqrt(f)), dev(0.05 * rng.randn(d))]
+        final = dict(final_norm_w=dev(1 + 0.1 * rng.randn(d), torch.float32),
+                     final_norm_b=dev(0.1 * rng.randn(d), torch.float32))
+        args = (x, *norms, *weights)
+        shape = label or t
+        size = x.element_size()
+        for with_final in (False, True):
+            kw = final if with_final else {}
+            with torch.inference_mode():
+                got = FF.fused_feed_forward(*args, **kw)
+                ref = FF.fused_feed_forward_reference(*args, **kw)
+            plan = FF.ffn_plan(B * t, d, f, size, with_final)
+            tag = f"K6 T'={t} D={d} F={f} {name} final_norm={with_final} ({plan.route}, fc2 in {plan.splits} k slices)"
+            err = check_close(tag, got, ref)
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            fn = lambda: FF.fused_feed_forward(*args, **kw)  # noqa: E731
+            gemms = [("fc1", B * t, f, d), ("fc2", B * t, d, f)]
+            key = f"T'={t} D={d} {name} final_norm={with_final}"
+            out["stages"][key] = route_lines(tag, fn, gemms, dtype, plan, card)
+            if not with_final:
+                times = "times" if dtype == torch.float32 else "bf16_times"
+                out[times][shape] = time_pair(tag, fn, lambda: FF.fused_feed_forward_reference(*args, **kw), card)
+                out[times.replace("times", "work")][shape] = (ffn_flops(B * t, d, f), tensor_bytes(*args, got))
+                if plan.route == "hopper":
+                    m, fc2 = B * t, GP.gemm_plan(B * t, d, f, 2)
+                    tiled = FF.FfnPlan("tiled", 4, GP.GemmPlan(128, 1, GP.gemm_smem(128, 2), GP.tiles(m, f)), fc2,
+                                       (m * d + m * f) * 2 + fc2.splits * m * d * 4)
+                    out["redesign"][key] = tiled_turns(tag, fn, FF, "ffn_plan", tiled, card)
+                    out["redesign"][key]["launches"] = out["stages"][key]["launches"]
+                    out["lna"][key] = lna_line(tag, args, card)
+                    out["lna"][key]["widths"] = lna_choice(tag, fn, FF, "ffn_plan", "fc1", card)
+
     for t in (126, 751):
         for dtype, name in _dtypes():
-            rng = np.random.RandomState(100 + t)
+            cases(t, D, FFN, dtype, name, 100 + t)
+    # the 600m presets' widths (config.py make_600m_config: d=1024, ffn 4096)
+    for dtype, name in _dtypes():
+        cases(126, 1024, 4096, dtype, name, 1100, label="600m B=8 T'=126 D=1024 F=4096")
+    # the card tests' shapes: odd widths, the tiled route in bf16, a short T'
+    for b, t, d, f in K6_K5_EDGE:
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(b + t + d + f)
             dev = _dev(rng, dtype)
-            x = dev(rng.randn(B, t, D))
-            norms = [dev(1 + 0.1 * rng.randn(D), torch.float32), dev(0.1 * rng.randn(D), torch.float32)]
-            weights = [dev(rng.randn(FFN, D) / np.sqrt(D)), dev(0.05 * rng.randn(FFN)),
-                       dev(rng.randn(D, FFN) / np.sqrt(FFN)), dev(0.05 * rng.randn(D))]
-            final = dict(final_norm_w=dev(1 + 0.1 * rng.randn(D), torch.float32),
-                         final_norm_b=dev(0.1 * rng.randn(D), torch.float32))
-            for with_final in (False, True):
-                kw = final if with_final else {}
-                args = (x, *norms, *weights)
+            args = (dev(rng.randn(b, t, d)), dev(1 + 0.1 * rng.randn(d), torch.float32),
+                    dev(0.1 * rng.randn(d), torch.float32), dev(rng.randn(f, d) / np.sqrt(d)),
+                    dev(0.05 * rng.randn(f)), dev(rng.randn(d, f) / np.sqrt(f)), dev(0.05 * rng.randn(d)))
+            for kw in ({}, dict(final_norm_w=dev(1 + 0.1 * rng.randn(d), torch.float32),
+                                final_norm_b=dev(0.1 * rng.randn(d), torch.float32))):
                 with torch.inference_mode():
-                    got = FF.fused_feed_forward(*args, **kw)
-                    ref = FF.fused_feed_forward_reference(*args, **kw)
-                plan = FF.ffn_plan(B * t, D, FFN, got.element_size())
-                tag = f"K6 T'={t} {name} final_norm={with_final} (fc2 in {plan.splits} k slices)"
-                err = check_close(tag, got, ref)
+                    got, ref = FF.fused_feed_forward(*args, **kw), FF.fused_feed_forward_reference(*args, **kw)
+                route = FF.ffn_plan(b * t, d, f, args[0].element_size(), bool(kw)).route
+                err = check_close(f"K6 B={b} T'={t} D={d} F={f} {name} final_norm={bool(kw)} ({route})", got, ref)
                 if dtype == torch.float32:
                     out["max_abs_err"] = max(out["max_abs_err"], err)
-                if not with_final:
-                    key = "times" if dtype == torch.float32 else "bf16_times"
-                    out[key][t] = time_pair(tag, lambda: FF.fused_feed_forward(*args, **kw),
-                                            lambda: FF.fused_feed_forward_reference(*args, **kw), card)
-                    out[key.replace("times", "work")][t] = (ffn_flops(B * t, D, FFN), tensor_bytes(*args, got))
-    # the 600m presets' widths (config.py make_600m_config: d=1024, ffn 4096)
-    d6, f6 = 1024, 4096
-    for dtype, name in _dtypes():
-        rng = np.random.RandomState(1100)
-        dev = _dev(rng, dtype)
-        args = (dev(rng.randn(B, 126, d6)), dev(1 + 0.1 * rng.randn(d6), torch.float32),
-                dev(0.1 * rng.randn(d6), torch.float32), dev(rng.randn(f6, d6) / np.sqrt(d6)),
-                dev(0.05 * rng.randn(f6)), dev(rng.randn(d6, f6) / np.sqrt(f6)), dev(0.05 * rng.randn(d6)))
-        kw = dict(final_norm_w=dev(1 + 0.1 * rng.randn(d6), torch.float32),
-                  final_norm_b=dev(0.1 * rng.randn(d6), torch.float32))
-        with torch.inference_mode():
-            got = FF.fused_feed_forward(*args, **kw)
-            ref = FF.fused_feed_forward_reference(*args, **kw)
-        err = check_close(f"K6 T'=126 D={d6} F={f6} {name} final_norm=True", got, ref)
-        if dtype == torch.float32:
-            out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -914,44 +1069,63 @@ def conv_module_phase(card: str) -> dict:
     import torch
 
     from parakeet_tpu_torch.ops import conv_module as CM
+    from parakeet_tpu_torch.ops import gemm_plan as GP
 
     log(f"== K5 fused_conv_module vs fused_conv_module_reference (B={B}, D={D}, k=9)")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "stages": {},
+           "redesign": {}}
+
+    def cases(t, d, dtype, name, seed, label=None):
+        rng = np.random.RandomState(seed)
+        args = _conv_args(rng, _dev(rng, dtype), B, t, d)
+        lengths = _mixed_lengths(rng, t)
+        plan = CM.conv_plan(B * t, d, args[0].element_size())
+        for masked in (True, False):
+            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda") if masked else None
+            with torch.inference_mode():
+                got = CM.fused_conv_module(*args, lengths=lt)
+                ref = CM.fused_conv_module_reference(*args, lengths=lt)
+            tag = f"K5 T'={t} D={d} {name} mixed_lengths={masked} ({plan.route}, pw2 in {plan.pw2.splits} k slices)"
+            err = check_close(tag, got, ref)
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            if not masked:
+                continue
+            fn = lambda: CM.fused_conv_module(*args, lengths=lt)  # noqa: E731
+            times = "times" if dtype == torch.float32 else "bf16_times"
+            shape = label or t
+            out[times][shape] = time_pair(tag, fn, lambda: CM.fused_conv_module_reference(*args, lengths=lt), card)
+            out[times.replace("times", "work")][shape] = (conv_flops(B * t, d, 9), tensor_bytes(*args, lt, got))
+            m = B * t
+            key = f"T'={t} D={d} {name}"
+            out["stages"][key] = route_lines(tag, fn, [("pw1", m, 2 * d, d), ("pw2", m, d, d)], dtype, plan, card)
+            if plan.route == "tiled" and label is None:
+                out["stages"][key]["tiles"] = tile_choice(tag, fn, CM, "conv_plan", "pw1", card)
+            if plan.route == "hopper":
+                pw2 = GP.gemm_plan(m, d, d, 2)
+                tiled = CM.ConvPlan("tiled", 5, GP.gemm_plan(m, 2 * d, d, 2, split_k=False), pw2, pw2.splits * m * d)
+                out["redesign"][key] = tiled_turns(tag, fn, CM, "conv_plan", tiled, card)
+                out["redesign"][key]["launches"] = out["stages"][key]["launches"]
+                out["stages"][key]["widths"] = lna_choice(tag, fn, CM, "conv_plan", "pw1", card)
+
     for t in (126, 751):
         for dtype, name in _dtypes():
-            rng = np.random.RandomState(200 + t)
-            args = _conv_args(rng, _dev(rng, dtype), B, t, D)
-            lengths = _mixed_lengths(rng, t)
-            for masked in (True, False):
-                lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda") if masked else None
-                with torch.inference_mode():
-                    got = CM.fused_conv_module(*args, lengths=lt)
-                    ref = CM.fused_conv_module_reference(*args, lengths=lt)
-                tag = f"K5 T'={t} {name} mixed_lengths={masked}"
-                err = check_close(tag, got, ref)
-                if dtype == torch.float32:
-                    out["max_abs_err"] = max(out["max_abs_err"], err)
-                if masked:
-                    fn = lambda: CM.fused_conv_module(*args, lengths=lt)  # noqa: E731
-                    key = "times" if dtype == torch.float32 else "bf16_times"
-                    out[key][t] = time_pair(tag, fn, lambda: CM.fused_conv_module_reference(*args, lengths=lt), card)
-                    out[key.replace("times", "work")][t] = (conv_flops(B * t, D, 9), tensor_bytes(*args, lt, got))
-                    if dtype == torch.float32:
-                        m = B * t
-                        out["stages"][t] = stage_times(tag, fn, [("pw1", m, 2 * D, D), ("pw2", m, D, D)], card)
-                        out["stages"][t]["tiles"] = tile_choice(tag, fn, CM, "conv_plan", "pw1", card)
+            cases(t, D, dtype, name, 200 + t)
     # the 600m widths (D=1024)
-    d6 = 1024
     for dtype, name in _dtypes():
-        rng = np.random.RandomState(1200)
-        args = _conv_args(rng, _dev(rng, dtype), B, 126, d6)
-        lt = torch.as_tensor(_mixed_lengths(rng, 126), dtype=torch.int32, device="cuda")
-        with torch.inference_mode():
-            got = CM.fused_conv_module(*args, lengths=lt)
-            ref = CM.fused_conv_module_reference(*args, lengths=lt)
-        err = check_close(f"K5 T'=126 D={d6} {name} mixed_lengths=True", got, ref)
-        if dtype == torch.float32:
-            out["max_abs_err"] = max(out["max_abs_err"], err)
+        cases(126, 1024, dtype, name, 1200, label="600m B=8 T'=126 D=1024")
+    # the card tests' shapes: odd widths, the tiled route in bf16, a short T'
+    for b, t, d, _ in K6_K5_EDGE:
+        for dtype, name in _dtypes():
+            rng = np.random.RandomState(b + t + d)
+            args = _conv_args(rng, _dev(rng, dtype), b, t, d)
+            lt = torch.as_tensor([t, *(max(1, t - 9 * i - 2) for i in range(1, b))], dtype=torch.int32, device="cuda")
+            with torch.inference_mode():
+                got, ref = CM.fused_conv_module(*args, lengths=lt), CM.fused_conv_module_reference(*args, lengths=lt)
+            route = CM.conv_plan(b * t, d, args[0].element_size()).route
+            err = check_close(f"K5 B={b} T'={t} D={d} {name} lengths below T' ({route})", got, ref)
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -3893,7 +4067,7 @@ def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
-    out = {"max_abs_err": 0.0, "times": {}, "work": {}, "grads": {}}
+    out = {"max_abs_err": 0.0, "times": {}, "work": {}, "bf16_times": {}, "bf16_work": {}, "grads": {}}
     local = 4
     cases = [(B, 126, D, None, D, 90 + D), (B, 126, 1024, None, "D=1024", 90 + 1024),
              (1, 300, 1024, [263], "B=1 T'=300 D=1024", 90 + 300)] if base else []
@@ -3957,18 +4131,19 @@ def k1_heads_part(card: str, shapes, base: bool = True) -> dict:
             if worst > limit:
                 raise RuntimeError(f"{tag}: the Function's input gradients differ from the plain version's")
             out["grads"][f"{key} {name}"] = worst
-            if dtype == torch.float32:
-                out["times"][key] = time_pair(tag, lambda: RA.rel_attention_block_heads(*args, **kw),
-                                              lambda: RA.rel_attention_block_reference(*args[:11], None,
-                                                                                       heads_partial=True, **kw),
-                                              card)
-                pe_bytes = (2 * t - 1) * d * x.element_size()
-                out["work"][key] = (heads_flops(b, t, d, local, hd, lengths),
-                                    tensor_bytes(*args, *kw.values(), got) + pe_bytes)
-                bd = bound(*out["work"][key])
-                log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
-                    f"{bd['bound_by']}; kernel / plain device {out['times'][key]['dev_ms']:.4f} / "
-                    f"{out['times'][key]['plain_dev_ms']:.4f} ms [{card}]")
+            times = "times" if dtype == torch.float32 else "bf16_times"
+            out[times][key] = time_pair(tag, lambda: RA.rel_attention_block_heads(*args, **kw),
+                                        lambda: RA.rel_attention_block_reference(*args[:11], None,
+                                                                                 heads_partial=True, **kw),
+                                        card)
+            pe_bytes = (2 * t - 1) * d * x.element_size()
+            work = times.replace("times", "work")
+            out[work][key] = (heads_flops(b, t, d, local, hd, lengths),
+                              tensor_bytes(*args, *kw.values(), got) + pe_bytes)
+            bd = bound(*out[work][key], F32_PEAK if dtype == torch.float32 else BF16_PEAK)
+            log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
+                f"{bd['bound_by']}; kernel / plain device {out[times][key]['dev_ms']:.4f} / "
+                f"{out[times][key]['plain_dev_ms']:.4f} ms [{card}]")
     return out
 
 
@@ -4839,8 +5014,8 @@ def build_phase() -> None:
         f"{time.perf_counter() - t0:.1f} s wall: " + ", ".join(f"{name} {s:.1f} s" for name, s in done))
     for name in LIBRARIES:
         _build.load(name)
-    # what ptxas made of K7's and K4's Hopper GEMM (no ncu on this machine)
-    for name in ("ffn_attention", "conv_ffn_final"):
+    # what ptxas made of the Hopper GEMM (no ncu on this machine)
+    for name in ("ffn_attention", "conv_ffn_final", "feed_forward", "conv_module"):
         lines = _build.BUILD_LOG.get(name, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and "hopper_gemm_kernel" in line:
@@ -5101,9 +5276,10 @@ def main(argv=None) -> int:
     # over gloo)
     kh, mesh, tm = paths["mesh"]["k1"], paths["mesh"], paths["train_mesh"]["k1_heads"]
     kh["max_abs_err"] = max(kh["max_abs_err"], tm["max_abs_err"])
-    for key in ("times", "work"):
+    for key in ("times", "work", "bf16_times", "bf16_work"):
         kh[key].update(tm[key])
     hb = bound(*kh["work"][D])
+    hb16 = bound(*kh["bf16_work"][D], BF16_PEAK)
     rows.append({"name": "rel_attention_block_heads", "route": "cuda",
                  "source": "parakeet_tpu_torch/csrc/rel_attention.cu",
                  "replaces": "parakeet_tpu/ops/pallas_attention.py:510",
@@ -5116,10 +5292,14 @@ def main(argv=None) -> int:
                  "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"],
                  "bound_share": hb["bound_ms"] / kh["times"][D]["ms"], "gflop": hb["gflop"], "mbyte": hb["mbyte"],
                  "library_ms": None,
-                 "shapes": [dict(shape=shape, dtype="f32", ms=ms["ms"], plain_ms=ms["plain_ms"], dev_ms=ms["dev_ms"],
-                                 plain_dev_ms=ms["plain_dev_ms"], bound_ms=bound(*kh["work"][shape])["bound_ms"],
-                                 bound_by=bound(*kh["work"][shape])["bound_by"])
-                            for shape, ms in kh["times"].items()]})
+                 "bf16_ms": kh["bf16_times"][D]["ms"], "bf16_plain_ms": kh["bf16_times"][D]["plain_ms"],
+                 "bf16_bound_ms": hb16["bound_ms"], "bf16_bound_by": hb16["bound_by"],
+                 "shapes": [dict(shape=shape, dtype=dtype, ms=ms["ms"], plain_ms=ms["plain_ms"], dev_ms=ms["dev_ms"],
+                                 plain_dev_ms=ms["plain_dev_ms"], bound_ms=bound(*kh[work][shape], peak)["bound_ms"],
+                                 bound_by=bound(*kh[work][shape], peak)["bound_by"])
+                            for dtype, times, work, peak in (("f32", "times", "work", F32_PEAK),
+                                                             ("bf16", "bf16_times", "bf16_work", BF16_PEAK))
+                            for shape, ms in kh[times].items()]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -53,49 +53,23 @@
 
 namespace {
 
-// The Hopper design, bf16. pw1_cols: the column tiles that share pw1's
-// LayerNorm; fc2_splits, pw2_splits: the k slices of fc2 and pw2.
+// The Hopper design, bf16: K5's Hopper sequence writing x2 and, from the
+// cluster that closes pw2, LN_ffn(x2) into h, then K6's on those rows (fc1
+// takes them as they are) with the final LayerNorm. pw1_cols: the column
+// tiles that share pw1's LayerNorm; fc2_splits, pw2_splits: the k slices of
+// fc2 and pw2.
 int run_hopper(const void* x, const float* cnw, const float* cnb, const void* w1, const void* b1, const void* wd,
                const void* bd, const float* bn_w, const float* bn_b, const float* bn_mean, const float* bn_var,
                const void* w2, const void* b2, const int* lengths, const float* fnw, const float* fnb,
                const void* f1, const void* g1, const void* f2, const void* g2, const float* onw, const float* onb,
                float eps, void* h, void* h2, void* x2, void* hf, void* out, int B, int Tn, int D, int K, int F,
                int pw1_cols, int fc2_splits, int pw2_splits, cudaStream_t stream) {
-  const int M = B * Tn;
-  if (M == 0) return 0;
-  cudaError_t err;
-
-  HgArgs up = {};
-  up.g[0].a = x;
-  up.g[0].w[0] = w1;
-  up.g[0].bias[0] = b1;
-  up.g[0].lengths = lengths;
-  up.g[0].out[0] = h;
-  up.g[0].M = M; up.g[0].N = 2 * D; up.g[0].K = D; up.g[0].nseg = D;
-  up.g[0].T = Tn;
-  up.ln_w = cnw; up.ln_b = cnb; up.eps = eps;
-  up.cn = pw1_cols;
-  up.xn = h2;  // LN_conv(x) until the depthwise pass writes h2
-  if ((err = launch_hopper_gemm<HE_GLU, true>(up, stream)) != cudaSuccess) return (int)err;
-
-  if ((err = launch_depthwise<bf16>(h, wd, bd, bn_w, bn_b, bn_mean, bn_var, h2, B, Tn, D, K, stream)) != cudaSuccess)
-    return (int)err;
-
-  // the depthwise pass is done with h: it holds LN_ffn(x2)
-  if ((err = launch_cluster_linear(h2, w2, b2, x, 1.f, x2, fnw, fnb, eps, h, M, D, D, pw2_splits, stream)) !=
-      cudaSuccess)
-    return (int)err;
-
-  HgArgs fc1 = {};
-  fc1.g[0].a = h;
-  fc1.g[0].w[0] = f1;
-  fc1.g[0].bias[0] = g1;
-  fc1.g[0].out[0] = hf;
-  fc1.g[0].M = M; fc1.g[0].N = F; fc1.g[0].K = D;
-  if ((err = launch_hopper_gemm<HE_SILU, false>(fc1, stream)) != cudaSuccess) return (int)err;
-
-  return (int)launch_cluster_linear(hf, f2, g2, x2, 0.5f, nullptr, onw, onb, eps, out, M, D, F, fc2_splits,
-                                    stream);
+  // the depthwise pass is done with h when pw2 writes LN_ffn(x2) there
+  int rc = run_conv_hopper(x, cnw, cnb, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps, h, h2, x2,
+                           fnw, fnb, h, B, Tn, D, K, pw1_cols, pw2_splits, stream);
+  if (rc != 0) return rc;
+  return run_ffn_hopper(h, nullptr, nullptr, f1, g1, f2, g2, eps, x2, nullptr, onw, onb, out, nullptr, hf, B * Tn, D,
+                        F, 0, fc2_splits, stream);
 }
 
 // K5's launch sequence, then K6's with the final LayerNorm: splits (fc2's

@@ -1,9 +1,10 @@
-// Device code and launch sequence of K5, the fused conformer conv module
+// Device code and launch sequences of K5, the fused conformer conv module
 // (see conv_module.cu for what it computes and what bounds it): the tiled
-// depthwise + BN + SiLU kernel and run_conv, which launches the LayerNorm,
-// pw1 with the GLU, the depthwise pass and pw2 (with its closing pass when
-// split) on the caller's stream. The GEMMs are ffn_gemm.cuh's. Included by
-// conv_module.cu and conv_ffn_final.cu.
+// depthwise + BN + SiLU kernel, and one launch sequence for each route of
+// the plan (ops/conv_module.py conv_plan) on the caller's stream:
+// run_conv_hopper (bf16 rows within a cluster) and run_conv (the tiled
+// GEMM). The GEMMs are ffn_gemm.cuh's. Included by conv_module.cu and conv_ffn_final.cu: K4
+// runs these sequences for its conv half.
 #pragma once
 
 #include "ffn_gemm.cuh"
@@ -76,7 +77,41 @@ cudaError_t launch_depthwise(const void* h, const void* wd, const void* bd, cons
   return cudaGetLastError();
 }
 
-// The launch plan (ops/conv_module.py conv_plan): pw1_rows, pw1's block
+// bf16, D <= 1024: three launches. pw1 + GLU on hopper_gemm_kernel with
+// the LayerNorm on its A path (once a cluster of pw1_cols column tiles,
+// into h2 until the depthwise pass writes it), rows at or past min(len, T)
+// written as 0 (h); the depthwise pass (h2); pw2, k split over a thread-block cluster
+// (pw2_splits, the plan's): v = round(x + y + b2) into out when out is set,
+// and round(LN(v)) (on_w, on_b) into out_ln when on_w is set (the cluster
+// then spans every column tile of the rows; K4's LN_ffn).
+inline int run_conv_hopper(const void* x, const float* nw, const float* nb, const void* w1, const void* b1,
+                           const void* wd, const void* bd, const float* bn_w, const float* bn_b, const float* bn_mean,
+                           const float* bn_var, const void* w2, const void* b2, const int* lengths, float eps,
+                           void* h, void* h2, void* out, const float* on_w, const float* on_b, void* out_ln, int B,
+                           int Tn, int D, int K, int pw1_cols, int pw2_splits, cudaStream_t stream) {
+  const int M = B * Tn;
+  if (M == 0) return 0;
+  HgArgs up = {};
+  up.g[0].a = x;
+  up.g[0].w[0] = w1;
+  up.g[0].bias[0] = b1;
+  up.g[0].lengths = lengths;
+  up.g[0].out[0] = h;
+  up.g[0].M = M; up.g[0].N = 2 * D; up.g[0].K = D; up.g[0].nseg = D;
+  up.g[0].T = Tn;
+  up.ln_w = nw; up.ln_b = nb; up.eps = eps;
+  up.cn = pw1_cols;
+  up.xn = h2;  // LN(x) until the depthwise pass writes h2
+  cudaError_t err;
+  if ((err = launch_hopper_gemm<HE_GLU, true>(up, stream)) != cudaSuccess) return (int)err;
+  if ((err = launch_depthwise<bf16>(h, wd, bd, bn_w, bn_b, bn_mean, bn_var, h2, B, Tn, D, K, stream)) != cudaSuccess)
+    return (int)err;
+  return (int)launch_cluster_linear(h2, w2, b2, x, 1.f, out, on_w, on_b, eps, out_ln, M, D, D, pw2_splits, stream);
+}
+
+// f32, and bf16 rows wider than a cluster's column tiles (D > 1024): the
+// tiled GEMM, five launches (the LayerNorm, pw1, the depthwise pass, pw2
+// and its closing pass). The launch plan (ops/conv_module.py conv_plan): pw1_rows, pw1's block
 // rows (64, 96 or 128); pw2_splits, pw2's k slices. part holds pw2_splits
 // x B*T x D f32 partials. The LayerNorm's output borrows h2 until the
 // depthwise pass writes it.

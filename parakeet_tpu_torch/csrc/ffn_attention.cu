@@ -63,9 +63,11 @@
 
 namespace {
 
-// The Hopper design, bf16. fc1_cols: the column tiles that share fc1's
-// LayerNorm; fc2_splits, out_splits: the k slices of fc2 and the
-// out-projection.
+// The Hopper design, bf16: K6's Hopper sequence writing x2 and, from the
+// cluster that closes fc2, LN_attn(x2) into ctx, then QKV with the position
+// GEMM, K1's core and the out-projection. fc1_cols: the column tiles that
+// share fc1's LayerNorm; fc2_splits, out_splits: the k slices of fc2 and
+// the out-projection.
 int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1, const void* g1, const void* f2,
                const void* g2, const float* anw, const float* anb, float eps, const void* wq, const void* bq,
                const void* wk, const void* bk, const void* wv, const void* bv, const void* bias_u,
@@ -75,23 +77,11 @@ int run_hopper(const void* x, const float* fnw, const float* fnb, const void* f1
                int core_splits, cudaStream_t stream) {
   const int M = B * Tn, HD = D / H;
   if (M == 0) return 0;
+  // ctx holds LN_ffn(x) for fc1, then LN_attn(x2) until the core writes it
+  int rc = run_ffn_hopper(x, fnw, fnb, f1, g1, f2, g2, eps, x, x2, anw, anb, ctx, ctx, hf, M, D, F, fc1_cols,
+                          fc2_splits, stream);
+  if (rc != 0) return rc;
   cudaError_t err;
-
-  HgArgs up = {};
-  up.g[0].a = x;
-  up.g[0].w[0] = f1;
-  up.g[0].bias[0] = g1;
-  up.g[0].out[0] = hf;
-  up.g[0].M = M; up.g[0].N = F; up.g[0].K = D;
-  up.ln_w = fnw; up.ln_b = fnb; up.eps = eps;
-  up.cn = fc1_cols;
-  up.xn = ctx;  // LN_ffn(x) until fc2 writes LN_attn(x2) there
-  if ((err = launch_hopper_gemm<HE_SILU, true>(up, stream)) != cudaSuccess) return (int)err;
-
-  // ctx holds LN_attn(x2) until the core writes it
-  if ((err = launch_cluster_linear(hf, f2, g2, x, 0.5f, x2, anw, anb, eps, ctx, M, D, F, fc2_splits, stream)) !=
-      cudaSuccess)
-    return (int)err;
 
   HgArgs q = {};
   FfnGemmArgs& g = q.g[0];

@@ -4,19 +4,31 @@
 // apart) in BM x 128 block tiles (BM = 128, 96 or 64, as the launch plan
 // says), k in steps of 32, fed by a ring of shared-memory stages that
 // 16-byte cp.async copies fill while the block computes on an earlier
-// stage; K6 (fc1, fc2), K1 (QKV, position, out-projection), K5 (pw1, pw2),
-// K8 (conv2) and K3 (the DFT) run on it, and K7 and K4 in f32 through K6's,
-// K1's and K5's sequences. The Hopper GEMM of K7's and K4's sublayers in
-// bf16 (wgmma fed by TMA, thread-block clusters) is the second part,
-// hopper_gemm_kernel, below, with the port's wrappers of those Hopper
-// instructions (K1's bf16 attention core, rel_attention.cuh, uses them too).
+// stage. Every f32 GEMM runs on it: K6 (fc1, fc2), K5 (pw1, pw2), K1 (QKV,
+// position, out-projection), K8 (conv2), K3 (the DFT), and K7 and K4
+// through K6's, K1's and K5's sequences; in bf16 only rows wider than a
+// cluster's column tiles (D > 1024), K1 head-sharded and K8's conv2 (on
+// mma.sync). The Hopper GEMM (wgmma fed by TMA, thread-block clusters) is
+// the second part, hopper_gemm_kernel, below: every bf16 GEMM of K6, K5,
+// K7, K4 and K1 at D <= 1024, with the port's wrappers of those Hopper
+// instructions (K1's bf16 attention core, rel_attention.cuh, uses them
+// too).
 //
-// What bounds it: a GEMM of these shapes is bound by operations (K = 256
-// to 2048 against 4-byte elements), so the design keeps the FMA units fed:
-// 4 k per shared-memory read and 8 columns per thread put 0.25-0.375
-// shared-memory words under each f32 FMA, and the ring hides the device
-// memory latency. On an NVIDIA H100 80GB HBM3 at 700 W it ran K6's fc1 at
-// 32-36 TFLOP/s in f32 (the CUDA cores' peak is 67).
+// What bounds the f32 GEMM on this card: its operations, in IEEE FMA on the
+// CUDA cores (K = 256 to 2048 against 4-byte elements; 67 TFLOP/s peak).
+// The design keeps the FMA units fed: 4 k per shared-memory read and 8
+// columns per thread put 0.25-0.375 shared-memory words under each f32
+// FMA, and the ring hides the device memory latency. On an NVIDIA H100
+// 80GB HBM3 at 700.00 W it runs K6's fc1 at 32-36 TFLOP/s, 85% of
+// torch.matmul's 38 (0.0555 ms for fc1 at B=8, T'=126). A redesign for
+// Hopper (TMA-fed stages in the 128-byte swizzle with thread 0 issuing the
+// copies, fragments double-buffered in registers, two blocks an SM for
+// 64-row tiles, the LayerNorm on the A path and split-K closed in a
+// cluster through distributed shared memory) lost to it at every shape on
+// the same card: K1's QKV GEMM 0.0735 against 0.070 ms, K6's fc1 with the
+// LayerNorm 0.092 against 0.069 with its LayerNorm launch, fc2 in clusters
+// 0.122 against 0.065 with its closing pass, K8's conv2 and K3's DFT 5-7%
+// slower; it was withdrawn (PERF.md §6).
 //
 //   f32   IEEE FMA on the CUDA cores (no TF32): 256 threads, BM/16 x 8
 //         outputs each (rows ty + 16i, columns tx + 16j), 3 stages of
@@ -611,7 +623,13 @@ cudaError_t launch_linear(const void* a, const void* w, const void* bias, const 
 // through distributed shared memory, and each block writes its slice of
 // round(LN(x)) to a scratch copy of the rows that the cluster's TMA loads
 // then read (hg_ln_rows): every row is normalised once a cluster instead
-// of once a column tile, and the products read plain tiles.
+// of once a column tile, and the products read plain tiles. The producer
+// starts the W tiles of the first stages before the LayerNorm phase. Two
+// other designs lost to it on an NVIDIA H100 80GB HBM3 at 700.00 W:
+// each block taking its own 64 rows' statistics with no cluster, and the
+// cluster's statistics with each block normalising its A tiles in the ring
+// (fc1 of K6 at B=8, T'=751: 0.203 and 0.173 ms against 0.127). All three
+// lose to a LayerNorm launch followed by the plain GEMM (0.084 ms there).
 //
 // The accumulators go through shared memory before any epilogue, so that
 // every thread of the block forms outputs eight (or four) columns at a
@@ -686,6 +704,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+// Bytes the phase's TMA loads will bring, without an arrival: loads issued
+// ahead of the arrival that completes the phase (mbar_expect_tx)
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 // Wait for the phase of the given parity to complete. A stage that never
 // arrives is a fault, not a hang: after 2^30 polls (seconds) the block traps.
@@ -1026,16 +1049,17 @@ __device__ __forceinline__ int hg_chunk(const bf16* xr, int k, int k_hi, float (
 
 // LNA: the A rows LayerNorm'd into xn before the GEMM reads them. The
 // launch's clusters span `C` column tiles of one row tile, and block q of a
-// cluster takes k slice q of the 64 rows: the f32 count, mean and sum of
-// squared deviations of its slice per row (each 16-byte chunk's exactly,
-// then merged by Chan's formula), exchanged through distributed shared
-// memory and merged in the order q = 0, 1, ... (the same in every block),
-// then its slice of round((x - mean) rstd w + b) written to xn. Every
-// cluster of the row tile writes the rows, the same bytes: a cluster reads
-// them only once its own blocks have written all of them, so another
-// cluster's writes leave what it reads as it was. The 128 consumer threads
-// take part, two to a row. On return the cluster's xn rows are complete and
-// visible to its TMA loads.
+// cluster takes k slice q of the 64 rows: each thread's sum of its chunks
+// of the slice, then (from L1) the squared deviations from its own mean,
+// one division a thread; the two threads of a row and then the cluster's
+// slices merged by Chan's formula, the slices read through distributed
+// shared memory all at once and merged in the order q = 0, 1, ... (the same
+// in every block); then its slice of round((x - mean) rstd w + b), w and b
+// read 16 bytes at a time, written to xn. Every cluster of the row tile
+// writes the rows, the same bytes: a cluster reads them only once its own
+// blocks have written all of them, so another cluster's writes leave what
+// it reads as it was. The 128 consumer threads take part, two to a row. On
+// return the cluster's xn rows are complete and visible to its TMA loads.
 template <bool VEC>
 __device__ __forceinline__ void hg_ln_rows(const HgArgs& a, bf16* xn, int m0, int C, int q, float* pmu, float* pm2,
                                            float* mean, float* rstd, int tid) {
@@ -1048,65 +1072,81 @@ __device__ __forceinline__ void hg_ln_rows(const HgArgs& a, bf16* xn, int m0, in
   const bf16* A = static_cast<const bf16*>(g.a);
   const int r = tid / TPR, p = tid - r * TPR, m = m0 + r;
   const bool work = tid < LT && m < g.M;
+  const bf16* xr = A + (size_t)m * g.lda;
   float n = 0.f, mu = 0.f, m2 = 0.f;
   if (work) {
-    const bf16* xr = A + (size_t)m * g.lda;
-#pragma unroll 8
+    float s = 0.f;
+#pragma unroll 4
+    for (int k = k_lo + p * E; k < k_hi; k += TPR * E) {
+      float v[E];
+      n += (float)hg_chunk<VEC>(xr, k, k_hi, v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s += v[e];  // a chunk's values past k_hi read as 0
+    }
+    mu = n > 0.f ? s / n : 0.f;
+#pragma unroll 4
     for (int k = k_lo + p * E; k < k_hi; k += TPR * E) {
       float v[E];
       const int cnt = hg_chunk<VEC>(xr, k, k_hi, v);
-      float cm = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) cm += v[e];
-      cm /= (float)cnt;
-      float c2 = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) c2 += e < cnt ? (v[e] - cm) * (v[e] - cm) : 0.f;
-      chan_merge(n, mu, m2, (float)cnt, cm, c2);
+      for (int e = 0; e < E; ++e) m2 += e < cnt ? (v[e] - mu) * (v[e] - mu) : 0.f;
     }
   }
   if (tid < LT) {
-#pragma unroll
-    for (int o = 1; o < TPR; o <<= 1) {
-      const float nb = __shfl_xor_sync(0xffffffffu, n, o), mb = __shfl_xor_sync(0xffffffffu, mu, o);
-      const float qb = __shfl_xor_sync(0xffffffffu, m2, o);
-      // the lower lane's share first, so that the TPR threads agree
-      if (p & o) {
-        float n2 = nb, mu2 = mb, q2 = qb;
-        chan_merge(n2, mu2, q2, n, mu, m2);
-        n = n2; mu = mu2; m2 = q2;
-      } else {
-        chan_merge(n, mu, m2, nb, mb, qb);
-      }
-    }
+    // the row's two threads: the lower one's share first, so that both agree
+    const float nb = __shfl_xor_sync(0xffffffffu, n, 1), mb = __shfl_xor_sync(0xffffffffu, mu, 1);
+    const float qb = __shfl_xor_sync(0xffffffffu, m2, 1);
     if (p == 0) {
+      chan_merge(n, mu, m2, nb, mb, qb);
       pmu[r] = mu;
       pm2[r] = m2;
     }
   }
   cluster.sync();  // every slice's partial statistics are in place
   if (tid < HG_BM) {
+    float rmu[HG_MAX_CLUSTER], rm2[HG_MAX_CLUSTER];
+#pragma unroll
+    for (int j = 0; j < HG_MAX_CLUSTER; ++j)
+      if (j < C) {
+        rmu[j] = cluster.map_shared_rank(pmu, j)[tid];
+        rm2[j] = cluster.map_shared_rank(pm2, j)[tid];
+      }
     float tn = 0.f, tmu = 0.f, tm2 = 0.f;
-    for (int j = 0; j < C; ++j) {
-      const int lo = min(K, j * ks), cnt = min(K, lo + ks) - lo;
-      chan_merge(tn, tmu, tm2, (float)cnt, cluster.map_shared_rank(pmu, j)[tid],
-                 cluster.map_shared_rank(pm2, j)[tid]);
-    }
+#pragma unroll
+    for (int j = 0; j < HG_MAX_CLUSTER; ++j)
+      if (j < C) {
+        const int lo = min(K, j * ks);
+        chan_merge(tn, tmu, tm2, (float)(min(K, lo + ks) - lo), rmu[j], rm2[j]);
+      }
     mean[tid] = tmu;
     rstd[tid] = 1.f / sqrtf(tm2 / (float)K + a.eps);
   }
   __syncthreads();
   if (work) {
-    const bf16* xr = A + (size_t)m * g.lda;
     bf16* dst = xn + (size_t)m * K;
     const float mu_r = mean[r], rs = rstd[r];
-#pragma unroll 8
+    const bool wb16 = ((reinterpret_cast<uintptr_t>(a.ln_w) | reinterpret_cast<uintptr_t>(a.ln_b)) & 15) == 0;
+#pragma unroll 4
     for (int k = k_lo + p * E; k < k_hi; k += TPR * E) {
-      float v[E];
+      float v[E], w[E], b[E];
       const int cnt = hg_chunk<VEC>(xr, k, k_hi, v);
+      if (VEC && wb16) {
+        const float4 w0 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k));
+        const float4 w1 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k + 4));
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k + 4));
+        w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w; w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
+        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w; b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          w[e] = e < cnt ? a.ln_w[k + e] : 0.f;
+          b[e] = e < cnt ? a.ln_b[k + e] : 0.f;
+        }
+      }
       float y[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) y[e] = e < cnt ? (v[e] - mu_r) * rs * a.ln_w[k + e] + a.ln_b[k + e] : 0.f;
+      for (int e = 0; e < E; ++e) y[e] = (v[e] - mu_r) * rs * w[e] + b[e];
       st8(dst + k, y, cnt);
     }
   }
@@ -1296,6 +1336,33 @@ __global__ void __launch_bounds__(HG_THREADS, 3)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // W's boxes of a stage (the weight tiles do not depend on the LayerNorm)
+  auto load_w = [&](int step) {
+    const int s = step % HG_STAGES, k0 = (step0 + step) * HG_BK;
+    bf16* bs = ring + s * HG_STAGE + HG_BM * HG_BK;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int seg = 0, row;
+      if constexpr (EPI == HE_GLU) {
+        row = j * g.nseg + tn * (HG_BN / 2);
+      } else {
+        // only QKV has segments; another problem's rows past N read as 0
+        const int n = tn * HG_BN + j * (HG_BN / 2);
+        if (EPI == HE_QKV_POS && prob == 0) seg = min(n / g.nseg, 2);
+        row = n - seg * g.nseg;
+      }
+      tma_2d(bs + j * (HG_BN / 2) * HG_BK, &maps.b[prob][seg], k0, row, &full[s]);
+    }
+  };
+  // LNA with TMA: the first stages' W tiles are in flight during the
+  // LayerNorm phase (their bytes expected without an arrival; the A tile's
+  // arrival completes each stage's phase)
+  const int w_ahead = LNA && VEC && lna && tn < a.tiles_n[0] ? min(HG_STAGES, nsteps) : 0;
+  if (warp == 4 && lane == 0)
+    for (int step = 0; step < w_ahead; ++step) {
+      mbar_expect_tx_only(&full[step], HG_BN * HG_BK * 2);
+      load_w(step);
+    }
   if constexpr (LNA) {
     if (lna) {
       hg_ln_rows<VEC>(a, static_cast<bf16*>(a.xn), m0, a.cn, tn % a.cn, rowx, rowy, mean, rstd, tid);
@@ -1315,21 +1382,9 @@ __global__ void __launch_bounds__(HG_THREADS, 3)
       bf16* bs = as + HG_BM * HG_BK;
       if constexpr (VEC) {
         if (lane == 0) {
-          mbar_expect_tx(&full[s], HG_TX);
+          mbar_expect_tx(&full[s], step < w_ahead ? HG_BM * HG_BK * 2 : HG_TX);
           tma_2d(as, &maps.a[prob], k0, m0, &full[s]);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            int seg = 0, row;
-            if constexpr (EPI == HE_GLU) {
-              row = j * g.nseg + tn * (HG_BN / 2);
-            } else {
-              // only QKV has segments; another problem's rows past N read as 0
-              const int n = tn * HG_BN + j * (HG_BN / 2);
-              if (EPI == HE_QKV_POS && prob == 0) seg = min(n / g.nseg, 2);
-              row = n - seg * g.nseg;
-            }
-            tma_2d(bs + j * (HG_BN / 2) * HG_BK, &maps.b[prob][seg], k0, row, &full[s]);
-          }
+          if (step >= w_ahead) load_w(step);
         }
       } else {
         sw128_fill(as, HG_BM, a_row, g.K, k0, lane);
@@ -1489,7 +1544,9 @@ cudaError_t launch_hopper_gemm(HgArgs a, cudaStream_t stream) {
     blocks = a.tiles[0] * splits;
   }
   if (LNA) {
-    if (a.xn == nullptr || a.cn < 1 || a.cn > min(HG_MAX_CLUSTER, a.tiles_n[0])) return cudaErrorInvalidValue;
+    if (a.xn == nullptr || a.ln_w == nullptr || a.ln_b == nullptr || a.cn < 1 ||
+        a.cn > min(HG_MAX_CLUSTER, a.tiles_n[0]))
+      return cudaErrorInvalidValue;
     cluster = a.cn;
     blocks = row_tiles * ((a.tiles_n[0] + a.cn - 1) / a.cn) * a.cn;
     if (nprob == 2) blocks += (a.tiles[1] + a.cn - 1) / a.cn * a.cn;
@@ -1514,6 +1571,13 @@ cudaError_t launch_hopper_gemm(HgArgs a, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&l.cfg, kernel, a, maps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// One hopper_gemm_kernel launch with problem 0's A LayerNormed (LNA) when
+// a.ln_w is set, as given otherwise
+template <int EPI>
+cudaError_t launch_hopper_gemm_ln(const HgArgs& a, cudaStream_t stream) {
+  return a.ln_w != nullptr ? launch_hopper_gemm<EPI, true>(a, stream) : launch_hopper_gemm<EPI, false>(a, stream);
 }
 
 // HE_LINEAR on (M, N, K): sum + bias, round(res + coef * y) into out (when

@@ -14,13 +14,13 @@ version `fused_conv_ffn_final_reference` is that composition of the two
 plain versions. `fused_conv_ffn_final` dispatches on the tensor's device:
 CUDA tensors run the hand-written kernel in csrc/conv_ffn_final.cu or
 raise, CPU tensors run the plain version. In bf16 the kernel is five
-launches of its own (`k4_plan`; see the .cu's note): pw1 with the GLU on
-the LayerNorm'd rows, K5's depthwise pass, pw2 closing in a thread-block
-cluster that also writes LN_ffn(x2), fc1, and fc2 closing in a cluster with
-the final LayerNorm, the GEMMs on wgmma with TMA loads. In f32 (IEEE FMA on
-the CUDA cores), and in bf16 where a row spans more than a cluster's 8
-column tiles (D > 1024), it runs K5's launch sequence and then K6's in the
-same C call. What it drops from the TPU kernel: T padded to 128 lanes, the
+launches of its own (`k4_plan`; see the .cu's note): K5's Hopper sequence
+(pw1 with the GLU on the LayerNorm'd rows, the depthwise pass, pw2 closing
+in a thread-block cluster that also writes LN_ffn(x2)) and K6's (fc1, and
+fc2 closing in a cluster with the final LayerNorm), the GEMMs on wgmma with
+TMA loads. In f32 (IEEE FMA on the CUDA cores), and in bf16 where a row
+spans more than a cluster's 8 column tiles (D > 1024), it runs K5's
+sequence of that route and then K6's in the same C call. What it drops from the TPU kernel: T padded to 128 lanes, the
 SMEM length block and whole-array VMEM weight blocks.
 
 On a mesh with a 'model' axis > 1 (parallel/mesh.py) K4 takes the whole
@@ -39,59 +39,50 @@ import torch
 from parakeet_tpu_torch.ops import conv_module as CM
 from parakeet_tpu_torch.ops import feed_forward as FF
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
-from parakeet_tpu_torch.ops.gemm_plan import HopperPlan, hopper_fits, hopper_plan
-
-
-# launches of the tiled sequences: K5's (LayerNorm, pw1, depthwise pass, pw2
-# and its closing pass) and K6's (LayerNorm, fc1, fc2, closing pass)
-TILED_LAUNCHES = 5 + 4
+from parakeet_tpu_torch.ops.gemm_plan import hopper_fits
 
 
 @dataclass(frozen=True)
 class K4Plan:
-    """How K4 launches for (B, T, D, F): in bf16 where a row fits a cluster
-    (`hopper`), the Hopper design's four GEMM launches (ops/gemm_plan.py
-    hopper_plan) and K5's depthwise pass; else K5's plan, then K6's (the
-    tiled sequences). `launches`: the kernel launches of one call."""
+    """How K4 launches for (B, T, D, F): K5's plan (`conv`, ops/conv_module.py
+    conv_plan) and then K6's with the final LayerNorm (`ffn`,
+    ops/feed_forward.py ffn_plan), of the same route: in bf16 where a row
+    fits a cluster (`hopper`) the Hopper design, where pw2's cluster also
+    writes LN_ffn(x2) and fc1 reads it as it is. `launches`: the kernel
+    launches of one call."""
 
     hopper: bool
     launches: int
-    pw1: HopperPlan | None = None
-    pw2: HopperPlan | None = None
-    fc1: HopperPlan | None = None
-    fc2: HopperPlan | None = None
-    conv: CM.ConvPlan | None = None
-    ffn: FF.FfnPlan | None = None
+    conv: CM.ConvPlan
+    ffn: FF.FfnPlan
 
     def ints(self) -> tuple[int, int, int, int, int]:
         """(hopper, splits, pw1_rows, pw2_splits, pw1_cols), as the C entry
         takes them."""
+        hopper, pw1, pw2_splits = self.conv.ints()
         if self.hopper:
-            return 1, self.fc2.splits, 0, self.pw2.splits, self.pw1.cluster_cols
-        pw1_rows, pw2_splits = self.conv.ints()
-        return 0, self.ffn.splits, pw1_rows, pw2_splits, 0
+            return 1, self.ffn.splits, 0, pw2_splits, pw1
+        return 0, self.ffn.splits, pw1, pw2_splits, 0
 
     def partials(self, m: int, d: int) -> int:
-        """f32 elements of the tiled sequences' split partials (0 for the
-        Hopper design): pw2's, then fc2's, in one buffer."""
-        return 0 if self.hopper else max(self.ffn.splits * m * d, self.conv.partials)
+        """f32 elements of the split partials and results the sequences
+        share in one buffer (0 for the Hopper design)."""
+        return 0 if self.hopper else max(self.ffn.part_elems(m, d), self.conv.partials)
 
 
 def k4_plan(b: int, t: int, d: int, f: int, itemsize: int = 4) -> K4Plan:
-    """The Hopper design in bf16 (gemm_plan.hopper_fits): pw1 (GLU over W1's
-    2D rows, the LayerNorm on its A path), pw2 and fc2 (k split over a
-    cluster that holds every column tile of their rows, for LN_ffn and the
-    final LayerNorm), fc1 (N = F). At B=8, T'=126, D=512: 128, 128
-    (clusters of 4 column tiles x 2 k slices), 256 and 128 blocks. In f32
-    (and bf16 rows wider than a cluster) K5's conv_plan and K6's
-    ffn_plan."""
+    """K5's plan then K6's with the final LayerNorm. The Hopper design in
+    bf16 (gemm_plan.hopper_fits): pw1 (GLU over W1's 2D rows, the LayerNorm
+    on its A path), pw2 and fc2 (k split over a cluster that holds every
+    column tile of their rows, for LN_ffn and the final LayerNorm), fc1 (N
+    = F). At B=8, T'=126, D=512: 128, 128 (clusters of 4 column tiles x 2 k
+    slices), 256 and 128 blocks; 5 launches. In f32, and in bf16 rows wider
+    than a cluster, K5's and K6's tiled routes (5 and 4 launches)."""
     m = b * t
-    if itemsize == 2 and hopper_fits(d):
-        return K4Plan(True, 5, pw1=hopper_plan(m, 2 * d, d, "glu", ln=True),
-                      pw2=hopper_plan(m, d, d, "linear", whole_rows=True),
-                      fc1=hopper_plan(m, f, d, "silu"),
-                      fc2=hopper_plan(m, d, f, "linear", whole_rows=True))
-    return K4Plan(False, TILED_LAUNCHES, conv=CM.conv_plan(m, d, itemsize), ffn=FF.ffn_plan(m, d, f, itemsize))
+    hopper = itemsize == 2 and hopper_fits(d)
+    conv = CM.conv_plan(m, d, itemsize, ln_out=hopper)
+    ffn = FF.ffn_plan(m, d, f, itemsize, final_norm=True)
+    return K4Plan(hopper, conv.launches + ffn.launches, conv, ffn)
 
 
 def fused_conv_ffn_final_reference(
@@ -148,7 +139,8 @@ def _launch(x, conv_norm_w, conv_norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn
     h, h2, x2 = (torch.empty_like(x) for _ in range(3))  # each half's LayerNorm output borrows h2, then h
     plan = k4_plan(b, t, d, f, x.element_size())
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
-    part = torch.empty(plan.partials(b * t, d), dtype=torch.float32, device=x.device) if not plan.hopper else None
+    n_part = plan.partials(b * t, d)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device) if n_part else None
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_conv_ffn_final(
@@ -196,5 +188,4 @@ def fused_conv_ffn_final(
 
 fused_conv_ffn_final.launches = 0
 
-__all__ = ["fused_conv_ffn_final", "fused_conv_ffn_final_reference", "build", "K4Plan", "k4_plan",
-           "TILED_LAUNCHES"]
+__all__ = ["fused_conv_ffn_final", "fused_conv_ffn_final_reference", "build", "K4Plan", "k4_plan"]

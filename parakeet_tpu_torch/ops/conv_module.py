@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import torch
 
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
-from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, gemm_plan, partial_elems
+from parakeet_tpu_torch.ops.gemm_plan import GemmPlan, HopperPlan, gemm_plan, hopper_fits, hopper_plan, partial_elems
 from parakeet_tpu_torch.ops.kernel_numerics import conv_module_body, fold_batch_norm
 
 _F32 = torch.float32
@@ -71,24 +71,47 @@ def fused_conv_module_reference(
 
 @dataclass(frozen=True)
 class ConvPlan:
-    """How K5's GEMMs launch for (M, D) (ops/gemm_plan.py): pw1 (GLU
-    epilogue, no split: the 64-, 96- or 128-row tiles over W1's 2D rows
-    that load the busiest SM least), pw2 (k slices, closed by the
-    reduction pass) and pw2's f32 partials."""
+    """How K5 launches for (M, D): the route ("hopper" or "tiled", as K6's),
+    pw1's and pw2's plans, the kernel launches of one call and the f32
+    partials the wrapper allocates.
 
-    pw1: GemmPlan
-    pw2: GemmPlan
+    - "hopper" (bf16, gemm_plan.hopper_fits): pw1 + GLU with the LayerNorm
+      on its A path (hopper_gemm_kernel; once a cluster of column tiles,
+      into h2), the depthwise pass, pw2 split over a thread-block cluster
+      that closes it (spanning the row's column tiles when a LayerNorm of
+      the result follows: K4's LN_ffn): 3 launches, no partials.
+    - "tiled" (f32; bf16 rows wider than a cluster): the LayerNorm, pw1 +
+      GLU on the 64-, 96- or 128-row tiles that load the busiest SM least
+      (no split), the depthwise pass, pw2 in k slices of f32 partials and
+      its closing pass: 5 launches."""
+
+    route: str
+    launches: int
+    pw1: GemmPlan | HopperPlan
+    pw2: GemmPlan | HopperPlan
     partials: int
 
-    def ints(self) -> tuple[int, int]:
-        """(pw1_rows, pw2_splits), as the C entries take them."""
-        return self.pw1.rows, self.pw2.splits
+    def ints(self) -> tuple[int, int, int]:
+        """(hopper, pw1_rows, pw2_splits), as the C entries take them:
+        pw1_rows is pw1's block rows on the tiled route, the column tiles
+        of its LayerNorm cluster on the Hopper route."""
+        if self.route == "hopper":
+            return 1, self.pw1.cluster_cols, self.pw2.splits
+        return 0, self.pw1.rows, self.pw2.splits
 
 
-def conv_plan(m: int, d: int, itemsize: int = 4) -> ConvPlan:
+def conv_plan(m: int, d: int, itemsize: int = 4, ln_out: bool = False) -> ConvPlan:
+    """K5's plan for (M, D) in the dtype of `itemsize`; ln_out: a LayerNorm
+    of the result follows in pw2's cluster (K4's bf16 Hopper design). At
+    B=8, T'=126, D=512 in bf16: pw1 in 128 blocks of 64 GLU outputs
+    (LayerNorm clusters of 8 column tiles), pw2 in 128 (2 k slices in
+    clusters of 2)."""
+    if itemsize == 2 and hopper_fits(d):
+        return ConvPlan("hopper", 3, hopper_plan(m, 2 * d, d, "glu", ln=True),
+                        hopper_plan(m, d, d, "linear", whole_rows=ln_out), 0)
     pw1 = gemm_plan(m, 2 * d, d, itemsize, split_k=False)
     pw2 = gemm_plan(m, d, d, itemsize)
-    return ConvPlan(pw1, pw2, partial_elems(m, d, pw2))
+    return ConvPlan("tiled", 5, pw1, pw2, partial_elems(m, d, pw2))
 
 
 def _lib() -> ctypes.CDLL:
@@ -96,7 +119,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_conv_module
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 14 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
+        fn.argtypes = [i] + [p] * 14 + [ctypes.c_float] + [p] * 4 + [i] * 7 + [p]
         fn.restype = i
     return lib
 
@@ -135,15 +158,15 @@ def checked_args(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var,
 def _launch(x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, eps):
     refuse_grad("fused_conv_module", x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2)
     x, w1, b1, wd, bd, w2, b2, vecs, valid = checked_args(
-        x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths)
+        x, norm_w, norm_b, w1, b1, wd, bd, bn_w, bn_b, bn_mean, bn_var, w2, b2, lengths, clamp=False)
     b, t, d = x.shape
     k = wd.shape[-1]
     dt = x.dtype
 
     out = torch.empty_like(x)
     plan = conv_plan(b * t, d, x.element_size())
-    part = torch.empty(plan.partials, dtype=_F32, device=x.device)
-    h, h2 = torch.empty_like(x), torch.empty_like(x)  # h2 also holds the LayerNorm output
+    part = torch.empty(plan.partials, dtype=_F32, device=x.device) if plan.partials else None
+    h, h2 = torch.empty_like(x), torch.empty_like(x)  # h2 also holds the wide route's LayerNorm output
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_conv_module(

@@ -31,37 +31,70 @@ from dataclasses import dataclass
 import torch
 
 from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refuse_grad, stream
-from parakeet_tpu_torch.ops.gemm_plan import GEMM_K_STEP, MAX_SPLITS, gemm_plan
+from parakeet_tpu_torch.ops.gemm_plan import (GEMM_K_STEP, MAX_SPLITS, GemmPlan, HopperPlan, gemm_plan, gemm_smem,
+                                               hopper_fits, hopper_plan, tiles)
 from parakeet_tpu_torch.ops.kernel_numerics import ffn_body, kernel_layer_norm
 
 _F32 = torch.float32
 
-# fc1 and fc2 run on csrc/ffn_gemm.cuh's 128 x 128 tiles (fc1 keeps them
-# rather than the plan's rows for nonlinear epilogues, so K6's launches stay
-# as they were)
-GEMM_TILE = (128, 128)
+# the tiled route's fc1 runs on 128 x 128 tiles (csrc/feed_forward.cuh run_ffn)
+FC1_ROWS = 128
 
 
 @dataclass(frozen=True)
 class FfnPlan:
-    """How K6 launches for (M, D, F): fc2's k slices, the GEMMs' shared
-    memory per block and the scratch the wrapper allocates (bytes)."""
+    """How K6 launches for (M, D, F): the route, fc1's and fc2's plans, the
+    kernel launches of one call and the scratch the wrapper allocates
+    (bytes).
 
-    tile: tuple[int, int]
-    splits: int
-    smem: int
+    - "hopper" (bf16, gemm_plan.hopper_fits): fc1 + SiLU with the LayerNorm
+      on its A path (once a cluster of column tiles, into xn) and fc2 split
+      over a thread-block cluster that closes it (spanning the row's column
+      tiles when a LayerNorm of the result follows), both on
+      hopper_gemm_kernel: 2 launches; scratch xn (M, D) and h (M, F).
+    - "tiled" (f32; bf16 rows wider than a cluster): the LayerNorm, fc1 on
+      128-row tiles, fc2 in k slices of f32 partials (gemm_plan: at B=8,
+      110m widths, 8 slices at T'=126, 2 at T'=751, 1 from T'=1001) and the
+      closing pass: 4 launches; scratch xn, h and the partials."""
+
+    route: str
+    launches: int
+    fc1: GemmPlan | HopperPlan
+    fc2: GemmPlan | HopperPlan
     scratch: int
 
+    @property
+    def splits(self) -> int:
+        return self.fc2.splits
 
-def ffn_plan(m: int, d: int, f: int, itemsize: int = 4) -> FfnPlan:
-    """fc2 (N = D, K = F) is cut into k slices by the shared GEMM plan
-    (ops/gemm_plan.py gemm_plan: at B=8, 110m widths, 8 slices at T'=126,
-    2 at T'=751, 1 from T'=1001). Scratch: the LayerNorm output (M, D) and
-    the hidden (M, F) in the activation dtype, fc2's f32 partials (splits,
-    M, D)."""
+    def ints(self) -> tuple[int, int, int]:
+        """(hopper, fc1_cols, splits), as the C entries take them: fc1_cols
+        is the Hopper design's LayerNorm cluster of column tiles (0 on the
+        tiled route)."""
+        if self.route == "hopper":
+            return 1, self.fc1.cluster_cols, self.fc2.splits
+        return 0, 0, self.fc2.splits
+
+    def part_elems(self, m: int, d: int) -> int:
+        """f32 elements of fc2's partials (the tiled route; 0 on the Hopper
+        route, whose fc2 closes in its cluster)."""
+        return self.fc2.splits * m * d if self.route == "tiled" else 0
+
+
+def ffn_plan(m: int, d: int, f: int, itemsize: int = 4, final_norm: bool = False) -> FfnPlan:
+    """K6's plan for (M, D, F) in the dtype of `itemsize`, with or without a
+    LayerNorm of the result (the final one; K7's LN_attn) in fc2's cluster
+    (see FfnPlan for the routes). At B=8, T'=126, 110m widths in bf16: fc1
+    in 256 blocks (LayerNorm clusters of 2 column tiles), fc2 in 128 (2 k
+    slices in clusters of 2; of 4 column tiles x 2 with the final
+    LayerNorm)."""
+    if itemsize == 2 and hopper_fits(d):
+        fc1 = hopper_plan(m, f, d, "silu", ln=True)
+        fc2 = hopper_plan(m, d, f, "linear", whole_rows=final_norm)
+        return FfnPlan("hopper", 2, fc1, fc2, (m * d + m * f) * 2)
+    fc1 = GemmPlan(FC1_ROWS, 1, gemm_smem(FC1_ROWS, itemsize), tiles(m, f, FC1_ROWS))
     fc2 = gemm_plan(m, d, f, itemsize)
-    scratch = (m * d + m * f) * itemsize + fc2.splits * m * d * 4
-    return FfnPlan(GEMM_TILE, fc2.splits, fc2.smem, scratch)
+    return FfnPlan("tiled", 4, fc1, fc2, (m * d + m * f) * itemsize + fc2.splits * m * d * 4)
 
 
 def fused_feed_forward_reference(
@@ -84,7 +117,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pk_feed_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 4 + [p]
+        fn.argtypes = [i] + [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
         fn.restype = i
     return lib
 
@@ -125,16 +158,16 @@ def _launch(x, norm_w, norm_b, w1, b1, w2, b2, final_norm_w, final_norm_b, eps):
 
     m = b * t
     out = torch.empty_like(x)
-    plan = ffn_plan(m, d, f, x.element_size())
+    plan = ffn_plan(m, d, f, x.element_size(), final_norm_w is not None)
     xn = torch.empty((m, d), dtype=dt, device=x.device)
     h = torch.empty((m, f), dtype=dt, device=x.device)
-    part = torch.empty((plan.splits, m, d), dtype=_F32, device=x.device)
+    part = torch.empty(plan.part_elems(m, d), dtype=_F32, device=x.device) if plan.part_elems(m, d) else None
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.pk_feed_forward(
             DTYPE_CODE[dt], ptr(x), ptr(norms[0]), ptr(norms[1]), ptr(w1), ptr(b1),
             ptr(w2), ptr(b2), ptr(norms[2]), ptr(norms[3]), float(eps),
-            ptr(xn), ptr(h), ptr(part), ptr(out), m, d, f, plan.splits, stream(x.device),
+            ptr(xn), ptr(h), ptr(part), ptr(out), m, d, f, *plan.ints(), stream(x.device),
         )
     check_rc(rc, "fused_feed_forward")
     fused_feed_forward.launches += 1
@@ -165,5 +198,5 @@ def fused_feed_forward(
 
 fused_feed_forward.launches = 0
 
-__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build", "FfnPlan", "ffn_plan",
+__all__ = ["fused_feed_forward", "fused_feed_forward_reference", "build", "FfnPlan", "ffn_plan", "FC1_ROWS",
            "GEMM_K_STEP", "MAX_SPLITS"]

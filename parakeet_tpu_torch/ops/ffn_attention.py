@@ -15,13 +15,14 @@ K6's followed by K1's, exactly; the plain version
 versions. `fused_ffn_attention` dispatches on the tensor's device: CUDA
 tensors run the hand-written kernel in csrc/ffn_attention.cu or raise, CPU
 tensors run the plain version. In bf16 the kernel is five launches of its
-own (`k7_plan`; see the .cu's note): fc1 on the LayerNorm'd rows, fc2
-closing in a thread-block cluster that also writes LN_attn(x2), QKV with
-the position GEMM in the same launch, K1's bf16 attention core (wgmma) and
-the out-projection closing in a cluster, the GEMMs on wgmma with TMA loads. In
-f32 (IEEE FMA on the CUDA cores), and in bf16 where a row spans more than a
-cluster's 8 column tiles (D > 1024), it runs K6's launch sequence and then
-K1's in the same C call. The reference's core scores the position term
+own (`k7_plan`; see the .cu's note): K6's Hopper sequence (fc1 on the
+LayerNorm'd rows, fc2 closing in a thread-block cluster that also writes
+LN_attn(x2)), QKV with the position GEMM in the same launch, K1's bf16
+attention core (wgmma) and the out-projection closing in a cluster, the
+GEMMs on wgmma with TMA loads. In f32 (IEEE FMA on the CUDA cores), and in
+bf16 where a row spans more than a cluster's 8 column tiles (D > 1024), it
+runs K6's sequence of that route and then K1's tiled one in the same C
+call. The reference's core scores the position term
 by the angle-addition factorisation of the sinusoidal table; the port
 gathers projected table rows (K1's core). The two agree to f32 rounding; in
 bf16 they round the table at different points.
@@ -46,61 +47,57 @@ from parakeet_tpu_torch.ops._build import DTYPE_CODE, check_rc, load, ptr, refus
 from parakeet_tpu_torch.ops.gemm_plan import HopperPlan, hopper_fits, hopper_plan
 
 
-# launches of the tiled sequences: K6's (LayerNorm, fc1, fc2, closing pass)
-# and K1's with its pre-LN (LayerNorm, QKV, position GEMM and its closing
-# pass, core, out-projection and its closing pass)
-TILED_LAUNCHES = 4 + 7
-
-
 @dataclass(frozen=True)
 class K7Plan:
-    """How K7 launches for (B, T, D, F): in bf16 where a row fits a cluster
-    (`hopper`), the Hopper design's four GEMM launches (ops/gemm_plan.py
-    hopper_plan) around K1's core; else K6's plan, then K1's (the tiled
-    sequences). `launches`: the kernel launches of one call."""
+    """How K7 launches for (B, T, D, F): K6's plan (`ffn`, ops/feed_forward.py
+    ffn_plan) for its FFN half, then in bf16 where a row fits a cluster
+    (`hopper`) the Hopper design's QKV + position launch and out-projection
+    (ops/gemm_plan.py hopper_plan) around K1's core, else K1's tiled plan
+    (`attn`). `launches`: the kernel launches of one call."""
 
     hopper: bool
     launches: int
     core: RA.CorePlan
-    fc1: HopperPlan | None = None
-    fc2: HopperPlan | None = None
+    ffn: FF.FfnPlan
     qkv_pos: HopperPlan | None = None
     out: HopperPlan | None = None
-    ffn: FF.FfnPlan | None = None
     attn: RA.BlockPlan | None = None
 
     def ints(self) -> tuple[int, int, int, int, int, int, int]:
         """(hopper, splits, qkv_rows, pos_splits, out_splits, fc1_cols,
         core_splits), as the C entry takes them."""
+        _, fc1_cols, splits = self.ffn.ints()
         if self.hopper:
-            return 1, self.fc2.splits, 0, 0, self.out.splits, self.fc1.cluster_cols, self.core.splits
-        return 0, self.ffn.splits, self.attn.qkv.rows, self.attn.pos.splits, self.attn.out.splits, 0, self.core.splits
+            return 1, splits, 0, 0, self.out.splits, fc1_cols, self.core.splits
+        return 0, splits, self.attn.qkv.rows, self.attn.pos.splits, self.attn.out.splits, 0, self.core.splits
 
     def partials(self, m: int, d: int) -> int:
         """f32 elements of the tiled sequences' split partials (0 for the
-        Hopper design): fc2's, then the attention half's, in one buffer."""
-        return 0 if self.hopper else max(self.ffn.splits * m * d, self.attn.partials)
+        Hopper design): the FFN half's, then the attention half's, in one
+        buffer."""
+        return 0 if self.hopper else max(self.ffn.part_elems(m, d), self.attn.partials)
 
 
 def k7_plan(b: int, t: int, d: int, f: int, itemsize: int = 4, heads: int = 8) -> K7Plan:
-    """The Hopper design in bf16 (gemm_plan.hopper_fits): fc1 (N = F, the
-    LayerNorm on its A path), fc2 (k split over a cluster that holds every
-    column tile of its rows, for LN_attn), QKV (N = 3D) with the position
-    GEMM ((2T−1) × D) in one launch, and the out-projection (k split over a
-    cluster). At B=8, T'=126, D=512: 256 (LayerNorm clusters of 2 column
-    tiles), 128 (clusters of 4 column tiles x 2 k slices), 208 and 128
-    blocks (2 k slices). In f32 (and bf16 rows wider than a cluster) K6's
-    ffn_plan and K1's tiled plan (heads_plan over every head). K1's core
-    (`core`, RA.core_plan) in both."""
+    """The Hopper design in bf16 (gemm_plan.hopper_fits): K6's Hopper route
+    with fc2's cluster spanning every column tile of its rows (it also
+    writes LN_attn(x2)), QKV (N = 3D) with the position GEMM ((2T−1) × D)
+    in one launch, and the out-projection (k split over a cluster). At B=8,
+    T'=126, D=512: 256, 128 (clusters of 4 column tiles x 2 k slices), 208
+    and 128 blocks (2 k slices); 5 launches. In f32, and in bf16 rows wider
+    than a cluster, K6's tiled route (4 launches) and K1's tiled plan
+    (heads_plan over every head, 7): 11. K1's core (`core`, RA.core_plan)
+    in both."""
     m = b * t
     core = RA.core_plan(b, t, heads, d // heads, itemsize)
-    if itemsize == 2 and hopper_fits(d):
-        return K7Plan(True, 5, core, fc1=hopper_plan(m, f, d, "silu", ln=True),
-                      fc2=hopper_plan(m, d, f, "linear", whole_rows=True),
+    hopper = itemsize == 2 and hopper_fits(d)
+    ffn = FF.ffn_plan(m, d, f, itemsize, final_norm=hopper)  # the Hopper fc2 closes LN_attn(x2) in its cluster
+    if hopper:
+        return K7Plan(True, ffn.launches + RA.HOPPER_LAUNCHES, core, ffn,
                       qkv_pos=hopper_plan(m, 3 * d, d, "qkv_pos", extra=(2 * t - 1, d)),
                       out=hopper_plan(m, d, d, "linear"))
-    return K7Plan(False, TILED_LAUNCHES, core, ffn=FF.ffn_plan(m, d, f, itemsize),
-                  attn=RA.heads_plan(b, t, d, d, itemsize, heads))
+    attn = RA.heads_plan(b, t, d, d, itemsize, heads)
+    return K7Plan(False, ffn.launches + RA.TILED_LAUNCHES, core, ffn, attn=attn)
 
 
 def hopper_active_clusters(size: int) -> int:
@@ -164,7 +161,8 @@ def _launch(x, ffn_norm_w, ffn_norm_b, fc1_w, fc1_b, fc2_w, fc2_b, attn_norm_w, 
     out = torch.empty_like(x)
     hf = torch.empty((b * t, f), dtype=dt, device=x.device)
     plan = k7_plan(b, t, d, f, x.element_size(), heads)
-    part = torch.empty(plan.partials(b * t, d), dtype=torch.float32, device=x.device) if not plan.hopper else None
+    n_part = plan.partials(b * t, d)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device) if n_part else None
     x2, ctx = torch.empty_like(x), torch.empty_like(x)  # ctx also holds both LayerNorms' outputs
     qu, qv, kh = (torch.empty((b, heads, t, hd), dtype=dt, device=x.device) for _ in range(3))
     vh = RA.values_scratch(b, heads, t, hd, dt, x.device)
@@ -218,4 +216,4 @@ def fused_ffn_attention(
 fused_ffn_attention.launches = 0
 
 __all__ = ["fused_ffn_attention", "fused_ffn_attention_reference", "build", "K7Plan", "k7_plan",
-           "hopper_active_clusters", "TILED_LAUNCHES"]
+           "hopper_active_clusters"]

@@ -145,6 +145,11 @@ HOPPER_SMEM = 1024 + 4 * (HOPPER_ROWS + HOPPER_COLS) * HOPPER_K_STEP * 2 + (4 * 
 HOPPER_ACTIVE_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
 
 
+# the longest k slice of each row that a block of a LayerNorm'd launch
+# normalises when its cluster is made smaller to save a wave
+LN_SLICE = 256
+
+
 def hopper_waves(size: int, clusters: int) -> int:
     """Waves that `clusters` clusters of `size` blocks take on the card."""
     return -(-clusters // HOPPER_ACTIVE_CLUSTERS[size])
@@ -180,8 +185,13 @@ def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
     too): 8 of them (fewer when there are fewer; for "qkv_pos" the most
     that divide its column tiles, 6 of 12 at D=512, so that no block of a
     cluster only LayerNorms), down to 4 or 2 only where that puts the
-    launch in one wave (a smaller cluster LayerNorms a longer slice of each
-    row in every block, which costs more than a wave of a long launch).
+    launch in one wave and leaves each block a slice of at most LN_SLICE
+    values of each row (a smaller cluster LayerNorms a longer slice of each
+    row in every block, which costs more than a wave of a long launch, and
+    more than the wave it saves once the slice is longer: K5's pw1 at
+    D=1024, B=8, T'=126 took 0.0612 ms in clusters of 2, 0.0564 in
+    clusters of 8, on an NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py
+    lna_choice).
 
     A linear GEMM splits k into the fewest slices (dividing the k steps and
     the tile's 64 rows, cluster at most MAX_CLUSTER) whose blocks give every
@@ -208,7 +218,7 @@ def hopper_plan(m: int, n: int, k: int, kind: str, *, whole_rows: bool = False,
         if kind == "qkv_pos":  # a width that divides the column tiles: no block only LayerNorms
             c = max(s for s in range(1, c + 1) if cols % s == 0)
         if hopper_waves(c, clusters(c)) > 1:
-            c = next((s for s in (4, 2) if s < c and hopper_waves(s, clusters(s)) == 1), c)
+            c = next((s for s in (4, 2) if s < c and k <= LN_SLICE * s and hopper_waves(s, clusters(s)) == 1), c)
         return HopperPlan(kind, 1, c, clusters(c) * c, steps)
     if kind != "linear":
         return HopperPlan(kind, 1, 1, row_tiles * cols + extra_tiles, steps)
@@ -235,6 +245,6 @@ def hopper_fits(d: int) -> bool:
 
 __all__ = ["GEMM_COLS", "GEMM_ROWS", "GEMM_K_STEP", "MAX_SPLITS", "WAVE_FILL", "DFT_ROWS", "GemmPlan",
            "gemm_plan", "gemm_smem", "dft_cols", "dft_plan", "partial_elems", "tiles", "HOPPER_ROWS",
-           "HOPPER_COLS", "HOPPER_K_STEP", "HOPPER_KINDS", "HOPPER_SMEM",
+           "HOPPER_COLS", "HOPPER_K_STEP", "HOPPER_KINDS", "HOPPER_SMEM", "LN_SLICE",
            "HOPPER_ACTIVE_CLUSTERS", "MAX_CLUSTER", "TMA_BOX", "WGMMA_N", "HopperPlan", "hopper_plan",
            "hopper_waves", "hopper_fits"]

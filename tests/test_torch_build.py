@@ -90,12 +90,14 @@ def test_composed_kernels_hash_the_sequences_they_include(name, headers):
 
 def test_one_gemm_design_in_the_sources():
     """The 64x64 GEMM that K8 and K3 ran on is gone: ffn_gemm.cuh is the
-    port's one GEMM header (the tiled GEMM, and the Hopper GEMM of K4's and
-    K7's sublayers in bf16 with every wgmma, TMA and mbarrier instruction
-    of the port), and gemm.cuh keeps the helpers and the LayerNorm. In bf16
-    (run_hopper) K4 and K7 run their GEMMs on the Hopper GEMM alone: no
+    port's one GEMM header (the tiled GEMM, and the Hopper GEMM of the bf16
+    sublayers with every wgmma, TMA and mbarrier instruction of the port),
+    and gemm.cuh keeps the helpers and the LayerNorm. In bf16 (run_hopper,
+    and K6's and K5's Hopper sequences run_ffn_hopper and run_conv_hopper,
+    which K7 and K4 call) the GEMMs run on the Hopper GEMM alone: no
     LayerNorm launch, no split-K closing pass, none of K6's, K1's or K5's
-    launch sequences; in f32 (run_tiled) they run those sequences."""
+    tiled launch sequences; in f32 (run_tiled) K7 and K4 run those
+    sequences."""
     text = {p.name: p.read_text() for p in _build._CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
     for word in (r"\bgemm_nt_kernel\b", r"\bGemmArgs\b", r"\blaunch_gemm\b", r"\bGBM\b", r"\bEPI_"):
         assert not [name for name, src in text.items() if re.search(word, src)], word
@@ -109,11 +111,23 @@ def test_one_gemm_design_in_the_sources():
         rest = src[src.index(f"int {fn}("):]
         return rest[:rest.index("\n}\n")]
 
-    for name, seqs in (("ffn_attention.cu", ("run_ffn", "run_block")), ("conv_ffn_final.cu", ("run_conv", "run_ffn"))):
-        hopper, tiled = body(text[name], "run_hopper"), body(text[name], "run_tiled")
-        assert "launch_hopper_gemm<" in hopper and "launch_cluster_linear(" in hopper, name
+    sequences = text["feed_forward.cuh"] + text["conv_module.cuh"]
+
+    def with_sequences(src):
+        """A body with the bodies of the Hopper sequences it calls."""
+        return src + "".join(body(sequences, seq) for seq in ("run_ffn_hopper", "run_conv_hopper")
+                             if re.search(rf"\b{seq}\(", src))
+
+    bodies = {name: with_sequences(body(text[name], "run_hopper")) for name in ("ffn_attention.cu", "conv_ffn_final.cu")}
+    for name, seq in (("feed_forward.cu", "run_ffn_hopper"), ("conv_module.cu", "run_conv_hopper")):
+        assert re.search(rf"\b{seq}\(", body(text[name], "pk_" + name[:-3])), name
+        bodies[name] = with_sequences(f"{seq}(")
+    for name, hopper in bodies.items():
+        assert re.search(r"\blaunch_hopper_gemm(_ln)?<", hopper) and "launch_cluster_linear(" in hopper, name
         for word in ("launch_layer_norm_rows", "launch_gemm_reduce", "launch_linear", "launch_tiled_gemm",
                      "run_ffn", "run_block", "run_conv"):
             assert not re.search(rf"\b{word}\b", hopper), (name, word)
+    for name, seqs in (("ffn_attention.cu", ("run_ffn", "run_block")), ("conv_ffn_final.cu", ("run_conv", "run_ffn"))):
+        tiled = body(text[name], "run_tiled")
         assert [w for w in seqs if re.search(rf"\b{w}<", tiled)] == list(seqs), name
         assert "hopper" not in tiled, name

@@ -1,8 +1,9 @@
-"""K7, K4 and K1 on the Hopper GEMM of csrc/ffn_gemm.cuh
-(hopper_gemm_kernel, bf16) and on the tiled sequences (f32, and bf16 rows
-wider than a cluster), K1's attention cores (bf16 wgmma, f32 CUDA cores,
-split and unsplit), and the C entries of every kernel library against what
-their wrappers pass.
+"""K6, K5, K7, K4 and K1 on the Hopper GEMM of csrc/ffn_gemm.cuh
+(hopper_gemm_kernel, bf16), on its f32 tiled GEMM (TMA-fed, the LayerNorm
+on the A path, k slices closed in a cluster) and on the bf16 tiled
+sequences of rows wider than a cluster, K1's attention cores (bf16 wgmma,
+f32 CUDA cores, split and unsplit), and the C entries of every kernel
+library against what their wrappers pass.
 
 The ctypes checks run here without nvcc: each `extern "C"` entry of
 csrc/*.cu is parsed and held to the `argtypes` its wrapper sets (a wrong
@@ -187,6 +188,53 @@ def test_k4_kernel_matches_plain_version_on_the_card(shape, dtype, with_lengths)
         ref = K4.fused_conv_ffn_final_reference(*args, lengths=lt)
     assert K4.fused_conv_ffn_final.launches == before + 1
     _hold(got, ref, [t] * b)  # every row: the conv half masks pad rows the same way in both
+
+
+# K6 and K5 alone: (B, T, D, F) at the 110m widths, odd widths (rows of 36
+# and 100 values, and 70: TMA cannot load those), D = 1280 (the bf16 wide
+# route) and a short T
+K6_K5_SHAPES = [(2, 64, 512, 2048), (3, 37, 36, 70), (3, 37, 96, 100), (2, 64, 1280, 1280), (2, 20, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K6_K5_SHAPES)
+def test_k6_kernel_matches_plain_version_on_the_card(shape, dtype, final):
+    _need_card()
+    b, t, d, f = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape) + final)
+    dev = _dev(dt)
+    args = (dev(rng.randn(b, t, d)), *_ffn(rng, dev, d, f))
+    kw = dict(final_norm_w=dev(1 + 0.1 * rng.randn(d), torch.float32),
+              final_norm_b=dev(0.1 * rng.randn(d), torch.float32)) if final else {}
+    before = FF.fused_feed_forward.launches
+    with torch.inference_mode():
+        got = FF.fused_feed_forward(*args, **kw)
+        ref = FF.fused_feed_forward_reference(*args, **kw)
+    assert FF.fused_feed_forward.launches == before + 1
+    _hold(got, ref, [t] * b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lengths", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K6_K5_SHAPES)
+def test_k5_kernel_matches_plain_version_on_the_card(shape, dtype, with_lengths):
+    _need_card()
+    b, t, d, _ = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape) + with_lengths)
+    args = _k4_args(rng, _dev(dt), b, t, d, 4)[:13]  # x and the conv module's weights
+    lengths = [t, *(max(1, t - 9 * i - 2) for i in range(1, b))] if with_lengths else [t] * b
+    lt = torch.tensor(lengths, dtype=torch.int32, device="cuda") if with_lengths else None
+    before = CM.fused_conv_module.launches
+    with torch.inference_mode():
+        got = CM.fused_conv_module(*args, lengths=lt)
+        ref = CM.fused_conv_module_reference(*args, lengths=lt)
+    assert CM.fused_conv_module.launches == before + 1
+    _hold(got, ref, [t] * b)  # every row: pad rows are masked the same way in both
 
 
 @pytest.mark.cuda

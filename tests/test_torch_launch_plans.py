@@ -34,33 +34,63 @@ def test_limits_are_the_h100s():
 @pytest.mark.parametrize("d, f", FFN_WIDTHS)
 @pytest.mark.parametrize("t", SEQ_LENS)
 def test_ffn_plan_fits_and_splits_whole_k_steps(t, d, f, itemsize):
+    """K6's plan with and without a LayerNorm of the result. bf16 (rows
+    within a cluster): the Hopper route, 2 launches, fc1's LayerNorm once a
+    cluster of column tiles (8 of them, or 4 or 2 where that makes one
+    wave), fc2's k slices dividing its k steps and the tile's 64 rows in a
+    cluster of at most 8 blocks (every column tile of the rows with the
+    LayerNorm). f32: the tiled route, 4 launches, fc1 on 128-row tiles, fc2
+    split into whole k steps by the shared plan."""
     m = 8 * t
-    plan = FF.ffn_plan(m, d, f, itemsize)
-    assert plan.smem <= LIMIT
-    steps = -(-f // FF.GEMM_K_STEP)
-    assert steps % plan.splits == 0 and 1 <= plan.splits <= FF.MAX_SPLITS
-    assert plan.scratch == (m * d + m * f) * itemsize + plan.splits * m * d * 4
-    tiles = -(-m // 128) * -(-d // 128)
+    for final in (False, True):
+        plan = FF.ffn_plan(m, d, f, itemsize, final)
+        fc1, fc2 = plan.fc1, plan.fc2
+        if itemsize == 2:
+            assert plan.route == "hopper" and plan.launches == 2 and plan.scratch == (m * d + m * f) * 2
+            c, cols = fc1.cluster, -(-f // 128)
+            assert fc1.kind == "silu" and fc1.splits == 1 and fc1 == GP.hopper_plan(m, f, d, "silu", ln=True)
+            assert c == min(GP.MAX_CLUSTER, cols) or (c in (4, 2) and GP.hopper_waves(c, fc1.blocks // c) == 1)
+            # a smaller cluster leaves each block at most LN_SLICE values of a row
+            assert c == min(GP.MAX_CLUSTER, cols) or d <= GP.LN_SLICE * c
+            assert fc1.blocks == -(-m // 64) * -(-cols // c) * c
+            assert fc2.kind == "linear" and fc2.cluster_cols == (-(-d // 128) if final else 1)
+            assert 1 <= fc2.cluster <= GP.MAX_CLUSTER and 64 % fc2.splits == 0
+            assert fc2.k_steps == -(-f // 64) and fc2.k_steps % fc2.splits == 0
+            assert plan.ints() == (1, c, fc2.splits) and plan.part_elems(m, d) == 0
+            assert GP.HOPPER_SMEM <= LIMIT
+            continue
+        assert plan.route == "tiled" and plan.launches == 4
+        assert fc1.rows == FF.FC1_ROWS == 128 and fc1.splits == 1 and fc1.smem <= LIMIT
+        assert fc2 == GP.gemm_plan(m, d, f, 4) and fc2.smem <= LIMIT
+        steps = -(-f // FF.GEMM_K_STEP)
+        assert steps % fc2.splits == 0 and 1 <= fc2.splits <= FF.MAX_SPLITS
+        assert plan.scratch == (m * d + m * f) * 4 + fc2.splits * m * d * 4
+        assert plan.part_elems(m, d) == fc2.splits * m * d and plan.ints() == (0, 0, fc2.splits)
+        tiles = -(-m // 128) * -(-d // 128)
 
-    def fills(s):  # every SM gets a block and the waves are at least 90% full
-        blocks = tiles * s
-        return blocks >= 132 and blocks >= 0.9 * 132 * -(-blocks // 132)
+        def fills(s):  # every SM gets a block and the waves are at least 90% full
+            blocks = tiles * s
+            return blocks >= 132 and blocks >= 0.9 * 132 * -(-blocks // 132)
 
-    divisors = [s for s in range(1, min(steps, FF.MAX_SPLITS) + 1) if steps % s == 0]
-    if any(fills(s) for s in divisors):
-        assert fills(plan.splits) and not any(fills(s) for s in divisors if s < plan.splits)
-    else:
-        assert plan.splits == divisors[-1]
+        divisors = [s for s in range(1, min(steps, FF.MAX_SPLITS) + 1) if steps % s == 0]
+        if any(fills(s) for s in divisors):
+            assert fills(fc2.splits) and not any(fills(s) for s in divisors if s < fc2.splits)
+        else:
+            assert fc2.splits == divisors[-1]
 
 
 @pytest.mark.parametrize("d, f", FFN_WIDTHS)
 def test_ffn_plan_fills_the_card_at_ten_second_clips(d, f):
-    """B=8, T'=126: fc2 (N = D) has too few 128x128 tiles alone."""
+    """B=8, T'=126: fc2 (N = D) has too few output tiles alone. In f32 its
+    128x128 tiles split k into 8 slices at D=512; in bf16 its 64x128 tiles
+    split k over clusters that the card holds in one wave, and fc1 gives
+    every SM a block."""
     m = 8 * 126
-    for itemsize in ITEMSIZES:
-        plan = FF.ffn_plan(m, d, f, itemsize)
-        assert -(-m // 128) * -(-d // 128) * plan.splits >= 132
+    f32, bf = FF.ffn_plan(m, d, f, 4), FF.ffn_plan(m, d, f, 2)
+    assert -(-m // 128) * -(-d // 128) * f32.splits >= 132
     assert FF.ffn_plan(m, 512, 2048).splits == 8
+    assert bf.fc2.blocks >= GP.WAVE_FILL * 132 and GP.hopper_waves(bf.fc2.cluster, bf.fc2.blocks // bf.fc2.cluster) == 1
+    assert bf.fc1.blocks >= 132
 
 
 def test_ffn_plan_evens_out_the_last_wave_at_sixty_second_clips():
@@ -125,8 +155,9 @@ def test_narrow_gemms_fill_the_card_at_ten_second_clips(d, itemsize):
 @pytest.mark.parametrize("t", SEQ_LENS)
 def test_block_and_conv_plans_size_their_partials(t, itemsize):
     """K1's tiled position GEMM and out-projection share one f32 partials
-    buffer (their closing passes run one after the other); K5's pw2 has its
-    own. K1's Hopper design (bf16) writes none."""
+    buffer (their closing passes run one after the other); K5's tiled pw2
+    has its own. K1's and K5's Hopper designs (bf16) write none: their
+    linear GEMMs close in a cluster."""
     b, d = 8, 512
     plan = RA.heads_plan(b, t, d, d, itemsize)
     assert plan.qkv.splits == 1 and not plan.hopper
@@ -135,16 +166,29 @@ def test_block_and_conv_plans_size_their_partials(t, itemsize):
     whole = RA.block_plan(b, t, d, itemsize)
     assert whole == plan if itemsize == 4 else (whole.hopper and whole.partials == 0)
     conv = CM.conv_plan(b * t, d, itemsize)
-    assert conv.pw1.splits == 1 and conv.ints() == (conv.pw1.rows, conv.pw2.splits)
-    assert conv.partials == conv.pw2.splits * b * t * d
+    assert conv.pw1.splits == 1
+    if itemsize == 2:
+        assert conv.route == "hopper" and conv.launches == 3 and conv.partials == 0
+        assert conv.ints() == (1, conv.pw1.cluster_cols, conv.pw2.splits)
+    else:
+        assert conv.route == "tiled" and conv.launches == 5 and conv.ints() == (0, conv.pw1.rows, conv.pw2.splits)
+        assert conv.partials == conv.pw2.splits * b * t * d
 
 
 def test_ffn_plan_is_the_shared_plan_of_fc2():
-    for m, d, f in ((1008, 512, 2048), (6008, 512, 2048), (1008, 1024, 4096), (10, 36, 70)):
+    """fc2's plan is the shared one of its route: gemm_plan's split-K plan
+    on the tiled route (f32; bf16 rows wider than a cluster), hopper_plan
+    in bf16 rows within a cluster."""
+    for m, d, f in ((1008, 512, 2048), (6008, 512, 2048), (1008, 1024, 4096), (10, 36, 70), (1008, 1280, 5120)):
         for itemsize in ITEMSIZES:
-            fc2 = GP.gemm_plan(m, d, f, itemsize)
             plan = FF.ffn_plan(m, d, f, itemsize)
-            assert (plan.tile, plan.splits, plan.smem) == ((128, 128), fc2.splits, fc2.smem)
+            if itemsize == 2 and GP.hopper_fits(d):
+                assert plan.fc2 == GP.hopper_plan(m, d, f, "linear")
+                assert plan.fc1 == GP.hopper_plan(m, f, d, "silu", ln=True)
+            else:
+                fc2 = GP.gemm_plan(m, d, f, itemsize)
+                assert plan.route == "tiled" and (plan.splits, plan.fc2.smem) == (fc2.splits, fc2.smem)
+                assert (plan.fc1.rows, plan.fc1.smem) == (128, GP.gemm_smem(128, itemsize))
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
@@ -182,11 +226,11 @@ def test_v1_plan_shrinks_the_block_as_t_grows():
 def test_plans_follow_the_dtype_itemsize():
     assert torch.empty((), dtype=torch.bfloat16).element_size() == 2
     assert RA.v1_plan(751, 64, 2).smem < RA.v1_plan(751, 64, 4).smem
-    assert FF.ffn_plan(1008, 512, 2048, 2).smem < FF.ffn_plan(1008, 512, 2048, 4).smem
+    assert FF.ffn_plan(1008, 1280, 5120, 2).fc2.smem < FF.ffn_plan(1008, 1280, 5120, 4).fc2.smem
+    assert FF.ffn_plan(1008, 512, 2048, 2).route == "hopper" and FF.ffn_plan(1008, 512, 2048, 4).route == "tiled"
+    assert CM.conv_plan(1008, 512, 2).route == "hopper" and CM.conv_plan(1008, 512, 4).route == "tiled"
 
 
-# K8's conv2 at B=8, mel T = 1001 and 6001 (10 s and 60 s), C = 256; the
-# 600m presets' 128 mel bins too
 SUBSAMPLE_SHAPES = ((1001, 80), (6001, 80), (1001, 128), (129, 80))
 
 
@@ -285,19 +329,26 @@ def test_v1_plan_at_head_dim_128(t, itemsize):
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
 @pytest.mark.parametrize("b, t", SHAPES_600M)
 def test_k7_and_k4_plans_at_the_600m_widths(b, t, itemsize):
-    """K7's tiled sequences run ffn_plan then K1's tiled plan, K4's
-    conv_plan then ffn_plan, at D=1024, F=4096: every GEMM fits a block and
-    splits whole k steps."""
+    """At D=1024, F=4096 K7 runs K6's plan then K1's, K4 K5's then K6's
+    with a LayerNorm of the result, of one route: in f32 (the tiled
+    sequences) every GEMM fits a block and splits whole k steps."""
     d, f, m = 1024, 4096, b * t
-    ffn = FF.ffn_plan(m, d, f, itemsize)
-    attn = RA.heads_plan(b, t, d, d, itemsize)
-    conv = CM.conv_plan(m, d, itemsize)
-    assert ffn.smem <= LIMIT and (f // GP.GEMM_K_STEP) % ffn.splits == 0
+    k7, k4 = K7.k7_plan(b, t, d, f, itemsize), K4.k4_plan(b, t, d, f, itemsize)
+    assert k7.ffn == FF.ffn_plan(m, d, f, itemsize, final_norm=itemsize == 2)
+    assert k4.ffn == FF.ffn_plan(m, d, f, itemsize, final_norm=True)
+    assert k4.conv == CM.conv_plan(m, d, itemsize, ln_out=itemsize == 2)
+    if itemsize == 2:
+        assert k7.hopper and k4.hopper and k7.launches == k4.launches == 5
+        return
+    ffn, attn, conv = k7.ffn, k7.attn, k4.conv
+    assert attn == RA.heads_plan(b, t, d, d, itemsize)
+    assert ffn.fc2.smem <= LIMIT and (f // GP.GEMM_K_STEP) % ffn.splits == 0
     for g, k in ((attn.qkv, d), (attn.pos, d), (attn.out, d), (conv.pw1, d), (conv.pw2, d)):
         assert g.smem <= LIMIT and g.smem == GP.gemm_smem(g.rows, itemsize)
         assert (k // GP.GEMM_K_STEP) % g.splits == 0 and 1 <= g.splits <= GP.MAX_SPLITS
     assert attn.qkv.splits == 1 and conv.pw1.splits == 1
     assert attn.partials == max(attn.pos.splits * (2 * t - 1) * d, attn.out.splits * m * d)
+    assert (k7.launches, k4.launches) == (11, 9)
 
 
 # ─── K7's and K4's plans: the Hopper GEMMs in bf16 (gemm_plan.hopper_plan), else the tiled sequences ───
@@ -308,9 +359,9 @@ HOPPER_SEQ_LENS = (64, 126, 751, 1001, 3000)  # from the encoder's _FFN_MIN_FRAM
 def _hopper_plans(b, t, d, f):
     """(name, plan, K, K of a LayerNorm'd A or 0) of every GEMM launch of K7 and K4 in bf16."""
     k7, k4 = K7.k7_plan(b, t, d, f, 2), K4.k4_plan(b, t, d, f, 2)
-    return [("k7 fc1", k7.fc1, d, d), ("k7 fc2", k7.fc2, f, 0), ("k7 qkv_pos", k7.qkv_pos, d, 0),
-            ("k7 out", k7.out, d, 0), ("k4 pw1", k4.pw1, d, d), ("k4 pw2", k4.pw2, d, 0), ("k4 fc1", k4.fc1, d, 0),
-            ("k4 fc2", k4.fc2, f, 0)]
+    return [("k7 fc1", k7.ffn.fc1, d, d), ("k7 fc2", k7.ffn.fc2, f, 0), ("k7 qkv_pos", k7.qkv_pos, d, 0),
+            ("k7 out", k7.out, d, 0), ("k4 pw1", k4.conv.pw1, d, d), ("k4 pw2", k4.conv.pw2, d, 0),
+            ("k4 fc1", k4.ffn.fc1, d, 0), ("k4 fc2", k4.ffn.fc2, f, 0)]
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
@@ -323,18 +374,18 @@ def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
     barriers and a LayerNorm's vectors within a block's shared memory, TMA
     boxes within 256 per dimension, a wgmma N that is a multiple of 8 up to
     256, and the blocks the tiles, clusters and slices make; the ints the C
-    entries take. f32: K6's, K1's and K5's own plans, in the same ints."""
+    entries take. f32: K6's, K1's and K5's f32 plans, in the same ints."""
     m = b * t
     k7, k4 = K7.k7_plan(b, t, d, f, itemsize), K4.k4_plan(b, t, d, f, itemsize)
     if itemsize == 4:
         ffn, attn, conv = FF.ffn_plan(m, d, f, 4), RA.block_plan(b, t, d, 4), CM.conv_plan(m, d, 4)
         assert not k7.hopper and not k4.hopper
-        assert (k7.ffn, k7.attn, k4.conv, k4.ffn) == (ffn, attn, conv, ffn)
+        assert (k7.ffn, k7.attn, k4.conv) == (ffn, attn, conv) and k4.ffn == FF.ffn_plan(m, d, f, 4, True)
         assert k7.ints() == (0, ffn.splits, attn.qkv.rows, attn.pos.splits, attn.out.splits, 0, attn.core.splits)
-        assert k4.ints() == (0, ffn.splits, *conv.ints(), 0)
+        assert k4.ints() == (0, ffn.splits, *conv.ints()[1:], 0)
         assert k7.partials(m, d) == max(ffn.splits * m * d, attn.partials)
         assert k4.partials(m, d) == max(ffn.splits * m * d, conv.partials)
-        assert (k7.launches, k4.launches) == (K7.TILED_LAUNCHES, K4.TILED_LAUNCHES) == (11, 9)
+        assert (k7.launches, k4.launches) == (4 + RA.TILED_LAUNCHES, 5 + 4) == (11, 9)
         return
     assert k7.hopper and k4.hopper and k7.launches == k4.launches == 5
     assert k7.partials(m, d) == k4.partials(m, d) == 0
@@ -351,6 +402,7 @@ def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
             cols = -(-d // 64) if plan.kind == "glu" else -(-f // 128)
             c = plan.cluster
             assert c == min(GP.MAX_CLUSTER, cols) or (c in (4, 2) and GP.hopper_waves(c, -(-m // rows) * -(-cols // c)) == 1)
+            assert c == min(GP.MAX_CLUSTER, cols) or d <= GP.LN_SLICE * c
             assert plan.splits == 1 and plan.blocks == -(-m // rows) * -(-cols // c) * c, name
         elif plan.kind == "linear":
             assert plan.blocks == -(-m // rows) * -(-d // 128) * plan.splits, name
@@ -359,12 +411,12 @@ def test_hopper_plans_fit_the_card(b, t, d, f, itemsize):
         else:
             assert plan.blocks == -(-m // rows) * -(-f // 128), name
     # a LayerNorm of the result follows fc2 and pw2: every column tile of the rows in the cluster
-    for plan in (k7.fc2, k4.pw2, k4.fc2):
+    for plan in (k7.ffn.fc2, k4.conv.pw2, k4.ffn.fc2):
         assert plan.cluster_cols == -(-d // 128)
     assert k7.out.cluster_cols == 1
-    assert k7.ints() == (1, k7.fc2.splits, 0, 0, k7.out.splits, k7.fc1.cluster_cols, k7.core.splits)
+    assert k7.ints() == (1, k7.ffn.fc2.splits, 0, 0, k7.out.splits, k7.ffn.fc1.cluster_cols, k7.core.splits)
     assert k7.core == RA.core_plan(b, t, 8, d // 8, 2)
-    assert k4.ints() == (1, k4.fc2.splits, 0, k4.pw2.splits, k4.pw1.cluster_cols)
+    assert k4.ints() == (1, k4.ffn.fc2.splits, 0, k4.conv.pw2.splits, k4.conv.pw1.cluster_cols)
 
 
 @pytest.mark.parametrize("d, f", FFN_WIDTHS)
@@ -380,55 +432,81 @@ def test_hopper_plans_fill_the_card_at_ten_second_clips(d, f):
     goes to fewer waves. pw1's tiles of 64 GLU outputs make 16 x D/64
     blocks. In f32 K7 and K4 run the tiled sequences' plans."""
     k7, k4 = K7.k7_plan(8, 126, d, f, 2), K4.k4_plan(8, 126, d, f, 2)
-    for plan in (k7.fc2, k4.pw2, k4.fc2):
+    for plan in (k7.ffn.fc2, k4.conv.pw2, k4.ffn.fc2):
         assert plan.cluster == GP.MAX_CLUSTER and plan.blocks == 16 * GP.MAX_CLUSTER
         assert GP.hopper_waves(plan.cluster, 16) == 1  # one cluster a row tile
     assert k7.out.blocks >= GP.WAVE_FILL * 132 and GP.hopper_waves(k7.out.cluster, 16 * d // 128) == 1
-    for plan in (k7.fc1, k7.qkv_pos, k4.fc1):
+    for plan in (k7.ffn.fc1, k7.qkv_pos, k4.ffn.fc1):
         assert plan.blocks >= 132
-    assert k4.pw1.blocks == 16 * d // 64
+    assert k4.conv.pw1.blocks == 16 * d // 64
     if d == 512:
-        assert (k7.fc2.splits, k7.out.splits) == (2, 2)
+        assert (k7.ffn.fc2.splits, k7.out.splits) == (2, 2)
         assert GP.hopper_waves(4, 64) == 2 and GP.hopper_waves(2, 64) == 1
     assert not K7.k7_plan(8, 126, d, f, 4).hopper and not K4.k4_plan(8, 126, d, f, 4).hopper
 
 
-_LAUNCH = re.compile(r"\b(launch_hopper_gemm|launch_cluster_linear|launch_depthwise|launch_attn|launch_layer_norm_rows|"
-                     r"launch_tiled_gemm_rows|launch_tiled_gemm|launch_gemm_reduce|launch_linear|run_ffn|run_block|"
-                     r"run_conv)\b")
+_LAUNCH = re.compile(r"\b(launch_hopper_gemm|launch_hopper_gemm_ln|launch_cluster_linear|launch_depthwise|launch_attn|"
+                     r"launch_layer_norm_rows|launch_tiled_gemm_rows|launch_tiled_gemm|launch_gemm_reduce|launch_linear|"
+                     r"run_ffn_hopper|run_ffn|run_conv_hopper|run_conv|run_block)\b")
+# the launch sequences, by the header that holds them
+_SEQUENCES = {"run_ffn": "feed_forward.cuh", "run_ffn_hopper": "feed_forward.cuh", "run_conv": "conv_module.cuh",
+              "run_conv_hopper": "conv_module.cuh", "run_block": "rel_attention.cuh"}
 
 
 def _c_launches(path, fn: str) -> int:
     """Kernel launches of `int fn(` in a csrc/ file: one for each launcher
-    called, two for launch_linear (its GEMM and closing pass), and K6's,
-    K1's and K5's sequences (run_ffn, run_block, run_conv) counted in their
-    headers (K1's tiled design: from its first tiled statement up to its
-    head-sharded branch; `run_block/hopper`, its Hopper design, where the
-    launches with and without the LayerNorm are alternatives)."""
+    called, two for launch_linear (its GEMM and closing pass), and the
+    launch sequences (K6's run_ffn and run_ffn_hopper, K5's run_conv and
+    run_conv_hopper, K1's run_block) counted in their headers (K1's tiled
+    design: from its first tiled statement up to its head-sharded branch;
+    `run_block/hopper`, its Hopper design, where the launches with and
+    without the LayerNorm are alternatives)."""
     src = path.read_text()
     fn, _, part = fn.partition("/")
-    body = src[src.index(f"int {fn}("):]
+    body = src[re.search(rf"\bint {fn}\(", src).start():]
     body = body[body.index("{"):body.index("\n}\n")]
     if fn == "run_block":
         tiled = body.index("  g.a = x;\n")
         if part == "hopper":
-            body = body[body.index("if (hopper) {"):tiled]
-        else:
-            body = body[tiled:body.index("FfnGemmArgs o = {};")]
-        if part == "hopper":
-            return len(set(_LAUNCH.findall(body)))
-    headers = {"run_ffn": "feed_forward.cuh", "run_block": "rel_attention.cuh", "run_conv": "conv_module.cuh"}
+            return len(set(_LAUNCH.findall(body[body.index("if (hopper) {"):tiled])))
+        body = body[tiled:body.index("FfnGemmArgs o = {};")]
     calls = _LAUNCH.findall(body)
-    n = sum(2 if c == "launch_linear" else 1 for c in calls if c not in headers)
-    return n + sum(_c_launches(_build._CSRC / headers[c], c) for c in calls if c in headers)
+    n = sum(2 if c == "launch_linear" else 1 for c in calls if c not in _SEQUENCES)
+    return n + sum(_c_launches(_build._CSRC / _SEQUENCES[c], c) for c in calls if c in _SEQUENCES)
 
 
 def test_k7_and_k4_plans_count_their_c_launches():
+    """K7 and K4 run K6's and K5's sequences of their route: bf16 the
+    Hopper design (K6's 2 and K1's 3; K5's 3 and K6's 2), otherwise the
+    tiled sequences (K6's 4 then K1's 7; K5's 5 then K6's 4)."""
     csrc = _build._CSRC
     for itemsize, fn, n7, n4 in ((2, "run_hopper", 5, 5), (4, "run_tiled", 11, 9)):
         k7, k4 = K7.k7_plan(8, 126, 512, 2048, itemsize), K4.k4_plan(8, 126, 512, 2048, itemsize)
         assert _c_launches(csrc / "ffn_attention.cu", fn) == k7.launches == n7
         assert _c_launches(csrc / "conv_ffn_final.cu", fn) == k4.launches == n4
+
+
+@pytest.mark.parametrize("itemsize, d", ((2, 512), (2, 1024), (4, 512), (4, 1024), (2, 1280)))
+def test_k6_and_k5_plans_count_their_c_launches(itemsize, d):
+    """K6's and K5's C entries run one sequence a route: in bf16 rows within
+    a cluster the Hopper design, 2 and 3 launches, with no LayerNorm launch
+    and no closing pass (fc1's and pw1's LayerNorm on their A path, fc2 and
+    pw2 closed in a cluster); otherwise the tiled sequences, 4 and 5."""
+    csrc = _build._CSRC
+    m = 8 * 126
+    ffn, conv = FF.ffn_plan(m, d, 4 * d, itemsize), CM.conv_plan(m, d, itemsize)
+    hopper = itemsize == 2 and d <= 1024
+    assert ffn.route == conv.route == ("hopper" if hopper else "tiled")
+    sfx = "_hopper" if hopper else ""
+    assert _c_launches(csrc / "feed_forward.cuh", f"run_ffn{sfx}") == ffn.launches == (2 if hopper else 4)
+    assert _c_launches(csrc / "conv_module.cuh", f"run_conv{sfx}") == conv.launches == (3 if hopper else 5)
+    for header, fn in (("feed_forward.cuh", "run_ffn_hopper"), ("conv_module.cuh", "run_conv_hopper")):
+        body = csrc.joinpath(header).read_text()
+        body = body[body.index(f"int {fn}("):]
+        body = body[:body.index("\n}\n")]
+        assert not {"launch_layer_norm_rows", "launch_gemm_reduce", "launch_linear"} & set(_LAUNCH.findall(body))
+    for entry, fn in (("feed_forward.cu", "run_ffn_hopper("), ("conv_module.cu", "run_conv_hopper(")):
+        assert fn in csrc.joinpath(entry).read_text()
 
 
 def test_k1_plans_count_their_c_launches():
@@ -443,6 +521,17 @@ def test_k1_plans_count_their_c_launches():
         assert plan.hopper == hopper and plan.launches == (3 if hopper else 7) and plan.ints()[0] == hopper
 
 
+def test_layer_norm_clusters_shrink_only_to_short_slices():
+    """A LayerNorm'd A's cluster shrinks from 8 column tiles to 4 or 2 only
+    where that makes one wave and a block's slice of each row stays within
+    LN_SLICE values: K6's fc1 at D=512, B=8, T'=126 runs in clusters of 2
+    (256 values a block), K5's pw1 at D=1024 keeps 8 (2 would leave 512)."""
+    assert GP.hopper_plan(1008, 2048, 512, "silu", ln=True).cluster_cols == 2
+    assert GP.hopper_plan(1008, 2048, 1024, "glu", ln=True).cluster_cols == 8
+    assert CM.conv_plan(1008, 1024, 2).pw1.cluster_cols == 8 and CM.conv_plan(1008, 512, 2).pw1.cluster_cols == 8
+    assert FF.ffn_plan(1008, 1024, 4096, 2).fc1.cluster_cols == 8
+
+
 def test_hopper_plan_refuses_a_row_past_one_cluster():
     with pytest.raises(ValueError, match="cluster"):
         GP.hopper_plan(1008, 2048, 2048, "linear", whole_rows=True)
@@ -452,14 +541,15 @@ def test_hopper_plan_refuses_a_row_past_one_cluster():
 @pytest.mark.parametrize("d", (1152, 1280, 2048))
 def test_k7_and_k4_take_rows_wider_than_a_cluster(d):
     """A row of more than 8 column tiles (D > 1024) cannot be LayerNorm'd
-    in one cluster: in bf16 too K7 and K4 then run the tiled sequences, so
-    they take every width their wrappers take."""
+    in one cluster: in bf16 too K7 and K4 then run the tiled sequences (K6's
+    and K5's tiled routes), so they take every width their wrappers take."""
     assert GP.hopper_fits(1024) and not GP.hopper_fits(d)
     for itemsize in ITEMSIZES:
         k7, k4 = K7.k7_plan(8, 126, d, 4 * d, itemsize, d // 128), K4.k4_plan(8, 126, d, 4 * d, itemsize)
         assert not k7.hopper and not k4.hopper
         assert k7.ints()[0] == k4.ints()[0] == 0 and (k7.launches, k4.launches) == (11, 9)
         assert k7.ffn == FF.ffn_plan(8 * 126, d, 4 * d, itemsize) and k4.conv == CM.conv_plan(8 * 126, d, itemsize)
+        assert k7.ffn.route == k4.conv.route == "tiled"
 
 
 # ─── K1's attention core (ops/rel_attention.py core_plan) ───────────────────
