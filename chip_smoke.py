@@ -9,7 +9,8 @@ Phases, each of which raises (exit code 1) on failure:
   2. build    compile every CUDA library (nvcc) and the host libraries
               (g++: parakeet_native.cpp, flac_decoder.cpp) from
               parakeet_tpu_torch/csrc, all at once, and print each build's
-              seconds
+              seconds, and ptxas's registers and spills of the Hopper GEMM
+              and K2's cores
   3. kernels  each hand-written kernel against its plain torch version on
               the same CUDA tensors at the 110m widths, in f32 and bf16:
               K1 rel-pos attention block (B=8, D=512, H=8, T'=126 and 751,
@@ -36,11 +37,17 @@ Phases, each of which raises (exit code 1) on failure:
               and (8, 6001, 80), C=256, ReLU timed in f32 and bf16, SiLU
               checked at T=1001), K4 conv
               module + ffn2 + final LayerNorm and K7 ffn1 + attention block
-              (T'=126 and 751, mixed lengths), K2 v1 attention core (H=8,
-              hd=64, T'=126, 751 and 1001, mixed lengths, one pass, timed
-              in f32 and bf16; B=1 at T'=3000, past the one-pass limit, two
-              passes), K3 log-mel (10 s and 60 s clips, f32 only, atol 2e-2
-              in log space); median CUDA-event ms and device ms
+              (T'=126 and 751, mixed lengths), K2 v1 attention core (H=8:
+              hd=64 at B=8, T'=126, 751 and 1001 with mixed lengths and
+              B=1, T'=3000; hd 32 at T'=126; T'=37 with lengths 37, 21, 1
+              and 0 at hd 32, 64 and 128; in f32 and bf16, each timed with
+              its bound and bound share, its plan's key splits, kept score
+              tiles and resident blocks against the card's occupancy, one
+              launch a call by the profiler, K1's core stage at the same
+              shape, and in bf16 its two designs in turns: the scores kept
+              between the sweeps and computed again), K3 log-mel (10 s and
+              60 s clips, f32 only, atol 2e-2 in log space); median
+              CUDA-event ms and device ms
               (torch.profiler kernel time) of kernel and plain version; a
               call whose profile shows no device time is profiled again,
               and fails the run if it still shows none. For K1 and K5 in
@@ -83,7 +90,8 @@ Phases, each of which raises (exit code 1) on failure:
   5. kernels600m  the kernels at the 600m presets' shapes against their
               plain versions in f32 and bf16, timed, each with its bound:
               K8 on mel (8, 1001, 128), K7 and K4 at D=1024, F=4096, H=8,
-              T'=126 with mixed lengths, K2 at hd=128 and T'=126 and 751,
+              T'=126 with mixed lengths, K2 at hd=128 and T'=126 and 751
+              (as in phase 3),
               K1 at D=1024, B=1, T'=1188 (a dense 95 s clip) and the 600m
               trainer's B=4 and B=2 at T'=125 (each launch's time, the
               core's plan). K7 and K4,
@@ -288,6 +296,13 @@ Phases, each of which raises (exit code 1) on failure:
               output and weights; each prints its iterations, decode
               wall (median of 5 warm synchronised calls), device busy
               share and tokens per audio second
+Opt-in (only in a --phases list):
+     v1       K2's encoders on the 8 clips: tdt-ctc-110m under
+              FusedLayers(attention="v1") in f32 and bf16 and int8 fused,
+              tdt-600m v1 in f32 and bf16; device ms in turns, K2's
+              launches a call (17, 24). It uses only entry points every
+              tree of the port has, so a copy of this script in an older
+              checkout times that tree's K2 the same way.
 Each phase prints its seconds, and the run its total. The card's name and
 power limit, a JSON line of per-kernel numbers (with bound_ms, bound_by
 and the bound's share of the kernel time at the headline shape, under
@@ -523,27 +538,30 @@ def stage_times(tag: str, fn, gemms, card: str, calls: int = 10, dtype=None) -> 
     return {"stages": stages, "yardstick": yard}
 
 
-def kernel_launches(fn, calls: int = 5) -> float:
+def kernel_launches(fn, calls: int = 5, profiles: int = 3) -> float:
     """Device launches per call of fn (kernels, copies and fills), from
-    torch.profiler's event counts; the device alone traced. A profile that
-    saw no device event dropped them (fn launches at least one kernel): up
-    to three more are taken, and 0 is returned only if all four saw none."""
+    torch.profiler's event counts; the device alone traced. A profile can
+    drop events (one counted 34 of K1's 35 launches in 5 calls), never add
+    them: the most of `profiles` profiles, and up to three more while none
+    saw a device event (fn launches at least one kernel); 0 only if all saw
+    none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    most = 0
     with torch.inference_mode():
         fn()
         torch.cuda.synchronize()
-        for _ in range(4):
+        for attempt in range(profiles + 3):
+            if attempt >= profiles and most > 0:
+                break
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            n = sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
-            if n > 0:
-                break
-    return n / calls
+            most = max(most, sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA))
+    return most / calls
 
 
 # the launches K7's and K4's Hopper design leaves out: a LayerNorm pass, a split-K closing pass, a torch clamp
@@ -1266,39 +1284,139 @@ def ffn_attention_phase(card: str) -> dict:
     return out
 
 
-def rel_attention_v1_phase(card: str) -> dict:
+# K2's shapes (B, T', hd, lengths or None for mixed): the 110m v1 batch at
+# 10 s, 60 s and past the reference's T' <= 768 cap, one long item, hd 32,
+# and a ragged T' with lengths of one key and none at every head dim
+K2_SHAPES = ((B, 126, 64, None), (B, 751, 64, None), (B, 1001, 64, None), (1, 3000, 64, (2047,)),
+             (B, 126, 32, None), (4, 37, 32, (37, 21, 1, 0)), (4, 37, 64, (37, 21, 1, 0)),
+             (4, 37, 128, (37, 21, 1, 0)))
+
+
+def _k2_rows(lengths, t: int):
+    """The rows a caller reads: t < length, every row of an item with no
+    valid key (which averages all T' keys)."""
+    return _valid_rows([n if n > 0 else t for n in lengths], t)
+
+
+def k1_core_ms(b: int, t: int, heads: int, hd: int, lengths, dtype) -> float:
+    """K1's core stage at K2's shape: K1's block at D = H·hd on random
+    inputs with the same key lengths, profiled by kernel, its core's
+    launches (rel_attn_*) summed, device ms a call, the most of two
+    profiles (a profile can drop events: one read 0.0020 ms against
+    0.0205): the yardstick of what the same scores and AV cost in the
+    one-sweep core."""
     import torch
 
     from parakeet_tpu_torch.ops import rel_attention as RA
 
-    hd = D // H
-    log(f"== K2 fused_rel_attention vs fused_rel_attention_reference (B={B}, H={H}, hd={hd})")
-    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}}
-    # 126, 751, 1001: one pass over the keys (1001 is past the reference's
-    # T <= 768 cap); B=1 at 3000: past the one-pass limit, the two-pass kernel
-    for b, t in ((B, 126), (B, 751), (B, 1001), (1, 3000)):
+    rng = np.random.RandomState(70 + t + hd)
+    dev = _dev(rng, dtype)
+    args = _attention_args(rng, dev, b, t, heads * hd, heads)
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    core = 0.0
+    with torch.inference_mode():
+        fn = lambda: RA.rel_attention_block(*args, lengths=lt)  # noqa: E731
+        fn()
+        for attempt in range(5):
+            if attempt >= 2 and core > 0:
+                break
+            raw = profile_device(fn, 10)
+            core = max(core, sum(ms for key, ms in raw.items() if "rel_attn_" in _kernel_label(key)))
+    if core <= 0:
+        raise RuntimeError("K1 core stage: the profiler saw no core launch in 5 profiles")
+    return core
+
+
+def k2_design_turns(tag: str, fn, plan, card: str) -> dict:
+    """bf16: K2's two designs on the same inputs, device ms in turns (best
+    of 2): a split's scores kept in shared memory between the sweeps
+    (v1_core_plan's keep=True, where a split's tiles fit) and computed
+    again in sweep 2 (keep=False); `plan` is the one the port runs."""
+    import functools
+
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    planner, turns = RA.v1_core_plan, {True: [], False: []}
+    try:
+        with torch.inference_mode():
+            for _ in range(2):
+                for keep in (True, False):
+                    RA.v1_core_plan = functools.partial(planner, keep=keep)
+                    turns[keep].append(device_ms(fn))
+    finally:
+        RA.v1_core_plan = planner
+    kept, again = min(turns[True]), min(turns[False])
+    log(f"  {tag} bf16 designs, device ms in turns (best of 2): scores kept {kept:.4f}, computed again {again:.4f}; "
+        f"the plan runs {'kept' if plan.kept else 'computed again'} [{card}]")
+    return {"kept_ms": kept, "again_ms": again}
+
+
+def k2_shape(b: int, t: int, hd: int, lengths, dtype, name: str, card: str, seed: int) -> dict:
+    """K2 at one shape against its plain version on the same inputs: the
+    plan (splits, kept tiles, resident blocks by the plan and the card),
+    the check, the launches a call (profiler: one), the kernel / plain times
+    with the bound and its share, K1's core stage at the same shape, and in
+    bf16 the two designs in turns."""
+    import torch
+
+    from parakeet_tpu_torch.ops import rel_attention as RA
+
+    rng = np.random.RandomState(seed)
+    dev = _dev(rng, dtype)
+    args = (*(dev(rng.randn(b, H, t, hd)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd)))
+    lengths = _mixed_lengths(rng, t) if lengths is None else np.asarray(lengths)
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    fn = lambda: RA.fused_rel_attention(*args, lengths=lt)  # noqa: E731
+    plain = lambda: RA.fused_rel_attention_reference(*args, lengths=lt)  # noqa: E731
+    with torch.inference_mode():
+        got, ref = fn(), plain()
+    size = got.element_size()
+    plan = RA.v1_core_plan(b, t, H, hd, size)
+    resident = RA.v1_core_resident(size, hd, plan.kept)
+    shape = f"B={b} T'={t} hd={hd}"
+    tag = f"K2 {shape} {name} lengths {lengths.min()}-{lengths.max()}"
+    log(f"  {tag} plan: {plan.blocks} blocks x {plan.splits} key splits, {plan.tiles_per_split} of {plan.tiles} key "
+        f"tiles a split, {plan.kept} kept, {plan.threads} threads, {plan.smem} B shared; resident blocks an SM: plan "
+        f"{plan.resident}, card {resident} [{card}]")
+    if resident != plan.resident:
+        raise RuntimeError(f"{tag}: the card holds {resident} blocks an SM, the plan says {plan.resident}")
+    err = check_close(tag, got.transpose(1, 2), ref.transpose(1, 2), _k2_rows(lengths, t))
+    n = kernel_launches(fn)
+    if n != 1:
+        raise RuntimeError(f"{tag}: {n:g} device launches a call, K2 is one")
+    ms = time_pair(tag, fn, plain, card)
+    work = (core_flops(t, hd, H, lengths), tensor_bytes(*args, lt, got))
+    bd = bound(*work, F32_PEAK if dtype == torch.float32 else BF16_PEAK)
+    k1 = k1_core_ms(b, t, H, hd, lengths, dtype)
+    log(f"  bound {tag}: {bd['gflop']:.3f} GFLOP, {bd['mbyte']:.2f} MB -> {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']}, {bd['bound_ms'] / ms['dev_ms']:.1%} of the kernel's device {ms['dev_ms']:.4f} ms "
+        f"(plain {ms['plain_dev_ms']:.4f}); {n:g} launch a call; K1's core stage at this shape {k1:.4f} ms [{card}]")
+    res = {"err": err, "ms": ms, "work": work, "k1_core_ms": k1, "launches": n, "plan": plan}
+    if dtype == torch.bfloat16:
+        res["designs"] = k2_design_turns(tag, fn, plan, card)
+    return res
+
+
+def rel_attention_v1_phase(card: str) -> dict:
+    import torch
+
+    log(f"== K2 fused_rel_attention vs fused_rel_attention_reference (H={H})")
+    out = {"max_abs_err": 0.0, "times": {}, "bf16_times": {}, "work": {}, "bf16_work": {}, "k1_core": {},
+           "designs": {}}
+    for b, t, hd, lengths in K2_SHAPES:
         for dtype, name in _dtypes():
-            rng = np.random.RandomState(600 + t)
-            dev = _dev(rng, dtype)
-            args = (*(dev(rng.randn(b, H, t, hd)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd)))
-            lengths = _mixed_lengths(rng, t) if b == B else np.asarray([rng.randint(t // 2, t)])
-            lt = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
-            with torch.inference_mode():
-                got = RA.fused_rel_attention(*args, lengths=lt)
-                ref = RA.fused_rel_attention_reference(*args, lengths=lt)
-            plan = RA.v1_plan(t, hd, got.element_size())
-            if plan.one_pass != (t <= 1001):
-                raise RuntimeError(f"K2 T'={t}: plan {plan} (one pass expected for T' <= 1001 only)")
-            passes = f"one pass, {plan.rows} rows per block" if plan.one_pass else "two passes"
-            tag = f"K2 B={b} T'={t} {name} lengths {lengths.min()}-{lengths.max()} ({passes})"
-            err = check_close(tag, got.transpose(1, 2), ref.transpose(1, 2), _valid_rows(lengths, t))
+            r = k2_shape(b, t, hd, lengths, dtype, name, card, seed=600 + t)  # the inputs the earlier K2 designs were timed on
             if dtype == torch.float32:
-                out["max_abs_err"] = max(out["max_abs_err"], err)
-            if b == B:
-                key = "times" if dtype == torch.float32 else "bf16_times"
-                out[key][t] = time_pair(tag, lambda: RA.fused_rel_attention(*args, lengths=lt),
-                                        lambda: RA.fused_rel_attention_reference(*args, lengths=lt), card)
-                out[key.replace("times", "work")][t] = (core_flops(t, hd, H, lengths), tensor_bytes(*args, lt, got))
+                out["max_abs_err"] = max(out["max_abs_err"], r["err"])
+            key = "times" if dtype == torch.float32 else "bf16_times"
+            label = t if (b, hd) == (B, 64) else f"B={b} T'={t} hd={hd}"
+            out[key][label] = r["ms"]
+            out[key.replace("times", "work")][label] = r["work"]
+            out["k1_core"][f"{label} {name}"] = r["k1_core_ms"]
+            if "designs" in r:
+                out["designs"][label] = r["designs"]
     return out
 
 
@@ -1322,11 +1440,9 @@ def kernels_600m_phase(card: str) -> dict:
            for name in ("fused_subsample_block1", "fused_ffn_attention", "fused_conv_ffn_final",
                         "fused_rel_attention", "rel_attention_block")}
 
-    def run(name, shape, dtype, dtname, fn, plain_fn, work, rows=None, view=None):
+    def run(name, shape, dtype, dtname, fn, plain_fn, work, rows=None):
         with torch.inference_mode():
             got, ref = fn(), plain_fn()
-        if view is not None:
-            got, ref = view(got), view(ref)
         tag = f"{name} 600m {shape} {dtname}"
         err = check_close(tag, got, ref, rows)
         entry = out[name]
@@ -1382,18 +1498,16 @@ def kernels_600m_phase(card: str) -> dict:
             k4_gemms(B, t, d6, f6), dtype, K4.k4_plan(B, t, d6, f6, size), card)
 
         for t in (126, 751):
-            rng = np.random.RandomState(1500 + t)
-            dev = _dev(rng, dtype)
-            k2 = (*(dev(rng.randn(B, H, t, hd6)) for _ in range(4)), dev(rng.randn(H, 2 * t - 1, hd6)))
-            lengths = _mixed_lengths(rng, t)
-            lt2 = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
-            plan = RA.v1_plan(t, hd6, k2[0].element_size())
-            passes = f"one pass, {plan.rows} rows per block" if plan.one_pass else "two passes"
-            run("fused_rel_attention", f"B={B} T'={t} hd={hd6} ({passes})", dtype, name,
-                lambda: RA.fused_rel_attention(*k2, lengths=lt2),
-                lambda: RA.fused_rel_attention_reference(*k2, lengths=lt2),
-                lambda got: (core_flops(t, hd6, H, lengths), tensor_bytes(*k2, lt2, got)),
-                rows=_valid_rows(lengths, t), view=lambda a: a.transpose(1, 2))
+            r = k2_shape(B, t, hd6, None, dtype, name, card, seed=1500 + t)
+            entry, shape = out["fused_rel_attention"], f"B={B} T'={t} hd={hd6}"
+            if dtype == torch.float32:
+                entry["max_abs_err"] = max(entry["max_abs_err"], r["err"])
+            key = "times" if dtype == torch.float32 else "bf16_times"
+            entry[key][shape] = r["ms"]
+            entry[key.replace("times", "work")][shape] = r["work"]
+            entry.setdefault("k1_core", {})[f"{shape} {name}"] = r["k1_core_ms"]
+            if "designs" in r:
+                entry.setdefault("designs", {})[shape] = r["designs"]
 
         # K1 at the dense 95 s call (B=1, T'=1188) and the 600m trainer's
         # batches (B=4 and B=2 at T'=125, mixed lengths): split keys
@@ -2398,6 +2512,48 @@ def encoder_turns(tag: str, facades: dict, feats, n_frames, card: str) -> dict:
     log(f"  {tag} encoder device ms (torch.profiler, best of 2 turns): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
     return ms
+
+
+def v1_encoders_phase(card: str) -> dict:
+    """K2's encoders (the opt-in phase `v1`): one encoder call on the 8
+    clips' features, device ms in turns (`encoder_turns`), and K2's
+    launches a call (17, 24): tdt-ctc-110m under FusedLayers(attention=
+    "v1") in f32 and bf16 and with int8 weights, fused (every attention on
+    K2); tdt-600m v1 in f32 and bf16. No CPU comparison (the paths phases
+    hold those configurations' tokens to the CPU). It uses only entry points
+    that every tree of the port has, so it also times an older tree's K2
+    when run from that tree's root."""
+    import torch
+
+    from parakeet_tpu_torch import config as C
+    from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
+    from parakeet_tpu_torch.models.encoder import FusedLayers
+
+    clips = synthetic_clips(8, seed=1234)
+    v1_cfg, fused_cfg = FusedLayers(attention="v1"), FusedLayers(ffn=True, conv=True, subsample=True)
+    out = {}
+    for model, mel, layers in (("tdt-ctc-110m", 80, 17), ("tdt-600m", 128, 24)):
+        flat = model_params(model)
+        facades = {"v1 f32": facade(model, "cuda", params=flat, fused=v1_cfg),
+                   "v1 bf16": facade(model, "cuda", params=flat, fused=v1_cfg, compute_dtype="bfloat16")}
+        if model == "tdt-ctc-110m":
+            facades["int8 fused"] = facade(model, "cuda", params=flat, fused=fused_cfg, quantize="int8")
+        del flat
+        feats, n_frames = preprocess_audio_batch(clips, C.AudioConfig(n_mels=mel), "cpu")
+        feats = feats.to("cuda")
+        launches = {}
+        with torch.inference_mode():
+            for name, f in facades.items():
+                reset_counts()
+                f.encode(feats, n_frames)
+                launches[name] = read_counts()["fused_rel_attention"]
+                if launches[name] != layers:
+                    raise RuntimeError(f"{model} {name}: {launches[name]} K2 launches an encoder call, want {layers}")
+        out[model] = {"ms": encoder_turns(model, facades, feats, n_frames, card), "launches": launches}
+        log(f"  {model}: K2 {layers} launches an encoder call in each [{card}]")
+        del facades
+        torch.cuda.empty_cache()
+    return out
 
 
 def decode_options_phase(flat, clips, card: str) -> dict:
@@ -5014,13 +5170,17 @@ def build_phase() -> None:
         f"{time.perf_counter() - t0:.1f} s wall: " + ", ".join(f"{name} {s:.1f} s" for name, s in done))
     for name in LIBRARIES:
         _build.load(name)
-    # what ptxas made of the Hopper GEMM (no ncu on this machine)
-    for name in ("ffn_attention", "conv_ffn_final", "feed_forward", "conv_module"):
+    # what ptxas made of the Hopper GEMM and K2's cores (no ncu on this machine)
+    for name, kernels in (("ffn_attention", ("hopper_gemm_kernel",)), ("conv_ffn_final", ("hopper_gemm_kernel",)),
+                          ("feed_forward", ("hopper_gemm_kernel",)), ("conv_module", ("hopper_gemm_kernel",)),
+                          ("rel_attention_v1", ("rel_attn_v1_wgmma_kernel", "rel_attn_f32_kernelILi32ELb1",
+                                                "rel_attn_f32_kernelILi64ELb1", "rel_attn_f32_kernelILi128ELb1"))):
         lines = _build.BUILD_LOG.get(name, "").splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "hopper_gemm_kernel" in line:
+            kernel = next((k for k in kernels if "Compiling entry" in line and k in line), None)
+            if kernel is not None:
                 usage = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
-                log(f"  ptxas {name}: hopper_gemm_kernel{line.split('hopper_gemm_kernel', 1)[1].split('EEEv')[0]}: "
+                log(f"  ptxas {name}: {kernel}{line.split(kernel, 1)[1].split('EEEv')[0].split('EEv')[0]}: "
                     + "; ".join(usage[:2]))
             elif "warning" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
@@ -5030,6 +5190,7 @@ def build_phase() -> None:
 
 PHASES = ("kernels", "kernels600m", "paths110m", "serve", "lookahead", "paths600m", "long", "streaming", "diarize",
           "options", "train", "mesh", "train_mesh")
+OPT_IN = ("v1",)  # phases only a --phases list runs
 
 
 def main(argv=None) -> int:
@@ -5039,12 +5200,12 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ", ".join(PHASES) + " (the default runs all and prints "
-                         "the result lines; a subset prints no result)")
+                    help="comma-separated subset of " + ", ".join(PHASES + OPT_IN) + " (the default runs all but "
+                         + ", ".join(OPT_IN) + " and prints the result lines; a subset prints no result)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    if set(phases) - set(PHASES):
-        raise SystemExit(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES))}")
+    if set(phases) - set(PHASES) - set(OPT_IN):
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(set(phases) - set(PHASES) - set(OPT_IN))}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
     if not (ROOT / "parakeet_tpu_torch" / "csrc").is_dir():
@@ -5092,7 +5253,7 @@ def main(argv=None) -> int:
         for name, k6 in timed("kernels at 600m shapes", kernels_600m_phase, card).items():
             k = kernel.setdefault(name, {"max_abs_err": 0.0})
             k["max_abs_err"] = max(k["max_abs_err"], k6["max_abs_err"])
-            for key in ("times", "bf16_times", "work", "bf16_work", "redesign"):
+            for key in ("times", "bf16_times", "work", "bf16_work", "redesign", "k1_core", "designs"):
                 k.setdefault(key, {}).update(k6.get(key, {}))
 
     clips = synthetic_clips(8, seed=1234)
@@ -5197,6 +5358,8 @@ def main(argv=None) -> int:
         k1["max_abs_err"] = max(k1["max_abs_err"], paths["train_mesh"]["k1"]["max_abs_err"])
         for key in ("times", "work"):
             k1.setdefault(key, {}).update(paths["train_mesh"]["k1"][key])
+    if "v1" in phases:
+        paths["v1 encoders"] = timed("v1 encoders", v1_encoders_phase, card)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if phases != list(PHASES):
@@ -5247,6 +5410,9 @@ def main(argv=None) -> int:
                "gflop": f32_bound["gflop"], "mbyte": f32_bound["mbyte"],
                # no single PyTorch call computes any of these fused functions
                "library_ms": None, "shapes": []}
+        if k.get("designs"):  # K2 in bf16: its two designs in turns, and K1's core stage at each shape
+            row["designs"] = k["designs"]
+            row["k1_core_ms"] = k["k1_core"]
         if "redesign" in k:  # K7 and K4: in turns with the old design, launches per call
             row["redesign"] = {shape: {"ms": r["ms"], "old_ms": r["old_ms"], "launches": r["launches"]}
                                for shape, r in k["redesign"].items()}

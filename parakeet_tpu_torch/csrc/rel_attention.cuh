@@ -31,9 +31,11 @@ __device__ __forceinline__ void core_range(int n_keys, int Tn, int BN, int S, in
 // The merge, run by every thread of every block of the cluster once the
 // block's f32 output rows (ost, `old` floats a row), row maxima and row sums
 // are in its shared memory: out[t, c] = sum_z o_z w_z / sum_z l_z w_z with
-// w_z = exp(m_z - max_z m_z), summed in split order. out points at (t = 0,
-// the head's first column), rows `ld` apart.
-template <typename T>
+// w_z = exp(m_z - max_z m_z), summed in split order. SUM (K2's bf16 core,
+// whose splits normalised before AV): out[t, c] = sum_z o_z in split order,
+// mrow and lrow unread. out points at (t = 0, the head's first column), rows
+// `ld` apart.
+template <typename T, bool SUM = false>
 __device__ __forceinline__ void core_cluster_close(const float* ost, int old, const float* mrow, const float* lrow,
                                                    int bm, int hd, int S, int z, T* out, int ld, int t0, int Tn,
                                                    int tid, int nthreads) {
@@ -45,18 +47,22 @@ __device__ __forceinline__ void core_cluster_close(const float* ost, int old, co
     const int r = r0 + i / q, c = (i % q) * 4, t = t0 + r;
     if (t >= Tn) continue;
     float M = -INFINITY;
-    for (int zz = 0; zz < S; ++zz) M = fmaxf(M, cluster.map_shared_rank(mrow, zz)[r]);
+    if constexpr (!SUM)
+      for (int zz = 0; zz < S; ++zz) M = fmaxf(M, cluster.map_shared_rank(mrow, zz)[r]);
     float L = 0.f, y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
     for (int zz = 0; zz < S; ++zz) {
-      const float w = expf(cluster.map_shared_rank(mrow, zz)[r] - M);
-      L += cluster.map_shared_rank(lrow, zz)[r] * w;
+      float w = 1.f;
+      if constexpr (!SUM) {
+        w = expf(cluster.map_shared_rank(mrow, zz)[r] - M);
+        L += cluster.map_shared_rank(lrow, zz)[r] * w;
+      }
       const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(ost, zz) + r * old + c);
       y0 += v.x * w;
       y1 += v.y * w;
       y2 += v.z * w;
       y3 += v.w * w;
     }
-    const float inv = 1.f / L;
+    const float inv = SUM ? 1.f : 1.f / L;
     T* o = out + (size_t)t * ld + c;
     st(o, y0 * inv);
     st(o + 1, y1 * inv);
@@ -66,15 +72,17 @@ __device__ __forceinline__ void core_cluster_close(const float* ost, int old, co
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+// K1's operands; K2's (the v1 cores, rel_attention_v1.cu) where marked
 struct CoreArgs {
-  const void* qu;        // (B, H, T, hd), 1/sqrt(hd) and u folded in
-  const void* qv;        // (B, H, T, hd), 1/sqrt(hd) and v folded in
+  const void* qu;        // (B, H, T, hd), 1/sqrt(hd) and u folded in; K2: q + u, unscaled
+  const void* qv;        // (B, H, T, hd), 1/sqrt(hd) and v folded in; K2: q + v, unscaled
   const void* kh;        // (B, H, T, hd)
-  const void* vh;        // f32 (B, H, T, hd); bf16 transposed, (B, H, hd, vt_ld)
-  const void* pos;       // (2T - 1, H hd): P, row r the relative position T - 1 - r
+  const void* vh;        // f32 (B, H, T, hd); bf16 transposed, (B, H, hd, vt_ld); K2: (B, H, T, hd)
+  const void* pos;       // (2T - 1, H hd): P, row r the relative position T - 1 - r; K2: (H, 2T - 1, hd)
   const int* lengths;    // (B,) valid keys (min(len, T) taken here)
-  void* ctx;             // (B, T, H hd)
+  void* ctx;             // (B, T, H hd); K2: (B, H, T, hd)
   int Tn, H, S, vt_ld;
+  float scale;           // K2: 1/sqrt(hd), applied to each score after the sum
 };
 
 // ─── The f32 core (IEEE FMA on the CUDA cores) ───────────────────────────────
@@ -94,6 +102,13 @@ struct CoreArgs {
 // halves of the head dims (0.59 words an FMA in the scores); hd = 32: 64
 // rows in 2-row patches, two blocks an SM. Each way a block of 8 warps.
 // The tiles' swizzle follows the patch: rows PN apart on distinct banks.
+// V1 (K2, rel_attention_v1.cu): the same core on K2's operands: q_u and
+// q_v unscaled, the scale applied to each score after the content and
+// position sums (at hd 32 it is no power of two, so folding it into q
+// would round elsewhere), P per head ((H, 2T - 1, hd)), the output (B, H,
+// T, hd). Normalised after AV as in K1: in f32 the reference's rounding of
+// the normalised probabilities is the identity, so only the place of one
+// f32 division an output moves.
 
 template <int HD>
 struct F32Tile {
@@ -132,7 +147,7 @@ __device__ __forceinline__ void core_copy_rows(float* dst, const float* src, siz
   }
 }
 
-template <int HD>
+template <int HD, bool V1 = false>
 __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_attn_f32_kernel(const CoreArgs a) {
   using F = F32Tile<HD>;
   constexpr int BM = F::BM, BN = F::BN, RPT = F::RPT, HS = F::HS, THREADS = F::THREADS;
@@ -159,7 +174,9 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
   const size_t head = (size_t)bh * Tn * HD;
   const float* kh = static_cast<const float*>(a.kh) + head;
   const float* vh = static_cast<const float*>(a.vh) + head;
-  const float* ph = static_cast<const float*>(a.pos) + (size_t)h * HD;
+  // P's rows: K1's (2T - 1, H hd), D apart; K2's per head, hd apart
+  const size_t pld = V1 ? HD : D;
+  const float* ph = static_cast<const float*>(a.pos) + (V1 ? (size_t)h * (2 * Tn - 1) * HD : (size_t)h * HD);
 
   auto load_kv = [&](int it) {
     float* stage = ring + ((it - it0) & 1) * 2 * BN * HD;
@@ -169,7 +186,7 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
   // band row j of key tile s0 holds P[Tn - BM - t0 + s0 + j]; score (row
   // tr, key ks) reads band row ks - tr + BM - 1
   auto load_band = [&](int it) {
-    core_copy_rows<HD, SH, THREADS>(band, ph, D, Tn - BM - t0 + it * BN, PB, 2 * Tn - 1, tid);
+    core_copy_rows<HD, SH, THREADS>(band, ph, pld, Tn - BM - t0 + it * BN, PB, 2 * Tn - 1, tid);
   };
   core_copy_rows<HD, SH, THREADS>(q_u, static_cast<const float*>(a.qu) + head, HD, t0, BM, Tn, tid);
   core_copy_rows<HD, SH, THREADS>(q_v, static_cast<const float*>(a.qv) + head, HD, t0, BM, Tn, tid);
@@ -245,6 +262,12 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
 #pragma unroll
         for (int j = 0; j < PN; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 8);
     }
+    if constexpr (V1) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < PN; ++j) s[i][j] *= a.scale;
+    }
 
     // online softmax: the tile's row max over the 8 threads of a row group,
     // the running sums and outputs rescaled, the probabilities to shared
@@ -317,7 +340,9 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
   }
-  float* out = static_cast<float*>(a.ctx) + (size_t)b * Tn * D + h * HD;
+  // K1 writes ctx (B, T, H hd), K2 its (B, H, T, hd)
+  const int old_ld = V1 ? HD : D;
+  float* out = static_cast<float*>(a.ctx) + (V1 ? (size_t)bh * Tn * HD : (size_t)b * Tn * D + h * HD);
   if (S == 1) {
     // normalise after AV
 #pragma unroll
@@ -328,7 +353,8 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
 #pragma unroll
       for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-        for (int d = 0; d < 4; ++d) out[(size_t)t * D + (tx + 8 * (hh * G + gi)) * 4 + d] = acc[i][gi * 4 + d] * inv;
+        for (int d = 0; d < 4; ++d)
+          out[(size_t)t * old_ld + (tx + 8 * (hh * G + gi)) * 4 + d] = acc[i][gi * 4 + d] * inv;
     }
     return;
   }
@@ -346,7 +372,7 @@ __global__ void __launch_bounds__(F32Tile<HD>::THREADS, HD == 32 ? 2 : 1) rel_at
       ps[BM + r] = l[i];
     }
   }
-  core_cluster_close<float>(ost, HD + 4, ps, ps + BM, BM, HD, S, z, out, D, t0, Tn, tid, THREADS);
+  core_cluster_close<float>(ost, HD + 4, ps, ps + BM, BM, HD, S, z, out, old_ld, t0, Tn, tid, THREADS);
 }
 
 // ─── The bf16 core (wgmma on the tensor cores, fed by TMA) ──────────────────
@@ -645,14 +671,15 @@ __global__ void __launch_bounds__(160, HD == 128 ? 1 : 2)
 // ─── Host side ───────────────────────────────────────────────────────────────
 
 // A bf16 tensor of `dims` (innermost first) with the outer strides given
-// in bytes, in boxes of `box` under the 128-byte swizzle
+// in bytes, in boxes of `box` under the 128-byte swizzle (or `swizzle`)
 inline bool encode_bf16_box(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box) {
+                            const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

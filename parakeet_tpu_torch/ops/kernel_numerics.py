@@ -9,6 +9,16 @@ to the activation dtype, the residual is added in float32, and the folded
 BatchNorm scale and bias are rounded to the activation dtype. Every product
 accumulates in float32.
 
+The attention cores' rounding points (their plain versions are in
+ops/rel_attention.py): K1's block kernel rounds the unnormalised
+probabilities exp(s − max) to the activation dtype before AV and divides
+the product by the unrounded sum after it; K2's (the v1 kernel) normalises
+first, exp(s − max) / sum, rounds that to the dtype, and rounds AV once, so
+its bf16 core needs each row's max and sum before its first AV product
+(two sweeps over the keys). In f32 that rounding is the identity and K2's
+core divides after AV, as K1's does: only the place of one f32 division
+an output moves.
+
 Left out on purpose: round_up, whole_block, depthwise_taps and
 kernel_precision, which are TPU layout and precision plumbing.
 """

@@ -189,7 +189,9 @@ class CorePlan:
     chip_smoke.py prints it), `blocks` of the grid without a split, and
     `splits`, the key splits of each query tile (a thread-block cluster of
     that many blocks, merged in distributed shared memory), of the `tiles`
-    key tiles of T."""
+    key tiles of T. `kept`: K2's bf16 core's key tiles of scores a split
+    keeps in shared memory between its two sweeps (0: it computes them
+    again; K1's cores run one sweep), counted in `smem`."""
 
     itemsize: int
     hd: int
@@ -201,6 +203,7 @@ class CorePlan:
     blocks: int
     splits: int
     tiles: int
+    kept: int = 0
 
     @property
     def tiles_per_split(self) -> int:
@@ -636,39 +639,50 @@ def fused_rel_attention_reference(
     return (f(probs) @ f(v)).to(dt)
 
 
-# K2's one-pass blocks, preferred first: (query rows BM, key tile BN); BM *
-# BN / 16 threads, each with a 4x4 patch of scores (csrc/rel_attention_v1.cu)
-V1_BLOCKS = ((64, 32), (32, 64), (16, 64))
-_V1_TWO_PASS = (64, 32)  # the two-pass kernel's query rows and key tile
+# K2's bf16 core keeps a split's scores between its sweeps in 64 x 64 f32
+# tiles (csrc/rel_attention_v1.cu V1_KEPT_TILE)
+V1_KEPT_TILE = 64 * 64 * 4
 
 
-@dataclass(frozen=True)
-class V1Plan:
-    """How K2 launches for (T, hd): `rows` query rows per block of the
-    one-pass kernel (0: the two-pass kernel), its key tile, threads and
-    dynamic shared memory per block (bytes)."""
+def v1_core_plan(b: int, t: int, heads: int, hd: int, itemsize: int = 4, keep: bool | None = None) -> CorePlan:
+    """K2's plan (csrc/rel_attention_v1.cu) for (B, T, H, hd) in a dtype,
+    beside K1's `core_plan`. f32: K1's f32 core on K2's operands, planned
+    as `core_plan` plans it. bf16: the two-sweep wgmma core on K1's bf16
+    tiles (64 query rows, 64-key tiles, 160 threads), by default with
+    `core_plan`'s key splits (the fewest that fill the waves where the grid
+    underfills them, whole key tiles a split, none empty) and the scores
+    computed again in sweep 2. Kept instead (`kept` tiles of V1_KEPT_TILE
+    bytes a split in shared memory, the keys split further until a split's
+    tiles fit, the fewest splits that fill the waves among those) where a
+    split's tiles fit and the kept grid takes one wave of one block an SM
+    (as at B=8, T'=126: the second block an SM that the recompute design
+    holds at hd ≤ 64 then buys nothing); `keep` True or False forces either
+    design where it fits (chip_smoke.py times both). `resident` counts
+    blocks an SM holds by shared memory."""
+    if itemsize == 4:
+        return core_plan(b, t, heads, hd, 4)
+    plan = core_plan(b, t, heads, hd, 2)
+    if keep is False:
+        return plan
+    most = (SHARED_MEMORY_LIMIT - plan.smem) // V1_KEPT_TILE
+    options = [s for s in CORE_SPLITS if (s - 1) * -(-plan.tiles // s) < plan.tiles and -(-plan.tiles // s) <= most]
+    if not options:
+        return plan
+    splits = next((s for s in options if _fills(plan.blocks * s)), options[-1])
+    if keep is None and plan.blocks * splits > SM_COUNT:
+        return plan
+    kept = -(-plan.tiles // splits)
+    smem = plan.smem + kept * V1_KEPT_TILE
+    return replace(plan, splits=splits, kept=kept, smem=smem, resident=SM_SHARED_MEMORY // (smem + BLOCK_RESERVED))
 
-    rows: int
-    key_tile: int
-    threads: int
-    smem: int
 
-    @property
-    def one_pass(self) -> bool:
-        return self.rows > 0
-
-
-def v1_plan(t: int, hd: int, itemsize: int = 4) -> V1Plan:
-    """The largest one-pass block whose score rows (BM × round4(T) f32),
-    q_u and q_v (BM × hd) and two ring stages (a key tile and its band of
-    BM + BN − 1 position rows, hd wide, in the activation dtype) fit the
-    card's shared memory; past that, the two-pass kernel (f32 tiles)."""
-    for bm, bn in V1_BLOCKS:
-        smem = 4 * bm * (-(-t // 4) * 4) + itemsize * hd * (2 * bm + 2 * (2 * bn + bm - 1))
-        if smem <= SHARED_MEMORY_LIMIT:
-            return V1Plan(bm, bn, bm * bn // 16, smem)
-    bm, bn = _V1_TWO_PASS
-    return V1Plan(0, bn, 256, (2 * bn + bm + bn - 1) * (hd + 4) * 4)
+def v1_core_resident(itemsize: int, hd: int, kept: int = 0) -> int:
+    """Blocks of K2's core that one SM of this card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor): what v1_core_plan's
+    `resident` says for an H100. Raises without a card."""
+    n = _lib_v1().pk_rel_attention_v1_resident(0 if itemsize == 4 else 1, hd, kept)
+    check_rc(max(0, -n), "v1_core_resident")
+    return n
 
 
 def _lib_v1() -> ctypes.CDLL:
@@ -676,9 +690,20 @@ def _lib_v1() -> ctypes.CDLL:
     fn = lib.pk_rel_attention_v1
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
+        fn.argtypes = [i] + [p] * 7 + [i] * 7 + [p]
         fn.restype = i
+    fn = lib.pk_rel_attention_v1_resident
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """a contiguous, its data 16-byte aligned (the cores' TMA and cp.async
+    loads), copied where it is not."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _launch_v1(q_u, q_v, k, v, p, lengths):
@@ -696,15 +721,16 @@ def _launch_v1(q_u, q_v, k, v, p, lengths):
             raise ValueError(f"fused_rel_attention: {name} is {a.dtype} on {a.device}, q_u is {dt} on {q_u.device}")
         if tuple(a.shape) != shape:
             raise ValueError(f"fused_rel_attention: {name} has shape {tuple(a.shape)}, want {shape}")
-    q_u, q_v, k, v, p = (a.contiguous() for a in (q_u, q_v, k, v, p))
-    kv = _key_lengths(lengths, b, t, q_u.device).contiguous()
+    q_u, q_v, k, v, p = (_aligned(a) for a in (q_u, q_v, k, v, p))
+    # the cores take min(len, T) themselves: no clamp launch
+    kv = _key_lengths(lengths, b, t, q_u.device, clamp=False).contiguous()
     out = torch.empty_like(q_u)
-    plan = v1_plan(t, hd, q_u.element_size())
+    plan = v1_core_plan(b, t, heads, hd, q_u.element_size())
     lib = _lib_v1()
     with torch.cuda.device(q_u.device):
         rc = lib.pk_rel_attention_v1(
             DTYPE_CODE[dt], ptr(q_u), ptr(q_v), ptr(k), ptr(v), ptr(p), ptr(kv), ptr(out),
-            b, heads, t, hd, plan.rows, plan.smem, stream(q_u.device),
+            b, heads, t, hd, plan.splits, plan.kept, plan.smem, stream(q_u.device),
         )
     check_rc(rc, "fused_rel_attention")
     fused_rel_attention.launches += 1
@@ -718,8 +744,8 @@ def fused_rel_attention(q_u, q_v, k, v, p, lengths=None) -> torch.Tensor:
     and out projections stay outside, with the caller.
 
     On a CUDA tensor this launches the hand-written kernel
-    (csrc/rel_attention_v1.cu: one pass over the keys while a block's score
-    rows fit in shared memory, two passes past that, as `v1_plan` says) or
+    (csrc/rel_attention_v1.cu: in f32 K1's 8-warp core, in bf16 a wgmma
+    core in two sweeps over the keys, splits as `v1_core_plan` says) or
     raises; on a CPU tensor it runs `fused_rel_attention_reference`. Each
     kernel launch adds one to `fused_rel_attention.launches`. Unlike the
     reference (T ≤ 768 there), any T runs. On a mesh with a 'model' axis
@@ -744,8 +770,9 @@ __all__ = [
     "RelAttentionBlockHeadsFunction",
     "fused_rel_attention",
     "fused_rel_attention_reference",
-    "V1Plan",
-    "v1_plan",
+    "v1_core_plan",
+    "v1_core_resident",
+    "V1_KEPT_TILE",
     "BlockPlan",
     "block_plan",
     "heads_plan",

@@ -81,11 +81,11 @@ def test_composed_kernels_hash_the_sequences_they_include(name, headers):
     tiled GEMM from their launch sequences' headers, K8's conv2 and K3's
     DFT on it directly, K4 and K7 on its Hopper GEMM in bf16 and on K5's,
     K6's and K1's sequences in f32 (through those headers), so an edit to
-    any of those headers rebuilds each library that reaches it. K2 uses
-    only the helpers."""
+    any of those headers rebuilds each library that reaches it. K2 runs
+    K1's f32 core and the pieces of its wgmma core (rel_attention.cuh)."""
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu", *headers]
     assert [p.name for p in _build.sources("rel_attention_v1")] == [
-        "rel_attention_v1.cu", "async_copy.cuh", "gemm.cuh"]
+        "rel_attention_v1.cu", "rel_attention.cuh", *GEMM_HEADERS]
 
 
 def test_one_gemm_design_in_the_sources():

@@ -2,8 +2,9 @@
 (hopper_gemm_kernel, bf16), on its f32 tiled GEMM (TMA-fed, the LayerNorm
 on the A path, k slices closed in a cluster) and on the bf16 tiled
 sequences of rows wider than a cluster, K1's attention cores (bf16 wgmma,
-f32 CUDA cores, split and unsplit), and the C entries of every kernel
-library against what their wrappers pass.
+f32 CUDA cores, split and unsplit), K2's (bf16's two sweeps with the
+scores kept and computed again, f32 on K1's core; split and unsplit), and
+the C entries of every kernel library against what their wrappers pass.
 
 The ctypes checks run here without nvcc: each `extern "C"` entry of
 csrc/*.cu is parsed and held to the `argtypes` its wrapper sets (a wrong
@@ -14,6 +15,7 @@ within 1% of the output's scale, at the 110m widths, at odd widths (row
 strides that TMA cannot load, QKV segments of 96 rows), at D = 1280 (past
 a cluster's column tiles) and with lengths below T'."""
 
+import functools
 import re
 import types
 
@@ -345,3 +347,45 @@ def test_k1_core_resident_blocks_on_the_card():
             assert RA.core_resident(itemsize, hd) == plan.resident, (itemsize, hd)
             if itemsize == 4 and hd > 32:
                 assert plan.warps >= 8
+
+
+# K2 (B, T', hd, lengths): a ragged T' with one key and none, the 110m
+# batch at 10 s, one item whose keys split over a cluster
+K2_SHAPES = ((4, 37, 32, (37, 21, 1, 0)), (4, 37, 64, (37, 21, 1, 0)), (4, 37, 128, (37, 21, 1, 0)),
+             (8, 126, 64, (126, 100, 64, 33, 126, 90, 1, 77)), (1, 300, 32, (211,)), (1, 300, 64, (211,)),
+             (1, 300, 128, (211,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, keep", [("float32", None), ("bfloat16", None), ("bfloat16", True),
+                                         ("bfloat16", False)])
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_kernel_matches_plain_version_on_the_card(shape, dtype, keep, monkeypatch):
+    """K2 against its plain version on the rows a caller reads (every row
+    of an item with no valid key): f32 at rtol 1e-3 / atol 1e-5, bf16
+    within 2% of the output's scale; in bf16 both designs (the scores kept
+    between the sweeps, computed again) and the plan's; one launch a call,
+    and the card holding the blocks an SM that the plan says."""
+    _need_card()
+    b, t, hd, lengths = shape
+    monkeypatch.setattr(RA, "v1_core_plan", functools.partial(RA.v1_core_plan, keep=keep))
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(t + hd)
+    dev = _dev(dt)
+    heads = 8
+    args = [dev(rng.randn(b, heads, t, hd)) for _ in range(4)] + [dev(rng.randn(heads, 2 * t - 1, hd))]
+    lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    plan = RA.v1_core_plan(b, t, heads, hd, 4 if dtype == "float32" else 2)
+    assert RA.v1_core_resident(4 if dtype == "float32" else 2, hd, plan.kept) == plan.resident
+    before = RA.fused_rel_attention.launches
+    with torch.inference_mode():
+        got = RA.fused_rel_attention(*args, lengths=lt).float().transpose(1, 2).cpu().numpy()
+        ref = RA.fused_rel_attention_reference(*args, lengths=lt).float().transpose(1, 2).cpu().numpy()
+    assert RA.fused_rel_attention.launches == before + 1
+    assert np.isfinite(got).all()
+    for i, n in enumerate(lengths):
+        g, r = got[i, : n or t], ref[i, : n or t]
+        if dt == torch.float32:
+            np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL, err_msg=f"item {i}")
+        else:
+            assert np.abs(g - r).max() <= K1_BF16_SCALE_FRAC * np.abs(ref).max(), i

@@ -1,7 +1,7 @@
 """Launch plans of the shared tiled GEMM (ops/gemm_plan.py gemm_plan, as
 K6's ffn_plan, K1's block_plan, K5's conv_plan, K8's subsample_plan and
 K3's dft_plan use it), of K7's and K4's Hopper GEMMs (hopper_plan, as
-k7_plan and k4_plan use it) and of K2 (ops/rel_attention.py v1_plan), computed
+k7_plan and k4_plan use it) and of K2 (ops/rel_attention.py v1_core_plan), computed
 in Python and passed to the CUDA kernels as ints. A launch refused for too much shared memory never runs,
 so these checks are the guard that runs without a card."""
 
@@ -191,41 +191,9 @@ def test_ffn_plan_is_the_shared_plan_of_fc2():
                 assert (plan.fc1.rows, plan.fc1.smem) == (128, GP.gemm_smem(128, itemsize))
 
 
-@pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("hd", (32, 64, 128))
-@pytest.mark.parametrize("t", SEQ_LENS)
-def test_v1_plan_fits_shared_memory(t, hd, itemsize):
-    plan = RA.v1_plan(t, hd, itemsize)
-    assert plan.smem <= LIMIT
-    if plan.one_pass:
-        bm, bn = plan.rows, plan.key_tile
-        assert (bm, bn) in RA.V1_BLOCKS
-        assert plan.threads == bm * bn // 16 and plan.threads % 32 == 0
-        assert plan.smem == 4 * bm * (-(-t // 4) * 4) + itemsize * hd * (2 * bm + 2 * (2 * bn + bm - 1))
-        # no larger block would have fit
-        for bm2, bn2 in RA.V1_BLOCKS[: RA.V1_BLOCKS.index((bm, bn))]:
-            assert 4 * bm2 * (-(-t // 4) * 4) + itemsize * hd * (2 * bm2 + 2 * (2 * bn2 + bm2 - 1)) > LIMIT
-
-
-@pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("hd", (64, 128))
-def test_v1_plan_runs_one_pass_to_sixty_second_clips_and_two_past_the_limit(hd, itemsize):
-    for t in (126, 751, 1001):
-        assert RA.v1_plan(t, hd, itemsize).one_pass, t
-    for t in (3000, 6001):
-        plan = RA.v1_plan(t, hd, itemsize)
-        assert not plan.one_pass and plan.rows == 0
-        assert plan.smem == (2 * 32 + 64 + 32 - 1) * (hd + 4) * 4
-
-
-def test_v1_plan_shrinks_the_block_as_t_grows():
-    rows = [RA.v1_plan(t, 64).rows for t in (126, 751, 1001, 2000, 3000)]
-    assert rows == [64, 32, 32, 16, 0]
-
-
 def test_plans_follow_the_dtype_itemsize():
     assert torch.empty((), dtype=torch.bfloat16).element_size() == 2
-    assert RA.v1_plan(751, 64, 2).smem < RA.v1_plan(751, 64, 4).smem
+    assert RA.v1_core_plan(8, 751, 8, 64, 2, keep=False).smem < RA.v1_core_plan(8, 751, 8, 64, 4).smem
     assert FF.ffn_plan(1008, 1280, 5120, 2).fc2.smem < FF.ffn_plan(1008, 1280, 5120, 4).fc2.smem
     assert FF.ffn_plan(1008, 512, 2048, 2).route == "hopper" and FF.ffn_plan(1008, 512, 2048, 4).route == "tiled"
     assert CM.conv_plan(1008, 512, 2).route == "hopper" and CM.conv_plan(1008, 512, 4).route == "tiled"
@@ -309,21 +277,6 @@ def test_subsample_plans_at_the_600m_mel_bins(mel, itemsize):
         plan = SS.subsample_plan(m, 256, itemsize)
         assert plan.splits == 1 and plan.smem <= LIMIT and 128 * (plan.rows + 2) * 4 <= plan.smem
         assert plan.blocks == -(-m // plan.rows) * 2
-
-
-@pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("t", (126, 751, 1188))
-def test_v1_plan_at_head_dim_128(t, itemsize):
-    """K2 at hd=128 holds twice the position and key columns of hd=64: one
-    pass to T'=751 (64 query rows at 126, 16 at 751 in f32), and at
-    T'=1188 one pass in bf16 only (16 query rows), two in f32."""
-    plan = RA.v1_plan(t, 128, itemsize)
-    assert plan.smem <= LIMIT
-    assert plan.one_pass == (t <= 751 or itemsize == 2)
-    if plan.one_pass:
-        assert plan.smem == 4 * plan.rows * (-(-t // 4) * 4) + itemsize * 128 * (
-            2 * plan.rows + 2 * (2 * plan.key_tile + plan.rows - 1))
-    assert [RA.v1_plan(tt, 128).rows for tt in (126, 751, 1188)] == [64, 16, 0]
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
@@ -654,3 +607,105 @@ def test_k1_hopper_plan_layer_norms_qkv_in_clusters(d, t):
     assert plan.ints() == (1, c, 0, out.splits, plan.core.splits)
     with pytest.raises(ValueError, match="LayerNorm"):
         GP.hopper_plan(m, 3 * d, d, "qkv_pos", ln=True)  # the position GEMM's shape is needed
+
+
+# ─── K2's cores (ops/rel_attention.py v1_core_plan) ──────────────────────────
+KEPT_TILE = 64 * 64 * 4  # a key tile of f32 scores kept between the bf16 core's sweeps
+
+
+def _v1_checks(plan, b: int, t: int, hd: int, itemsize: int, keep) -> None:
+    """What every K2 plan holds: a block's shared memory fits; each split
+    takes whole key tiles and none is empty; f32 is K1's f32 core planned
+    as core_plan plans it; bf16 is K1's bf16 tiles with the kept score tiles
+    (a split's tiles, where they fit; by default only where the kept grid
+    is one wave of one block an SM) on top; the blocks an SM holds."""
+    assert plan.smem <= LIMIT and plan.resident == SM_SHARED // (plan.smem + 1024) >= 1
+    assert plan.blocks == -(-t // plan.rows) * b * 8 and plan.tiles == -(-t // plan.key_tile)
+    tps = plan.tiles_per_split
+    assert plan.splits in RA.CORE_SPLITS and tps * plan.splits >= plan.tiles > (plan.splits - 1) * tps
+    base = RA.core_plan(b, t, 8, hd, itemsize)
+    if itemsize == 4 or keep is False:
+        assert plan == base and plan.kept == 0
+        return
+    if keep is None:
+        forced = RA.v1_core_plan(b, t, 8, hd, itemsize, keep=True)
+        one_wave = forced.kept and forced.blocks * forced.splits <= 132
+        assert plan == (forced if one_wave else base)
+        keep = bool(one_wave)
+        if not keep:
+            return
+    assert (plan.rows, plan.key_tile, plan.threads) == (64, 64, 160)
+    assert plan.smem == base.smem + plan.kept * KEPT_TILE
+    most = (LIMIT - base.smem) // KEPT_TILE
+    if plan.kept:
+        assert plan.kept == tps <= most
+    else:  # no split with none empty holds its tiles: the second sweep computes them again
+        assert plan == base
+        assert not [s for s in RA.CORE_SPLITS
+                    if (s - 1) * -(-plan.tiles // s) < plan.tiles and -(-plan.tiles // s) <= most]
+
+
+@pytest.mark.parametrize("keep", (True, False, None))
+@pytest.mark.parametrize("hd", (32, 64, 128))
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+def test_v1_core_plan_for_every_length(itemsize, hd, keep):
+    """T' from 1 to 6001 (a 60 s clip; B=1 past 1001): shared memory
+    against the 232,448 B a block may take, splits of whole key tiles with
+    none empty, the kept tiles a split's."""
+    for t in range(1, 6002):
+        b = 8 if t <= 1001 else 1
+        _v1_checks(RA.v1_core_plan(b, t, 8, hd, itemsize, keep=keep), b, t, hd, itemsize, keep)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("hd", (32, 64, 128))
+@pytest.mark.parametrize("t", SEQ_LENS)
+def test_v1_core_plan_splits_only_where_the_grid_underfills(t, hd, itemsize):
+    """With the scores computed again, the fewest splits that fill 90% of
+    the waves (K1's rule); kept, the fewest of those whose tiles fit, or the
+    most that fit."""
+    b = 8 if t <= 1001 else 1
+    again, kept = RA.v1_core_plan(b, t, 8, hd, itemsize, keep=False), RA.v1_core_plan(b, t, 8, hd, itemsize, keep=True)
+    _v1_checks(RA.v1_core_plan(b, t, 8, hd, itemsize), b, t, hd, itemsize, None)
+    _v1_checks(kept, b, t, hd, itemsize, True)
+    assert _fills(again.blocks) == (again.splits == 1) or again.splits == 8 or (
+        (again.splits * 2 - 1) * -(-again.tiles // (again.splits * 2)) >= again.tiles)
+    if kept.kept:
+        fit = [s for s in RA.CORE_SPLITS if (s - 1) * -(-kept.tiles // s) < kept.tiles
+               and -(-kept.tiles // s) * KEPT_TILE + again.smem <= LIMIT]
+        assert kept.splits in fit and not any(_fills(kept.blocks * s) for s in fit if s < kept.splits)
+        assert _fills(kept.blocks * kept.splits) or kept.splits == fit[-1]
+
+
+def test_v1_core_plan_at_the_named_shapes():
+    """B=8, T'=126, hd 64: bf16 in one split of 2 kept tiles (128 blocks,
+    one wave), f32 in 2 (K1's 128-row tiles make 64 blocks); T'=751: bf16
+    computes the scores again, unsplit (kept, 6 tiles a split in 2 splits),
+    f32 does not split; the 600m shape (hd 128, T'=751) would keep 3 tiles
+    in 4 splits; B=1, T'=6001 cannot keep."""
+    assert (RA.v1_core_plan(8, 126, 8, 64, 2).splits, RA.v1_core_plan(8, 126, 8, 64, 2).kept) == (1, 2)
+    assert RA.v1_core_plan(8, 126, 8, 64, 4).splits == 2 and RA.v1_core_plan(8, 126, 8, 64, 2, keep=False).splits == 1
+    assert (RA.v1_core_plan(8, 751, 8, 64, 2).splits, RA.v1_core_plan(8, 751, 8, 64, 2).kept) == (1, 0)
+    assert (RA.v1_core_plan(8, 751, 8, 64, 2, keep=True).splits, RA.v1_core_plan(8, 751, 8, 64, 2, keep=True).kept) \
+        == (2, 6)
+    assert RA.v1_core_plan(8, 751, 8, 64, 4).splits == 1
+    assert RA.v1_core_plan(8, 751, 8, 128, 2).kept == 0
+    assert (RA.v1_core_plan(8, 751, 8, 128, 2, keep=True).splits, RA.v1_core_plan(8, 751, 8, 128, 2, keep=True).kept) \
+        == (4, 3)
+    assert RA.v1_core_plan(1, 6001, 8, 64, 2, keep=True).kept == 0
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b, t", SHAPES_600M)
+def test_v1_core_plan_at_the_600m_shapes(b, t, itemsize):
+    """hd 128 at the 600m presets' batches and the dense 95 s call."""
+    for keep in (True, False, None):
+        _v1_checks(RA.v1_core_plan(b, t, 8, 128, itemsize, keep=keep), b, t, 128, itemsize, keep)
+
+
+def test_v1_core_kept_tile_is_the_sources():
+    """The kept tile and the C entry's plan arguments as the wrapper passes
+    them: splits, kept tiles, shared memory."""
+    src = (_build._CSRC / "rel_attention_v1.cu").read_text()
+    assert "constexpr int V1_KEPT_TILE = 64 * 64 * 4;" in src and RA.V1_KEPT_TILE == KEPT_TILE
+    assert "int HD, int splits, int kept, int smem, void* stream)" in src
