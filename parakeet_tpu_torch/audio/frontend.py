@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from parakeet_tpu_torch import trace
 from parakeet_tpu_torch.config import AudioConfig
 from parakeet_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -180,14 +181,16 @@ def preprocess_audio_batch(
     the card unless given ("cpu" for the CPU); with no card it raises."""
     device = resolve_device(device)
     cfg = config
-    pres = [_preemphasize_and_pad(w, cfg) for w in waves]
-    n_frames = [(len(p) - 2 * (cfg.n_fft // 2)) // cfg.hop_length + 1 for p in pres]
-    t_max = max(n_frames)
-    need = (t_max - 1) * cfg.hop_length + cfg.n_fft
-    padded = np.zeros((len(pres), need), np.float32)
-    for i, pre in enumerate(pres):
-        padded[i, : len(pre)] = pre[:need]
-    padded_t = torch.from_numpy(padded).to(device)
+    with trace.span("frontend.host"):
+        pres = [_preemphasize_and_pad(w, cfg) for w in waves]
+        n_frames = [(len(p) - 2 * (cfg.n_fft // 2)) // cfg.hop_length + 1 for p in pres]
+        t_max = max(n_frames)
+        need = (t_max - 1) * cfg.hop_length + cfg.n_fft
+        padded = np.zeros((len(pres), need), np.float32)
+        for i, pre in enumerate(pres):
+            padded[i, : len(pre)] = pre[:need]
+    with trace.span("frontend.copy"):  # pageable: the host waits for it
+        padded_t = torch.from_numpy(padded).to(device)
     return _log_mel_batch(padded_t, n_frames, cfg, t_max), n_frames
 
 

@@ -31,7 +31,8 @@ The whole batch steps in lockstep on the device, each item running its own
 state machine; an item whose t has reached its length takes exact no-op
 steps. Python drives the loop and asks the device whether any item is
 still active only every CHECK_EVERY steps, so the host waits on the
-device once per CHECK_EVERY steps instead of once per step.
+device once per CHECK_EVERY steps instead of once per step. Inside an
+offline call the decode records its spans (trace.py).
 
 Two loop bodies, as in the reference (`impl`), with identical outputs:
   * "step": one LSTM step and one single-frame joint per iteration;
@@ -50,6 +51,7 @@ from dataclasses import dataclass
 
 import torch
 
+from parakeet_tpu_torch import trace
 from parakeet_tpu_torch.decode.timestamp import TimestampedToken
 from parakeet_tpu_torch.models.rnnt import (
     joint_encoder_projection,
@@ -98,6 +100,7 @@ def _blank_chase(blank_w: torch.Tensor, skip_w: torch.Tensor, t: torch.Tensor, e
     return nxt[:, 0]
 
 
+@trace.spanned("decode")
 def transducer_greedy_decode(
     params: dict,
     enc: torch.Tensor,  # (B, T, H)
@@ -147,13 +150,16 @@ def transducer_greedy_decode(
     root = Params(hoist_dequant(params, ("prediction_", joint_prefix)))
     pred_p = root.sub("prediction_")
     joint_p = root.sub(joint_prefix)
-    if enc_lengths is None:
-        enc_len = torch.full((b,), t_max, dtype=torch.int64, device=dev)
-    else:
-        enc_len = torch.as_tensor(enc_lengths, device=dev).to(torch.int64)
+    # host lists to the device: pageable copies the host waits for, so the
+    # first waits out the work still queued before the decode (the encoder's)
+    with trace.span("decode.upload"):
+        if enc_lengths is None:
+            enc_len = torch.full((b,), t_max, dtype=torch.int64, device=dev)
+        else:
+            enc_len = torch.as_tensor(enc_lengths, device=dev).to(torch.int64)
+        dur_arr = torch.as_tensor(durations, dtype=torch.int64, device=dev)
     if max_out is None:
         max_out = max(8, t_max * max_symbols)
-    dur_arr = torch.as_tensor(durations, dtype=torch.int64, device=dev)
     batch_ix = torch.arange(b, device=dev)
     pos = torch.arange(k + max(max(durations), 1), device=dev)
     win = pos[:k]
@@ -250,44 +256,53 @@ def transducer_greedy_decode(
 
     body = lookahead_body if impl == "lookahead" else step_body
     steps = 0
-    while steps % check_every or bool((t < enc_len).any()):
-        emit, tok_id, raw_lp, start, skip, t_next, sym, new_lstm = body()
+    with trace.span("decode.loop"):
+        while True:
+            if steps % check_every == 0:
+                with trace.span("decode.check"):
+                    more = bool((t < enc_len).any())
+                if not more:
+                    break
+            emit, tok_id, raw_lp, start, skip, t_next, sym, new_lstm = body()
 
-        end_frame = start + skip.clamp(min=1) - 1
-        if clamp_end:
-            end_frame = torch.minimum(end_frame, enc_len - 1)
-        idx = n_out.clamp(0, max_out - 1)
-        conf_bits = torch.exp(raw_lp).to(torch.float32).view(torch.int32)
-        row = torch.stack([tok_id.to(torch.int32), start.to(torch.int32), end_frame.to(torch.int32), conf_bits], -1)
-        out_pack[batch_ix, idx] = torch.where(emit[:, None], row, out_pack[batch_ix, idx])
+            end_frame = start + skip.clamp(min=1) - 1
+            if clamp_end:
+                end_frame = torch.minimum(end_frame, enc_len - 1)
+            idx = n_out.clamp(0, max_out - 1)
+            conf_bits = torch.exp(raw_lp).to(torch.float32).view(torch.int32)
+            row = torch.stack([tok_id.to(torch.int32), start.to(torch.int32), end_frame.to(torch.int32), conf_bits],
+                              -1)
+            out_pack[batch_ix, idx] = torch.where(emit[:, None], row, out_pack[batch_ix, idx])
 
-        t = t_next
-        token = torch.where(emit, tok_id, token)
-        lstm = torch.where(emit[None, None, :, None], new_lstm, lstm)
-        n_out = n_out + emit.to(n_out.dtype)
-        if boost is not None:
-            # advance on emission: each active node's child by the token
-            child = trans.t()[tok_id]  # (B, N)
-            valid = boost_active & (child >= 0)
-            advanced = torch.zeros(valid.shape, device=dev).scatter_add(
-                1, child.clamp(min=0), valid.to(torch.float32)) > 0
-            advanced[:, 0] = True  # root always active
-            boost_active = torch.where(emit[:, None], advanced, boost_active)
-        steps += 1
+            t = t_next
+            token = torch.where(emit, tok_id, token)
+            lstm = torch.where(emit[None, None, :, None], new_lstm, lstm)
+            n_out = n_out + emit.to(n_out.dtype)
+            if boost is not None:
+                # advance on emission: each active node's child by the token
+                child = trans.t()[tok_id]  # (B, N)
+                valid = boost_active & (child >= 0)
+                advanced = torch.zeros(valid.shape, device=dev).scatter_add(
+                    1, child.clamp(min=0), valid.to(torch.float32)) > 0
+                advanced[:, 0] = True  # root always active
+                boost_active = torch.where(emit[:, None], advanced, boost_active)
+            steps += 1
 
-    n_host = n_out.cpu().tolist()
-    pack = out_pack.cpu()
-    conf = pack[..., 3].contiguous().view(torch.float32)
-    tokens: list[list[int]] = []
-    timestamped: list[list[TimestampedToken]] = []
-    for i in range(b):
-        n = n_host[i]
-        toks, starts, ends = pack[i, :n, :3].T.tolist()
-        tokens.append(toks)
-        timestamped.append([
-            TimestampedToken(tok, s + frame_offset, e + frame_offset, c)
-            for tok, s, e, c in zip(toks, starts, ends, conf[i, :n].tolist())
-        ])
+    with trace.span("decode.fetch"):
+        n_host = n_out.cpu().tolist()
+        pack = out_pack.cpu()
+    with trace.span("decode.unpack"):
+        conf = pack[..., 3].contiguous().view(torch.float32)
+        tokens: list[list[int]] = []
+        timestamped: list[list[TimestampedToken]] = []
+        for i in range(b):
+            n = n_host[i]
+            toks, starts, ends = pack[i, :n, :3].T.tolist()
+            tokens.append(toks)
+            timestamped.append([
+                TimestampedToken(tok, s + frame_offset, e + frame_offset, c)
+                for tok, s, e, c in zip(toks, starts, ends, conf[i, :n].tolist())
+            ])
     return TransducerResult(tokens, timestamped, token, lstm, boost_active, steps)
 
 

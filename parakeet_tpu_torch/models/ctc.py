@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parakeet_tpu_torch import trace
 from parakeet_tpu_torch.decode.timestamp import TimestampedToken
 from parakeet_tpu_torch.ops.layers import conv1d
 from parakeet_tpu_torch.params import Params
@@ -50,6 +51,7 @@ def _collapse(best: np.ndarray, blank_id: int, length: int) -> list[int]:
     return best[emit].tolist()
 
 
+@trace.spanned("ctc_decode")
 def ctc_greedy_decode(log_probs, blank_id: int = 1024, lengths=None) -> list[list[int]]:
     """(B, T, V) log-probs → per-item token lists; `lengths` = valid frames."""
     best, _ = _argmax_and_max(log_probs)
@@ -58,6 +60,7 @@ def ctc_greedy_decode(log_probs, blank_id: int = 1024, lengths=None) -> list[lis
     return [_collapse(best[i], blank_id, lens[i]) for i in range(b)]
 
 
+@trace.spanned("ctc_decode")
 def ctc_greedy_decode_with_timestamps(
     log_probs, blank_id: int = 1024, lengths=None
 ) -> list[list[TimestampedToken]]:

@@ -13,7 +13,8 @@ Endpoints:
                     transfer-encoding or plain reads), so the model runs
                     concurrently with the upload; response carries the
                     final text + stream-absolute timestamped tokens
-  GET  /stats       batching counters
+  GET  /stats       batching counters, and `stage_ms`: each span's mean ms
+                    a batch over the facade's newest call records (trace.py)
 
 Zero extra dependencies: http.server + the package. Run as
 `python -m parakeet_tpu_torch.serve_http` (on the card; `--device cpu`
@@ -196,9 +197,12 @@ def make_server(service, stream_service=None, host="0.0.0.0", port=8077,
 
         def do_GET(self):  # noqa: N802
             if self.path.rstrip("/") == "/stats":
+                from parakeet_tpu_torch.trace import stage_ms
+
                 s = service.stats
                 payload = {"requests": s.requests, "batches": s.batches,
-                           "errors": s.errors, "mean_batch": s.mean_batch}
+                           "errors": s.errors, "mean_batch": s.mean_batch,
+                           "stage_ms": stage_ms(getattr(service.tr, "traces", ()))}
                 if stream_service is not None:
                     payload["stream_sessions"] = stream_service.stats.requests
                     payload["stream_free_slots"] = stream_service.free_slots

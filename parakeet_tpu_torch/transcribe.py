@@ -45,6 +45,7 @@ such a mesh only). The results are gathered over 'data'.
 from __future__ import annotations
 
 import enum
+from collections import deque
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from parakeet_tpu_torch import params as P
+from parakeet_tpu_torch import trace
 from parakeet_tpu_torch.audio.frontend import preprocess_audio_batch
 from parakeet_tpu_torch.audio.io import read_audio
 from parakeet_tpu_torch.config import (
@@ -131,6 +133,17 @@ def _emit_progress(opts: TranscribeOptions, stage: str, done: int, total: int) -
         opts.on_progress(stage, done, total)
 
 
+class _Prepared(tuple):
+    """prepare_batch's handle: (kind, opts, pad_to_multiple, feats,
+    n_frames), and `trace`, the call's open record (trace.CallTrace; None
+    for an empty batch)."""
+
+    def __new__(cls, entries, call=None):
+        self = super().__new__(cls, entries)
+        self.trace = call
+        return self
+
+
 def fused_layers_for(kernels, fused: FusedLayers | None) -> FusedLayers:
     """The encoder configuration of a facade from the reference's `kernels=`
     and the port's `fused=`. kernels None or True, and every "block*"/"bd*"
@@ -207,6 +220,7 @@ class _TranscriberBase:
                 f"long_overlap_s ({long_overlap_s}) must be >= 0 and < long_window_s ({long_window_s})"
             )
         self.mesh = mesh
+        self.traces: deque = deque(maxlen=trace.KEEP)  # the newest calls' records (trace.py)
         seq_mesh = False
         if mesh is not None:
             from parakeet_tpu_torch.parallel.mesh import activation_sharding, mesh_device
@@ -276,6 +290,7 @@ class _TranscriberBase:
     # ── Model stages ─────────────────────────────────────────────────────
 
     @torch.inference_mode()
+    @trace.spanned("encoder")
     def encode(self, feats: torch.Tensor, lengths) -> torch.Tensor:
         """(B, T, mel) features + per-item mel lengths → (B, T', d_model)."""
         x = feats.to(device=self.device, dtype=_DTYPES[self.compute_dtype])
@@ -284,6 +299,7 @@ class _TranscriberBase:
             Params(self.params).sub("encoder_"), self.config.encoder, x, lengths, self.fused, split=self._split)
 
     @torch.inference_mode()
+    @trace.spanned("ctc_head")
     def ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
         """(B, T', V) f32 CTC log-probs; on a 'model' axis the vocab-split
         logits gathered, the padded lanes cut after the softmax."""
@@ -372,25 +388,31 @@ class _TranscriberBase:
         self, sources: list, opts: TranscribeOptions | None = None, *, pad_to_multiple: int | None = None
     ):
         """Stage 1: load audio and run the mel frontend on the device.
-        Returns an opaque handle for `decode_prepared`."""
+        Returns an opaque handle for `decode_prepared`: a 5-tuple whose
+        `.trace` carries the call's record (trace.py) to it."""
         opts = opts or TranscribeOptions()
         self._check_options(opts)
         if not sources:
-            return ("empty", opts, pad_to_multiple, None, None)
-        waves = []
-        for i, s in enumerate(sources):
-            waves.append(self._to_samples(s))
-            _emit_progress(opts, "load", i + 1, len(sources))
-        feats, n_frames = preprocess_audio_batch(waves, self._audio_cfg, self.device)
-        _emit_progress(opts, "preprocess", 1, 1)
-        return ("padded", opts, pad_to_multiple, feats, n_frames)
+            return _Prepared(("empty", opts, pad_to_multiple, None, None))
+        call = trace.CallTrace()
+        with trace.stage(call), trace.span("frontend"):
+            waves = []
+            with trace.span("frontend.load"):
+                for i, s in enumerate(sources):
+                    waves.append(self._to_samples(s))
+                    _emit_progress(opts, "load", i + 1, len(sources))
+            feats, n_frames = preprocess_audio_batch(waves, self._audio_cfg, self.device)
+            _emit_progress(opts, "preprocess", 1, 1)
+        return _Prepared(("padded", opts, pad_to_multiple, feats, n_frames), call)
 
     def decode_prepared(self, prepared) -> list[TranscribeResult]:
-        """Stage 2: encoder + decode + result assembly."""
+        """Stage 2: encoder + decode + result assembly; the call's record
+        closes and joins `traces`."""
         kind, opts, pad_to_multiple, feats, n_frames = prepared
         if kind == "empty":
             return []
-        return self._decode_padded(feats, n_frames, opts, pad_to_multiple)
+        with trace.stage(getattr(prepared, "trace", None), self.traces):
+            return self._decode_padded(feats, n_frames, opts, pad_to_multiple)
 
     def transcribe_features(self, features, opts: TranscribeOptions | None = None):
         """Decode precomputed mel features, (T, mel) or (B, T, mel); returns
@@ -436,6 +458,8 @@ class _TranscriberBase:
         """Encoder + decode + result assembly of a padded batch."""
         enc_lens = encoded_lengths(torch.as_tensor(mel_lens)).tolist()
         enc = self.encode(batch, mel_lens)
+        trace.count("encoder.frames", enc.shape[0] * enc.shape[1])
+        trace.count("encoder.valid_frames", sum(enc_lens))
         trie = None
         if opts.boost_phrases:
             trie = ContextTrie()
@@ -453,13 +477,13 @@ class _TranscriberBase:
                         log_probs, trie, opts.boost_score, self._blank_id, enc_lens)
                 else:
                     ts = ctc_greedy_decode_with_timestamps(log_probs, self._blank_id, enc_lens)
-                results = [self._result_from_ts(t, opts.timestamp_mode) for t in ts]
+                results = self._results(ts, opts, timed=True)
             else:
                 if trie is not None:
                     toks = ctc_greedy_decode_boosted(log_probs, trie, opts.boost_score, self._blank_id, enc_lens)
                 else:
                     toks = ctc_greedy_decode(log_probs, self._blank_id, enc_lens)
-                results = [self._result_from_tokens(t) for t in toks]
+                results = self._results(toks, opts, timed=False)
         elif opts.beam_size > 0:
             results = self._transducer_beam_results(enc, enc_lens, opts)
         else:
@@ -480,11 +504,17 @@ class _TranscriberBase:
                     boost=boost,
                     model=self._model,
                 )
-            if opts.timestamps:
-                results = [self._result_from_ts(t, opts.timestamp_mode) for t in res.timestamped]
-            else:
-                results = [self._result_from_tokens(t) for t in res.tokens]
+            trace.count("decode.steps", res.steps)
+            results = self._results(res.timestamped if opts.timestamps else res.tokens, opts, timed=opts.timestamps)
         return results
+
+    def _results(self, rows: list, opts: TranscribeOptions, *, timed: bool) -> list[TranscribeResult]:
+        """The results of a greedy decode's rows: TimestampedToken lists
+        when `timed`, else token-id lists."""
+        with trace.span("results"):
+            if timed:
+                return [self._result_from_ts(t, opts.timestamp_mode) for t in rows]
+            return [self._result_from_tokens(t) for t in rows]
 
     def _durations(self) -> tuple[int, ...]:
         return tuple(self.config.durations) if self.is_tdt else (0,)

@@ -174,11 +174,19 @@ def test_stream_endpoint(servers, chunk):
 
 
 def test_stats_endpoint(servers):
+    """The reference's keys, and the port's `stage_ms`: each span's mean ms
+    a batch over the facade's kept records."""
+    body = _wav_bytes((0.1 * np.random.RandomState(2).randn(8000)).astype(np.float32))
+    assert _request(servers[PORT], "POST", "/transcribe", body)[0] == 200
     status, payload = _request(servers[PORT], "GET", "/stats")
     assert status == 200
-    assert set(payload) == set(_request(servers[REF], "GET", "/stats")[1])
-    assert payload["requests"] >= 0
+    assert set(payload) == set(_request(servers[REF], "GET", "/stats")[1]) | {"stage_ms"}
+    assert payload["requests"] >= 1
     assert payload["stream_free_slots"] == 2
+    stages = payload["stage_ms"]
+    assert {"batch", "frontend", "frontend.copy", "encoder", "decode", "decode.check", "results"} <= set(stages)
+    assert all(v >= 0 for v in stages.values())
+    assert stages["encoder"] <= stages["batch"] and stages["frontend"] <= stages["batch"]
 
 
 @pytest.mark.parametrize("method", ["GET", "POST"])
