@@ -9,6 +9,19 @@ CUDA that needs IEEE float32 products, so the port turns TF32 off for
 matmuls and cuDNN convolutions before it first runs there
 (`require_ieee_f32`, the CUDA form of the reference's Precision.HIGHEST).
 
+Where the activation, the weight and the bias are all bfloat16 on the card,
+`linear`, `conv1d` and `conv2d` run the product there natively: bf16
+operands on the tensor cores, float32 accumulation, the bias added in
+float32 before the one rounding to bf16, with no float32 copy of any
+operand (the reference's dot with preferred_element_type=float32).
+Pointwise convolutions run as one GEMM over the channel-last rows with the
+bias in its epilogue, depthwise ones as PyTorch's depthwise kernel (f32
+accumulation from the bias, one rounding). The CPU, float32 inputs and a
+convolution no such route takes keep the float32 form: the operands
+upcast, an IEEE float32 product, one cast back. The open call's record
+(trace.py) counts each float product by route: `layers.bf16_products`,
+`layers.f32_products` (the quantized routes count in neither).
+
 `linear` takes quantized weights (quantize.py) as the reference's does:
 int8 codes scale the product, packed int4 dequantises before it, and
 `set_int8_compute(True)` runs int8 linears as W8A8.
@@ -18,22 +31,45 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
 
+from parakeet_tpu_torch import trace
 from parakeet_tpu_torch.params import Params
 
 _F32 = torch.float32
+_BF16 = torch.bfloat16
+BF16_PRODUCTS = "layers.bf16_products"
+F32_PRODUCTS = "layers.f32_products"
 
 
 def require_ieee_f32() -> None:
-    """Turn TF32 off for CUDA matmuls and cuDNN convolutions. cuDNN convs
-    default to TF32 (about three decimal digits), which breaks f32 parity
-    with the reference in the subsampling and conv-module convolutions."""
+    """Turn TF32 off for CUDA matmuls and cuDNN convolutions, and keep the
+    split-K reductions of bf16 GEMMs in float32. cuDNN convs default to
+    TF32 (about three decimal digits), which breaks f32 parity with the
+    reference in the subsampling and conv-module convolutions; a bf16
+    partial sum would round before the one rounding of the result."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(_F32)
+
+
+def _bf16_on_card(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> bool:
+    """Activation, weight and bias all bf16 on the card: the product can run
+    natively on the tensor cores."""
+    return x.is_cuda and x.dtype == _BF16 and w.dtype == _BF16 and (b is None or b.dtype == _BF16)
+
+
+def _gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x (..., K) @ w (N, K).T + b as one 2-D addmm: the bias joins the
+    float32 accumulator in the GEMM's epilogue before the one rounding.
+    F.linear folds a 3-D input into one addmm only when it is contiguous
+    (else a matmul, then the bias added to the rounded product: two
+    roundings), so the rows are folded here, a strided x copied."""
+    return F.linear(x.reshape(-1, x.shape[-1]), w, b).view(*x.shape[:-1], w.shape[0])
 
 
 # When True, int8-weight linears run as W8A8: a dynamic per-row absmax
@@ -116,6 +152,7 @@ def linear(p: Params, x: torch.Tensor, *, row_group=None, col_group=None) -> tor
 
         if not p["weight"].is_floating_point():
             raise ValueError("a row-parallel linear takes float weights")
+        trace.count(F32_PRODUCTS, 1)
         y = reduce_from_model(F.linear(x.to(_F32), p["weight"].to(_F32)), row_group)
         b = p.get("bias")
         return (y if b is None else y + b.to(_F32)).to(x.dtype)
@@ -133,6 +170,10 @@ def linear(p: Params, x: torch.Tensor, *, row_group=None, col_group=None) -> tor
         w = (dequantize_int4_torch(w, p["weight" + SCALE4_SUFFIX], x.dtype) if wf is None
              else wf.to(x.dtype))
     b = p.get("bias")
+    if _bf16_on_card(x, w, b):
+        trace.count(BF16_PRODUCTS, 1)
+        return _gemm(x, w, b)
+    trace.count(F32_PRODUCTS, 1)
     if x.dtype == _F32 and w.dtype == _F32:
         return F.linear(x, w, b)
     return F.linear(x.to(_F32), w.to(_F32), _f32(b)).to(x.dtype)
@@ -189,11 +230,22 @@ def batch_norm_1d(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 def conv1d(
     p: Params, x: torch.Tensor, *, stride: int = 1, padding: int = 0, groups: int = 1
 ) -> torch.Tensor:
-    """x: (B, C_in, T) → (B, C_out, T'). Weight: (C_out, C_in/groups, k)."""
-    y = F.conv1d(
-        x.to(_F32), p["weight"].to(_F32), _f32(p.get("bias")),
-        stride=stride, padding=padding, groups=groups,
-    )
+    """x: (B, C_in, T) → (B, C_out, T'). Weight: (C_out, C_in/groups, k).
+    bf16 on the card: a pointwise conv is one GEMM over x's channel-last
+    rows (free when x is the transpose of a (B, T, C) tensor), its output
+    that GEMM's (B, T, C_out) transposed; a depthwise conv runs on a
+    contiguous x (a strided one would go to cuDNN, which adds the bias to
+    the rounded output)."""
+    w, b = p["weight"], p.get("bias")
+    if _bf16_on_card(x, w, b):
+        if w.shape[2] == 1 and stride == 1 and padding == 0 and groups == 1:
+            trace.count(BF16_PRODUCTS, 1)
+            return _gemm(x.transpose(1, 2), w[:, :, 0], b).transpose(1, 2)
+        if groups == x.shape[1] > 1:
+            trace.count(BF16_PRODUCTS, 1)
+            return F.conv1d(x.contiguous(), w, b, stride=stride, padding=padding, groups=groups)
+    trace.count(F32_PRODUCTS, 1)
+    y = F.conv1d(x.to(_F32), w.to(_F32), _f32(b), stride=stride, padding=padding, groups=groups)
     return y.to(x.dtype)
 
 
@@ -205,11 +257,20 @@ def conv2d(
     padding: tuple[int, int] = (0, 0),
     groups: int = 1,
 ) -> torch.Tensor:
-    """NCHW 2-D conv over torch-layout weights (C_out, C_in/g, kh, kw)."""
-    y = F.conv2d(
-        x.to(_F32), p["weight"].to(_F32), _f32(p.get("bias")),
-        stride=stride, padding=padding, groups=groups,
-    )
+    """NCHW 2-D conv over torch-layout weights (C_out, C_in/g, kh, kw).
+    bf16 on the card: a 1×1 conv is one GEMM over x's channel-last rows,
+    its output that GEMM's (B, H, W, C_out) permuted to NCHW (a view); a
+    depthwise conv runs on a contiguous x, as conv1d's."""
+    w, b = p["weight"], p.get("bias")
+    if _bf16_on_card(x, w, b):
+        if w.shape[2:] == (1, 1) and _pair(stride) == (1, 1) and _pair(padding) == (0, 0) and groups == 1:
+            trace.count(BF16_PRODUCTS, 1)
+            return _gemm(x.permute(0, 2, 3, 1), w[:, :, 0, 0], b).permute(0, 3, 1, 2)
+        if groups == x.shape[1] > 1:
+            trace.count(BF16_PRODUCTS, 1)
+            return F.conv2d(x.contiguous(), w, b, stride=stride, padding=padding, groups=groups)
+    trace.count(F32_PRODUCTS, 1)
+    y = F.conv2d(x.to(_F32), w.to(_F32), _f32(b), stride=stride, padding=padding, groups=groups)
     return y.to(x.dtype)
 
 

@@ -20,6 +20,7 @@ from parakeet_tpu_torch import transcribe as T
 from parakeet_tpu_torch.decode.transducer import CHECK_EVERY
 from parakeet_tpu_torch.models.encoder import encoded_lengths
 from parakeet_tpu_torch.serve import TranscriptionService
+from tests.test_torch_layers_bf16 import spy_products
 
 PIECES = ["<unk>", "▁a", "b", "▁c", "d", ".", "▁e", "f"]  # + blank = vocab 9
 
@@ -116,15 +117,18 @@ def test_spans_nest_in_their_parents(tr, waves, monkeypatch, decoder):
 
 def test_counts_are_what_they_count(tr, waves, monkeypatch):
     decoded = _spy_decode(monkeypatch)
+    products = spy_products(monkeypatch)
     handle = tr.prepare_batch(waves, _opts())
     feats, n_frames = handle[3], handle[4]
     tr.decode_prepared(handle)
     rec = tr.traces[-1]
+    n_products = len(products)
     enc = tr.encode(feats, n_frames)
     assert rec.counts == {
         "encoder.frames": enc.shape[0] * enc.shape[1],
         "encoder.valid_frames": int(encoded_lengths(torch.as_tensor(n_frames)).sum()),
         "decode.steps": decoded[0].steps,
+        "layers.f32_products": n_products,  # a float32 facade: every product float32
     }
     assert decoded[0].steps > 0
     checks = [s for s in rec.spans if s.name == "decode.check"]
